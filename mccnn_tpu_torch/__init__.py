@@ -1,0 +1,13 @@
+"""mc-cnn stereo matching in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).
+
+The fast-arch prediction path (``pipeline.stereo_predict``) runs the
+conv tower (cuDNN, TF32 off), then five CUDA kernels: the cost-volume
+join, the vertical and horizontal SGM sweeps, the left-right outlier
+labels and the thresholded-Gaussian blur. Every kernel has a plain
+PyTorch version beside it, which runs for CPU tensors.
+
+Importing the package builds nothing and touches no device: the
+kernels compile with ``nvcc`` the first time one of them launches
+(``ops/_build.py``).
+"""

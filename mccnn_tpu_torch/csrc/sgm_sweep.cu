@@ -1,0 +1,213 @@
+// SGM sweeps on the padded disparity-minor (Hp, Wp, Dp) volume.
+//
+// Replaces two TPU kernels of mccnn_tpu/ops/sgm.py:
+//   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
+//                         steps are rows y, scanlines are columns x)
+//   _sweep_stream_hnat   (horizontal sweeps, sgm_dir 0 right and 1 left:
+//                         steps are columns x, scanlines are rows y,
+//                         with the fused winner-take-all of the last one)
+// One source, two entries with their own launch counts. With d fastest in
+// both families, one step of one scanline is one contiguous Dp row; only
+// which of (y, x) is the step differs.
+//
+// Per step (sgm.py:116-124, the reference's sgm2, adcensus.cu:535-697):
+//   pm   = min_d prev               (NaN taken as +inf)
+//   cost = fminf(prev, pm + P2)
+//   cost = fminf(cost, prev[d-1] + P1a)   (+inf below d = 0)
+//   cost = fminf(cost, prev[d+1] + P1b)   (+inf above d = Dp-1)
+//   val  = vol + cost - pm
+// fminf ignores NaN like jnp.fmin, so NaN (out-of-frame) disparities drop
+// out of the neighbour coupling. The penalty class (0: D1 and D2 below
+// tau, 2: both above, else 1) picks one (P1a, P1b, P2) triple from a
+// table the host computes in float32 exactly as _penalties3 does. D1 is
+// d1[y, x]; D2 is g[y, D + x + d] (the caller lane-reverses g for the
+// x-reversed left volume, so one formula serves both directions).
+//
+// Steps: n_steps stored steps, of which the first T are real. Steps
+// s >= T pass the volume through and leave the state alone; the state
+// starts at step 0 (forward) or T-1 (reverse), so a reverse sweep starts
+// on the last real step. Output: out = val (+ acc), in place when
+// out == acc; out may be null (no volume write). wta, if given, receives
+// the argmin over d of the written sum (NaN as +inf, ties to the lowest d).
+//
+// Bound on the H100: a sweep with an accumulator reads the volume and the
+// accumulator and writes the sum, 3 x 503 MB at KITTI size (0.45 ms at
+// 3.35 TB/s); the arithmetic (about ten f32 operations per cell) is far
+// below the f32 peak. The recurrence, though, is a chain of n_steps
+// dependent steps per scanline, each ending in a block-wide min.
+//
+// Design (simple and right first): one block of Dp threads per scanline,
+// thread = disparity, the steps a loop inside the block. The previous
+// step lives in a register and in a double-buffered shared row for the
+// d +- 1 neighbours; the min is a warp shuffle then a shared-memory pass,
+// one __syncthreads per step. The next step's volume, accumulator and
+// penalty inputs are loaded before this step's reduction, so their
+// latency overlaps it. Parallelism is Wp blocks (vertical) or Hp blocks
+// (horizontal); at KITTI size the horizontal family has 384 blocks of
+// 256 threads, under one wave of the card.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+struct Pen {
+  float v[9];  // class c: (P1a, P1b, P2) at v[3c .. 3c+2]
+};
+
+namespace {
+
+constexpr int MAX_WARPS = 32;
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
+                             float* out, float* __restrict__ wta,
+                             const float* __restrict__ d1,
+                             const float* __restrict__ g, int Wp, int Dp,
+                             int D, int n_steps, int T, int vertical,
+                             int reverse, int gw, float tau, Pen pen) {
+  __shared__ float row[2][1024];
+  __shared__ float wmin[2][MAX_WARPS];
+  __shared__ float wval[2][MAX_WARPS];
+  __shared__ int widx[2][MAX_WARPS];
+  const float INF = __int_as_float(0x7f800000);
+  const int d = threadIdx.x;
+  const int lane = d & 31, warp = d >> 5, nw = Dp >> 5;
+  const int scan = blockIdx.x;
+  const int init = reverse ? T - 1 : 0;
+
+  auto step_of = [&](int t) { return reverse ? n_steps - 1 - t : t; };
+  auto cell = [&](int s, int& y, int& x) {
+    y = vertical ? s : scan;
+    x = vertical ? scan : s;
+  };
+
+  // prefetch of step t: volume, accumulator, D1, D2
+  float nv, na = 0.f, nd1, nd2;
+  auto load = [&](int t) {
+    int y, x;
+    cell(step_of(t), y, x);
+    const size_t idx = ((size_t)y * Wp + x) * Dp + d;
+    nv = vol[idx];
+    if (acc) na = acc[idx];
+    nd1 = d1[(size_t)y * Wp + x];
+    nd2 = g[(size_t)y * gw + D + x + d];
+  };
+  load(0);
+
+  float prev = 0.f;
+  int rb = 0, wb = 0;  // buffer parity: recurrence steps, WTA steps
+  for (int t = 0; t < n_steps; ++t) {
+    const int s = step_of(t);
+    int y, x;
+    cell(s, y, x);
+    const float v = nv, a = na, D1 = nd1, D2 = nd2;
+    if (t + 1 < n_steps) load(t + 1);
+
+    float outv;
+    if (s >= T) {
+      outv = v;  // pad step: pass through, state unchanged
+    } else if (s == init) {
+      prev = v;
+      outv = v;
+    } else {
+      row[rb][d] = prev;
+      const float m = warp_min(isnan(prev) ? INF : prev);
+      if (lane == 0) wmin[rb][warp] = m;
+      __syncthreads();
+      float pm = wmin[rb][0];
+      for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[rb][w]);
+      const float up = d > 0 ? row[rb][d - 1] : INF;
+      const float dn = d < Dp - 1 ? row[rb][d + 1] : INF;
+      const int cls = (D1 < tau && D2 < tau) ? 0 : ((D1 > tau && D2 > tau) ? 2 : 1);
+      // selects, not pen.v[3 * cls]: a runtime index into the parameter
+      // struct would copy it to local memory
+      const float P1a = cls == 0 ? pen.v[0] : (cls == 2 ? pen.v[6] : pen.v[3]);
+      const float P1b = cls == 0 ? pen.v[1] : (cls == 2 ? pen.v[7] : pen.v[4]);
+      const float P2 = cls == 0 ? pen.v[2] : (cls == 2 ? pen.v[8] : pen.v[5]);
+      float cost = fminf(prev, pm + P2);
+      cost = fminf(cost, up + P1a);
+      cost = fminf(cost, dn + P1b);
+      prev = (v + cost) - pm;
+      outv = prev;
+      rb ^= 1;
+    }
+    const float fin = acc ? outv + a : outv;
+    const size_t idx = ((size_t)y * Wp + x) * Dp + d;
+    if (out) out[idx] = fin;
+    if (wta) {
+      float bv = isnan(fin) ? INF : fin;
+      int bi = d;
+      warp_argmin(bv, bi);
+      if (lane == 0) {
+        wval[wb][warp] = bv;
+        widx[wb][warp] = bi;
+      }
+      __syncthreads();
+      if (d == 0) {
+        for (int w = 1; w < nw; ++w) {
+          const float ov = wval[wb][w];
+          const int oi = widx[wb][w];
+          if (ov < bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        wta[(size_t)y * Wp + x] = (float)bi;
+      }
+      wb ^= 1;
+    }
+  }
+}
+
+int launch(const float* vol, const float* acc, float* out, float* wta,
+           const float* d1, const float* g, int Hp, int Wp, int Dp, int D,
+           int T, int reverse, int gw, float tau, Pen pen, int vertical,
+           cudaStream_t stream) {
+  const int n_steps = vertical ? Hp : Wp;
+  const int n_scan = vertical ? Wp : Hp;
+  sweep_kernel<<<n_scan, Dp, 0, stream>>>(vol, acc, out, wta, d1, g, Wp, Dp,
+                                          D, n_steps, T, vertical, reverse, gw,
+                                          tau, pen);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// vol, acc, out: (Hp, Wp, Dp) float32; acc and out may be null and may
+// alias each other; wta: (Hp, Wp) or null; d1: (Hp, Wp); g: (Hp, gw) with
+// gw >= D + Wp + Dp. Dp a multiple of 32, at most 1024. T real steps
+// (rows for the vertical entry, columns for the horizontal one).
+// Returns cudaGetLastError().
+extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
+                                  float* out, float* wta, const float* d1,
+                                  const float* g, int Hp, int Wp, int Dp,
+                                  int D, int T, int reverse, int gw, float tau,
+                                  Pen pen, cudaStream_t stream) {
+  return launch(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, gw, tau,
+                pen, 1, stream);
+}
+
+extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
+                                    float* out, float* wta, const float* d1,
+                                    const float* g, int Hp, int Wp, int Dp,
+                                    int D, int T, int reverse, int gw,
+                                    float tau, Pen pen, cudaStream_t stream) {
+  return launch(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, gw, tau,
+                pen, 0, stream);
+}

@@ -1,0 +1,133 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
+``nvcc`` for sm_90a into ``build/lib<name>-<hash>.so`` at the root of
+the repository (a git-ignored directory) the first time one of its
+kernels launches, and loaded with ctypes. The hash covers the source
+and the flags, so an edited source rebuilds and an unchanged one is
+reused. No PyTorch header is compiled, so a build takes seconds;
+:func:`build` compiles several sources at once, one ``nvcc`` each.
+
+``LAUNCHES`` counts launches per kernel entry. Each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build"
+SOURCES = ("join", "sgm_sweep", "outlier", "blur")
+KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launches() -> dict[str, int]:
+    return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"lib{name}-{digest[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """The compiler's output of the last build of ``name`` (ptxas -v:
+    registers, shared memory and spills per kernel)."""
+    return BUILD / f"{name}.log"
+
+
+def build(names=SOURCES) -> float:
+    """Compile the named sources that are not built yet, all at once,
+    and wait for every compiler. Returns the seconds taken; raises
+    RuntimeError with the compiler's output if a build fails."""
+    t0 = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            log = open(log_path(name), "w")
+            jobs.append((name, tmp, out, log, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=log, stderr=subprocess.STDOUT)))
+    finally:
+        failed = []
+        for name, tmp, out, log, proc in jobs:
+            rc = proc.wait()
+            log.close()
+            if rc == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(f"{name}.cu (nvcc exit {rc}):\n"
+                              + log_path(name).read_text())
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check_cuda_f32(t: torch.Tensor, what: str) -> None:
+    """Refuse a tensor the kernels do not take: they read contiguous
+    float32 memory on the card."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as an address."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise on the ``cudaGetLastError()`` a C entry returned."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

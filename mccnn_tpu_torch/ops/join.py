@@ -1,0 +1,118 @@
+"""Fast-arch cost volumes in the padded disparity-minor layout.
+
+Same contract as the JAX package's ``stereo_join_mxu_hwd``
+(mccnn_tpu/ops/join_pallas.py): (Hp, Wp, Dp) float32 buffers with Hp,
+Wp and Dp rounded up to 64, 128 and 128; the left volume x-REVERSED
+(the mirror identity <fl[x], fr[x-d]> = <fl'[x'], fr'[x'+d]> at
+x' = W-1-x, primes on x-flipped maps, so both sides are one kernel);
+NaN at x + d >= W, d >= D and in pad rows; ``n_fix`` border columns
+replicated in the kernel.
+
+On CUDA tensors :func:`_join_plus` launches ``csrc/join.cu``; on CPU
+tensors it runs :func:`join_plus_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mccnn_tpu_torch.ops import _build
+
+XT = 128  # output columns per block of the kernel
+
+
+def pad_dims(H: int, W: int, D: int) -> tuple[int, int, int]:
+    """(Hp, Wp, Dp) of the HWD buffers: rows to 64 (the scanline
+    count of the horizontal sweeps), columns and disparities to 128."""
+    return -(-H // 64) * 64, -(-W // XT) * XT, -(-D // 128) * 128
+
+
+def join_plus_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
+                    n_fix: int) -> torch.Tensor:
+    """out[y, x, d] = -<a[y, :, x], b[y, :, x + d]> with the masks and
+    the border of the kernel, one disparity at a time.
+    a: (Hp, C, Wp), b: (Hp, C, >= Wp + Dp)."""
+    Hp, _, Wp = a.shape
+    Dp = -(-D // 128) * 128
+    out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
+    for d in range(Dp):
+        out[:, :, d] = -(a * b[:, :, d:d + Wp]).sum(1)
+    x = torch.arange(Wp, device=a.device)[None, :, None]
+    d = torch.arange(Dp, device=a.device)[None, None, :]
+    y = torch.arange(Hp, device=a.device)[:, None, None]
+    out = torch.where((x + d < W) & (d < D) & (y < H), out, torch.nan)
+    if n_fix > 0:
+        out[:, :n_fix, :] = out[:, n_fix:n_fix + 1, :]
+    return out
+
+
+def _lib():
+    lib = _build.library("join")
+    if lib.join_launch.argtypes is None:
+        lib.join_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.join_launch.restype = ctypes.c_int
+    return lib
+
+
+def _join_plus(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
+               n_fix: int) -> torch.Tensor:
+    """The join of one side: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not a.is_cuda:
+        return join_plus_plain(a, b, D, W, H, n_fix)
+    Hp, C, Wp = a.shape
+    Dp = -(-D // 128) * 128
+    for t, what in ((a, "join a"), (b, "join b")):
+        _build.check_cuda_f32(t, what)
+    if Wp % XT or b.shape[:2] != (Hp, C) or b.shape[2] < Wp + Dp \
+            or b.shape[2] % 4:
+        raise ValueError(f"join: bad shapes a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)} for D={D}")
+    if not 0 <= n_fix < 8:
+        raise ValueError(f"join: n_fix must be in [0, 8), got {n_fix}")
+    if C * (2 * XT + Dp) * 4 > 232448:
+        raise ValueError(f"join: C={C}, Dp={Dp} exceed the shared memory "
+                         "of one block")
+    out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
+    rc = _lib().join_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), H, W,
+                            C, Hp, Wp, b.shape[2], Dp, D, n_fix,
+                            _build.stream(a))
+    _build.check_launch(rc, "join")
+    _build.LAUNCHES["join"] += 1
+    return out
+
+
+def _prep(f: torch.Tensor, flip: bool, Hp: int, width: int) -> torch.Tensor:
+    """(H, W, C) -> zero-padded channel-major (Hp, C, width)."""
+    H, W, _ = f.shape
+    f = f.permute(0, 2, 1)
+    if flip:
+        f = f.flip(2)
+    return torch.nn.functional.pad(f, (0, width - W, 0, 0, 0, Hp - H)
+                                   ).contiguous()
+
+
+def stereo_join_hwd(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
+                    n_fix: int = 0, sides: str = "both"):
+    """Both cost volumes, (vol_l_xrev, vol_r), each (Hp, Wp, Dp):
+    ``vol_r[y, x, d] = -<fr[y,x], fl[y,x+d]>`` and
+    ``vol_l_xrev[y, x', d] = vol_L[y, W-1-x', d]``. feat_l/feat_r:
+    (H, W, C) L2-normalized maps. ``sides="left"`` returns the left
+    volume alone."""
+    if sides not in ("both", "left"):
+        raise ValueError(f"sides must be 'both' or 'left', got {sides!r}")
+    H, W, _ = feat_l.shape
+    D = int(disp_max)
+    Hp, Wp, Dp = pad_dims(H, W, D)
+    feat_l = feat_l.to(torch.float32)
+    feat_r = feat_r.to(torch.float32)
+    vol_l_xrev = _join_plus(_prep(feat_l, True, Hp, Wp),
+                            _prep(feat_r, True, Hp, Wp + Dp), D, W, H, n_fix)
+    if sides == "left":
+        return vol_l_xrev
+    vol_r = _join_plus(_prep(feat_r, False, Hp, Wp),
+                       _prep(feat_l, False, Hp, Wp + Dp), D, W, H, n_fix)
+    return vol_l_xrev, vol_r

@@ -1,0 +1,205 @@
+"""The stereo prediction pipeline, fast arch, disparity-minor lane.
+
+Orchestration contract: ``stereo_predict`` (main.lua:929-1082) as the
+JAX package's HWD lane runs it (mccnn_tpu/pipeline.py:232-375): tower ->
+join -> per-direction SGM (four sweeps, one accumulator, fused WTA) ->
+LR outlier labels -> occlusion and mismatch fill -> subpixel parabola
+on the left volume -> 5×5 median -> thresholded-Gaussian blur.
+
+The left volume stays x-REVERSED end to end (only (H, W) maps are
+flipped). The sweep sum is not divided by 4: WTA is scale-invariant and
+the subpixel threshold scales to 4e-5; the volume dumps divide on the
+way out.
+
+``sm_terminate`` stops after a named stage and ``sm_skip`` skips one,
+with the gate placement of main.lua:988-1080 (the mismatch stage is
+skipped by ``-sm_skip occlusion``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mccnn_tpu_torch.config import Config
+from mccnn_tpu_torch.models.towers import FastTower
+from mccnn_tpu_torch.ops import blur, costs, join, outlier, post, sgm
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; asking for CUDA where there is none raises
+    (the port never falls back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain versions on the host")
+    return dev
+
+
+def _active_after(terminate: str, stage: str) -> bool:
+    """Whether the method is still active after `stage`, given
+    -sm_terminate. Stage order per main.lua:988-1075."""
+    order = ["cnn", "cbca1", "sgm", "cbca2", "occlusion", "mismatch",
+             "subpixel_enchancement", "median"]
+    if terminate not in order:
+        return True
+    return order.index(stage) < order.index(terminate)
+
+
+def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
+    """Stored (H', Wp, Dp) volume -> natural (D, H, W) for the .bin
+    dumps; ``scale4`` applies the deferred /4 of the sweep sum."""
+    v = vol[:H, :W, :D]
+    if xrev:
+        v = v.flip(1)
+    if scale4:
+        v = v * 0.25
+    return v.permute(2, 0, 1).contiguous()
+
+
+def _check_lane(cfg: Config) -> None:
+    """The port runs the disparity-minor fast lane only; every other
+    configuration names the ROADMAP item that will bring it."""
+    if cfg.arch != "fast":
+        raise NotImplementedError(
+            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
+            "items 11-12: slow arch, census/ad)")
+    if int(cfg.cbca_i1) or int(cfg.cbca_i2):
+        raise NotImplementedError(
+            "CBCA and the generic (D, H, W) lane are not ported yet "
+            "(ROADMAP.md queue 1, items 10 and 12)")
+    if cfg.use_cache or cfg.make_cache:
+        raise NotImplementedError("the volume cache is not ported yet "
+                                  "(ROADMAP.md queue 1, item 15)")
+    if cfg.dtype != "float32" or cfg.vol_dtype != "float32":
+        raise NotImplementedError("-dtype/-vol_dtype other than float32 are "
+                                  "not ported yet (ROADMAP.md queue 1, item 9)")
+
+
+def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
+              tau_so, alpha1, sgm_q1, sgm_q2, sgm_i, blur_t, sm_terminate,
+              sm_skip, return_vols, directions=(1, -1)):
+    """The fast-arch pipeline body (mccnn_tpu/pipeline.py:232-375)."""
+    single = tuple(directions) == (-1,)
+    if single and kitti:
+        raise ValueError("KITTI runs both reference directions")
+    D = int(disp_max)
+    H, W = x0.shape
+    images = torch.stack([x0, x1])[:, None]
+    if images.is_cuda:
+        # TF32 would drift the tower from the f32 reference and flip
+        # WTA near-ties; set here, not globally
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            feats = tower(images)
+    else:
+        feats = tower(images)
+    fl = feats[0].permute(1, 2, 0)  # (H, W, C)
+    fr = feats[1].permute(1, 2, 0)
+    n_fix = (ws - 1) // 2
+    if single:
+        cur_lr = join.stereo_join_hwd(fl, fr, D, n_fix=n_fix, sides="left")
+        cur_r = None
+    else:
+        cur_lr, cur_r = join.stereo_join_hwd(fl, fr, D, n_fix=n_fix)
+
+    sgm_ran = _active_after(sm_terminate, "cbca1") and sm_skip != "sgm"
+    if sgm_ran:
+        kw = dict(pi1=pi1, pi2=pi2, tau_so=tau_so, alpha1=alpha1, q1=sgm_q1,
+                  q2=sgm_q2)
+        for i in range(sgm_i):
+            if i > 0:  # sgm_i is 1 in every config; keep re-iteration exact
+                cur_lr = cur_lr / 4.0
+                cur_r = None if single else cur_r / 4.0
+            last = i == sgm_i - 1
+            # the last iteration fuses WTA into the last sweep; the right
+            # volume is read only by its WTA map, so unless the caller
+            # wants the dumps its last sweep writes no volume
+            cur_lr = sgm.sgm_slab_hwd(x0, x1, cur_lr, D, H, W, xrev=True,
+                                      wta=last, **kw)
+            if not single:
+                out_r = sgm.sgm_slab_hwd(x0, x1, cur_r, D, H, W, xrev=False,
+                                         wta=last,
+                                         materialize=return_vols or not last,
+                                         **kw)
+                cur_r = out_r if not last else (
+                    out_r[0] if return_vols else None)
+        cur_lr, wta_l = cur_lr
+        d_l = wta_l[:H, :W].flip(1)
+        if not single:
+            wta_r = out_r[1] if return_vols else out_r
+            d_r = wta_r[:H, :W]
+    else:
+        d_l = costs.wta_hwd(cur_lr)[:H, :W].flip(1)
+        if not single:
+            d_r = costs.wta_hwd(cur_r)[:H, :W]
+    d_final = d_l
+    sm_active = _active_after(sm_terminate, "cbca2")
+
+    if kitti:
+        labels = outlier.outlier_detection(d_l, d_r, D)
+        if sm_active and sm_skip != "occlusion":
+            d_final = post.interpolate_occlusion(d_final, labels)
+        if _active_after(sm_terminate, "occlusion") and sm_skip != "occlusion":
+            d_final = post.interpolate_mismatch(d_final, labels)
+        sm_active = _active_after(sm_terminate, "mismatch")
+
+    if sm_active and sm_skip != "subpixel_enchancement":
+        Wp = cur_lr.shape[1]
+        d_rev = torch.nn.functional.pad(d_final.flip(1), (0, Wp - W))
+        thresh = 4e-5 if sgm_ran else 1e-5
+        s = post.subpixel_enhancement_hwd(d_rev, cur_lr[:H], D,
+                                          denom_thresh=thresh)
+        d_final = s[:, :W].flip(1)
+    sm_active = sm_active and _active_after(sm_terminate,
+                                            "subpixel_enchancement")
+
+    if sm_active and sm_skip != "median":
+        d_final = post.median2d(d_final, 5)
+    sm_active = sm_active and _active_after(sm_terminate, "median")
+
+    if sm_active and sm_skip != "bilateral":
+        d_final = blur.mean2d(d_final, blur_kernel, blur_t)
+
+    if return_vols:
+        kwv = dict(D=D, H=H, W=W, scale4=sgm_ran)
+        vol_l = _hwd_unpack_vol(cur_lr, xrev=True, **kwv)
+        vol_r = (None if cur_r is None
+                 else _hwd_unpack_vol(cur_r, xrev=False, **kwv))
+        return d_final, vol_l, vol_r
+    return d_final
+
+
+@torch.no_grad()
+def stereo_predict(cfg: Config, params: FastTower, x0, x1, disp_max: int,
+                   return_vols: bool = False, device=None):
+    """Run the full stereo method on one standardized pair.
+
+    x0/x1: (H, W) float32 arrays or tensors (already per-image
+    standardized). ``params``: the fast tower (moved to the device).
+    Returns the left-reference disparity map (H, W) float32 tensor; with
+    ``return_vols`` also the final left and right cost volumes as
+    (D, H, W) tensors (the predict-mode .bin dumps). ``device=None``
+    runs on CUDA and raises where there is none.
+    """
+    dev = resolve_device(device)
+    if cfg.dataset == "mb":
+        directions = (1, -1) if cfg.a == "predict" else (-1,)
+    else:
+        directions = (1, -1)
+    _check_lane(cfg)
+    tower = params.to(dev).eval()
+    x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
+    x1 = torch.as_tensor(x1, dtype=torch.float32).to(dev)
+    if x0.dim() != 2 or x0.shape != x1.shape:
+        raise ValueError(f"expected two (H, W) images of one shape, got "
+                         f"{tuple(x0.shape)} and {tuple(x1.shape)}")
+    blur_kernel = torch.as_tensor(blur.gaussian_kernel(cfg.blur_sigma),
+                                  device=dev)
+    return _fast_hwd(
+        tower, x0, x1, blur_kernel, disp_max=int(disp_max),
+        kitti=cfg.dataset in ("kitti", "kitti2015"), ws=cfg.ws,
+        pi1=float(cfg.pi1), pi2=float(cfg.pi2), tau_so=float(cfg.tau_so),
+        alpha1=float(cfg.alpha1), sgm_q1=float(cfg.sgm_q1),
+        sgm_q2=float(cfg.sgm_q2), sgm_i=int(cfg.sgm_i),
+        blur_t=float(cfg.blur_t), sm_terminate=cfg.sm_terminate,
+        sm_skip=cfg.sm_skip, return_vols=return_vols,
+        directions=directions)

@@ -1,0 +1,89 @@
+"""Where the device time of one KITTI-size prediction goes.
+
+    python -m mccnn_tpu_torch.profile_predict [--top 15] [--trace out.json]
+
+Runs the fast-arch ``stereo_predict`` (kitti fast config, seeded random
+weights) on a seeded 370x1226 pair at D=228 on the CUDA card, twice to
+warm up, then once under ``torch.profiler``. Prints the device time of
+every CUDA kernel grouped as the port's hand-written kernels, the
+tower's convolutions and the plain torch operations, the top kernels by
+device time, and the device's busy share of the wall time of the run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import numpy as np
+import torch
+
+from mccnn_tpu_torch.config import make_config
+from mccnn_tpu_torch.models import towers
+from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
+from mccnn_tpu_torch.utils.images import standardize
+
+HAND = ("join_kernel", "sweep_kernel", "outlier_kernel", "blur_kernel")
+
+
+def _group(name: str) -> str:
+    if any(k in name for k in HAND):
+        return "hand-written CUDA kernels"
+    low = name.lower()
+    if "conv" in low or "cudnn" in low or "xmma" in low or "implicit" in low:
+        return "tower convolutions (cuDNN)"
+    return "plain torch operations"
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    H, W, D, shift = 370, 1226, 228, 40
+    base = np.random.RandomState(0).randn(H, W + shift).astype(np.float32)
+    x0 = torch.as_tensor(standardize(base[:, :W]), device=dev)
+    x1 = torch.as_tensor(standardize(base[:, shift:shift + W]), device=dev)
+    cfg = make_config("kitti", "fast", a="predict")
+    tower = towers.init_fast(cfg, torch.Generator().manual_seed(cfg.seed))
+    for _ in range(2):
+        stereo_predict(cfg, tower, x0, x1, D)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        stereo_predict(cfg, tower, x0, x1, D)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    groups = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        g = groups[_group(e.key)]
+        g[0] += dev_us(e) / 1e3
+        g[1] += e.count
+    print(f"{torch.cuda.get_device_name(0)}: one stereo_predict 370x1226 "
+          f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "
+          f"{total_ms:.3f} ms in {sum(e.count for e in kernels)} kernel "
+          f"launches, busy {total_ms / wall_ms:.3f}")
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name}: {ms:.3f} ms in {n} launches")
+    print(f"top {args.top} kernels by device time:")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:args.top]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

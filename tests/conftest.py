@@ -33,3 +33,9 @@ if os.environ.get("MCCNN_TEST_CPU"):
     import jax
 
     jax.config.update("jax_default_device", jax.devices("cpu")[0])
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; the test skips "
+        "itself where torch.cuda.is_available() is false")

@@ -1,0 +1,103 @@
+"""The CUDA kernels against their plain versions on the card, at small
+awkward shapes (chip_smoke.py checks the full KITTI shapes).
+
+Needs an NVIDIA GPU with nvcc; skips elsewhere. On a machine without
+JAX, run it without the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mccnn_tpu_torch.ops import _build, blur, join, outlier, sgm
+
+pytestmark = pytest.mark.cuda
+
+KW = dict(pi1=4.0, pi2=55.72, tau_so=0.02, alpha1=1.5, q1=3.0, q2=2.5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _feats(rng, H, W, C, dev):
+    f = torch.as_tensor(rng.randn(2, H, W, C).astype(np.float32), device=dev)
+    return f / f.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("H,W,C,D,n_fix", [(20, 140, 8, 20, 4),
+                                           (70, 300, 64, 228, 4),
+                                           (3, 128, 16, 130, 0)])
+def test_join_kernel_matches_plain(dev, H, W, C, D, n_fix):
+    f = _feats(np.random.RandomState(H), H, W, C, dev)
+    Hp, Wp, Dp = join.pad_dims(H, W, D)
+    a = join._prep(f[0], True, Hp, Wp)
+    b = join._prep(f[1], True, Hp, Wp + Dp)
+    before = _build.LAUNCHES["join"]
+    got = join._join_plus(a, b, D, W, H, n_fix)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["join"] == before + 1
+    want = join.join_plus_plain(a, b, D, W, H, n_fix)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert float((got - want).nan_to_num().abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("xrev", [True, False])
+def test_sgm_kernels_match_plain(dev, xrev):
+    rng = np.random.RandomState(7)
+    H, W, C, D = 45, 310, 16, 150
+    f = _feats(rng, H, W, C, dev)
+    vl, vr = join.stereo_join_hwd(f[0], f[1], D, n_fix=4)
+    vol = vl if xrev else vr
+    x0 = torch.as_tensor((rng.rand(H, W) * 0.06).astype(np.float32), device=dev)
+    x1 = torch.as_tensor((rng.rand(H, W) * 0.06).astype(np.float32), device=dev)
+    got, gmap = sgm.sgm_slab_hwd(x0, x1, vol, D, H, W, xrev=xrev, wta=True, **KW)
+    torch.cuda.synchronize()
+    want, wmap = sgm.sgm_slab_hwd(x0.cpu(), x1.cpu(), vol.cpu(), D, H, W,
+                                  xrev=xrev, wta=True, **KW)
+    got = got.cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
+    assert float((gmap.cpu() == wmap).float().mean()) >= 0.9999
+    map_only = sgm.sgm_slab_hwd(x0, x1, vol, D, H, W, xrev=xrev, wta=True,
+                                materialize=False, **KW)
+    assert torch.equal(map_only, gmap)
+
+
+def test_outlier_kernel_matches_plain(dev):
+    rng = np.random.RandomState(3)
+    H, W, D = 37, 300, 64
+    d1 = rng.randint(0, D, size=(H, W)).astype(np.float32)
+    d0 = d1.copy()
+    m = rng.rand(H, W) < 0.4
+    d0[m] = rng.randint(0, D, size=int(m.sum())) + 0.3
+    t0, t1 = torch.as_tensor(d0, device=dev), torch.as_tensor(d1, device=dev)
+    got = outlier.outlier_detection(t0, t1, D)
+    want = outlier.outlier_detection_plain(t0, t1, D)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sigma", [1.67, 7.74])
+def test_blur_kernel_matches_plain(dev, sigma):
+    rng = np.random.RandomState(4)
+    img = torch.as_tensor((rng.rand(67, 141) * 20).astype(np.float32),
+                          device=dev)
+    kern = torch.as_tensor(blur.gaussian_kernel(sigma), device=dev)
+    got = blur.mean2d(img, kern, 5.0)
+    want = blur.mean2d_plain(img, kern, 5.0)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    a = torch.zeros((64, 8, 128), device=dev)
+    with pytest.raises(ValueError, match="n_fix"):
+        join._join_plus(a, torch.zeros((64, 8, 256), device=dev), 20, 100, 60, 9)
+    with pytest.raises(ValueError, match="float32"):
+        outlier.outlier_detection(torch.zeros((4, 8), device=dev,
+                                              dtype=torch.float64),
+                                  torch.zeros((4, 8), device=dev), 3)

@@ -9,14 +9,28 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
 1. the card, and its name and power limit as nvidia-smi reports them;
 2. building every kernel of ``mccnn_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the KITTI fast-arch path (370x1226, D=228, 64 features),
-   with kernel, plain and bound times; the tower (cuDNN with TF32 off)
-   against the same tower on the CPU;
-4. ``stereo_predict`` on a seeded 370x1226 pair of known disparity: the
-   launch count of every kernel in one run, the accuracy, and the
-   share of pixels where it differs from the all-plain path (the CPU);
-   then pairs/s (median of 10 runs after warm-up) on that pair and on
-   bench.py's synthetic 350x1242 pair.
+   shapes of the path that runs it, with kernel, plain and bound times:
+   the KITTI fast-arch path (370x1226, D=228, 64 features; the tower on
+   cuDNN with TF32 off against the same tower on the CPU), then the
+   KITTI slow-arch path (kitti slow widths: 112 features, head 384
+   wide with three mid layers): the head kernel over the whole volume
+   (with the time of the same chain as bf16 cuBLAS matmuls beside it),
+   the blur with kitti slow's 37x37 Gaussian, and the generic lane's
+   stacked horizontal and vertical sweeps (both directions in one
+   volume, the -1 direction's scanlines reversed); bounds count the
+   real cells, not the padding;
+4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
+   disparity: the launch count of every kernel in one run, the
+   accuracy, and the share of pixels where it differs from the
+   all-plain path (the CPU); then pairs/s (median of 10 runs after
+   warm-up) on that pair and on bench.py's synthetic 350x1242 pair;
+5. the slow-arch ``stereo_predict`` on the same pair: the launch count
+   of every kernel in one run and the accuracy, with a head set by hand
+   to score the L1 distance of the descriptors (a random head does not
+   score identical patches as a match); pairs/s (median of 5 after a
+   warm-up) and peak memory with seeded random weights; the share of
+   pixels where it differs from the all-plain path on the CPU at
+   96x320, D=48.
 
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -35,11 +49,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32
-# outside the tensor cores. A bound is the larger of bytes / MEM_BPS
-# and operations / F32_OPS.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
+# outside the tensor cores and bf16 on the tensor cores (dense). A bound
+# is the larger of bytes / MEM_BPS and operations / the peak of their
+# type.
 MEM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_TC_OPS = 989e12
 
 H, W, D, SHIFT = 370, 1226, 228, 40
 
@@ -52,15 +68,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / MEM_BPS * 1e3, ops / F32_OPS * 1e3
+def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS
+             ) -> tuple[float, str]:
+    tb, to = nbytes / MEM_BPS * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    by CUDA events."""
-    fn()
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
+    call unless ``warm`` is False, by CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -86,6 +104,52 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def matching_head(net, feats):
+    """Set the slow net's head by hand so that it scores the L1 distance
+    of the two descriptors: layer 0 maps to [fl - fr, fr - fl] on its
+    first 2*fm units (ReLU keeps the positive parts, which sum to
+    |fl - fr|), the mid layers are the identity, and the last layer
+    weighs those units by c > 0: s = sigmoid(c * |fl - fr|_1 - 2), with
+    c = 2 / (the mean L1 distance of unmatched descriptors, taken on
+    ``feats`` (2, fm, H, W) of the pair at zero shift)."""
+    import torch
+
+    fm = feats.shape[1]
+    mean_l1 = float((feats[0] - feats[1]).abs().sum(0).mean())
+    head = net.head
+    with torch.no_grad():
+        eye = torch.eye(fm, device=feats.device)
+        w0 = torch.zeros_like(head[0].weight)  # (nh2, 2 fm)
+        w0[:fm, :fm], w0[:fm, fm:] = eye, -eye
+        w0[fm:2 * fm, :fm], w0[fm:2 * fm, fm:] = -eye, eye
+        head[0].weight.copy_(w0)
+        for lin in list(head)[1:-1]:
+            lin.weight.copy_(torch.eye(lin.weight.shape[0], device=feats.device))
+        for lin in head:
+            lin.bias.zero_()
+        head[-1].weight.zero_()
+        head[-1].weight[0, :2 * fm] = 2.0 / mean_l1
+        head[-1].bias.fill_(-2.0)
+    return net
+
+
+def head_library(torch, slow_head, A, B, mids_w, mids_b, w_last, b_last, D):
+    """The head chain as PyTorch's own bf16 matmuls (cuBLAS) per chunk
+    of disparities: the yardstick of the head kernel (the port never
+    calls it)."""
+    H, W, C = A.shape
+    bb = mids_b.to(torch.bfloat16)
+    out = torch.empty((D, H, W), dtype=torch.float32, device=A.device)
+    step = 4
+    for d0 in range(0, D, step):
+        ds = torch.arange(d0, min(D, d0 + step), device=A.device)
+        h = torch.relu(A[None] + slow_head.shifted(B, ds)).to(torch.bfloat16)
+        for m in range(mids_w.shape[0]):
+            h = torch.relu(h @ mids_w[m] + bb[m])
+        out[d0:d0 + len(ds)] = torch.sigmoid(h.float() @ w_last + b_last)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -95,7 +159,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
-    from mccnn_tpu_torch.ops import _build, blur, costs, join, outlier, sgm
+    from mccnn_tpu_torch.ops import (_build, blur, costs, join, outlier, sgm,
+                                     slow_head)
     from mccnn_tpu_torch.pipeline import stereo_predict
 
     dev = torch.device("cuda")
@@ -142,11 +207,13 @@ def main() -> int:
     check(torch.equal(vol_k.isnan(), vol_p.isnan()), "join NaN masks differ")
     err = float((vol_k - vol_p).nan_to_num().abs().max())
     check(err <= 1e-5, f"join max |d| {err} > 1e-5")
+    # bounds count the real cells only: pad rows, columns and lanes are
+    # layout, not work
+    cells = H * W * D
     rows["join"] = dict(
         err=err, ms=cuda_ms(torch, lambda: join._join_plus(a, b, D, W, H, 4), 10),
         plain_ms=cuda_ms(torch, lambda: join.join_plus_plain(a, b, D, W, H, 4), 1),
-        bound=bound_ms((a.numel() + b.numel() + vol_k.numel()) * 4,
-                       2.0 * H * W * D * C))
+        bound=bound_ms((2 * H * W * C + cells) * 4, 2.0 * cells * C))
     del vol_p
 
     # the right direction's four sweeps on the join volume; the second of
@@ -159,7 +226,10 @@ def main() -> int:
                           q2=cfg.sgm_q2)
     acc_k = torch.empty_like(vol_r)
     acc_p = torch.empty_like(vol_r)
-    cells = H * W * D  # real cells of one sweep, ~10 f32 operations each
+    # a sweep: ~10 f32 operations a cell; the volume and the accumulator
+    # read, the sum written; the D1 table (H, W), the D2 table
+    # (H, W + 2D)
+    tables = (H * W + H * (W + 2 * D)) * 4
     for i, p in enumerate(plan):
         p = dict(p)
         d1, g = p.pop("d1"), p.pop("g")
@@ -195,9 +265,8 @@ def main() -> int:
         if i in (1, 3):
             rows[entry] = dict(
                 err=float(diff.max()), ms=ms, plain_ms=plain_ms,
-                bound=bound_ms(3 * vol_r.numel() * 4
-                               + (d1.numel() + g.numel()) * 4
-                               + (Hp * Wp * 4 if last else 0), 10.0 * cells))
+                bound=bound_ms(3 * cells * 4 + tables
+                               + (H * W * 4 if last else 0), 10.0 * cells))
     print(f"  fused WTA maps equal on {wta_same:.6f} of pixels")
     del acc_k, acc_p
 
@@ -212,25 +281,141 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: outlier.outlier_detection_plain(d_l, d_r, D), 2),
         bound=bound_ms(3 * H * W * 4, 4.0 * taps))
 
-    kern = torch.as_tensor(blur.gaussian_kernel(cfg.blur_sigma), device=dev)
-    k = kern.shape[0]
-    r = k // 2
-    img = d_l.clone()
-    b_k = blur.mean2d(img, kern, cfg.blur_t)
-    b_p = blur.mean2d_plain(img, kern, cfg.blur_t)
-    err = float((b_k - b_p).abs().max())
-    check(err <= 1e-4, f"blur max |d| {err} > 1e-4")
-    ny = sum(min(H - 1, y + r) - max(0, y - r) + 1 for y in range(H))
-    nx = sum(min(W - 1, x + r) - max(0, x - r) + 1 for x in range(W))
-    rows["blur"] = dict(
-        err=err, ms=cuda_ms(torch, lambda: blur.mean2d(img, kern, cfg.blur_t), 10),
-        plain_ms=cuda_ms(torch, lambda: blur.mean2d_plain(img, kern, cfg.blur_t), 1),
-        bound=bound_ms((2 * H * W + k * k) * 4, 6.0 * ny * nx))
+    def blur_row(img, sigma, t):
+        """The blur kernel against its plain version on ``img`` with the
+        Gaussian of ``sigma`` and threshold ``t``. Both sum up to k*k
+        weighted taps in f32 in other orders, so the rounding grows with
+        the value: |d| <= 1e-4 + 1e-6 * |value| (disparities reach 227,
+        where an f32 ulp is 1.5e-5)."""
+        kern = torch.as_tensor(blur.gaussian_kernel(sigma), device=dev)
+        k = kern.shape[0]
+        r = k // 2
+        b_k = blur.mean2d(img, kern, t)
+        b_p = blur.mean2d_plain(img, kern, t)
+        diff = (b_k - b_p).abs()
+        err = float(diff.max())
+        check(bool((diff <= 1e-4 + 1e-6 * b_p.abs()).all()),
+              f"blur ({k}x{k}) max |d| {err} beyond 1e-4 + 1e-6 |value|")
+        ny = sum(min(H - 1, y + r) - max(0, y - r) + 1 for y in range(H))
+        nx = sum(min(W - 1, x + r) - max(0, x - r) + 1 for x in range(W))
+        return dict(
+            err=err, ms=cuda_ms(torch, lambda: blur.mean2d(img, kern, t), 10),
+            plain_ms=cuda_ms(torch, lambda: blur.mean2d_plain(img, kern, t), 1),
+            bound=bound_ms((2 * H * W + k * k) * 4, 6.0 * ny * nx))
+
+    rows["blur"] = blur_row(d_l.clone(), cfg.blur_sigma, cfg.blur_t)
     del vol_l, vol_r
+
+    # the slow-arch path's two new kernels at kitti slow shapes
+    scfg = make_config("kitti", "slow", a="predict")
+    snet = towers.init_slow(scfg, torch.Generator().manual_seed(scfg.seed))
+    snet = snet.to(dev).eval()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        sfeats = snet(images.to(dev))
+    ops = slow_head.head_operands(snet, sfeats[0].permute(1, 2, 0),
+                                  sfeats[1].permute(1, 2, 0))
+    A, B, mids_w, mids_b, w_last, b_last = ops
+    n_mid, nh2 = mids_w.shape[0], scfg.nh2
+    s_k = slow_head.slow_head_volume(*ops, D)
+    s_p = slow_head.slow_head_plain(*ops, D)
+    torch.cuda.synchronize()
+    xs = torch.arange(W, device=dev)[None, None, :]
+    ds = torch.arange(D, device=dev)[:, None, None]
+    valid = (xs >= ds).expand(D, H, W)
+    diff = (s_k - s_p).abs()[valid]
+    err, mean_err = float(diff.max()), float(diff.mean())
+    del diff
+    print(f"  slow_head over all {int(valid.sum())} cells with x >= d: max |d| "
+          f"{err:.3g}, mean |d| {mean_err:.3g}")
+    # tolerance: both round the same operands to bf16 and sum in f32 in
+    # other orders; a hidden unit within such a difference of a bf16
+    # rounding boundary rounds one bf16 ulp apart (2^-8 relative)
+    check(err <= 1e-3 and mean_err <= 1e-5,
+          f"slow_head max |d| {err} > 1e-3 or mean |d| {mean_err} > 1e-5")
+    head_cells = float(H * sum(max(0, W - d) for d in range(D)))
+    rows["slow_head"] = dict(
+        err=err, ms=cuda_ms(torch, lambda: slow_head.slow_head_volume(*ops, D), 3),
+        plain_ms=cuda_ms(torch, lambda: slow_head.slow_head_plain(*ops, D), 1,
+                         warm=False),
+        library_ms=cuda_ms(torch, lambda: head_library(
+            torch, slow_head, *ops, D), 2),
+        bound=bound_ms((A.numel() + B.numel() + s_k.numel()) * 4
+                       + mids_w.numel() * 2,
+                       2.0 * head_cells * n_mid * nh2 * nh2, BF16_TC_OPS))
+    vols = dict(zip((-1, 1), slow_head.masked_volumes(s_k)))
+    del s_k, s_p, valid
+
+    # blur with kitti slow's own Gaussian and threshold, on the WTA map of
+    # the slow head's left volume
+    rows["blur (kitti slow)"] = blur_row(costs.wta(vols[-1]), scfg.blur_sigma,
+                                         scfg.blur_t)
+
+    # the generic lane's two stacked families on those volumes, as
+    # sgm_multi builds them: both directions in one volume, the -1
+    # direction's scanlines first and reversed
+    x0_t, x1_t = (torch.as_tensor(v, device=dev) for v in (x0, x1))
+    skw = dict(pi1=scfg.pi1, pi2=scfg.pi2, tau_so=scfg.tau_so, q1=scfg.sgm_q1,
+               q2=scfg.sgm_q2)
+    vol_x, hplan = sgm.horiz_plan(x0_t, x1_t, vols, (-1, 1), D, H, W, **skw)
+    vol_y, vplan = sgm.vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
+                                 alpha1=scfg.alpha1, **skw)
+    del vols
+
+    def stacked_family(entry, vol, plan, kernel, plain, table_bytes):
+        """Both sweeps of a stacked family, kernel against plain, each to
+        rtol 1e-5 with equal NaN masks (the same f32 operations in the
+        same order); the second sweep is timed: it reads the accumulator
+        and adds in place. The bound counts the real cells of both
+        directions, 2 * H * W * D."""
+        acc_k = torch.empty_like(vol)
+        acc_p = torch.empty_like(vol)
+        for i, p in enumerate(plan):
+            p = dict(p)
+            d1, g = p.pop("d1"), p.pop("g")
+            ak, ap = (None, None) if i == 0 else (acc_k, acc_p)
+            if i == 1:
+                scratch = acc_k.clone()
+                ms = cuda_ms(torch, lambda: kernel(vol, scratch, scratch, d1, g,
+                                                   **p), 5)
+                t0 = time.perf_counter()
+                plain(vol, scratch, scratch, d1, g, **p)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                del scratch
+            kernel(vol, ak, acc_k, d1, g, **p)
+            plain(vol, ap, acc_p, d1, g, **p)
+            torch.cuda.synchronize()
+            check(torch.equal(acc_k.isnan(), acc_p.isnan()),
+                  f"{entry} sweep {i} NaN masks differ")
+            diff = (acc_k - acc_p).abs().nan_to_num()  # masks equal
+            check(bool((diff <= 1e-5 * acc_p.abs().nan_to_num()).all()),
+                  f"{entry} sweep {i}: max |d| {float(diff.max())} beyond "
+                  f"rtol 1e-5")
+        n = 2 * H * W * D
+        return dict(err=float(diff.max()), ms=ms, plain_ms=plain_ms,
+                    bound=bound_ms(3 * n * 4 + table_bytes, 10.0 * n))
+
+    # tables: hslab D1 (W, 2H) and D2 (2H, W + 2D); vertical D1 (H, 2W)
+    # and the reversed and natural D2 (H, W + 2D) each
+    rows["sgm_hslab"] = stacked_family(
+        "sgm_hslab", vol_x, hplan, sgm._sweep_hslab, sgm.hslab_plain,
+        (2 * H * W + 2 * H * (W + 2 * D)) * 4)
+    del vol_x
+    rows["sgm_vertical (kitti slow, stacked)"] = stacked_family(
+        "sgm_vertical", vol_y, vplan,
+        lambda v, a, o, d1, g, **p: sgm._sweep(v, a, o, None, d1, g, **p),
+        lambda v, a, o, d1, g, **p: sgm.sweep_plain(v, a, o, None, d1, g, **p),
+        (2 * H * W + 2 * H * (W + 2 * D)) * 4)
+    check(vplan[0]["n_rev"] == W, "the stacked vertical plan has no reversed "
+          "half")
+    del vol_y
     for name, row in rows.items():
+        lib = row.get("library_ms")
         print(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), "
-              f"max |d| {row['err']:.3g}")
+              f"max |d| {row['err']:.3g}"
+              + ("" if lib is None else f", library {lib:.3f} ms"))
 
     # --- phase 4: the main path ----------------------------------------
     _build.reset_launches()
@@ -239,7 +424,7 @@ def main() -> int:
     counts = _build.launches()
     print(f"phase 4: launches in one stereo_predict: {counts}")
     want = {"join": 2, "sgm_vertical": 4, "sgm_horizontal": 4, "outlier": 1,
-            "blur": 1}
+            "blur": 1, "slow_head": 0, "sgm_hslab": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
     d = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -278,18 +463,72 @@ def main() -> int:
           f" {frac:.5f} of pixels differ by > 0.51")
     check(frac < 0.01, f"{frac} of pixels differ from the plain path")
 
+    # --- phase 5: the slow-arch path ----------------------------------
+    hand = matching_head(towers.init_slow(
+        scfg, torch.Generator().manual_seed(scfg.seed)).to(dev), sfeats)
+    del sfeats
+    _build.reset_launches()
+    disp = stereo_predict(scfg, hand, x0, x1, D)
+    torch.cuda.synchronize()
+    slow_counts = _build.launches()
+    print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
+    want = {"join": 0, "sgm_vertical": 2, "sgm_horizontal": 0, "outlier": 1,
+            "blur": 1, "slow_head": 1, "sgm_hslab": 2}
+    check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
+    d = disp.cpu().numpy()
+    check(d.shape == (H, W) and bool(np.isfinite(d).all()),
+          "slow disparity map not finite or misshaped")
+    good = float((np.abs(d[:, SHIFT + 8:] - SHIFT) <= 1.0).mean())
+    print(f"  pixels within 1 px of the true disparity {SHIFT} (head set by "
+          f"hand to score L1 distance): {good:.4f}")
+    check(good >= 0.9, f"slow path: only {good:.4f} of pixels within 1 px")
+
+    t0_, t1_ = (torch.as_tensor(v, device=dev) for v in (x0, x1))
+    stereo_predict(scfg, snet, t0_, t1_, D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        stereo_predict(scfg, snet, t0_, t1_, D)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  slow 370x1226: {1.0 / statistics.median(times):.4f} pairs/s "
+          f"(median of 5, seeded random weights; runs "
+          f"{[round(t * 1e3, 1) for t in times]} ms), peak {peak:.2f} GiB")
+
+    h, w, dd = 96, 320, 48
+    s0, s1 = kitti_pair(np.random.RandomState(1), h, w, 12)
+    t = time.perf_counter()
+    d_k = stereo_predict(scfg, hand, s0, s1, dd).cpu().numpy()
+    d_plain = stereo_predict(scfg, hand, s0, s1, dd, device="cpu").numpy()
+    frac = float((np.abs(d_k - d_plain) > 0.51).mean())
+    print(f"  slow kernel path vs all-plain path (CPU) at {h}x{w}, D={dd} "
+          f"({time.perf_counter() - t:.0f} s): {frac:.5f} of pixels differ "
+          f"by > 0.51")
+    check(frac < 0.01, f"slow path: {frac} of pixels differ from the plain path")
+
+    # launches: each kernel's count on the path that runs it; the three
+    # shared ones (vertical sweep, outlier, blur) are the fast path's
+    path_counts = dict(counts, slow_head=slow_counts["slow_head"],
+                       sgm_hslab=slow_counts["sgm_hslab"])
     sources = {"join": ("join.cu", "mccnn_tpu/ops/join_pallas.py:65"),
                "sgm_vertical": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:741"),
                "sgm_horizontal": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:462"),
                "outlier": ("outlier.cu", "mccnn_tpu/ops/outlier_pallas.py:32"),
-               "blur": ("blur.cu", "mccnn_tpu/ops/blur_pallas.py:56")}
+               "blur": ("blur.cu", "mccnn_tpu/ops/blur_pallas.py:56"),
+               "slow_head": ("slow_head.cu",
+                             "mccnn_tpu/ops/slow_head_pallas.py:62"),
+               "sgm_hslab": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:267")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mccnn_tpu_torch/csrc/{sources[name][0]}",
-         "replaces": sources[name][1], "launches": counts[name],
+         "replaces": sources[name][1], "launches": path_counts[name],
          "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
-         "bound_by": rows[name]["bound"][1], "library_ms": None}
+         "bound_by": rows[name]["bound"][1],
+         "library_ms": rows[name].get("library_ms")}
         for name in _build.KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
     python -m mccnn_tpu_torch kitti fast -a predict -left L.png -right R.png \\
         -disp_max 228 [-net_fname net.npz] [-backend cpu]
+    python -m mccnn_tpu_torch kitti slow -a time
 
 Same flags and outputs as the reference's ``./main.lua`` (main.lua:10-32):
 predict writes ``left.bin``/``right.bin`` ((1, D, H, W) float32 cost
@@ -39,13 +40,21 @@ def device_of(cfg: Config) -> torch.device:
     return torch.device(dev.type, cfg.gpu - 1)
 
 
-def load_params(cfg: Config) -> towers.FastTower:
-    """The tower of ``-net_fname`` (an .npz of the JAX package's
-    checkpoints), or seeded random weights with a warning."""
+def load_params(cfg: Config) -> towers.FastTower | towers.SlowNet:
+    """The network of ``-net_fname`` (an .npz of the JAX package's
+    checkpoints), or seeded random weights with a warning: a fast tower
+    for the fast arch, a slow net (tower and FC head) for the slow one."""
     if cfg.net_fname:
-        return towers.load_npz(cfg.net_fname)
+        net = towers.load_npz(cfg.net_fname)
+        if isinstance(net, towers.SlowNet) != (cfg.arch == "slow"):
+            raise SystemExit(f"{cfg.net_fname}: not a {cfg.arch}-arch "
+                             "checkpoint")
+        return net
     print("WARNING: no -net_fname given; using randomly initialized weights")
-    return towers.init_fast(cfg, torch.Generator().manual_seed(cfg.seed))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.arch == "slow":
+        return towers.init_slow(cfg, gen)
+    return towers.init_fast(cfg, gen)
 
 
 def _sync(dev: torch.device) -> None:

@@ -1,14 +1,20 @@
-// SGM sweeps on the padded disparity-minor (Hp, Wp, Dp) volume.
+// SGM sweeps: one recurrence, three layouts.
 //
-// Replaces two TPU kernels of mccnn_tpu/ops/sgm.py:
+// Replaces three TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
 //                         steps are rows y, scanlines are columns x)
-//   _sweep_stream_hnat   (horizontal sweeps, sgm_dir 0 right and 1 left:
-//                         steps are columns x, scanlines are rows y,
-//                         with the fused winner-take-all of the last one)
-// One source, two entries with their own launch counts. With d fastest in
-// both families, one step of one scanline is one contiguous Dp row; only
-// which of (y, x) is the step differs.
+//   _sweep_stream_hnat   (horizontal sweeps on the disparity-minor
+//                         (Hp, Wp, Dp) volume, sgm_dir 0 right and 1 left:
+//                         steps are columns x, scanlines are rows y, with
+//                         the fused winner-take-all of the last one)
+//   _sweep_stream_hslab  (horizontal sweeps of the generic lane on the
+//                         step-major (W, S, Dp) volume: step x, scanline s)
+// Three entries with their own launch counts. With d fastest in every
+// layout, one step of one scanline is one contiguous Dp row; a layout is
+// only where that row lies: cell = step * step_stride + scan * scan_stride.
+// The vertical entry serves both lanes: the (Hp, Wp, Dp) volume of one
+// direction, and the generic lane's (H, 2W, Dp) volume with both reference
+// directions stacked on the scanline axis.
 //
 // Per step (sgm.py:116-124, the reference's sgm2, adcensus.cu:535-697):
 //   pm   = min_d prev               (NaN taken as +inf)
@@ -20,8 +26,15 @@
 // out of the neighbour coupling. The penalty class (0: D1 and D2 below
 // tau, 2: both above, else 1) picks one (P1a, P1b, P2) triple from a
 // table the host computes in float32 exactly as _penalties3 does. D1 is
-// d1[y, x]; D2 is g[y, D + x + d] (the caller lane-reverses g for the
-// x-reversed left volume, so one formula serves both directions).
+// d1[cell]. D2 is one lane-contiguous row slice, g[row, col + d]:
+//   vertical:   row = step y; col = D + x, x the scanline's column within
+//               its direction (scanlines < n_rev read the table g_rev,
+//               which the host lane-reverses for x-reversed storage; the
+//               others g_nat, with x counted from n_rev);
+//   horizontal: row = scanline; col = D + x on natural scanlines and
+//               rev_base - x on the first n_rev ones (the -1 direction's,
+//               whose rows the host lane-reverses: g[x - d + D] equals
+//               rev(g)[rev_base - x + d] at rev_base = W + D - 1).
 //
 // Steps: n_steps stored steps, of which the first T are real. Steps
 // s >= T pass the volume through and leave the state alone; the state
@@ -31,10 +44,13 @@
 // the argmin over d of the written sum (NaN as +inf, ties to the lowest d).
 //
 // Bound on the H100: a sweep with an accumulator reads the volume and the
-// accumulator and writes the sum, 3 x 503 MB at KITTI size (0.45 ms at
-// 3.35 TB/s); the arithmetic (about ten f32 operations per cell) is far
-// below the f32 peak. The recurrence, though, is a chain of n_steps
-// dependent steps per scanline, each ending in a block-wide min.
+// accumulator and writes the sum, over the real cells only (the pad lanes
+// and rows are layout, not work): 3 x 414 MB for one direction at KITTI
+// size (370 x 1226 x 228 f32; 0.37 ms at 3.35 TB/s), 3 x 827 MB for the
+// generic lane's two stacked directions (0.74 ms); the arithmetic (about
+// ten f32 operations per cell) is far below the f32 peak. The recurrence,
+// is a chain of n_steps dependent steps per scanline, each ending in a
+// block-wide min.
 //
 // Design (simple and right first): one block of Dp threads per scanline,
 // thread = disparity, the steps a loop inside the block. The previous
@@ -42,9 +58,9 @@
 // d +- 1 neighbours; the min is a warp shuffle then a shared-memory pass,
 // one __syncthreads per step. The next step's volume, accumulator and
 // penalty inputs are loaded before this step's reduction, so their
-// latency overlaps it. Parallelism is Wp blocks (vertical) or Hp blocks
-// (horizontal); at KITTI size the horizontal family has 384 blocks of
-// 256 threads, under one wave of the card.
+// latency overlaps it. Parallelism is one block per scanline: at KITTI
+// size the HWD horizontal family has 384 blocks of 256 threads, under one
+// wave of the card; the generic lane's stacked horizontal family 740.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,12 +91,23 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   }
 }
 
+// Where a layout keeps its rows: cell = step * step_stride + scan *
+// scan_stride (in Dp rows; d1 and wta are indexed by the cell), and which
+// D2 addressing it uses (see the top of the file).
+struct Layout {
+  long long step_stride, scan_stride;
+  int vertical;  // D2 row = step, column from the scanline
+  int n_rev;     // scanlines [0, n_rev) are the reversed class
+  int rev_base;  // horizontal reversed class: col = rev_base - step
+};
+
 __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
                              float* out, float* __restrict__ wta,
                              const float* __restrict__ d1,
-                             const float* __restrict__ g, int Wp, int Dp,
-                             int D, int n_steps, int T, int vertical,
-                             int reverse, int gw, float tau, Pen pen) {
+                             const float* __restrict__ g_rev,
+                             const float* __restrict__ g_nat, Layout lay,
+                             int Dp, int D, int n_steps, int T, int reverse,
+                             int gw, float tau, Pen pen) {
   __shared__ float row[2][1024];
   __shared__ float wmin[2][MAX_WARPS];
   __shared__ float wval[2][MAX_WARPS];
@@ -90,23 +117,29 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   const int lane = d & 31, warp = d >> 5, nw = Dp >> 5;
   const int scan = blockIdx.x;
   const int init = reverse ? T - 1 : 0;
+  const bool rev = scan < lay.n_rev;
+  const float* g = rev ? g_rev : g_nat;
 
   auto step_of = [&](int t) { return reverse ? n_steps - 1 - t : t; };
-  auto cell = [&](int s, int& y, int& x) {
-    y = vertical ? s : scan;
-    x = vertical ? scan : s;
+  auto cell = [&](int s) {
+    return (long long)s * lay.step_stride + (long long)scan * lay.scan_stride;
+  };
+  // D2 of step s at disparity d
+  auto d2_at = [&](int s) {
+    if (lay.vertical)
+      return g[(size_t)s * gw + D + (rev ? scan : scan - lay.n_rev) + d];
+    return g[(size_t)scan * gw + (rev ? lay.rev_base - s : D + s) + d];
   };
 
   // prefetch of step t: volume, accumulator, D1, D2
   float nv, na = 0.f, nd1, nd2;
   auto load = [&](int t) {
-    int y, x;
-    cell(step_of(t), y, x);
-    const size_t idx = ((size_t)y * Wp + x) * Dp + d;
-    nv = vol[idx];
-    if (acc) na = acc[idx];
-    nd1 = d1[(size_t)y * Wp + x];
-    nd2 = g[(size_t)y * gw + D + x + d];
+    const int s = step_of(t);
+    const long long c = cell(s);
+    nv = vol[c * Dp + d];
+    if (acc) na = acc[c * Dp + d];
+    nd1 = d1[c];
+    nd2 = d2_at(s);
   };
   load(0);
 
@@ -114,8 +147,7 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   int rb = 0, wb = 0;  // buffer parity: recurrence steps, WTA steps
   for (int t = 0; t < n_steps; ++t) {
     const int s = step_of(t);
-    int y, x;
-    cell(s, y, x);
+    const long long c = cell(s);
     const float v = nv, a = na, D1 = nd1, D2 = nd2;
     if (t + 1 < n_steps) load(t + 1);
 
@@ -148,8 +180,7 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
       rb ^= 1;
     }
     const float fin = acc ? outv + a : outv;
-    const size_t idx = ((size_t)y * Wp + x) * Dp + d;
-    if (out) out[idx] = fin;
+    if (out) out[c * Dp + d] = fin;
     if (wta) {
       float bv = isnan(fin) ? INF : fin;
       int bi = d;
@@ -168,7 +199,7 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
             bi = oi;
           }
         }
-        wta[(size_t)y * Wp + x] = (float)bi;
+        wta[c] = (float)bi;
       }
       wb ^= 1;
     }
@@ -176,38 +207,58 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
 }
 
 int launch(const float* vol, const float* acc, float* out, float* wta,
-           const float* d1, const float* g, int Hp, int Wp, int Dp, int D,
-           int T, int reverse, int gw, float tau, Pen pen, int vertical,
-           cudaStream_t stream) {
-  const int n_steps = vertical ? Hp : Wp;
-  const int n_scan = vertical ? Wp : Hp;
-  sweep_kernel<<<n_scan, Dp, 0, stream>>>(vol, acc, out, wta, d1, g, Wp, Dp,
-                                          D, n_steps, T, vertical, reverse, gw,
+           const float* d1, const float* g_rev, const float* g_nat,
+           Layout lay, int n_scan, int n_steps, int Dp, int D, int T,
+           int reverse, int gw, float tau, Pen pen, cudaStream_t stream) {
+  sweep_kernel<<<n_scan, Dp, 0, stream>>>(vol, acc, out, wta, d1, g_rev, g_nat,
+                                          lay, Dp, D, n_steps, T, reverse, gw,
                                           tau, pen);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// vol, acc, out: (Hp, Wp, Dp) float32; acc and out may be null and may
-// alias each other; wta: (Hp, Wp) or null; d1: (Hp, Wp); g: (Hp, gw) with
-// gw >= D + Wp + Dp. Dp a multiple of 32, at most 1024. T real steps
-// (rows for the vertical entry, columns for the horizontal one).
-// Returns cudaGetLastError().
+// Dp is a multiple of 32, at most 1024, for every entry; T real steps; acc
+// and out may be null and may alias each other; wta may be null. Each
+// entry returns cudaGetLastError().
+
+// vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
+// columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
+// Dp. Columns [0, n_rev) read g_rev at D + x, the others g_nat at
+// D + x - n_rev (one direction: n_rev = Ws or 0).
 extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
                                   float* out, float* wta, const float* d1,
-                                  const float* g, int Hp, int Wp, int Dp,
-                                  int D, int T, int reverse, int gw, float tau,
+                                  const float* g_rev, const float* g_nat,
+                                  int Hp, int Ws, int Dp, int D, int T,
+                                  int reverse, int gw, int n_rev, float tau,
                                   Pen pen, cudaStream_t stream) {
-  return launch(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, gw, tau,
-                pen, 1, stream);
+  const Layout lay{Ws, 1, 1, n_rev, 0};
+  return launch(vol, acc, out, wta, d1, g_rev, g_nat, lay, Ws, Hp, Dp, D, T,
+                reverse, gw, tau, pen, stream);
 }
 
+// vol, acc, out: (Hp, Wp, Dp) float32, steps the Wp columns; wta, d1:
+// (Hp, Wp); g: (Hp, gw) with gw >= D + Wp + Dp, read at D + x.
 extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
                                     float* out, float* wta, const float* d1,
                                     const float* g, int Hp, int Wp, int Dp,
                                     int D, int T, int reverse, int gw,
                                     float tau, Pen pen, cudaStream_t stream) {
-  return launch(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, gw, tau,
-                pen, 0, stream);
+  const Layout lay{1, Wp, 0, 0, 0};
+  return launch(vol, acc, out, wta, d1, g, g, lay, Hp, Wp, Dp, D, T, reverse,
+                gw, tau, pen, stream);
+}
+
+// Step-major: vol, acc, out: (W, S, Dp) float32, steps the W columns x,
+// S scanlines; d1: (W, S); g: (S, gw) with gw >= D + W + Dp, read at
+// D + x on scanlines >= n_rev and at rev_base - x below (rows the host
+// lane-reversed). Every step is real.
+extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
+                               const float* d1, const float* g, int W, int S,
+                               int Dp, int D, int reverse, int gw, int n_rev,
+                               int rev_base, float tau, Pen pen,
+                               cudaStream_t stream) {
+  const Layout lay{S, 1, 0, n_rev, rev_base};
+  return launch(vol, acc, out, nullptr, d1, g, g, lay, S, W, Dp, D, W,
+                reverse, gw, tau, pen, stream);
 }

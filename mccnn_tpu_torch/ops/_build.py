@@ -27,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("join", "sgm_sweep", "outlier", "blur")
-KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur")
+SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head")
+KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
+           "slow_head", "sgm_hslab")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,15 +112,20 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda_f32(t: torch.Tensor, what: str) -> None:
+def check_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
     """Refuse a tensor the kernels do not take: they read contiguous
-    float32 memory on the card."""
+    memory of one dtype on the card."""
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def check_cuda_f32(t: torch.Tensor, what: str) -> None:
+    """:func:`check_cuda` for the float32 operands of most kernels."""
+    check_cuda(t, what, torch.float32)
 
 
 def stream(t: torch.Tensor) -> int:

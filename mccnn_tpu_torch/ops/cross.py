@@ -1,0 +1,114 @@
+"""Cross-based cost aggregation (CBCA) in plain torch.
+
+Reference: ``cross`` adcensus.cu:280-341 (support arms) and ``cbca``
+adcensus.cu:343-400 (the average over the intersection of the left and
+right pixels' support regions), in the formulation of the JAX package
+(mccnn_tpu/ops/cross.py), which runs it in XLA with no Pallas kernel:
+arms from a short static unroll over arm length, the aggregation as
+2K-1 shifted masked adds per axis (K = max(2, L1)), in the same order,
+so the sums round the same way. The JAX package maps over disparity;
+here the disparities go in chunks that bound the temporaries.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cross_arms(x0: torch.Tensor, L1: int, tau1: float) -> torch.Tensor:
+    """(4, H, W) float32 exclusive arm ends of a grayscale image (H, W):
+    [0] -x arm (x coord), [1] +x, [2] -y (y coord), [3] +y.
+
+    Distance-1 neighbours are always inside; from distance 2 on, the
+    walk breaks at the first probe with |x0[c] - x0[probe]| >= tau1, at
+    distance >= L1, or on leaving the frame (adcensus.cu:306-319)."""
+    H, W = x0.shape
+    k_max = max(2, int(L1))
+
+    def arm(axis: int, sign: int) -> torch.Tensor:
+        n = x0.shape[axis]
+        coord = torch.arange(n, device=x0.device)
+        coord = coord[:, None] if axis == 0 else coord[None, :]
+        k_break = torch.full((H, W), k_max, dtype=torch.int64, device=x0.device)
+        alive = torch.ones((H, W), dtype=torch.bool, device=x0.device)
+        for k in range(2, k_max):
+            probe = torch.roll(x0, -sign * k, dims=axis)
+            in_frame = (coord + sign * k >= 0) & (coord + sign * k < n)
+            viol = alive & in_frame & ((x0 - probe).abs() >= tau1)
+            k_break = torch.where(viol, k, k_break)
+            alive = alive & ~viol
+        k_oof = coord + 1 if sign < 0 else n - coord
+        k_break = torch.minimum(k_break, k_oof.expand(H, W))
+        return (coord + sign * k_break).to(torch.float32)
+
+    return torch.stack([arm(1, -1), arm(1, 1), arm(0, -1), arm(0, 1)])
+
+
+def _span(n: int, k: int) -> tuple[slice, slice]:
+    """(dst, src) index ranges of out[i] += x[i + k] over the i whose
+    i + k lies in [0, n)."""
+    return slice(max(0, -k), n - max(0, k)), slice(max(0, k), n + min(0, k))
+
+
+def _arms_at(x1c: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(4, n, H, W): the right image's arms at column x + delta[i] for
+    each delta in the chunk, 0 outside the frame (the JAX package's
+    zero-padded dynamic slice)."""
+    W = x1c.shape[-1]
+    col = torch.arange(W, device=x1c.device)[None, :] + delta[:, None]
+    inside = (col >= 0) & (col < W)
+    got = x1c[:, :, col.clamp(0, W - 1)]  # (4, H, n, W)
+    return torch.where(inside[None, None], got, 0.0).permute(0, 2, 1, 3)
+
+
+def cbca(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
+         direction: int, L1: int, chunk_cells: int = 1 << 25) -> torch.Tensor:
+    """One CBCA iteration over vol (D, H, W).
+
+    For each (d, y, x) with x + d*direction in frame, the mean of vol[d]
+    over the rows strictly between the tighter of the two pixels'
+    vertical arms, each row's columns strictly between the tighter of
+    the horizontal arms of (yy, x) and (yy, x + d*direction) (the latter
+    shifted back). NaN cells count as 0 in the sums; out-of-frame cells
+    pass through. ``chunk_cells`` bounds the cells per chunk of d."""
+    D, H, W = vol.shape
+    K = max(2, int(L1))
+    dev = vol.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    step = max(1, min(D, chunk_cells // max(1, H * W)))
+    out = torch.empty_like(vol)
+    for d0 in range(0, D, step):
+        vol_d = vol[d0:d0 + step]
+        delta = torch.arange(d0, d0 + vol_d.shape[0], device=dev) * direction
+        a1 = _arms_at(x1c, delta)
+        dl = delta[:, None, None]
+        xx_s = torch.maximum(x0c[0], a1[0] - dl)
+        xx_t = torch.minimum(x0c[1], a1[1] - dl)
+        yy_s = torch.maximum(x0c[2], a1[2])
+        yy_t = torch.minimum(x0c[3], a1[3])
+        del a1
+
+        # the masked adds of the JAX package in its order, k = -(K-1) ..
+        # K-1; taps outside the frame are never inside an arm (arm ends
+        # lie in [-1, n]), so each add covers only the in-frame span
+        vol_z = torch.where(torch.isnan(vol_d), 0.0, vol_d)
+        hsum = torch.zeros_like(vol_z)
+        hcnt = torch.zeros_like(vol_z)
+        for k in range(-(K - 1), K):
+            dst, src = _span(W, k)
+            m = (xs[..., dst] + k > xx_s[..., dst]) \
+                & (xs[..., dst] + k < xx_t[..., dst])
+            hsum[..., dst] += torch.where(m, vol_z[..., src], 0.0)
+            hcnt[..., dst] += m
+        vsum = torch.zeros_like(vol_z)
+        vcnt = torch.zeros_like(vol_z)
+        for k in range(-(K - 1), K):
+            dst, src = _span(H, k)
+            m = (ys[:, dst] + k > yy_s[:, dst]) & (ys[:, dst] + k < yy_t[:, dst])
+            vsum[:, dst] += torch.where(m, hsum[:, src], 0.0)
+            vcnt[:, dst] += torch.where(m, hcnt[:, src], 0.0)
+        agg = vsum / torch.clamp(vcnt, min=1.0)
+        valid = (xs + dl >= 0) & (xs + dl < W)
+        out[d0:d0 + vol_d.shape[0]] = torch.where(valid, agg, vol_d)
+    return out

@@ -163,6 +163,16 @@ def interpolate_mismatch(d0: torch.Tensor, outlier: torch.Tensor
     return torch.where(is_mm, fill, d0)
 
 
+def subpixel_enhancement(d0: torch.Tensor, vol: torch.Tensor, disp_max: int
+                         ) -> torch.Tensor:
+    """Parabola fit over the costs at d-1, d, d+1 (adcensus.cu:1205-1219)
+    for the disparity-major volume (D, H, W) of the generic lane, whose
+    sums are divided by 4: the threshold is the reference's
+    ``denom > 1e-5``. NaN neighbours keep d."""
+    return subpixel_enhancement_hwd(d0, vol.permute(1, 2, 0), disp_max,
+                                    denom_thresh=1e-5)
+
+
 def subpixel_enhancement_hwd(d0: torch.Tensor, vol: torch.Tensor,
                              disp_max: int, denom_thresh: float = 1e-5
                              ) -> torch.Tensor:

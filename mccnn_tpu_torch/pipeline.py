@@ -1,15 +1,21 @@
-"""The stereo prediction pipeline, fast arch, disparity-minor lane.
+"""The stereo prediction pipeline: the JAX package's two lanes.
 
-Orchestration contract: ``stereo_predict`` (main.lua:929-1082) as the
-JAX package's HWD lane runs it (mccnn_tpu/pipeline.py:232-375): tower ->
-join -> per-direction SGM (four sweeps, one accumulator, fused WTA) ->
-LR outlier labels -> occlusion and mismatch fill -> subpixel parabola
-on the left volume -> 5×5 median -> thresholded-Gaussian blur.
+Orchestration contract: ``stereo_predict`` (main.lua:929-1082).
 
-The left volume stays x-REVERSED end to end (only (H, W) maps are
-flipped). The sweep sum is not divided by 4: WTA is scale-invariant and
-the subpixel threshold scales to 4e-5; the volume dumps divide on the
-way out.
+- Fast arch, disparity-minor (HWD) lane (mccnn_tpu/pipeline.py:232-375):
+  tower -> join -> per-direction SGM (four sweeps, one accumulator, fused
+  WTA) -> LR outlier labels -> occlusion and mismatch fill -> subpixel
+  parabola on the left volume -> 5×5 median -> thresholded-Gaussian
+  blur. The left volume stays x-REVERSED end to end (only (H, W) maps
+  are flipped). The sweep sum is not divided by 4: WTA is
+  scale-invariant and the subpixel threshold scales to 4e-5; the volume
+  dumps divide on the way out.
+- Slow arch, generic (D, H, W) lane (``_volumes_jit`` +
+  ``_method_jit``, pipeline.py:34-229): slow tower -> factored head
+  kernel -> NaN masks and ``fix_border`` -> CBCA ×cbca_i1 -> SGM (both
+  directions stacked, four sweeps, h + v, /4) -> CBCA ×cbca_i2 -> WTA
+  -> outlier labels -> fills -> subpixel on the -1 volume (threshold
+  1e-5) -> median -> blur.
 
 ``sm_terminate`` stops after a named stage and ``sm_skip`` skips one,
 with the gate placement of main.lua:988-1080 (the mismatch stage is
@@ -21,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from mccnn_tpu_torch.config import Config
-from mccnn_tpu_torch.models.towers import FastTower
-from mccnn_tpu_torch.ops import blur, costs, join, outlier, post, sgm
+from mccnn_tpu_torch.models.towers import FastTower, SlowNet
+from mccnn_tpu_torch.ops import (blur, costs, cross, join, outlier, post, sgm,
+                                 slow_head)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,22 +64,123 @@ def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
 
 
 def _check_lane(cfg: Config) -> None:
-    """The port runs the disparity-minor fast lane only; every other
-    configuration names the ROADMAP item that will bring it."""
-    if cfg.arch != "fast":
+    """The port runs the fast arch on the HWD lane (no CBCA) and the
+    slow arch on the generic lane, in float32 without the volume cache;
+    every other configuration names the ROADMAP item that will bring
+    it."""
+    if cfg.arch not in ("fast", "slow"):
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-            "items 11-12: slow arch, census/ad)")
-    if int(cfg.cbca_i1) or int(cfg.cbca_i2):
+            "item 12: census and ad volumes)")
+    if cfg.arch == "fast" and (int(cfg.cbca_i1) or int(cfg.cbca_i2)):
         raise NotImplementedError(
-            "CBCA and the generic (D, H, W) lane are not ported yet "
-            "(ROADMAP.md queue 1, items 10 and 12)")
+            "the fast arch with CBCA (fast volumes on the generic lane) is "
+            "not ported yet (ROADMAP.md queue 1, item 12)")
     if cfg.use_cache or cfg.make_cache:
         raise NotImplementedError("the volume cache is not ported yet "
                                   "(ROADMAP.md queue 1, item 15)")
     if cfg.dtype != "float32" or cfg.vol_dtype != "float32":
         raise NotImplementedError("-dtype/-vol_dtype other than float32 are "
                                   "not ported yet (ROADMAP.md queue 1, item 9)")
+
+
+def _tower(net, images):
+    """The conv tower; on CUDA with TF32 off (TF32 would drift the
+    features from the f32 reference and flip WTA near-ties), set here,
+    not globally."""
+    if images.is_cuda:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return net(images)
+    return net(images)
+
+
+@torch.no_grad()
+def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int):
+    """Slow-arch cost volumes (vol_l, vol_r), each (D, H, W), NaN out of
+    frame; the score is P(non-match), lower is better."""
+    feats = _tower(net, torch.stack([x0, x1])[:, None])
+    fl = feats[0].permute(1, 2, 0)  # (H, W, C)
+    fr = feats[1].permute(1, 2, 0)
+    return slow_head.slow_volumes(net, fl, fr, disp_max)
+
+
+@torch.no_grad()
+def _volumes(net, x0, x1, *, arch, disp_max, ws) -> dict:
+    """Cost volumes of both reference directions with the CNN border
+    fixed (mccnn_tpu/pipeline.py:97-149): {-1: vol_l, +1: vol_r}."""
+    if arch != "slow":
+        raise NotImplementedError(
+            f"arch {arch!r} on the generic lane is not ported yet "
+            "(ROADMAP.md queue 1, item 12)")
+    vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max)
+    n = (ws - 1) // 2
+    return {-1: costs.fix_border(vol_l, -1, n),
+            1: costs.fix_border(vol_r, 1, n)}
+
+
+def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
+            L1, tau1, cbca_i1, cbca_i2, pi1, pi2, tau_so, alpha1, sgm_q1,
+            sgm_q2, sgm_i, blur_t, sm_terminate, sm_skip, return_vols):
+    """The stereo method on (D, H, W) volumes (mccnn_tpu/pipeline.py:
+    152-229), with every gate of main.lua:988-1080."""
+    D = int(disp_max)
+    sm_active = _active_after(sm_terminate, "cnn")
+    do_cbca = sm_active and sm_skip != "cbca"
+    if do_cbca:
+        x0c = cross.cross_arms(x0, L1, tau1)
+        x1c = cross.cross_arms(x1, L1, tau1)
+
+    cur = {}
+    for direction in directions:
+        vol = vols[direction]
+        if do_cbca:
+            for _ in range(cbca_i1):
+                vol = cross.cbca(x0c, x1c, vol, direction, L1)
+        cur[direction] = vol
+
+    if _active_after(sm_terminate, "cbca1") and sm_skip != "sgm":
+        for _ in range(sgm_i):
+            outs = sgm.sgm_multi(x0, x1, cur, pi1=pi1, pi2=pi2, tau_so=tau_so,
+                                 alpha1=alpha1, sgm_q1=sgm_q1, sgm_q2=sgm_q2)
+            cur = {d: v / 4.0 for d, v in outs.items()}
+
+    disp = {}
+    final_vols = {}
+    for direction in directions:
+        vol = cur[direction]
+        if _active_after(sm_terminate, "sgm") and do_cbca:
+            for _ in range(cbca_i2):
+                vol = cross.cbca(x0c, x1c, vol, direction, L1)
+        disp[direction] = costs.wta(vol)
+        final_vols[direction] = vol
+
+    d_final = disp[directions[-1]]  # the -1 (left-reference) map
+    vol_final = final_vols[directions[-1]]
+    sm_active = _active_after(sm_terminate, "cbca2")
+
+    if kitti and len(directions) == 2:
+        labels = outlier.outlier_detection(disp[-1], disp[1], D)
+        if sm_active and sm_skip != "occlusion":
+            d_final = post.interpolate_occlusion(d_final, labels)
+        if _active_after(sm_terminate, "occlusion") and sm_skip != "occlusion":
+            d_final = post.interpolate_mismatch(d_final, labels)
+        sm_active = _active_after(sm_terminate, "mismatch")
+
+    if sm_active and sm_skip != "subpixel_enchancement":
+        d_final = post.subpixel_enhancement(d_final, vol_final, D)
+    sm_active = sm_active and _active_after(sm_terminate,
+                                            "subpixel_enchancement")
+
+    if sm_active and sm_skip != "median":
+        d_final = post.median2d(d_final, 5)
+    sm_active = sm_active and _active_after(sm_terminate, "median")
+
+    if sm_active and sm_skip != "bilateral":
+        d_final = blur.mean2d(d_final, blur_kernel, blur_t)
+
+    if return_vols:
+        return d_final, final_vols.get(-1), final_vols.get(1)
+    return d_final
 
 
 def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
@@ -84,14 +192,7 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
         raise ValueError("KITTI runs both reference directions")
     D = int(disp_max)
     H, W = x0.shape
-    images = torch.stack([x0, x1])[:, None]
-    if images.is_cuda:
-        # TF32 would drift the tower from the f32 reference and flip
-        # WTA near-ties; set here, not globally
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            feats = tower(images)
-    else:
-        feats = tower(images)
+    feats = _tower(tower, torch.stack([x0, x1])[:, None])
     fl = feats[0].permute(1, 2, 0)  # (H, W, C)
     fr = feats[1].permute(1, 2, 0)
     n_fix = (ws - 1) // 2
@@ -169,16 +270,17 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
 
 
 @torch.no_grad()
-def stereo_predict(cfg: Config, params: FastTower, x0, x1, disp_max: int,
-                   return_vols: bool = False, device=None):
+def stereo_predict(cfg: Config, params: FastTower | SlowNet, x0, x1,
+                   disp_max: int, return_vols: bool = False, device=None):
     """Run the full stereo method on one standardized pair.
 
     x0/x1: (H, W) float32 arrays or tensors (already per-image
-    standardized). ``params``: the fast tower (moved to the device).
-    Returns the left-reference disparity map (H, W) float32 tensor; with
-    ``return_vols`` also the final left and right cost volumes as
-    (D, H, W) tensors (the predict-mode .bin dumps). ``device=None``
-    runs on CUDA and raises where there is none.
+    standardized). ``params``: the fast tower or the slow net of
+    ``cfg.arch`` (moved to the device). Returns the left-reference
+    disparity map (H, W) float32 tensor; with ``return_vols`` also the
+    final left and right cost volumes as (D, H, W) tensors (the
+    predict-mode .bin dumps; None for a direction that did not run).
+    ``device=None`` runs on CUDA and raises where there is none.
     """
     dev = resolve_device(device)
     if cfg.dataset == "mb":
@@ -186,7 +288,11 @@ def stereo_predict(cfg: Config, params: FastTower, x0, x1, disp_max: int,
     else:
         directions = (1, -1)
     _check_lane(cfg)
-    tower = params.to(dev).eval()
+    want = SlowNet if cfg.arch == "slow" else FastTower
+    if not isinstance(params, want):
+        raise TypeError(f"arch {cfg.arch!r} needs a {want.__name__}, got "
+                        f"{type(params).__name__}")
+    net = params.to(dev).eval()
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
     x1 = torch.as_tensor(x1, dtype=torch.float32).to(dev)
     if x0.dim() != 2 or x0.shape != x1.shape:
@@ -194,12 +300,20 @@ def stereo_predict(cfg: Config, params: FastTower, x0, x1, disp_max: int,
                          f"{tuple(x0.shape)} and {tuple(x1.shape)}")
     blur_kernel = torch.as_tensor(blur.gaussian_kernel(cfg.blur_sigma),
                                   device=dev)
-    return _fast_hwd(
-        tower, x0, x1, blur_kernel, disp_max=int(disp_max),
-        kitti=cfg.dataset in ("kitti", "kitti2015"), ws=cfg.ws,
-        pi1=float(cfg.pi1), pi2=float(cfg.pi2), tau_so=float(cfg.tau_so),
-        alpha1=float(cfg.alpha1), sgm_q1=float(cfg.sgm_q1),
-        sgm_q2=float(cfg.sgm_q2), sgm_i=int(cfg.sgm_i),
-        blur_t=float(cfg.blur_t), sm_terminate=cfg.sm_terminate,
-        sm_skip=cfg.sm_skip, return_vols=return_vols,
-        directions=directions)
+    kitti = cfg.dataset in ("kitti", "kitti2015")
+    common = dict(pi1=float(cfg.pi1), pi2=float(cfg.pi2),
+                  tau_so=float(cfg.tau_so), alpha1=float(cfg.alpha1),
+                  sgm_q1=float(cfg.sgm_q1), sgm_q2=float(cfg.sgm_q2),
+                  sgm_i=int(cfg.sgm_i), blur_t=float(cfg.blur_t),
+                  sm_terminate=cfg.sm_terminate, sm_skip=cfg.sm_skip,
+                  return_vols=return_vols)
+    if cfg.arch == "fast":
+        return _fast_hwd(net, x0, x1, blur_kernel, disp_max=int(disp_max),
+                         kitti=kitti, ws=cfg.ws, directions=directions,
+                         **common)
+    vols = _volumes(net, x0, x1, arch=cfg.arch, disp_max=int(disp_max),
+                    ws=cfg.ws)
+    return _method(vols, x0, x1, blur_kernel, disp_max=int(disp_max),
+                   directions=directions, kitti=kitti, L1=int(cfg.L1),
+                   tau1=float(cfg.tau1), cbca_i1=int(cfg.cbca_i1),
+                   cbca_i2=int(cfg.cbca_i2), **common)

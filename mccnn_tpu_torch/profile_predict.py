@@ -1,8 +1,9 @@
 """Where the device time of one KITTI-size prediction goes.
 
-    python -m mccnn_tpu_torch.profile_predict [--top 15] [--trace out.json]
+    python -m mccnn_tpu_torch.profile_predict [--arch fast|slow] [--top 15]
+        [--trace out.json]
 
-Runs the fast-arch ``stereo_predict`` (kitti fast config, seeded random
+Runs ``stereo_predict`` (the kitti config of ``--arch``, seeded random
 weights) on a seeded 370x1226 pair at D=228 on the CUDA card, twice to
 warm up, then once under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
@@ -24,7 +25,8 @@ from mccnn_tpu_torch.models import towers
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
-HAND = ("join_kernel", "sweep_kernel", "outlier_kernel", "blur_kernel")
+HAND = ("join_kernel", "sweep_kernel", "outlier_kernel", "blur_kernel",
+        "head_chain_kernel")
 
 
 def _group(name: str) -> str:
@@ -38,6 +40,7 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=("fast", "slow"), default="fast")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args(argv)
@@ -46,8 +49,9 @@ def main(argv=None) -> None:
     base = np.random.RandomState(0).randn(H, W + shift).astype(np.float32)
     x0 = torch.as_tensor(standardize(base[:, :W]), device=dev)
     x1 = torch.as_tensor(standardize(base[:, shift:shift + W]), device=dev)
-    cfg = make_config("kitti", "fast", a="predict")
-    tower = towers.init_fast(cfg, torch.Generator().manual_seed(cfg.seed))
+    cfg = make_config("kitti", args.arch, a="predict")
+    init = towers.init_slow if args.arch == "slow" else towers.init_fast
+    tower = init(cfg, torch.Generator().manual_seed(cfg.seed))
     for _ in range(2):
         stereo_predict(cfg, tower, x0, x1, D)
     torch.cuda.synchronize()
@@ -74,7 +78,8 @@ def main(argv=None) -> None:
         g = groups[_group(e.key)]
         g[0] += dev_us(e) / 1e3
         g[1] += e.count
-    print(f"{torch.cuda.get_device_name(0)}: one stereo_predict 370x1226 "
+    print(f"{torch.cuda.get_device_name(0)}: one kitti {args.arch} "
+          f"stereo_predict 370x1226 "
           f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "
           f"{total_ms:.3f} ms in {sum(e.count for e in kernels)} kernel "
           f"launches, busy {total_ms / wall_ms:.3f}")

@@ -32,6 +32,10 @@ def _imports(tree):
 def test_guard_sees_every_file():
     assert len(FILES) >= 15
     assert all(f.exists() for f in FILES)
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for module in ("ops/slow_head.py", "ops/cross.py", "ops/sgm.py",
+                   "models/towers.py", "pipeline.py", "profile_predict.py"):
+        assert f"mccnn_tpu_torch/{module}" in names, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

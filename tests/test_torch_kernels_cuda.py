@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from mccnn_tpu_torch.ops import _build, blur, join, outlier, sgm
+from mccnn_tpu_torch.ops import _build, blur, join, outlier, sgm, slow_head
 
 pytestmark = pytest.mark.cuda
 
@@ -69,6 +69,71 @@ def test_sgm_kernels_match_plain(dev, xrev):
     assert torch.equal(map_only, gmap)
 
 
+@pytest.mark.parametrize("H,W,D,C,n_mid", [(11, 140, 19, 64, 2),
+                                           (5, 300, 130, 384, 3),
+                                           (3, 129, 1, 192, 1)])
+def test_slow_head_kernel_matches_plain(dev, H, W, D, C, n_mid):
+    """Awkward shapes (W % 128, D and C not multiples of 128; C=192
+    zero-padded to the 384 instance). Both sides round the same operands
+    to bf16 and sum in float32 in other orders; a hidden unit within a
+    summation-order difference of a bf16 rounding boundary may round one
+    bf16 ulp apart: max |d| <= 1e-3 over the cells with x >= d, mean
+    |d| <= 1e-5."""
+    rng = np.random.RandomState(C + D)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev)
+
+    A, B = t(H, W, C, scale=0.5), t(H, W, C, scale=0.5)
+    mw = t(n_mid, C, C, scale=C ** -0.5)
+    mb, wl = t(n_mid, C, scale=0.1), t(C, scale=C ** -0.5)
+    A, B, mw, mb, wl = slow_head.pad_head(A, B, mw, mb, wl)
+    mw = mw.to(torch.bfloat16)
+    before = _build.LAUNCHES["slow_head"]
+    got = slow_head.slow_head_volume(A, B, mw, mb, wl, 0.1, D)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["slow_head"] == before + 1
+    want = slow_head.slow_head_plain(A, B, mw, mb, wl, 0.1, D)
+    valid = (torch.arange(W, device=dev)[None, None, :]
+             >= torch.arange(D, device=dev)[:, None, None]).expand(D, H, W)
+    diff = (got - want).abs()[valid]
+    assert float(diff.max()) <= 1e-3 and float(diff.mean()) <= 1e-5
+
+
+@pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
+def test_generic_sgm_kernels_match_plain(dev, dirs):
+    """The generic lane's stacked sweeps (hslab and the vertical entry
+    with its n_rev split) against the plain step loops on the CPU: the
+    same f32 operations in the same order, rtol 1e-5."""
+    rng = np.random.RandomState(len(dirs))
+    D, H, W = 70, 23, 150
+    x0 = (rng.rand(H, W) * 0.2).astype(np.float32)
+    x1 = (rng.rand(H, W) * 0.2).astype(np.float32)
+    xs, ds = np.arange(W)[None, None, :], np.arange(D)[:, None, None]
+    vols = {}
+    for k in dirs:
+        v = rng.rand(D, H, W).astype(np.float32)
+        v[np.broadcast_to((xs + ds * k < 0) | (xs + ds * k >= W), v.shape)] = np.nan
+        vols[k] = v
+    kw = dict(pi1=1.32, pi2=24.25, tau_so=0.08, alpha1=2.0, sgm_q1=3.0,
+              sgm_q2=2.0)
+    before = dict(_build.LAUNCHES)
+    got = sgm.sgm_multi(torch.as_tensor(x0, device=dev),
+                        torch.as_tensor(x1, device=dev),
+                        {k: torch.as_tensor(v, device=dev)
+                         for k, v in vols.items()}, **kw)
+    torch.cuda.synchronize()
+    for entry in ("sgm_hslab", "sgm_vertical"):
+        assert _build.LAUNCHES[entry] == before.get(entry, 0) + 2
+    want = sgm.sgm_multi(torch.as_tensor(x0), torch.as_tensor(x1),
+                         {k: torch.as_tensor(v) for k, v in vols.items()},
+                         **kw)
+    for k in dirs:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=0,
+                                   equal_nan=True)
+
+
 def test_outlier_kernel_matches_plain(dev):
     rng = np.random.RandomState(3)
     H, W, D = 37, 300, 64
@@ -101,3 +166,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         outlier.outlier_detection(torch.zeros((4, 8), device=dev,
                                               dtype=torch.float64),
                                   torch.zeros((4, 8), device=dev), 3)
+    z = torch.zeros((4, 8, 96), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        slow_head.slow_head_volume(z, z, torch.zeros((1, 96, 96), device=dev),
+                                   z[0, 0], z[0, 0], 0.0, 3)
+    with pytest.raises(ValueError, match="bad shapes"):
+        slow_head.slow_head_volume(
+            z, z, torch.zeros((1, 96, 96), device=dev, dtype=torch.bfloat16),
+            torch.zeros((1, 96), device=dev), z[0, 0], 0.0, 3)

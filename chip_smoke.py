@@ -17,8 +17,12 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    (with the time of the same chain as bf16 cuBLAS matmuls beside it),
    the blur with kitti slow's 37x37 Gaussian, and the generic lane's
    stacked horizontal and vertical sweeps (both directions in one
-   volume, the -1 direction's scanlines reversed); bounds count the
-   real cells, not the padding;
+   volume, the -1 direction's scanlines reversed); then the scan form's
+   two entries (the whole sweep in one launch, and one launch per
+   step) on the (T, S, D) slices and D1/D2 tables the scan form builds
+   for both families (horizontal T=1226, S=740; vertical T=370,
+   S=2452), required equal to the plain loop bit for bit; bounds count
+   the real cells, not the padding;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -30,9 +34,20 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    score identical patches as a match); pairs/s (median of 5 after a
    warm-up) and peak memory with seeded random weights; the share of
    pixels where it differs from the all-plain path on the CPU at
+   96x320, D=48;
+6. the census and ad paths on the same pair (no network): kitti census
+   in the slab, stream and grid forms of the SGM (launch counts of one
+   ``stereo_predict`` per form, the three maps and final volumes
+   required equal, the accuracy, pairs/s as the median of 5 after a
+   warm-up and peak memory per form), kitti ad in the stream form, the
+   kitti fast arch with CBCA (the join kernel feeding the generic lane;
+   launch counts at full size, the all-plain comparison at 96x320,
+   D=48), and the census kernel path against the all-plain path at
    96x320, D=48.
 
-Prints the kernels' JSON line, the card line, and last
+Prints the kernels' JSON line (``launches`` counts the calls of a
+kernel's entry on its path, ``kernel_launches`` the kernel launches
+those calls made, as the C entries report them), the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 there is no CUDA card or the package is missing, and when any phase
 fails.
@@ -360,7 +375,6 @@ def main() -> int:
     vol_x, hplan = sgm.horiz_plan(x0_t, x1_t, vols, (-1, 1), D, H, W, **skw)
     vol_y, vplan = sgm.vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
                                  alpha1=scfg.alpha1, **skw)
-    del vols
 
     def stacked_family(entry, vol, plan, kernel, plain, table_bytes):
         """Both sweeps of a stacked family, kernel against plain, each to
@@ -410,6 +424,63 @@ def main() -> int:
     check(vplan[0]["n_rev"] == W, "the stacked vertical plan has no reversed "
           "half")
     del vol_y
+
+    def scan_family(name, vol, plan):
+        """Both scan-form entries against the plain loop on both sweeps
+        of a family, in sweep order as the scan form hands them over:
+        the same f32 operations in the same order, so equal bit for
+        bit, NaN masks included. The natural-order sweep is timed. The
+        bound counts every cell (the slices are not padded) and is the
+        same for both entries, which compute one function: the volume
+        and the D2 table read, the result written, the D1 table. That
+        the launch-per-step entry reads step t-1 back is its own cost,
+        not the function's."""
+        T, S, _ = vol.shape
+        fam, errs = {}, {"sgm_scan": 0.0, "sgm_step": 0.0}
+        for p in plan:
+            vol_s, d1, d2 = vol, p["d1"], p["d2"]
+            if p["reverse"]:
+                vol_s, d1, d2 = vol_s.flip(0), d1.flip(0), d2.flip(0)
+            kw = dict(tau=p["tau"], pen=p["pen"])
+            t0 = time.perf_counter()
+            want = sgm.sweep_scan_plain(vol_s, d1, d2, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for entry, sweep in (("sgm_scan", sgm.sweep_stream),
+                                 ("sgm_step", sgm.sweep_grid)):
+                got = sweep(vol_s, d1, d2, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got.isnan(), want.isnan()),
+                      f"{entry} {name} NaN masks differ")
+                diff = (got - want).abs().nan_to_num()  # masks equal
+                errs[entry] = max(errs[entry], float(diff.max()))
+                check(errs[entry] == 0.0, f"{entry} {name}: max |d| "
+                      f"{errs[entry]}, expected bit-identical")
+                del got, diff
+                if not p["reverse"]:
+                    n = T * S * D
+                    fam[entry] = dict(
+                        plain_ms=plain_ms,
+                        ms=cuda_ms(torch, lambda: sweep(vol_s, d1, d2, **kw), 5),
+                        bound=bound_ms((3 * n + T * S) * 4, 10.0 * n))
+            del want, vol_s, d1, d2
+        for entry, row in fam.items():
+            row["err"] = errs[entry]  # the larger of both sweeps'
+        return fam
+
+    vol_x, splan = sgm.scan_horiz_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
+                                       **skw)
+    check(vol_x.shape == (W, 2 * H, D), f"scan horizontal slices {vol_x.shape}")
+    fam = scan_family("horizontal", vol_x, splan)
+    rows["sgm_scan"], rows["sgm_step"] = fam["sgm_scan"], fam["sgm_step"]
+    del vol_x, splan
+    vol_y, splan = sgm.scan_vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
+                                      alpha1=scfg.alpha1, **skw)
+    check(vol_y.shape == (H, 2 * W, D), f"scan vertical slices {vol_y.shape}")
+    fam = scan_family("vertical", vol_y, splan)
+    rows["sgm_scan (vertical family)"] = fam["sgm_scan"]
+    rows["sgm_step (vertical family)"] = fam["sgm_step"]
+    del vol_y, splan, vols
     for name, row in rows.items():
         lib = row.get("library_ms")
         print(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
@@ -421,10 +492,10 @@ def main() -> int:
     _build.reset_launches()
     disp = stereo_predict(cfg, tower, x0, x1, D)
     torch.cuda.synchronize()
-    counts = _build.launches()
+    counts, kcounts = _build.launches(), _build.kernel_launches()
     print(f"phase 4: launches in one stereo_predict: {counts}")
-    want = {"join": 2, "sgm_vertical": 4, "sgm_horizontal": 4, "outlier": 1,
-            "blur": 1, "slow_head": 0, "sgm_hslab": 0}
+    want = dict.fromkeys(_build.KERNELS, 0)
+    want.update(join=2, sgm_vertical=4, sgm_horizontal=4, outlier=1, blur=1)
     check(counts == want, f"launch counts {counts}, expected {want}")
     d = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -470,10 +541,10 @@ def main() -> int:
     _build.reset_launches()
     disp = stereo_predict(scfg, hand, x0, x1, D)
     torch.cuda.synchronize()
-    slow_counts = _build.launches()
+    slow_counts, slow_kcounts = _build.launches(), _build.kernel_launches()
     print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
-    want = {"join": 0, "sgm_vertical": 2, "sgm_horizontal": 0, "outlier": 1,
-            "blur": 1, "slow_head": 1, "sgm_hslab": 2}
+    want = dict.fromkeys(_build.KERNELS, 0)
+    want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2)
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
     d = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -509,10 +580,101 @@ def main() -> int:
           f"by > 0.51")
     check(frac < 0.01, f"slow path: {frac} of pixels differ from the plain path")
 
-    # launches: each kernel's count on the path that runs it; the three
-    # shared ones (vertical sweep, outlier, blur) are the fast path's
-    path_counts = dict(counts, slow_head=slow_counts["slow_head"],
-                       sgm_hslab=slow_counts["sgm_hslab"])
+    # --- phase 6: the census and ad paths, and fast with CBCA -----------
+    del hand, snet
+    torch.cuda.empty_cache()
+    ccfg = make_config("kitti", "census", a="predict")
+    sweeps_of = {"slab": dict(sgm_hslab=2, sgm_vertical=2),
+                 "stream": dict(sgm_scan=4), "grid": dict(sgm_step=4)}
+
+    def generic_path(what, gcfg, net, form):
+        """One ``stereo_predict`` on the generic lane in an SGM form:
+        its launch counts, the map checked against the true disparity
+        unless the network is random, then pairs/s and peak memory.
+        Returns (counts, map, final volumes)."""
+        _build.reset_launches()
+        d_t, vl, vr = stereo_predict(gcfg, net, t0_, t1_, D, return_vols=True,
+                                     sgm_form=form)
+        torch.cuda.synchronize()
+        got, got_k = _build.launches(), _build.kernel_launches()
+        want = dict.fromkeys(_build.KERNELS, 0)
+        want.update(outlier=1, blur=1, join=0 if net is None else 2,
+                    **sweeps_of[form])
+        print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
+              f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
+        check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
+        # every entry launches its kernel once a call but sgm_step: once
+        # a sweep step, as its C entry reports
+        want_k = dict(want, sgm_step=2 * (H + W) if form == "grid" else 0)
+        check(got_k == want_k, f"{what} {form}: kernel launches {got_k}, "
+              f"expected {want_k}")
+        d = d_t.cpu().numpy()
+        check(d.shape == (H, W) and bool(np.isfinite(d).all()),
+              f"{what} {form}: disparity map not finite or misshaped")
+        if net is None:
+            good = float((np.abs(d[:, SHIFT + 8:] - SHIFT) <= 1.0).mean())
+            print(f"  pixels within 1 px of the true disparity {SHIFT}: "
+                  f"{good:.4f}")
+            check(good >= 0.9, f"{what} {form}: only {good:.4f} within 1 px")
+        stereo_predict(gcfg, net, t0_, t1_, D, sgm_form=form)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            stereo_predict(gcfg, net, t0_, t1_, D, sgm_form=form)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {what} 370x1226, form {form}: "
+              f"{1.0 / statistics.median(times):.4f} pairs/s (median of 5; runs "
+              f"{[round(t * 1e3, 1) for t in times]} ms), peak {peak:.2f} GiB")
+        return (got, got_k), d_t, (vl, vr)
+
+    scan_counts = {}
+    ref = None
+    for form in ("slab", "stream", "grid"):
+        got, d_t, vols_f = generic_path("census", ccfg, None, form)
+        scan_counts[form] = got
+        if ref is None:
+            ref = (d_t, vols_f)
+            continue
+        check(torch.equal(d_t, ref[0]), f"census map of form {form} differs "
+              "from the slab form's")
+        for a, b in zip(vols_f, ref[1]):
+            check(torch.equal(a.isnan(), b.isnan())
+                  and torch.equal(a.nan_to_num(), b.nan_to_num()),
+                  f"census final volume of form {form} differs from the slab "
+                  "form's")
+        del d_t, vols_f
+    print("  census: the three forms' maps and final volumes are equal")
+    del ref
+    generic_path("ad", make_config("kitti", "ad", a="predict"), None, "stream")
+    fcfg = make_config("kitti", "fast", a="predict", cbca_i1=2, L1=5,
+                       tau1=0.13)
+    generic_path("fast with CBCA", fcfg, tower, "slab")
+
+    for what, gcfg, net in (("census", ccfg, None),
+                            ("fast with CBCA", fcfg, tower)):
+        t = time.perf_counter()
+        d_k = stereo_predict(gcfg, net, s0, s1, dd).cpu().numpy()
+        d_plain = stereo_predict(gcfg, net, s0, s1, dd, device="cpu").numpy()
+        frac = float((np.abs(d_k - d_plain) > 0.51).mean())
+        print(f"  {what} kernel path vs all-plain path (CPU) at {h}x{w}, "
+              f"D={dd} ({time.perf_counter() - t:.0f} s): {frac:.5f} of pixels "
+              f"differ by > 0.51")
+        check(frac < 0.01, f"{what}: {frac} of pixels differ from the plain "
+              "path")
+
+    # launches: each kernel's count on the path that runs it (entry
+    # calls, and the kernel launches they made); the three shared ones
+    # (vertical sweep, outlier, blur) are the fast path's
+    path_counts, path_kcounts = (
+        dict(fast, slow_head=slow["slow_head"], sgm_hslab=slow["sgm_hslab"],
+             sgm_scan=stream["sgm_scan"], sgm_step=grid["sgm_step"])
+        for fast, slow, stream, grid in zip(
+            (counts, kcounts), (slow_counts, slow_kcounts),
+            scan_counts["stream"], scan_counts["grid"]))
     sources = {"join": ("join.cu", "mccnn_tpu/ops/join_pallas.py:65"),
                "sgm_vertical": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:741"),
                "sgm_horizontal": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:462"),
@@ -520,11 +682,14 @@ def main() -> int:
                "blur": ("blur.cu", "mccnn_tpu/ops/blur_pallas.py:56"),
                "slow_head": ("slow_head.cu",
                              "mccnn_tpu/ops/slow_head_pallas.py:62"),
-               "sgm_hslab": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:267")}
+               "sgm_hslab": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:267"),
+               "sgm_scan": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:157"),
+               "sgm_step": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:1005")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mccnn_tpu_torch/csrc/{sources[name][0]}",
          "replaces": sources[name][1], "launches": path_counts[name],
+         "kernel_launches": path_kcounts[name],
          "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
          "bound_by": rows[name]["bound"][1],

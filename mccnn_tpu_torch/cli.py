@@ -3,6 +3,7 @@
     python -m mccnn_tpu_torch kitti fast -a predict -left L.png -right R.png \\
         -disp_max 228 [-net_fname net.npz] [-backend cpu]
     python -m mccnn_tpu_torch kitti slow -a time
+    python -m mccnn_tpu_torch kitti census -a time
 
 Same flags and outputs as the reference's ``./main.lua`` (main.lua:10-32):
 predict writes ``left.bin``/``right.bin`` ((1, D, H, W) float32 cost
@@ -40,10 +41,13 @@ def device_of(cfg: Config) -> torch.device:
     return torch.device(dev.type, cfg.gpu - 1)
 
 
-def load_params(cfg: Config) -> towers.FastTower | towers.SlowNet:
+def load_params(cfg: Config) -> towers.FastTower | towers.SlowNet | None:
     """The network of ``-net_fname`` (an .npz of the JAX package's
     checkpoints), or seeded random weights with a warning: a fast tower
-    for the fast arch, a slow net (tower and FC head) for the slow one."""
+    for the fast arch, a slow net (tower and FC head) for the slow one.
+    None for ad and census, which need no network."""
+    if cfg.arch in ("ad", "census"):
+        return None
     if cfg.net_fname:
         net = towers.load_npz(cfg.net_fname)
         if isinstance(net, towers.SlowNet) != (cfg.arch == "slow"):

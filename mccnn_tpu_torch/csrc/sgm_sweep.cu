@@ -1,6 +1,6 @@
-// SGM sweeps: one recurrence, three layouts.
+// SGM sweeps: one recurrence, four layouts, and a launch-per-step form.
 //
-// Replaces three TPU kernels of mccnn_tpu/ops/sgm.py:
+// Replaces five TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
 //                         steps are rows y, scanlines are columns x)
 //   _sweep_stream_hnat   (horizontal sweeps on the disparity-minor
@@ -9,8 +9,14 @@
 //                         the fused winner-take-all of the last one)
 //   _sweep_stream_hslab  (horizontal sweeps of the generic lane on the
 //                         step-major (W, S, Dp) volume: step x, scanline s)
-// Three entries with their own launch counts. With d fastest in every
-// layout, one step of one scanline is one contiguous Dp row; a layout is
+//   _sweep_stream        (the scan form: one generic directional sweep over
+//                         pre-built (T, S, D) slices of the volume, a (T, S)
+//                         D1 table and a built (T, S, D) D2 table, in sweep
+//                         order; the whole sweep in one launch)
+//   _sweep_grid          (the same function, one sweep step per sequential
+//                         grid iteration: here one kernel launch per step)
+// Five entries with their own launch counts. With d fastest in every
+// layout, one step of one scanline is one contiguous row; a layout is
 // only where that row lies: cell = step * step_stride + scan * scan_stride.
 // The vertical entry serves both lanes: the (Hp, Wp, Dp) volume of one
 // direction, and the generic lane's (H, 2W, Dp) volume with both reference
@@ -34,7 +40,11 @@
 //   horizontal: row = scanline; col = D + x on natural scanlines and
 //               rev_base - x on the first n_rev ones (the -1 direction's,
 //               whose rows the host lane-reverses: g[x - d + D] equals
-//               rev(g)[rev_base - x + d] at rev_base = W + D - 1).
+//               rev(g)[rev_base - x + d] at rev_base = W + D - 1);
+//   table:      the scan form's built table, d2[cell, d].
+// The scan form's rows are D floats long, not padded: the threads d >= D
+// of a block hold NaN, which is what a pad lane holds in the other
+// layouts, so neighbours outside [0, D) never couple.
 //
 // Steps: n_steps stored steps, of which the first T are real. Steps
 // s >= T pass the volume through and leave the state alone; the state
@@ -61,6 +71,17 @@
 // latency overlaps it. Parallelism is one block per scanline: at KITTI
 // size the HWD horizontal family has 384 blocks of 256 threads, under one
 // wave of the card; the generic lane's stacked horizontal family 740.
+//
+// The scan form (sgm_sweep_scan) is the same kernel on the table layout:
+// it reads the volume and the D2 table and writes the per-step values,
+// 3 x T x S x D x 4 B plus the D1 table; no accumulator, no winner map.
+// The launch-per-step form (sgm_sweep_step) keeps no state in the block:
+// step t reads step t-1's row of the output from device memory (a fourth
+// pass over the volume's size), all S scanlines in flight at once, and the
+// C entry enqueues the T launches on the stream in order. The minimum over
+// d stays inside a block, so no launch waits on more than its predecessor.
+// Its cost is the T launches: at KITTI size 1226 or 370 of them, each
+// moving about 3 or 9 MB.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,16 +112,39 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   }
 }
 
+// One step of the recurrence at one disparity: prev, up and dn are the
+// previous step's values at d, d-1 and d+1 (+inf outside), pm their
+// minimum over d, v the volume's cell.
+__device__ __forceinline__ float relax(float prev, float pm, float up, float dn,
+                                       float v, float D1, float D2, float tau,
+                                       const Pen& pen) {
+  const int cls = (D1 < tau && D2 < tau) ? 0 : ((D1 > tau && D2 > tau) ? 2 : 1);
+  // selects, not pen.v[3 * cls]: a runtime index into the parameter
+  // struct would copy it to local memory
+  const float P1a = cls == 0 ? pen.v[0] : (cls == 2 ? pen.v[6] : pen.v[3]);
+  const float P1b = cls == 0 ? pen.v[1] : (cls == 2 ? pen.v[7] : pen.v[4]);
+  const float P2 = cls == 0 ? pen.v[2] : (cls == 2 ? pen.v[8] : pen.v[5]);
+  float cost = fminf(prev, pm + P2);
+  cost = fminf(cost, up + P1a);
+  cost = fminf(cost, dn + P1b);
+  return (v + cost) - pm;
+}
+
 // Where a layout keeps its rows: cell = step * step_stride + scan *
-// scan_stride (in Dp rows; d1 and wta are indexed by the cell), and which
-// D2 addressing it uses (see the top of the file).
+// scan_stride (in rows; d1 and wta are indexed by the cell), and which D2
+// addressing it uses (see the top of the file). The table layout is a
+// template instance of the kernel (TABLE): its rows are D floats long and
+// its D2 is d2[cell, d]. As a run-time field of the layout it cost the
+// other entries 6-7% of their time on the H100 (a predicate on every load
+// of the step loop); as a template argument it costs them nothing.
 struct Layout {
   long long step_stride, scan_stride;
-  int vertical;  // D2 row = step, column from the scanline
+  int by_step;   // D2 row = step, column from the scanline; else row = scanline
   int n_rev;     // scanlines [0, n_rev) are the reversed class
-  int rev_base;  // horizontal reversed class: col = rev_base - step
+  int rev_base;  // row = scanline, reversed class: col = rev_base - step
 };
 
+template <bool TABLE>
 __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
                              float* out, float* __restrict__ wta,
                              const float* __restrict__ d1,
@@ -113,11 +157,15 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   __shared__ float wval[2][MAX_WARPS];
   __shared__ int widx[2][MAX_WARPS];
   const float INF = __int_as_float(0x7f800000);
+  const float QNAN = __int_as_float(0x7fc00000);
   const int d = threadIdx.x;
   const int lane = d & 31, warp = d >> 5, nw = Dp >> 5;
   const int scan = blockIdx.x;
   const int init = reverse ? T - 1 : 0;
   const bool rev = scan < lay.n_rev;
+  // the table layout's rows are D floats: its threads d >= D hold NaN
+  const bool live = !TABLE || d < D;
+  const int lanes = TABLE ? D : Dp;
   const float* g = rev ? g_rev : g_nat;
 
   auto step_of = [&](int t) { return reverse ? n_steps - 1 - t : t; };
@@ -126,7 +174,8 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   };
   // D2 of step s at disparity d
   auto d2_at = [&](int s) {
-    if (lay.vertical)
+    if (TABLE) return live ? g[cell(s) * lanes + d] : 10.f;
+    if (lay.by_step)
       return g[(size_t)s * gw + D + (rev ? scan : scan - lay.n_rev) + d];
     return g[(size_t)scan * gw + (rev ? lay.rev_base - s : D + s) + d];
   };
@@ -136,8 +185,8 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   auto load = [&](int t) {
     const int s = step_of(t);
     const long long c = cell(s);
-    nv = vol[c * Dp + d];
-    if (acc) na = acc[c * Dp + d];
+    nv = live ? vol[c * lanes + d] : QNAN;
+    if (acc) na = live ? acc[c * lanes + d] : 0.f;
     nd1 = d1[c];
     nd2 = d2_at(s);
   };
@@ -166,21 +215,12 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
       for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[rb][w]);
       const float up = d > 0 ? row[rb][d - 1] : INF;
       const float dn = d < Dp - 1 ? row[rb][d + 1] : INF;
-      const int cls = (D1 < tau && D2 < tau) ? 0 : ((D1 > tau && D2 > tau) ? 2 : 1);
-      // selects, not pen.v[3 * cls]: a runtime index into the parameter
-      // struct would copy it to local memory
-      const float P1a = cls == 0 ? pen.v[0] : (cls == 2 ? pen.v[6] : pen.v[3]);
-      const float P1b = cls == 0 ? pen.v[1] : (cls == 2 ? pen.v[7] : pen.v[4]);
-      const float P2 = cls == 0 ? pen.v[2] : (cls == 2 ? pen.v[8] : pen.v[5]);
-      float cost = fminf(prev, pm + P2);
-      cost = fminf(cost, up + P1a);
-      cost = fminf(cost, dn + P1b);
-      prev = (v + cost) - pm;
+      prev = relax(prev, pm, up, dn, v, D1, D2, tau, pen);
       outv = prev;
       rb ^= 1;
     }
     const float fin = acc ? outv + a : outv;
-    if (out) out[c * Dp + d] = fin;
+    if (out && live) out[c * lanes + d] = fin;
     if (wta) {
       float bv = isnan(fin) ? INF : fin;
       int bi = d;
@@ -206,21 +246,57 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   }
 }
 
+// One step of the launch-per-step form: block = scanline, thread = d over
+// Dp = blockDim.x >= D threads; vol, d2, out: (T, S, D), d1: (T, S). Step 0
+// copies the volume; step t reads step t-1's row of out.
+__global__ void step_kernel(const float* __restrict__ vol,
+                            const float* __restrict__ d1,
+                            const float* __restrict__ d2, float* out, int t,
+                            int S, int D, float tau, Pen pen) {
+  __shared__ float row[1024];
+  __shared__ float wmin[MAX_WARPS];
+  const float INF = __int_as_float(0x7f800000);
+  const float QNAN = __int_as_float(0x7fc00000);
+  const int d = threadIdx.x;
+  const int lane = d & 31, warp = d >> 5, nw = blockDim.x >> 5;
+  const bool live = d < D;
+  const long long c = (long long)t * S + blockIdx.x;
+  const float v = live ? vol[c * D + d] : QNAN;
+  if (t == 0) {
+    if (live) out[c * D + d] = v;
+    return;
+  }
+  const float D1 = d1[c];
+  const float D2 = live ? d2[c * D + d] : 10.f;
+  const float prev = live ? out[(c - S) * D + d] : QNAN;
+  row[d] = prev;
+  const float m = warp_min(isnan(prev) ? INF : prev);
+  if (lane == 0) wmin[warp] = m;
+  __syncthreads();
+  float pm = wmin[0];
+  for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[w]);
+  const float up = d > 0 ? row[d - 1] : INF;
+  const float dn = d < (int)blockDim.x - 1 ? row[d + 1] : INF;
+  const float val = relax(prev, pm, up, dn, v, D1, D2, tau, pen);
+  if (live) out[c * D + d] = val;
+}
+
+template <bool TABLE = false>
 int launch(const float* vol, const float* acc, float* out, float* wta,
            const float* d1, const float* g_rev, const float* g_nat,
            Layout lay, int n_scan, int n_steps, int Dp, int D, int T,
            int reverse, int gw, float tau, Pen pen, cudaStream_t stream) {
-  sweep_kernel<<<n_scan, Dp, 0, stream>>>(vol, acc, out, wta, d1, g_rev, g_nat,
-                                          lay, Dp, D, n_steps, T, reverse, gw,
-                                          tau, pen);
+  sweep_kernel<TABLE><<<n_scan, Dp, 0, stream>>>(
+      vol, acc, out, wta, d1, g_rev, g_nat, lay, Dp, D, n_steps, T, reverse, gw,
+      tau, pen);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dp is a multiple of 32, at most 1024, for every entry; T real steps; acc
-// and out may be null and may alias each other; wta may be null. Each
-// entry returns cudaGetLastError().
+// Dp is a multiple of 32, at most 1024, for the first three entries; T real
+// steps; acc and out may be null and may alias each other; wta may be null.
+// Each entry returns cudaGetLastError().
 
 // vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
 // columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
@@ -261,4 +337,37 @@ extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
   const Layout lay{S, 1, 0, n_rev, rev_base};
   return launch(vol, acc, out, nullptr, d1, g, g, lay, S, W, Dp, D, W,
                 reverse, gw, tau, pen, stream);
+}
+
+// The scan form, whole sweep in one launch. vol, d2, out: (T, S, D) float32
+// in sweep order, 0 < D <= 1024, rows not padded; d1: (T, S). out receives
+// the per-step values; step 0 is the volume's. *launched (host memory)
+// receives the number of kernel launches made, here and in sgm_sweep_step.
+extern "C" int sgm_sweep_scan(const float* vol, const float* d1,
+                              const float* d2, float* out, int T, int S, int D,
+                              float tau, Pen pen, cudaStream_t stream,
+                              int* launched) {
+  const Layout lay{S, 1, 0, 0, 0};
+  const int rc = launch<true>(vol, nullptr, out, nullptr, d1, d2, d2, lay, S,
+                              T, (D + 31) / 32 * 32, D, T, 0, 0, tau, pen,
+                              stream);
+  *launched = rc == 0;
+  return rc;
+}
+
+// The scan form, one launch per step: the same arguments and result; T
+// launches of step_kernel in order on the stream.
+extern "C" int sgm_sweep_step(const float* vol, const float* d1,
+                              const float* d2, float* out, int T, int S, int D,
+                              float tau, Pen pen, cudaStream_t stream,
+                              int* launched) {
+  const int Dp = (D + 31) / 32 * 32;
+  *launched = 0;
+  for (int t = 0; t < T; ++t) {
+    step_kernel<<<S, Dp, 0, stream>>>(vol, d1, d2, out, t, S, D, tau, pen);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    ++*launched;
+  }
+  return 0;
 }

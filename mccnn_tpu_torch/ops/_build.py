@@ -8,8 +8,12 @@ and the flags, so an edited source rebuilds and an unchanged one is
 reused. No PyTorch header is compiled, so a build takes seconds;
 :func:`build` compiles several sources at once, one ``nvcc`` each.
 
-``LAUNCHES`` counts launches per kernel entry. Each wrapper adds one
-where it launches its kernel and nowhere else.
+``LAUNCHES`` counts the calls of each kernel entry and
+``KERNEL_LAUNCHES`` the kernel launches they made. Each wrapper calls
+:func:`count` where it launches its kernel and nowhere else. The two
+differ for an entry that launches its kernel several times per call
+(``sgm_step``: once per sweep step), which reports the number of
+launches it made itself.
 """
 
 from __future__ import annotations
@@ -29,20 +33,33 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head")
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
-           "slow_head", "sgm_hslab")
+           "slow_head", "sgm_hslab", "sgm_scan", "sgm_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def count(entry: str, kernel_launches: int = 1) -> None:
+    """Record one call of ``entry`` that made ``kernel_launches`` kernel
+    launches."""
+    LAUNCHES[entry] += 1
+    KERNEL_LAUNCHES[entry] += kernel_launches
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    KERNEL_LAUNCHES.clear()
 
 
 def launches() -> dict[str, int]:
     return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def kernel_launches() -> dict[str, int]:
+    return {k: KERNEL_LAUNCHES[k] for k in KERNELS}
 
 
 def _nvcc() -> str:

@@ -9,7 +9,9 @@ NaN at x + d >= W, d >= D and in pad rows; ``n_fix`` border columns
 replicated in the kernel.
 
 On CUDA tensors :func:`_join_plus` launches ``csrc/join.cu``; on CPU
-tensors it runs :func:`join_plus_plain`.
+tensors it runs :func:`join_plus_plain`. :func:`stereo_join_dhw` relays
+the two buffers to disparity-major (D, H, W) volumes for the generic
+lane (the fast arch with CBCA).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def _join_plus(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
                             C, Hp, Wp, b.shape[2], Dp, D, n_fix,
                             _build.stream(a))
     _build.check_launch(rc, "join")
-    _build.LAUNCHES["join"] += 1
+    _build.count("join")
     return out
 
 
@@ -116,3 +118,18 @@ def stereo_join_hwd(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
     vol_r = _join_plus(_prep(feat_r, False, Hp, Wp),
                        _prep(feat_l, False, Hp, Wp + Dp), D, W, H, n_fix)
     return vol_l_xrev, vol_r
+
+
+def stereo_join_dhw(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The disparity-major contract of :func:`costs.stereo_join
+    <mccnn_tpu_torch.ops.costs.stereo_join>` on the join kernel
+    (``stereo_join_mxu``, join_pallas.py:327-342): (vol_L, vol_R),
+    each (D, H, W), relaid from the :func:`stereo_join_hwd` buffers, the
+    left one un-reversed; no border fix (the generic lane applies
+    ``fix_border`` afterwards)."""
+    H, W, _ = feat_l.shape
+    D = int(disp_max)
+    vol_l_xrev, vol_r = stereo_join_hwd(feat_l, feat_r, D)
+    return (vol_l_xrev[:H, :W, :D].flip(1).permute(2, 0, 1).contiguous(),
+            vol_r[:H, :W, :D].permute(2, 0, 1).contiguous())

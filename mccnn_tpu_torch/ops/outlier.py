@@ -67,5 +67,5 @@ def outlier_detection(d0: torch.Tensor, d1: torch.Tensor, disp_max: int
     rc = _lib().outlier_launch(d0.data_ptr(), d1.data_ptr(), out.data_ptr(),
                                H, W, int(disp_max), _build.stream(d0))
     _build.check_launch(rc, "outlier")
-    _build.LAUNCHES["outlier"] += 1
+    _build.count("outlier")
     return out

@@ -7,14 +7,28 @@
   (down, up), then two horizontal sweeps (right, left), chained through
   one accumulator; the sum is NOT divided by 4; the winner-take-all map
   of the sum comes out of the last sweep.
-- Generic lane, on (D, H, W) volumes (``sgm._sgm_multi`` /
-  ``_sgm_slab``, sgm.py:1135-1234, 1334-1441): :func:`sgm_multi`,
-  :func:`sgm`, :func:`sgm_pair`. Both reference directions are stacked
-  on the scanline axis of each family's volume: the horizontal family on
-  a step-major (W, n*H, Dp) volume (:func:`sgm_slab_horiz`), the
-  vertical one on an (H, n*W, Dp) volume with the -1 direction
-  x-reversed (:func:`sgm_slab_vert`). The two sweeps of a family sum in
-  place; the family sums are added (h + v) and the caller divides by 4.
+- Generic lane, on (D, H, W) volumes (``sgm._sgm_multi``,
+  sgm.py:1334-1441): :func:`sgm_multi`, :func:`sgm`, :func:`sgm_pair`,
+  whatever made the volumes (the slow head, census, ad, the fast join).
+  Both reference directions are stacked on the scanline axis of each
+  family's volume; the family sums are added (h + v) and the caller
+  divides by 4. Two forms, chosen by ``form`` (see
+  :func:`resolve_form`), give the same sums:
+
+  - the slab form (``_sgm_slab``, sgm.py:1135-1234): the horizontal
+    family on a step-major (W, n*H, Dp) volume
+    (:func:`sgm_slab_horiz`), the vertical one on an (H, n*W, Dp) volume
+    with the -1 direction x-reversed (:func:`sgm_slab_vert`); D2 is read
+    as windows of small per-row tables and the two sweeps of a family
+    sum in place;
+  - the scan form (``_sgm_scan_horiz`` / ``_sgm_scan_vert``,
+    sgm.py:1365-1422): each sweep runs over pre-built (T, S, D) slices
+    of the volume, a (T, S) D1 table and a built (T, S, D) D2 table, in
+    sweep order, and returns the (T, S, D) per-step values
+    (:func:`sgm_scan_horiz`, :func:`sgm_scan_vert`); the sweep is
+    :func:`sweep_stream` (the whole sweep in one launch) or
+    :func:`sweep_grid` (one launch per step). It is the form the
+    row-sharded inference of the JAX package is built on.
 
 Penalties (adcensus.cu:586-613): D1 = |x0[p] - x0[p - step]|,
 D2 = |x1[q] - x1[q - step]| at the match pixel q (10 where q or
@@ -23,13 +37,15 @@ q - step leaves the frame); both below tau_so -> (pi1, pi2), both above
 (down) or d+1 (up) neighbour penalty by alpha1.
 
 On CUDA tensors each sweep launches ``csrc/sgm_sweep.cu`` (entries
-``sgm_vertical``, ``sgm_horizontal`` and ``sgm_hslab``); on CPU tensors
-it runs the step loops :func:`sweep_plain` and :func:`hslab_plain`.
+``sgm_vertical``, ``sgm_horizontal``, ``sgm_hslab``, ``sgm_scan`` and
+``sgm_step``); on CPU tensors it runs the step loops
+:func:`sweep_plain`, :func:`hslab_plain` and :func:`sweep_scan_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -180,6 +196,19 @@ def hslab_plain(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
                 reverse=reverse, T=W, tau=tau, pen=pen)
 
 
+def sweep_scan_plain(vol_s, d1_s, d2_s, *, tau, pen):
+    """One generic directional sweep as a step loop of torch ops
+    (``_sweep``, sgm.py:104-129): vol_s (T, S, D) volume slices in sweep
+    order (T steps, S scanlines), d1_s (T, S) and d2_s (T, S, D) the
+    per-step D1 and D2. Step 0 starts the recurrence. Returns the
+    (T, S, D) per-step values in sweep order."""
+    out = torch.empty_like(vol_s)
+    _recurrence(vol_s, None, out, None, d1_s, lambda s: d2_s[s],
+                lambda t, s: t[s], vol_s.shape[0], reverse=False,
+                T=vol_s.shape[0], tau=tau, pen=pen)
+    return out
+
+
 class _Pen(ctypes.Structure):
     _fields_ = [("v", ctypes.c_float * 9)]
 
@@ -194,8 +223,12 @@ def _lib():
                                              + [ctypes.c_int] * 7 + tail)
         lib.sgm_sweep_hslab.argtypes = ([ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 8 + tail)
+        for fn in (lib.sgm_sweep_scan, lib.sgm_sweep_step):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + tail
+                           + [ctypes.POINTER(ctypes.c_int)])
         for fn in (lib.sgm_sweep_vertical, lib.sgm_sweep_horizontal,
-                   lib.sgm_sweep_hslab):
+                   lib.sgm_sweep_hslab, lib.sgm_sweep_scan,
+                   lib.sgm_sweep_step):
             fn.restype = ctypes.c_int
     return lib
 
@@ -242,7 +275,7 @@ def _sweep(vol, acc, out, wta, d1, g, *, vertical, reverse, T, D, tau, pen,
                                          _build.stream(vol))
         entry = "sgm_horizontal"
     _build.check_launch(rc, entry)
-    _build.LAUNCHES[entry] += 1
+    _build.count(entry)
 
 
 def _sweep_hslab(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
@@ -270,7 +303,49 @@ def _sweep_hslab(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
                                 _Pen((ctypes.c_float * 9)(*pen)),
                                 _build.stream(vol))
     _build.check_launch(rc, "sgm_hslab")
-    _build.LAUNCHES["sgm_hslab"] += 1
+    _build.count("sgm_hslab")
+
+
+def _sweep_scan(entry, vol_s, d1_s, d2_s, tau, pen):
+    """A scan-form sweep: the C entry ``sgm_sweep_<entry>`` on CUDA
+    tensors, :func:`sweep_scan_plain` on CPU tensors."""
+    if not vol_s.is_cuda:
+        return sweep_scan_plain(vol_s, d1_s, d2_s, tau=tau, pen=pen)
+    named = (("vol", vol_s), ("d1", d1_s), ("d2", d2_s))
+    _check(named, f"sgm {entry}")
+    if vol_s.dim() != 3 or not 0 < vol_s.shape[2] <= 1024 \
+            or 0 in vol_s.shape or d1_s.shape != vol_s.shape[:2] \
+            or d2_s.shape != vol_s.shape:
+        raise ValueError(f"sgm {entry}: bad shapes vol {tuple(vol_s.shape)}, "
+                         f"d1 {tuple(d1_s.shape)}, d2 {tuple(d2_s.shape)}")
+    T, S, D = vol_s.shape
+    out = torch.empty_like(vol_s)
+    launched = ctypes.c_int(0)
+    rc = getattr(_lib(), f"sgm_sweep_{entry}")(
+        vol_s.data_ptr(), d1_s.data_ptr(), d2_s.data_ptr(), out.data_ptr(),
+        T, S, D, float(np.float32(tau)), _Pen((ctypes.c_float * 9)(*pen)),
+        _build.stream(vol_s), ctypes.byref(launched))
+    _build.check_launch(rc, f"sgm_{entry}")
+    _build.count(f"sgm_{entry}", launched.value)
+    return out
+
+
+def sweep_stream(vol_s, d1_s, d2_s, *, tau, pen):
+    """The scan-form sweep with the whole sweep in one launch (entry
+    ``sgm_scan``, the counterpart of ``_sweep_stream``, sgm.py:157):
+    the contract of :func:`sweep_scan_plain`, which runs on CPU
+    tensors."""
+    return _sweep_scan("scan", vol_s, d1_s, d2_s, tau, pen)
+
+
+def sweep_grid(vol_s, d1_s, d2_s, *, tau, pen):
+    """The scan-form sweep with one kernel launch per step, the state
+    being the previous step's row of the output (entry ``sgm_step``, the
+    counterpart of ``_sweep_grid``, sgm.py:1005): the contract of
+    :func:`sweep_scan_plain`, which runs on CPU tensors.
+    ``_build.LAUNCHES`` rises by one per call, ``_build.KERNEL_LAUNCHES``
+    by the number of kernel launches the C entry reports (T)."""
+    return _sweep_scan("step", vol_s, d1_s, d2_s, tau, pen)
 
 
 def sweep_plan(x0, x1, D, H, W, shape, *, xrev, pi1, pi2, tau_so, alpha1,
@@ -447,34 +522,160 @@ def sgm_slab_vert(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
     return outs
 
 
+def _d2_table(d2col: torch.Tensor, direction: int, D: int, W: int):
+    """(H, W, D) view with [y, x, d] = d2col[y, x + d*direction + D] of
+    an (H, W + 2D) table of :func:`d2_columns`: a sliding window
+    starting at x + D for +1, at x + 1 and lane-reversed for -1
+    (sgm.py:1379-1386; the gather of sgm.py:1411-1414 never clips, so it
+    is the same window)."""
+    win = d2col.unfold(1, D, 1)  # [y, s, j] = d2col[y, s + j]
+    if direction > 0:
+        return win[:, D:D + W]
+    return win[:, 1:1 + W].flip(2)
+
+
+def scan_horiz_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
+                    q1, q2):
+    """The scan form's horizontal family (``_sgm_scan_horiz``,
+    sgm.py:1365-1394) as inputs of a scan-form sweep: the (W, n*H, D)
+    volume slices (steps the W columns, scanlines the rows of the
+    stacked directions) and, for the right and the left sweep, the
+    (W, n*H) D1 table, the built (W, n*H, D) D2 table, whether the sweep
+    runs the steps in reverse, and the penalties; all in natural step
+    order."""
+    vol_x = torch.cat([vols[d].permute(2, 1, 0) for d in dirs],
+                      dim=1).contiguous()
+    plan = []
+    for dx in (1, -1):
+        d1 = grad_with_sentinel(x0, axis=1, step=dx).T  # (W, H)
+        d2col = d2_columns(x1, dx, 0, D)  # (H, W + 2D)
+        plan.append(dict(
+            d1=torch.cat([d1] * len(dirs), dim=1),
+            d2=torch.cat([_d2_table(d2col, d, D, W).permute(1, 0, 2)
+                          for d in dirs], dim=1),
+            reverse=dx == -1, tau=tau_so,
+            pen=pen_table(pi1, pi2, q1, q2, 1.0, 1.0)))
+    return vol_x, plan
+
+
+def scan_vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
+                   alpha1, q1, q2):
+    """The scan form's vertical family (``_sgm_scan_vert``,
+    sgm.py:1397-1422): the (H, n*W, D) volume slices (steps the H rows,
+    scanlines the columns of the stacked directions) and the down and
+    the up sweep's inputs, as :func:`scan_horiz_plan` gives them."""
+    vol_y = torch.cat([vols[d].permute(1, 2, 0) for d in dirs],
+                      dim=1).contiguous()
+    plan = []
+    for sgm_dir, dy in ((2, 1), (3, -1)):
+        d1 = grad_with_sentinel(x0, axis=0, step=dy)  # (H, W)
+        d2col = d2_columns(x1, 0, dy, D)  # (H, W + 2D)
+        plan.append(dict(
+            d1=torch.cat([d1] * len(dirs), dim=1),
+            d2=torch.cat([_d2_table(d2col, d, D, W) for d in dirs], dim=1),
+            reverse=dy == -1, tau=tau_so,
+            pen=pen_table(pi1, pi2, q1, q2, alpha1 if sgm_dir == 2 else 1.0,
+                          alpha1 if sgm_dir == 3 else 1.0)))
+    return vol_y, plan
+
+
+def _scan_sum(sweep, vol_t, plan, vols: dict, dirs, n, perm) -> dict:
+    """Both sweeps of a scan-form family, added into a zero volume per
+    direction: the forward sweep runs the natural step order, the
+    backward one the reversed order, its result un-reversed. ``n`` is
+    the scanline count of one direction and ``perm`` takes a direction's
+    (T, n, D) block to (D, H, W)."""
+    outs = {d: torch.zeros_like(vols[d]) for d in dirs}
+    for p in plan:
+        vol_s, d1, d2 = vol_t, p["d1"], p.pop("d2")
+        if p["reverse"]:
+            vol_s, d1, d2 = vol_s.flip(0), d1.flip(0), d2.flip(0)
+        res = sweep(vol_s, d1, d2, tau=p["tau"], pen=p["pen"])
+        del vol_s, d2
+        if p["reverse"]:
+            res = res.flip(0)
+        for i, d in enumerate(dirs):
+            outs[d] += res[:, i * n:(i + 1) * n].permute(*perm)
+    return outs
+
+
+def sgm_scan_horiz(sweep, x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2,
+                   tau_so, q1, q2) -> dict:
+    """Horizontal family (sgm_dir 0: right, 1: left) in the scan form on
+    the sweep implementation ``sweep`` (:func:`sweep_stream`,
+    :func:`sweep_grid` or :func:`sweep_scan_plain`). Returns
+    {direction: (D, H, W) sum of both sweeps}."""
+    vol_x, plan = scan_horiz_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1,
+                                  pi2=pi2, tau_so=tau_so, q1=q1, q2=q2)
+    return _scan_sum(sweep, vol_x, plan, vols, dirs, H, (2, 1, 0))
+
+
+def sgm_scan_vert(sweep, x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2,
+                  tau_so, alpha1, q1, q2) -> dict:
+    """Vertical family (sgm_dir 2: down, 3: up) in the scan form on the
+    sweep implementation ``sweep``. Returns {direction: (D, H, W) sum of
+    both sweeps}."""
+    vol_y, plan = scan_vert_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1,
+                                 pi2=pi2, tau_so=tau_so, alpha1=alpha1, q1=q1,
+                                 q2=q2)
+    return _scan_sum(sweep, vol_y, plan, vols, dirs, W, (2, 0, 1))
+
+
+FORMS = ("slab", "stream", "grid")
+
+
+def resolve_form(form=None) -> str:
+    """The SGM form of the generic lane: ``"slab"``, ``"stream"`` or
+    ``"grid"``. ``None`` reads ``MCCNN_SGM_HSLAB`` now, as the JAX
+    package does (sgm.py:1353-1354): ``"0"`` selects ``"stream"``,
+    anything else ``"slab"``; ``"grid"`` is chosen only by name."""
+    if form is None:
+        return "stream" if os.environ.get("MCCNN_SGM_HSLAB", "1") == "0" \
+            else "slab"
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
+    return form
+
+
 def sgm_multi(x0, x1, vols: dict, *, pi1, pi2, tau_so, alpha1, sgm_q1,
-              sgm_q2) -> dict:
+              sgm_q2, form=None) -> dict:
     """Four sweeps, summed (h + v, not divided by 4), for one or both
-    reference directions at once. vols: {direction: (D, H, W)}."""
+    reference directions at once. vols: {direction: (D, H, W)};
+    ``form``: see :func:`resolve_form`."""
+    form = resolve_form(form)
     dirs = sorted(vols)
     D, H, W = vols[dirs[0]].shape
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=vols[dirs[0]].device)
     x1 = torch.as_tensor(x1, dtype=torch.float32, device=vols[dirs[0]].device)
     kw = dict(pi1=pi1, pi2=pi2, tau_so=tau_so, q1=sgm_q1, q2=sgm_q2)
-    h = sgm_slab_horiz(x0, x1, vols, dirs, D, H, W, **kw)
-    v = sgm_slab_vert(x0, x1, vols, dirs, D, H, W, alpha1=alpha1, **kw)
-    return {d: h[d] + v[d] for d in dirs}
+    if form == "slab":
+        h = sgm_slab_horiz(x0, x1, vols, dirs, D, H, W, **kw)
+        v = sgm_slab_vert(x0, x1, vols, dirs, D, H, W, alpha1=alpha1, **kw)
+    else:
+        sweep = sweep_stream if form == "stream" else sweep_grid
+        h = sgm_scan_horiz(sweep, x0, x1, vols, dirs, D, H, W, **kw)
+        v = sgm_scan_vert(sweep, x0, x1, vols, dirs, D, H, W, alpha1=alpha1,
+                          **kw)
+    # the slab families return views with d fastest; the sum is laid out
+    # (D, H, W) contiguous, which the stages after the SGM read far faster
+    return {d: torch.add(h[d], v[d], out=torch.empty_like(
+        vols[d], memory_format=torch.contiguous_format)) for d in dirs}
 
 
 def sgm(x0, x1, vol, *, pi1, pi2, tau_so, alpha1, sgm_q1, sgm_q2,
-        direction) -> torch.Tensor:
+        direction, form=None) -> torch.Tensor:
     """All four sweeps of one direction, summed (caller divides by 4).
     vol: (D, H, W)."""
     return sgm_multi(x0, x1, {direction: vol}, pi1=pi1, pi2=pi2,
                      tau_so=tau_so, alpha1=alpha1, sgm_q1=sgm_q1,
-                     sgm_q2=sgm_q2)[direction]
+                     sgm_q2=sgm_q2, form=form)[direction]
 
 
 def sgm_pair(x0, x1, vol_m1, vol_p1, *, pi1, pi2, tau_so, alpha1, sgm_q1,
-             sgm_q2):
+             sgm_q2, form=None):
     """Both reference directions in one stacked sweep set; returns
     (out_minus1, out_plus1)."""
     outs = sgm_multi(x0, x1, {-1: vol_m1, 1: vol_p1}, pi1=pi1, pi2=pi2,
                      tau_so=tau_so, alpha1=alpha1, sgm_q1=sgm_q1,
-                     sgm_q2=sgm_q2)
+                     sgm_q2=sgm_q2, form=form)
     return outs[-1], outs[1]

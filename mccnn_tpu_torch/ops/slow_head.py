@@ -130,7 +130,7 @@ def slow_head_volume(A, B, mids_w, mids_b, w_last, b_last, disp_max: int
                           float(b_last), out.data_ptr(), H, W, int(disp_max),
                           C, n_mid, _build.stream(A))
     _build.check_launch(rc, "slow_head")
-    _build.LAUNCHES["slow_head"] += 1
+    _build.count("slow_head")
     return out
 
 

@@ -2,20 +2,28 @@
 
 Orchestration contract: ``stereo_predict`` (main.lua:929-1082).
 
-- Fast arch, disparity-minor (HWD) lane (mccnn_tpu/pipeline.py:232-375):
-  tower -> join -> per-direction SGM (four sweeps, one accumulator, fused
-  WTA) -> LR outlier labels -> occlusion and mismatch fill -> subpixel
-  parabola on the left volume -> 5×5 median -> thresholded-Gaussian
-  blur. The left volume stays x-REVERSED end to end (only (H, W) maps
-  are flipped). The sweep sum is not divided by 4: WTA is
-  scale-invariant and the subpixel threshold scales to 4e-5; the volume
-  dumps divide on the way out.
-- Slow arch, generic (D, H, W) lane (``_volumes_jit`` +
-  ``_method_jit``, pipeline.py:34-229): slow tower -> factored head
-  kernel -> NaN masks and ``fix_border`` -> CBCA ×cbca_i1 -> SGM (both
-  directions stacked, four sweeps, h + v, /4) -> CBCA ×cbca_i2 -> WTA
-  -> outlier labels -> fills -> subpixel on the -1 volume (threshold
-  1e-5) -> median -> blur.
+- Disparity-minor (HWD) lane, the fast arch without CBCA
+  (mccnn_tpu/pipeline.py:232-375): tower -> join -> per-direction SGM
+  (four sweeps, one accumulator, fused WTA) -> LR outlier labels ->
+  occlusion and mismatch fill -> subpixel parabola on the left volume ->
+  5×5 median -> thresholded-Gaussian blur. The left volume stays
+  x-REVERSED end to end (only (H, W) maps are flipped). The sweep sum is
+  not divided by 4: WTA is scale-invariant and the subpixel threshold
+  scales to 4e-5; the volume dumps divide on the way out.
+- Generic (D, H, W) lane, every other configuration (``_volumes_jit`` +
+  ``_method_jit``, pipeline.py:34-229). Three sources of volumes
+  (:func:`_volumes`): the slow arch (slow tower -> factored head kernel
+  -> NaN masks -> ``fix_border``), the fast arch with CBCA (fast tower
+  -> join kernel, relaid to (D, H, W) -> ``fix_border``), and the
+  census and ad costs of the two images (no network, no border fix).
+  Then (:func:`_method`) CBCA ×cbca_i1 -> SGM (both directions stacked,
+  four sweeps, h + v, /4) -> CBCA ×cbca_i2 -> WTA -> outlier labels ->
+  fills -> subpixel on the -1 volume (threshold 1e-5) -> median -> blur.
+  The SGM runs in the slab form or, with ``MCCNN_SGM_HSLAB=0`` or
+  ``sgm_form``, in one of the two scan forms
+  (:func:`mccnn_tpu_torch.ops.sgm.resolve_form`); the scan forms also
+  send the fast arch without CBCA to this lane, as the JAX package does
+  (pipeline.py:399-414).
 
 ``sm_terminate`` stops after a named stage and ``sm_skip`` skips one,
 with the gate placement of main.lua:988-1080 (the mismatch stage is
@@ -64,18 +72,9 @@ def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
 
 
 def _check_lane(cfg: Config) -> None:
-    """The port runs the fast arch on the HWD lane (no CBCA) and the
-    slow arch on the generic lane, in float32 without the volume cache;
-    every other configuration names the ROADMAP item that will bring
-    it."""
-    if cfg.arch not in ("fast", "slow"):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 12: census and ad volumes)")
-    if cfg.arch == "fast" and (int(cfg.cbca_i1) or int(cfg.cbca_i2)):
-        raise NotImplementedError(
-            "the fast arch with CBCA (fast volumes on the generic lane) is "
-            "not ported yet (ROADMAP.md queue 1, item 12)")
+    """The port runs every arch in float32 without the volume cache;
+    the configurations it does not run yet name the ROADMAP item that
+    will bring them."""
     if cfg.use_cache or cfg.make_cache:
         raise NotImplementedError("the volume cache is not ported yet "
                                   "(ROADMAP.md queue 1, item 15)")
@@ -106,13 +105,25 @@ def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int):
 
 @torch.no_grad()
 def _volumes(net, x0, x1, *, arch, disp_max, ws) -> dict:
-    """Cost volumes of both reference directions with the CNN border
-    fixed (mccnn_tpu/pipeline.py:97-149): {-1: vol_l, +1: vol_r}."""
-    if arch != "slow":
-        raise NotImplementedError(
-            f"arch {arch!r} on the generic lane is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
-    vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max)
+    """Cost volumes of both reference directions, (D, H, W) each
+    (mccnn_tpu/pipeline.py:97-149): {-1: vol_l, +1: vol_r}. The fast
+    and slow arches get the CNN border fixed; ad and census use no
+    network (``net`` is None)."""
+    if arch == "ad":
+        return {-1: costs.ad_volume(x0, x1, disp_max, -1),
+                1: costs.ad_volume(x1, x0, disp_max, 1)}
+    if arch == "census":
+        return {-1: costs.census_volume(x0, x1, disp_max, -1),
+                1: costs.census_volume(x1, x0, disp_max, 1)}
+    if arch == "fast":
+        feats = _tower(net, torch.stack([x0, x1])[:, None])
+        vol_l, vol_r = join.stereo_join_dhw(feats[0].permute(1, 2, 0),
+                                            feats[1].permute(1, 2, 0),
+                                            disp_max)
+    elif arch == "slow":
+        vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max)
+    else:
+        raise ValueError(arch)
     n = (ws - 1) // 2
     return {-1: costs.fix_border(vol_l, -1, n),
             1: costs.fix_border(vol_r, 1, n)}
@@ -120,9 +131,11 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws) -> dict:
 
 def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
             L1, tau1, cbca_i1, cbca_i2, pi1, pi2, tau_so, alpha1, sgm_q1,
-            sgm_q2, sgm_i, blur_t, sm_terminate, sm_skip, return_vols):
+            sgm_q2, sgm_i, blur_t, sm_terminate, sm_skip, return_vols,
+            sgm_form=None):
     """The stereo method on (D, H, W) volumes (mccnn_tpu/pipeline.py:
-    152-229), with every gate of main.lua:988-1080."""
+    152-229), with every gate of main.lua:988-1080; ``sgm_form`` is the
+    ``form`` of :func:`mccnn_tpu_torch.ops.sgm.sgm_multi`."""
     D = int(disp_max)
     sm_active = _active_after(sm_terminate, "cnn")
     do_cbca = sm_active and sm_skip != "cbca"
@@ -141,7 +154,8 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
     if _active_after(sm_terminate, "cbca1") and sm_skip != "sgm":
         for _ in range(sgm_i):
             outs = sgm.sgm_multi(x0, x1, cur, pi1=pi1, pi2=pi2, tau_so=tau_so,
-                                 alpha1=alpha1, sgm_q1=sgm_q1, sgm_q2=sgm_q2)
+                                 alpha1=alpha1, sgm_q1=sgm_q1, sgm_q2=sgm_q2,
+                                 form=sgm_form)
             cur = {d: v / 4.0 for d, v in outs.items()}
 
     disp = {}
@@ -269,18 +283,30 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
     return d_final
 
 
+def _hwd_eligible(cfg: Config, form: str) -> bool:
+    """The HWD lane takes the fast arch with no CBCA while the SGM is in
+    its slab form (``_hwd_eligible``, mccnn_tpu/pipeline.py:399-414);
+    everything else goes to the generic lane."""
+    return (cfg.arch == "fast" and int(cfg.cbca_i1) == 0
+            and int(cfg.cbca_i2) == 0 and form == "slab")
+
+
 @torch.no_grad()
-def stereo_predict(cfg: Config, params: FastTower | SlowNet, x0, x1,
-                   disp_max: int, return_vols: bool = False, device=None):
+def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
+                   disp_max: int, return_vols: bool = False, device=None,
+                   sgm_form: str | None = None):
     """Run the full stereo method on one standardized pair.
 
     x0/x1: (H, W) float32 arrays or tensors (already per-image
     standardized). ``params``: the fast tower or the slow net of
-    ``cfg.arch`` (moved to the device). Returns the left-reference
-    disparity map (H, W) float32 tensor; with ``return_vols`` also the
-    final left and right cost volumes as (D, H, W) tensors (the
-    predict-mode .bin dumps; None for a direction that did not run).
-    ``device=None`` runs on CUDA and raises where there is none.
+    ``cfg.arch`` (moved to the device), None for ad and census. Returns
+    the left-reference disparity map (H, W) float32 tensor; with
+    ``return_vols`` also the final left and right cost volumes as
+    (D, H, W) tensors (the predict-mode .bin dumps; None for a direction
+    that did not run). ``device=None`` runs on CUDA and raises where
+    there is none. ``sgm_form``: the SGM form of the generic lane,
+    ``"slab"``, ``"stream"`` or ``"grid"``; None reads
+    ``MCCNN_SGM_HSLAB`` (see ``ops.sgm.resolve_form``).
     """
     dev = resolve_device(device)
     if cfg.dataset == "mb":
@@ -288,11 +314,15 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet, x0, x1,
     else:
         directions = (1, -1)
     _check_lane(cfg)
-    want = SlowNet if cfg.arch == "slow" else FastTower
-    if not isinstance(params, want):
+    form = sgm.resolve_form(sgm_form)
+    want = {"fast": FastTower, "slow": SlowNet}.get(cfg.arch)
+    if want is None and params is not None:
+        raise TypeError(f"arch {cfg.arch!r} uses no network: params must be "
+                        f"None, got {type(params).__name__}")
+    if want is not None and not isinstance(params, want):
         raise TypeError(f"arch {cfg.arch!r} needs a {want.__name__}, got "
                         f"{type(params).__name__}")
-    net = params.to(dev).eval()
+    net = None if params is None else params.to(dev).eval()
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
     x1 = torch.as_tensor(x1, dtype=torch.float32).to(dev)
     if x0.dim() != 2 or x0.shape != x1.shape:
@@ -307,7 +337,7 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet, x0, x1,
                   sgm_i=int(cfg.sgm_i), blur_t=float(cfg.blur_t),
                   sm_terminate=cfg.sm_terminate, sm_skip=cfg.sm_skip,
                   return_vols=return_vols)
-    if cfg.arch == "fast":
+    if _hwd_eligible(cfg, form):
         return _fast_hwd(net, x0, x1, blur_kernel, disp_max=int(disp_max),
                          kitti=kitti, ws=cfg.ws, directions=directions,
                          **common)
@@ -316,4 +346,4 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet, x0, x1,
     return _method(vols, x0, x1, blur_kernel, disp_max=int(disp_max),
                    directions=directions, kitti=kitti, L1=int(cfg.L1),
                    tau1=float(cfg.tau1), cbca_i1=int(cfg.cbca_i1),
-                   cbca_i2=int(cfg.cbca_i2), **common)
+                   cbca_i2=int(cfg.cbca_i2), sgm_form=form, **common)

@@ -1,11 +1,13 @@
 """Where the device time of one KITTI-size prediction goes.
 
-    python -m mccnn_tpu_torch.profile_predict [--arch fast|slow] [--top 15]
-        [--trace out.json]
+    python -m mccnn_tpu_torch.profile_predict [--arch fast|slow|census|ad]
+        [--form slab|stream|grid] [--top 15] [--trace out.json]
 
 Runs ``stereo_predict`` (the kitti config of ``--arch``, seeded random
-weights) on a seeded 370x1226 pair at D=228 on the CUDA card, twice to
-warm up, then once under ``torch.profiler``. Prints the device time of
+weights where the arch has a network; ``--form`` is the SGM form of the
+generic lane, by default what ``MCCNN_SGM_HSLAB`` selects) on a seeded
+370x1226 pair at D=228 on the CUDA card, twice to warm up, then once
+under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
 tower's convolutions and the plain torch operations, the top kernels by
 device time, and the device's busy share of the wall time of the run.
@@ -25,8 +27,8 @@ from mccnn_tpu_torch.models import towers
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
-HAND = ("join_kernel", "sweep_kernel", "outlier_kernel", "blur_kernel",
-        "head_chain_kernel")
+HAND = ("join_kernel", "sweep_kernel", "step_kernel", "outlier_kernel",
+        "blur_kernel", "head_chain_kernel")
 
 
 def _group(name: str) -> str:
@@ -40,7 +42,10 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=("fast", "slow"), default="fast")
+    ap.add_argument("--arch", choices=("fast", "slow", "census", "ad"),
+                    default="fast")
+    ap.add_argument("--form", choices=("slab", "stream", "grid"), default=None,
+                    help="SGM form of the generic lane")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args(argv)
@@ -50,16 +55,16 @@ def main(argv=None) -> None:
     x0 = torch.as_tensor(standardize(base[:, :W]), device=dev)
     x1 = torch.as_tensor(standardize(base[:, shift:shift + W]), device=dev)
     cfg = make_config("kitti", args.arch, a="predict")
-    init = towers.init_slow if args.arch == "slow" else towers.init_fast
-    tower = init(cfg, torch.Generator().manual_seed(cfg.seed))
+    init = {"fast": towers.init_fast, "slow": towers.init_slow}.get(args.arch)
+    tower = init and init(cfg, torch.Generator().manual_seed(cfg.seed))
     for _ in range(2):
-        stereo_predict(cfg, tower, x0, x1, D)
+        stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        stereo_predict(cfg, tower, x0, x1, D)
+        stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
@@ -78,8 +83,9 @@ def main(argv=None) -> None:
         g = groups[_group(e.key)]
         g[0] += dev_us(e) / 1e3
         g[1] += e.count
+    form = "" if args.form is None else f" (SGM form {args.form})"
     print(f"{torch.cuda.get_device_name(0)}: one kitti {args.arch} "
-          f"stereo_predict 370x1226 "
+          f"stereo_predict{form} 370x1226 "
           f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "
           f"{total_ms:.3f} ms in {sum(e.count for e in kernels)} kernel "
           f"launches, busy {total_ms / wall_ms:.3f}")

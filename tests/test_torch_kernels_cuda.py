@@ -134,6 +134,70 @@ def test_generic_sgm_kernels_match_plain(dev, dirs):
                                    equal_nan=True)
 
 
+def _scan_case(rng, T, S, D, dev):
+    """Pre-built scan-form slices: volume rows with out-of-frame NaN
+    runs, scattered NaN cells and one all-NaN scanline step; D1 and D2
+    around tau so that all three penalty classes occur."""
+    vol = rng.rand(T, S, D).astype(np.float32)
+    vol[rng.rand(T, S, D) < 0.03] = np.nan
+    vol[:, : S // 2, D - D // 3:] = np.nan
+    vol[T // 2, 1, :] = np.nan
+    d1 = (rng.rand(T, S) * 0.16).astype(np.float32)
+    d2 = (rng.rand(T, S, D) * 0.16).astype(np.float32)
+    d2[rng.rand(T, S, D) < 0.05] = 10.0
+    return tuple(torch.as_tensor(a, device=dev) for a in (vol, d1, d2))
+
+
+@pytest.mark.parametrize("entry", ["sgm_scan", "sgm_step"])
+@pytest.mark.parametrize("T,S,D", [(37, 50, 70), (9, 131, 228), (64, 3, 32),
+                                   (5, 7, 1)])
+def test_scan_sweep_kernels_match_plain(dev, entry, T, S, D):
+    """The two scan-form entries against ``sweep_scan_plain`` on the
+    same tensors: the same f32 operations in the same order, so equal
+    bit for bit, NaN masks included; D below, at and off a multiple of
+    32 (the rows are not padded)."""
+    vol, d1, d2 = _scan_case(np.random.RandomState(T + D), T, S, D, dev)
+    pen = sgm.pen_table(1.32, 24.25, 3.0, 2.0, 2.0, 1.0)
+    sweep = sgm.sweep_stream if entry == "sgm_scan" else sgm.sweep_grid
+    _build.reset_launches()
+    got = sweep(vol, d1, d2, tau=0.08, pen=pen)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[entry] == 1
+    assert _build.KERNEL_LAUNCHES[entry] == (T if entry == "sgm_step" else 1)
+    want = sgm.sweep_scan_plain(vol, d1, d2, tau=0.08, pen=pen)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("form", ["stream", "grid"])
+def test_scan_forms_equal_the_slab_form(dev, form):
+    """``sgm_multi`` in the scan forms on the card against the slab
+    form on the card: the same two sweep results per family, added in
+    either order, so equal."""
+    rng = np.random.RandomState(3)
+    D, H, W = 70, 23, 150
+    x0 = torch.as_tensor((rng.rand(H, W) * 0.2).astype(np.float32), device=dev)
+    x1 = torch.as_tensor((rng.rand(H, W) * 0.2).astype(np.float32), device=dev)
+    xs, ds = np.arange(W)[None, None, :], np.arange(D)[:, None, None]
+    vols = {}
+    for k in (-1, 1):
+        v = rng.rand(D, H, W).astype(np.float32)
+        v[np.broadcast_to((xs + ds * k < 0) | (xs + ds * k >= W), v.shape)] = np.nan
+        vols[k] = torch.as_tensor(v, device=dev)
+    kw = dict(pi1=1.32, pi2=24.25, tau_so=0.08, alpha1=2.0, sgm_q1=3.0,
+              sgm_q2=2.0)
+    want = sgm.sgm_multi(x0, x1, vols, form="slab", **kw)
+    _build.reset_launches()
+    got = sgm.sgm_multi(x0, x1, vols, form=form, **kw)
+    torch.cuda.synchronize()
+    entry = "sgm_scan" if form == "stream" else "sgm_step"
+    assert _build.launches()[entry] == 4
+    assert _build.LAUNCHES["sgm_hslab"] == _build.LAUNCHES["sgm_vertical"] == 0
+    for k in (-1, 1):
+        assert torch.equal(got[k].isnan(), want[k].isnan())
+        assert torch.equal(got[k].nan_to_num(), want[k].nan_to_num())
+
+
 def test_outlier_kernel_matches_plain(dev):
     rng = np.random.RandomState(3)
     H, W, D = 37, 300, 64
@@ -174,3 +238,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         slow_head.slow_head_volume(
             z, z, torch.zeros((1, 96, 96), device=dev, dtype=torch.bfloat16),
             torch.zeros((1, 96), device=dev), z[0, 0], 0.0, 3)
+    pen = sgm.pen_table(1.0, 2.0, 3.0, 2.0, 1.0, 1.0)
+    for sweep in (sgm.sweep_stream, sgm.sweep_grid):
+        d1 = z[:, :, 0].contiguous()
+        with pytest.raises(ValueError, match="bad shapes"):
+            sweep(z, d1, z[:, :, :95].contiguous(), tau=0.1, pen=pen)
+        with pytest.raises(ValueError, match="contiguous"):
+            sweep(z, z[:, :, 0], z, tau=0.1, pen=pen)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sweep(z, d1.cpu(), z, tau=0.1, pen=pen)

@@ -124,11 +124,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         cli.device_of(cfg)
 
 
-@pytest.mark.parametrize("overrides", [dict(arch="census"), dict(cbca_i1=2),
-                                       dict(vol_dtype="bfloat16")])
+@pytest.mark.parametrize("overrides", [dict(vol_dtype="bfloat16"),
+                                       dict(use_cache=True),
+                                       dict(dtype="bfloat16")])
 def test_configs_outside_the_lane_name_the_roadmap(overrides):
-    arch = overrides.pop("arch", "fast")
-    cfg = make_config("kitti", arch, a="predict", **overrides)
+    cfg = make_config("kitti", "fast", a="predict", **overrides)
     tower = towers.init_fast(make_config("kitti", "fast"),
                              torch.Generator().manual_seed(0))
     x = np.zeros((8, 16), np.float32)

@@ -14,7 +14,11 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    cuDNN with TF32 off against the same tower on the CPU), then the
    KITTI slow-arch path (kitti slow widths: 112 features, head 384
    wide with three mid layers): the head kernel over the whole volume
-   (with the time of the same chain as bf16 cuBLAS matmuls beside it),
+   (with the time of the same chain as bf16 cuBLAS matmuls beside it and
+   the share of the bf16 peak it reaches) and at a small ragged size in
+   the Middlebury shape of the chain (two mid layers, 48 wide padded to
+   64); the horizontal sweep's four uses (forward and reverse, with and
+   without the volume write, the winner map fused) bit for bit;
    the blur with kitti slow's 37x37 Gaussian, and the generic lane's
    stacked horizontal and vertical sweeps (both directions in one
    volume, the -1 direction's scanlines reversed); then the scan form's
@@ -73,6 +77,10 @@ F32_OPS = 67e12
 BF16_TC_OPS = 989e12
 
 H, W, D, SHIFT = 370, 1226, 228, 40
+
+# the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
+# shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
+OLD_HEAD_MS = 319.10
 
 
 def card_line() -> str:
@@ -283,7 +291,35 @@ def main() -> int:
                 bound=bound_ms(3 * cells * 4 + tables
                                + (H * W * 4 if last else 0), 10.0 * cells))
     print(f"  fused WTA maps equal on {wta_same:.6f} of pixels")
-    del acc_k, acc_p
+    del acc_p
+
+    # the horizontal entry in its four uses: the right-going and the
+    # left-going sweep, each adding into the accumulator in place and with
+    # the volume write skipped, the winner map fused: the same f32
+    # operations in the same order and an exact min, so equal to the plain
+    # loop bit for bit, volume, NaN mask and winner map
+    for p in plan[2:]:
+        p = dict(p)
+        d1, g = p.pop("d1"), p.pop("g")
+        for with_out in (True, False):
+            res = []
+            for sweep in (sgm._sweep, sgm.sweep_plain):
+                a = acc_k.clone()
+                w = torch.empty((Hp, Wp), device=dev)
+                sweep(vol_r, a, a if with_out else None, w, d1, g, **p)
+                res.append((a, w))
+            torch.cuda.synchronize()
+            (a_k, w_k), (a_p, w_p) = res
+            what = (f"horizontal sweep (reverse={p['reverse']}, "
+                    f"volume write={with_out})")
+            check(torch.equal(w_k, w_p), f"{what}: winner maps differ")
+            check(torch.equal(a_k.isnan(), a_p.isnan())
+                  and torch.equal(a_k.nan_to_num(), a_p.nan_to_num()),
+                  f"{what}: volumes differ")
+            del res, a, w, a_k, a_p, w_k, w_p
+    print("  sgm_horizontal: forward and reverse, with and without the volume "
+          "write, bit-identical to the plain loop (volume and winner map)")
+    del acc_k
 
     d_r = costs.wta_hwd(vol_r)[:H, :W].contiguous()
     d_l = costs.wta_hwd(vol_l)[:H, :W].flip(1).contiguous()
@@ -358,8 +394,38 @@ def main() -> int:
         bound=bound_ms((A.numel() + B.numel() + s_k.numel()) * 4
                        + mids_w.numel() * 2,
                        2.0 * head_cells * n_mid * nh2 * nh2, BF16_TC_OPS))
+    head_ops = rows["slow_head"]["bound"][0] * 1e-3 * BF16_TC_OPS
+    print(f"  slow_head: {head_ops / (rows['slow_head']['ms'] * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s, {rows['slow_head']['bound'][0] / rows['slow_head']['ms']:.3f} "
+          f"of the {BF16_TC_OPS / 1e12:.0f} TFLOP/s bf16 peak (the mma.sync "
+          f"kernel it replaces took {OLD_HEAD_MS} ms)")
     vols = dict(zip((-1, 1), slow_head.masked_volumes(s_k)))
     del s_k, s_p, valid
+
+    # the Middlebury shape of the chain (two mid layers, a narrow head
+    # padded to the 64-wide instance) at a small ragged size
+    rs = np.random.RandomState(5)
+    h2, w2, d2, c2 = 9, 203, 70, 48
+
+    def rt(*shape, scale):
+        return torch.as_tensor((rs.randn(*shape) * scale).astype(np.float32),
+                               device=dev)
+
+    small = slow_head.pad_head(rt(h2, w2, c2, scale=0.5), rt(h2, w2, c2, scale=0.5),
+                               rt(2, c2, c2, scale=c2 ** -0.5),
+                               rt(2, c2, scale=0.1), rt(c2, scale=c2 ** -0.5))
+    small = (*small[:2], small[2].to(torch.bfloat16), *small[3:], 0.1)
+    check(small[0].shape[-1] == 64, f"padded width {small[0].shape[-1]}")
+    diff = (slow_head.slow_head_volume(*small, d2)
+            - slow_head.slow_head_plain(*small, d2)).abs()
+    diff = diff[(torch.arange(w2, device=dev)[None, None, :]
+                 >= torch.arange(d2, device=dev)[:, None, None]).expand_as(diff)]
+    err2, mean2 = float(diff.max()), float(diff.mean())
+    print(f"  slow_head at {h2}x{w2}, D={d2}, C={c2} padded to 64, two mid "
+          f"layers: max |d| {err2:.3g}, mean |d| {mean2:.3g}")
+    check(err2 <= 1e-3 and mean2 <= 1e-5,
+          f"small slow_head max |d| {err2} > 1e-3 or mean |d| {mean2} > 1e-5")
+    del small, diff
 
     # blur with kitti slow's own Gaussian and threshold, on the WTA map of
     # the slow head's left volume

@@ -1,4 +1,5 @@
-// SGM sweeps: one recurrence, four layouts, and a launch-per-step form.
+// SGM sweeps: one recurrence, four layouts, a launch-per-step form, and a
+// kernel of its own for the disparity-minor horizontal sweep.
 //
 // Replaces five TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
@@ -17,7 +18,8 @@
 //                         grid iteration: here one kernel launch per step)
 // Five entries with their own launch counts. With d fastest in every
 // layout, one step of one scanline is one contiguous row; a layout is
-// only where that row lies: cell = step * step_stride + scan * scan_stride.
+// only where that row lies: cell = step * step_stride + scan * scan_stride
+// (the horizontal entry: step_stride 1, scan_stride Wp).
 // The vertical entry serves both lanes: the (Hp, Wp, Dp) volume of one
 // direction, and the generic lane's (H, 2W, Dp) volume with both reference
 // directions stacked on the scanline axis.
@@ -62,15 +64,24 @@
 // is a chain of n_steps dependent steps per scanline, each ending in a
 // block-wide min.
 //
-// Design (simple and right first): one block of Dp threads per scanline,
-// thread = disparity, the steps a loop inside the block. The previous
-// step lives in a register and in a double-buffered shared row for the
-// d +- 1 neighbours; the min is a warp shuffle then a shared-memory pass,
-// one __syncthreads per step. The next step's volume, accumulator and
-// penalty inputs are loaded before this step's reduction, so their
-// latency overlaps it. Parallelism is one block per scanline: at KITTI
-// size the HWD horizontal family has 384 blocks of 256 threads, under one
-// wave of the card; the generic lane's stacked horizontal family 740.
+// Design of sweep_kernel (the vertical, hslab and scan entries; simple and
+// right first): one block of Dp threads per scanline, thread = disparity,
+// the steps a loop inside the block. The previous step lives in a register
+// and in a double-buffered shared row for the d +- 1 neighbours; the min is
+// a warp shuffle then a shared-memory pass, one __syncthreads per step. The
+// next step's volume, accumulator and penalty inputs are loaded before this
+// step's reduction, so their latency overlaps it. Parallelism is one block
+// per scanline: the generic lane's stacked horizontal family has 740 blocks
+// at KITTI size.
+//
+// The disparity-minor horizontal entry (sgm_sweep_horizontal) has 384
+// scanlines at KITTI size, under one wave of the card, so one step of
+// prefetch leaves too few bytes in flight to stream at the card's rate, and
+// nothing hides the per-step barrier. Its kernel, hsweep_kernel (see the
+// note above it), runs one warp per scanline with no block barrier and
+// keeps tens of kilobytes per scanline in flight through a ring of
+// multi-step chunks filled by bulk asynchronous copies. It assumes only that
+// a scanline's steps are contiguous rows of Dp floats.
 //
 // The scan form (sgm_sweep_scan) is the same kernel on the table layout:
 // it reads the volume and the D2 table and writes the per-step values,
@@ -281,6 +292,324 @@ __global__ void step_kernel(const float* __restrict__ vol,
   if (live) out[c * D + d] = val;
 }
 
+// ---- the HWD lane's horizontal sweep: a kernel of its own ------------------
+//
+// Its only layout assumption: the steps of one scanline are contiguous rows
+// of Dp floats (row y of the (Hp, Wp, Dp) volume is one run of Wp * Dp
+// floats), so a chunk of HK steps is one contiguous run of HK * Dp * 4 bytes.
+
+constexpr int HK = 8;       // steps per chunk
+constexpr int HSTAGES = 4;  // chunks in the ring, at most
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk asynchronous copy global -> shared (the TMA unit's 1-D copy):
+// bytes a multiple of 16, both addresses 16-byte aligned; completion is
+// counted on the mbarrier.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A map float -> unsigned that keeps the order (no NaN comes in), so that
+// one redux.sync min does a warp's min exactly; key_float is its inverse.
+__device__ __forceinline__ unsigned float_key(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// relax() with the penalty class resolved as far as the step allows: D1 is
+// the same for every d of a step, so the step picks the triple (P1a, P1b,
+// pm + P2) that applies where D2 lies on D1's side of tau (`agree`), and
+// the mixed class's triple applies elsewhere. The same operations on the
+// same values.
+struct StepPen {
+  float a1, b1, p2;   // D2 on D1's side of tau
+  float am, bm, pm2;  // the mixed class
+  bool lt, gt;        // D1 < tau, D1 > tau
+};
+
+__device__ __forceinline__ StepPen step_pen(float D1, float pm, float tau,
+                                            const Pen& pen) {
+  StepPen sp;
+  sp.lt = D1 < tau;
+  sp.gt = D1 > tau;
+  sp.a1 = sp.lt ? pen.v[0] : pen.v[6];
+  sp.b1 = sp.lt ? pen.v[1] : pen.v[7];
+  sp.p2 = pm + (sp.lt ? pen.v[2] : pen.v[8]);
+  sp.am = pen.v[3];
+  sp.bm = pen.v[4];
+  sp.pm2 = pm + pen.v[5];
+  return sp;
+}
+
+__device__ __forceinline__ float relax_step(float prev, float pm, float up,
+                                            float dn, float v, float D2, float tau,
+                                            const StepPen& sp) {
+  const bool agree = sp.lt ? D2 < tau : (sp.gt && D2 > tau);
+  float cost = fminf(prev, agree ? sp.p2 : sp.pm2);
+  cost = fminf(cost, up + (agree ? sp.a1 : sp.am));
+  cost = fminf(cost, dn + (agree ? sp.b1 : sp.bm));
+  return (v + cost) - pm;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// One warp (one block) per scanline, NG = ceil(Dp / 128) groups of four
+// disparities a lane: lane l holds d = 4 (l + 32 g) + e, e < 4, g < NG (one
+// float4 per group, consecutive lanes on consecutive float4s: coalesced, no
+// bank conflicts). The min over d is in-register fminf, then one redux.sync
+// on order-keeping integer keys (exact, like any min); the d +- 1 neighbours
+// across float4s come by two rotating shuffles a group; the fused winner
+// map is two more redux.sync. No __syncthreads and no shared row. The
+// inputs (volume and accumulator rows) arrive in chunks of HK steps through
+// a ring of `stages` buffers filled by cp.async.bulk, one "full" mbarrier a
+// stage; lane 0 starts a chunk's copies `stages` chunks ahead, right after
+// the chunk that held the buffer was consumed, so (stages - 1) chunks a
+// scanline are in flight whatever the compute does. The scanline's D2 row
+// lives in shared memory for the whole sweep; D1 of a chunk sits in one
+// register a lane, loaded a chunk ahead. The sum goes out by coalesced
+// 16-byte stores; in place (out == acc) is safe because a chunk is written
+// only after its copy has landed.
+template <int NG>
+__global__ void __launch_bounds__(32)
+    hsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
+                  float* __restrict__ wta, const float* __restrict__ d1,
+                  const float* __restrict__ g, int n_steps, int Dp, int D, int T,
+                  int reverse, int gw, float tau, Pen pen, int stages) {
+  extern __shared__ __align__(128) unsigned char hs_raw[];
+  const float INF = __int_as_float(0x7f800000);
+  const float QNAN = __int_as_float(0x7fc00000);
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x;
+  const int scan = blockIdx.x;
+  const int init = reverse ? T - 1 : 0;
+  const bool has_acc = acc != nullptr;
+  const int chunk_floats = HK * Dp;
+  const int stage_floats = chunk_floats * (has_acc ? 2 : 1);
+  const int n_chunks = (n_steps + HK - 1) / HK;
+  const size_t row = (size_t)scan * n_steps;  // cell of step 0
+
+  float* ring = reinterpret_cast<float*>(hs_raw);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * stage_floats);
+  float* gs = reinterpret_cast<float*>(bars + HSTAGES);
+
+  // chunk c in sweep order covers the stored steps [lo, lo + cnt)
+  auto chunk_lo = [&](int c) { return (reverse ? n_chunks - 1 - c : c) * HK; };
+  auto fetch = [&](int c) {  // lane 0
+    const int lo = chunk_lo(c);
+    const unsigned bytes = (unsigned)(min(HK, n_steps - lo) * Dp) * 4u;
+    const int st = c % stages;
+    const unsigned bar = smem_addr(bars + st);
+    const unsigned dst = smem_addr(ring + (size_t)st * stage_floats);
+    mbar_expect_tx(bar, has_acc ? 2 * bytes : bytes);
+    bulk_load(dst, vol + (row + lo) * Dp, bytes, bar);
+    if (has_acc) bulk_load(dst + chunk_floats * 4, acc + (row + lo) * Dp, bytes, bar);
+  };
+  // D1 of the chunk's step lo + lane (lanes >= cnt: unused)
+  auto d1_of = [&](int c) {
+    if (c >= n_chunks) return 0.f;
+    const int s = chunk_lo(c) + lane;
+    return (lane < HK && s < n_steps) ? d1[row + s] : 0.f;
+  };
+
+  if (lane == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(smem_addr(bars + st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  if (lane == 0)
+    for (int c = 0; c < stages && c < n_chunks; ++c) fetch(c);
+  // the scanline's D2 window: gs[s + d] = g[scan, D + s + d]
+  for (int i = lane; i < n_steps + Dp; i += 32) gs[i] = g[(size_t)scan * gw + D + i];
+  float d1n = d1_of(0);
+  __syncwarp();
+
+  bool live[NG];  // a lane's float4 lies inside the row (Dp need not be NG * 128)
+#pragma unroll
+  for (int q = 0; q < NG; ++q) live[q] = 4 * (lane + 32 * q) < Dp;
+
+  float prev[NG][4];
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) prev[q][e] = QNAN;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int lo = chunk_lo(c);
+    const int cnt = min(HK, n_steps - lo);
+    const float d1c = d1n;
+    d1n = d1_of(c + 1);
+    const int st = c % stages;
+    mbar_wait(smem_addr(bars + st), (unsigned)(c / stages) & 1u);
+    const float* sv = ring + (size_t)st * stage_floats;
+    const float* sa = sv + chunk_floats;
+
+#pragma unroll 2
+    for (int i = 0; i < cnt; ++i) {
+      const int j = reverse ? cnt - 1 - i : i;
+      const int s = lo + j;
+      float4 v[NG], a[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        const int f = lane + 32 * q;
+        v[q] = make_float4(QNAN, QNAN, QNAN, QNAN);
+        a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live[q]) {
+          v[q] = *reinterpret_cast<const float4*>(sv + j * Dp + 4 * f);
+          if (has_acc) a[q] = *reinterpret_cast<const float4*>(sa + j * Dp + 4 * f);
+        }
+      }
+      const float D1 = __shfl_sync(FULL, d1c, j);
+
+      if (s < T) {
+        if (s == init) {
+#pragma unroll
+          for (int q = 0; q < NG; ++q) {
+            prev[q][0] = v[q].x;
+            prev[q][1] = v[q].y;
+            prev[q][2] = v[q].z;
+            prev[q][3] = v[q].w;
+          }
+        } else {
+          float m = INF;  // fminf drops NaN: NaN counts as +inf
+#pragma unroll
+          for (int q = 0; q < NG; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) m = fminf(m, prev[q][e]);
+          const float pm = key_float(__reduce_min_sync(FULL, float_key(m)));
+          const StepPen sp = step_pen(D1, pm, tau, pen);
+          float ru[NG], rd[NG];  // the lane below's last d, the lane above's first
+#pragma unroll
+          for (int q = 0; q < NG; ++q) {
+            ru[q] = __shfl_sync(FULL, prev[q][3], (lane + 31) & 31);
+            rd[q] = __shfl_sync(FULL, prev[q][0], (lane + 1) & 31);
+          }
+#pragma unroll
+          for (int q = 0; q < NG; ++q) {
+            const int d0 = 4 * (lane + 32 * q);
+            float up = lane > 0 ? ru[q] : (q > 0 ? ru[q > 0 ? q - 1 : 0] : INF);
+            float dn = lane < 31 ? rd[q] : (q < NG - 1 ? rd[q < NG - 1 ? q + 1 : q] : INF);
+            if (d0 + 3 == Dp - 1) dn = INF;
+            const float* d2 = gs + s + (live[q] ? d0 : 0);  // dead lanes: any
+            const float n0 = relax_step(prev[q][0], pm, up, prev[q][1], v[q].x, d2[0], tau, sp);
+            const float n1 = relax_step(prev[q][1], pm, prev[q][0], prev[q][2], v[q].y, d2[1], tau, sp);
+            const float n2 = relax_step(prev[q][2], pm, prev[q][1], prev[q][3], v[q].z, d2[2], tau, sp);
+            const float n3 = relax_step(prev[q][3], pm, prev[q][2], dn, v[q].w, d2[3], tau, sp);
+            prev[q][0] = n0;
+            prev[q][1] = n1;
+            prev[q][2] = n2;
+            prev[q][3] = n3;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+          v[q] = make_float4(prev[q][0], prev[q][1], prev[q][2], prev[q][3]);
+      }  // else a pad step: the volume passes through, the state stays
+
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        if (has_acc) {
+          v[q].x += a[q].x;
+          v[q].y += a[q].y;
+          v[q].z += a[q].z;
+          v[q].w += a[q].w;
+        }
+        if (out && live[q])
+          *reinterpret_cast<float4*>(out + (row + s) * Dp + 4 * (lane + 32 * q)) = v[q];
+      }
+      if (wta) {
+        // winner: the least value (NaN counts as +inf, -0 as +0), then the
+        // least d that has it; in the lane first, then across the warp
+        float m = INF;
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m = fminf(m, lane_of(v[q], e));
+        unsigned bi = 4 * lane;
+#pragma unroll
+        for (int q = NG - 1; q >= 0; --q)
+#pragma unroll
+          for (int e = 3; e >= 0; --e) {
+            const float x = lane_of(v[q], e);
+            if ((isnan(x) ? INF : x) == m) bi = 4 * (lane + 32 * q) + e;
+          }
+        const unsigned bk = float_key(m + 0.f);
+        const unsigned best = __reduce_min_sync(FULL, bk);
+        const unsigned at = __reduce_min_sync(FULL, bk == best ? bi : 0xffffffffu);
+        if (lane == 0) wta[row + s] = (float)at;
+      }
+    }
+
+    // every lane has read the buffer: it takes the chunk `stages` ahead
+    __syncwarp();
+    if (lane == 0 && c + stages < n_chunks) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fetch(c + stages);
+    }
+  }
+}
+
+template <int NG>
+int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
+                  const float* d1, const float* g, int n_scan, int n_steps, int Dp,
+                  int D, int T, int reverse, int gw, float tau, Pen pen,
+                  cudaStream_t stream) {
+  // the ring as deep as HSTAGES if that leaves room for three blocks on an
+  // SM (72 KB each), at least two chunks deep
+  const size_t stage = (size_t)HK * Dp * 4 * (acc ? 2 : 1);
+  const size_t fixed = HSTAGES * 8 + (size_t)(n_steps + Dp) * 4;
+  int stages = HSTAGES;
+  while (stages > 2 && stages * stage + fixed > 72 * 1024) --stages;
+  const size_t smem = stages * stage + fixed;
+  cudaError_t err = cudaFuncSetAttribute(
+      hsweep_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  hsweep_kernel<NG><<<n_scan, 32, smem, stream>>>(vol, acc, out, wta, d1, g, n_steps,
+                                                  Dp, D, T, reverse, gw, tau, pen,
+                                                  stages);
+  return (int)cudaGetLastError();
+}
+
 template <bool TABLE = false>
 int launch(const float* vol, const float* acc, float* out, float* wta,
            const float* d1, const float* g_rev, const float* g_nat,
@@ -320,9 +649,24 @@ extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
                                     const float* g, int Hp, int Wp, int Dp,
                                     int D, int T, int reverse, int gw,
                                     float tau, Pen pen, cudaStream_t stream) {
-  const Layout lay{1, Wp, 0, 0, 0};
-  return launch(vol, acc, out, wta, d1, g, g, lay, Hp, Wp, Dp, D, T, reverse,
-                gw, tau, pen, stream);
+  if (Hp == 0 || Wp == 0) return 0;
+#define HSWEEP(NG)                                                              \
+  case NG:                                                                      \
+    return launch_hsweep<NG>(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, \
+                             gw, tau, pen, stream)
+  switch ((Dp + 127) / 128) {
+    HSWEEP(1);
+    HSWEEP(2);
+    HSWEEP(3);
+    HSWEEP(4);
+    HSWEEP(5);
+    HSWEEP(6);
+    HSWEEP(7);
+    HSWEEP(8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef HSWEEP
 }
 
 // Step-major: vol, acc, out: (W, S, Dp) float32, steps the W columns x,

@@ -40,6 +40,11 @@ On CUDA tensors each sweep launches ``csrc/sgm_sweep.cu`` (entries
 ``sgm_vertical``, ``sgm_horizontal``, ``sgm_hslab``, ``sgm_scan`` and
 ``sgm_step``); on CPU tensors it runs the step loops
 :func:`sweep_plain`, :func:`hslab_plain` and :func:`sweep_scan_plain`.
+``sgm_horizontal`` has a kernel of its own: one warp per scanline, the
+volume and accumulator rows prefetched in chunks of ``HCHUNK`` steps
+through a ring of shared-memory buffers by bulk asynchronous copies
+(:func:`horizontal_chunks` is its walk over the steps); the other four
+entries share one kernel with a block of Dp threads per scanline.
 """
 
 from __future__ import annotations
@@ -207,6 +212,22 @@ def sweep_scan_plain(vol_s, d1_s, d2_s, *, tau, pen):
                 lambda t, s: t[s], vol_s.shape[0], reverse=False,
                 T=vol_s.shape[0], tau=tau, pen=pen)
     return out
+
+
+# steps per chunk of the horizontal sweep kernel's prefetch ring (HK in
+# csrc/sgm_sweep.cu)
+HCHUNK = 8
+
+
+def horizontal_chunks(n_steps: int, reverse: bool) -> list[list[int]]:
+    """The horizontal sweep kernel's walk over a scanline's stored steps:
+    one list per chunk, in the order it visits them. Chunks are blocks
+    of ``HCHUNK`` stored steps (the last one ragged), each one contiguous
+    run of rows; a reverse sweep takes the blocks, and the steps inside
+    one, from the far end."""
+    blocks = [list(range(lo, min(lo + HCHUNK, n_steps)))
+              for lo in range(0, n_steps, HCHUNK)]
+    return [b[::-1] for b in blocks[::-1]] if reverse else blocks
 
 
 class _Pen(ctypes.Structure):

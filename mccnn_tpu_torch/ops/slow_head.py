@@ -18,9 +18,14 @@ the TPU kernel's precision (slow_head_pallas.py:37-40, 88-99). A
 bf16 x bf16 product is exact in float32, so any two implementations of
 it differ only in summation order.
 
-On CUDA tensors :func:`slow_head_volume` launches ``csrc/slow_head.cu``
-(tensor cores, ``mma.sync`` bf16); on CPU tensors it runs
-:func:`slow_head_plain`.
+On CUDA tensors :func:`slow_head_volume` launches ``csrc/slow_head.cu``:
+``wgmma`` bf16 on 128-cell tiles, the mid weights streamed through a
+ring of shared-memory slabs by bulk asynchronous copies that a cluster
+of two blocks shares (multicast). Two pieces of its preparation live
+here, in plain torch: :func:`pack_weights` lays the weights out slab by
+slab in the swizzled order the tensor cores read, and :func:`tile_plan`
+counts the tiles the kernel walks (:func:`tile_at` is its walk). On CPU
+tensors :func:`slow_head_volume` runs :func:`slow_head_plain`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from mccnn_tpu_torch.ops import _build
 # the feature widths the kernel has an instance of: 384 is every
 # configuration's nh2, 64 serves narrow heads (tests)
 CP_WIDTHS = (64, 384)
+# a tile of the kernel: TILE_X columns by TILE_D disparities of one image
+# row (XT and DT in csrc/slow_head.cu)
+TILE_X, TILE_D = 16, 8
 
 
 @contextlib.contextmanager
@@ -89,12 +97,75 @@ def slow_head_plain(A, B, mids_w, mids_b, w_last, b_last, disp_max: int
     return out
 
 
+def slab_cols(C: int) -> int:
+    """Output columns of one weight slab of the kernel's width-C
+    instance: what one ``wgmma`` instruction covers."""
+    return 192 if C == 384 else 64
+
+
+def _swizzle(rows: int, device) -> torch.Tensor:
+    """(rows, 8) chunk permutation of the 128-byte swizzle: position j
+    of row n holds the 16-byte chunk j XOR (n mod 8). Its own inverse."""
+    n = torch.arange(rows, device=device)[:, None] % 8
+    return torch.arange(8, device=device)[None, :] ^ n
+
+
+def pack_weights(mids_w: torch.Tensor) -> torch.Tensor:
+    """The mid weights in the order the kernel streams them: (n_mid,
+    C/64, C/NB, NB, 8, 8) with NB = :func:`slab_cols`. A slab [m, kb,
+    nh] is NB rows, one per output unit nh*NB + n, of the 64 inputs
+    kb*64 .. kb*64 + 63 as eight 16-byte chunks, chunk c stored at
+    position c XOR (n mod 8): the image of the slab in shared memory in
+    the 128-byte swizzle. mids_w: (n_mid, C, C) (in, out)."""
+    n_mid, C, _ = mids_w.shape
+    nb = slab_cols(C)
+    t = mids_w.transpose(1, 2).reshape(n_mid, C // nb, nb, C // 64, 8, 8)
+    t = t.permute(0, 3, 1, 2, 4, 5)  # (m, kb, nh, n, chunk, element)
+    idx = _swizzle(nb, mids_w.device)[:, :, None].expand_as(t)
+    return t.gather(4, idx).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_weights`: (n_mid, C, C) (in, out)."""
+    n_mid, kb, nh, nb = packed.shape[:4]
+    idx = _swizzle(nb, packed.device)[:, :, None].expand_as(packed)
+    t = packed.gather(4, idx).permute(0, 2, 3, 1, 4, 5)
+    return t.reshape(n_mid, nh * nb, kb * 64).transpose(1, 2).contiguous()
+
+
+def _strip_blocks(x0: int, W: int, D: int) -> int:
+    """Blocks of TILE_D disparities, of the strip of columns x0 ..
+    x0 + TILE_X - 1, that have a cell with x >= d: d0 <= min(x0 +
+    TILE_X - 1, W - 1) and d0 < D."""
+    return min(-(-D // TILE_D), min(x0 + TILE_X - 1, W - 1) // TILE_D + 1)
+
+
+def tile_plan(H: int, W: int, D: int) -> tuple[int, int]:
+    """(tiles per image row, tiles in all) that the kernel walks: the
+    tiles of TILE_X columns by TILE_D disparities that have a cell with
+    x >= d."""
+    per_row = sum(_strip_blocks(x0, W, D) for x0 in range(0, W, TILE_X))
+    return per_row, H * per_row
+
+
+def tile_at(t: int, W: int, D: int) -> tuple[int, int, int]:
+    """(y, x0, d0) of tile t in the kernel's walk: image rows outermost,
+    then strips of columns, the blocks of disparities fastest (blocks
+    running together share A's rows and overlap in B's)."""
+    per_row, _ = tile_plan(1, W, D)
+    y, r, x0 = t // per_row, t % per_row, 0
+    while r >= _strip_blocks(x0, W, D):
+        r -= _strip_blocks(x0, W, D)
+        x0 += TILE_X
+    return y, x0, r * TILE_D
+
+
 def _lib():
     lib = _build.library("slow_head")
     if lib.slow_head.argtypes is None:
         lib.slow_head.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
-                                  + [ctypes.c_void_p] + [ctypes.c_int] * 5
-                                  + [ctypes.c_void_p])
+                                  + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                                  + [ctypes.c_longlong, ctypes.c_void_p])
         lib.slow_head.restype = ctypes.c_int
     return lib
 
@@ -121,14 +192,14 @@ def slow_head_volume(A, B, mids_w, mids_b, w_last, b_last, disp_max: int
                          f"{tuple(B.shape)}, mids_w {tuple(mids_w.shape)}, "
                          f"mids_b {tuple(mids_b.shape)}, w_last "
                          f"{tuple(w_last.shape)}")
-    # the kernel streams (out, in) rows of each mid layer
-    wt = mids_w.transpose(1, 2).contiguous()
+    wpk = pack_weights(mids_w)
+    per_row, n_tiles = tile_plan(H, W, int(disp_max))
     out = torch.empty((int(disp_max), H, W), dtype=torch.float32,
                       device=A.device)
-    rc = _lib().slow_head(A.data_ptr(), B.data_ptr(), wt.data_ptr(),
+    rc = _lib().slow_head(A.data_ptr(), B.data_ptr(), wpk.data_ptr(),
                           mids_b.data_ptr(), w_last.data_ptr(),
                           float(b_last), out.data_ptr(), H, W, int(disp_max),
-                          C, n_mid, _build.stream(A))
+                          C, n_mid, per_row, n_tiles, _build.stream(A))
     _build.check_launch(rc, "slow_head")
     _build.count("slow_head")
     return out

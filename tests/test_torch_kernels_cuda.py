@@ -71,10 +71,20 @@ def test_sgm_kernels_match_plain(dev, xrev):
 
 @pytest.mark.parametrize("H,W,D,C,n_mid", [(11, 140, 19, 64, 2),
                                            (5, 300, 130, 384, 3),
-                                           (3, 129, 1, 192, 1)])
+                                           (3, 129, 1, 192, 1),
+                                           (2, 300, 200, 64, 3),
+                                           (1, 100, 1, 384, 2),
+                                           (4, 130, 140, 384, 1),
+                                           (7, 257, 60, 64, 1),
+                                           (3, 128, 128, 48, 2),
+                                           (2, 513, 228, 384, 2)])
 def test_slow_head_kernel_matches_plain(dev, H, W, D, C, n_mid):
     """Awkward shapes (W % 128, D and C not multiples of 128; C=192
-    zero-padded to the 384 instance). Both sides round the same operands
+    zero-padded to the 384 instance, C=48 to the 64 one; D beyond the
+    first strip, so whole tiles have no cell with x >= d and are
+    skipped; D beyond W; one tile in all, less than a cluster; an odd
+    number of tiles; one, two and three mid layers at both widths).
+    Both sides round the same operands
     to bf16 and sum in float32 in other orders; a hidden unit within a
     summation-order difference of a bf16 rounding boundary may round one
     bf16 ulp apart: max |d| <= 1e-3 over the cells with x >= d, mean
@@ -99,6 +109,63 @@ def test_slow_head_kernel_matches_plain(dev, H, W, D, C, n_mid):
              >= torch.arange(D, device=dev)[:, None, None]).expand(D, H, W)
     diff = (got - want).abs()[valid]
     assert float(diff.max()) <= 1e-3 and float(diff.mean()) <= 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Hp,Wp,Dp,D,T", [
+    (5, 37, 128, 100, 37),    # T not a multiple of the chunk
+    (3, 5, 128, 70, 5),       # less than one chunk
+    (4, 48, 256, 228, 29),    # pad steps, and T inside a chunk
+    (3, 2 * sgm.HCHUNK, 256, 130, 2 * sgm.HCHUNK),  # whole chunks
+    (3, 20, 96, 80, 17),      # Dp off a multiple of 128
+    (2, 19, 384, 300, 19)])   # three float4 groups a lane
+def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
+                                                  reverse):
+    """``sgm_sweep_horizontal`` against ``sweep_plain`` on the same
+    tensors in its four uses: a first sweep (no accumulator), a sweep
+    adding into its accumulator in place, the last sweep with the fused
+    winner map, and that one without the volume write. The same f32
+    operations in the same order and an exact min: equal bit for bit,
+    NaN masks and winner maps included. The volume has NaN tails in d,
+    scattered NaN cells, whole NaN steps and one scanline all NaN."""
+    rng = np.random.RandomState(Wp + Dp + reverse)
+    vol = rng.rand(Hp, Wp, Dp).astype(np.float32)
+    vol[..., D:] = np.nan
+    vol[rng.rand(Hp, Wp, Dp) < 0.03] = np.nan
+    vol[:, Wp // 3, :] = np.nan
+    vol[:, :, D - D // 4:][:, ::2] = np.nan
+    vol[Hp - 1] = np.nan
+    accv = rng.rand(Hp, Wp, Dp).astype(np.float32)
+    accv[np.isnan(vol)] = np.nan
+    vol, accv = (torch.as_tensor(a, device=dev) for a in (vol, accv))
+    d1 = torch.as_tensor((rng.rand(Hp, Wp) * 0.16).astype(np.float32),
+                         device=dev)
+    g = (rng.rand(Hp, D + Wp + Dp + 3) * 0.16).astype(np.float32)
+    g[rng.rand(*g.shape) < 0.05] = 10.0
+    g = torch.as_tensor(g, device=dev)
+    kw = dict(vertical=False, reverse=reverse, T=T, D=D, tau=0.08,
+              pen=sgm.pen_table(1.32, 24.25, 3.0, 2.0, 1.0, 1.0))
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) \
+            and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    _build.reset_launches()
+    for acc, with_out, with_wta in ((False, True, False), (True, True, False),
+                                    (True, True, True), (True, False, True),
+                                    (False, True, True)):
+        bufs = []
+        for sweep in (sgm._sweep, sgm.sweep_plain):
+            a = accv.clone() if acc else None
+            o = (a if acc else torch.full_like(vol, -1.0)) if with_out else None
+            w = torch.full((Hp, Wp), -1.0, device=dev) if with_wta else None
+            sweep(vol, a, o, w, d1, g, **kw)
+            torch.cuda.synchronize()
+            bufs.append((a, o, w))
+        for got, want in zip(*bufs):
+            assert (got is None) == (want is None)
+            assert got is None or same(got, want)
+    assert _build.LAUNCHES["sgm_horizontal"] == 5
 
 
 @pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])

@@ -126,3 +126,24 @@ def test_sweep_plain_matches_scan_sweep():
     assert np.array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     assert np.array_equal(out.numpy()[T:], vol[T:], equal_nan=True)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n_steps", [1, sgm.HCHUNK - 1, sgm.HCHUNK,
+                                     3 * sgm.HCHUNK, 3 * sgm.HCHUNK + 5, 1280])
+def test_horizontal_chunks_cover_the_steps_once_in_sweep_order(n_steps,
+                                                               reverse):
+    """The horizontal sweep kernel's chunk walk: the chunks cover the
+    stored steps 0 .. n_steps-1 once, in sweep order (descending for a
+    reverse sweep); each is one contiguous run of at most HCHUNK steps
+    that starts on a multiple of HCHUNK, the ragged one at the far
+    end."""
+    chunks = sgm.horizontal_chunks(n_steps, reverse)
+    order = [s for c in chunks for s in c]
+    want = list(range(n_steps))
+    assert order == (want[::-1] if reverse else want)
+    for c in chunks:
+        lo, hi = min(c), max(c)
+        assert 1 <= len(c) <= sgm.HCHUNK and hi - lo + 1 == len(c)
+        assert lo % sgm.HCHUNK == 0
+        assert len(c) == sgm.HCHUNK or hi == n_steps - 1

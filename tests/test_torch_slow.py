@@ -155,3 +155,46 @@ def test_pad_head_pads_to_a_kernel_width():
     with pytest.raises(ValueError, match="400"):
         slow_head.pad_head(z, z, torch.zeros((1, 400, 400)),
                            torch.zeros((1, 400)), torch.zeros(400))
+
+
+@pytest.mark.parametrize("C", [64, 384])
+@pytest.mark.parametrize("n_mid", [1, 2, 3])
+def test_pack_weights_roundtrip_and_slab_image(C, n_mid):
+    """The kernel's weight prepack is a permutation: unpacking gives
+    ``mids_w`` back exactly, and slab [m, kb, nh] is the shared-memory
+    image the tensor cores read: row n holds output unit nh*NB + n over
+    the inputs kb*64 .. kb*64 + 63, its 16-byte chunk c at position
+    c XOR (n mod 8) (the 128-byte swizzle)."""
+    rng = np.random.RandomState(C + n_mid)
+    w = torch.as_tensor(rng.randn(n_mid, C, C).astype(np.float32)).to(
+        torch.bfloat16)
+    packed = slow_head.pack_weights(w)
+    nb = slow_head.slab_cols(C)
+    assert packed.shape == (n_mid, C // 64, C // nb, nb, 8, 8)
+    assert packed.is_contiguous() and packed.dtype == torch.bfloat16
+    assert torch.equal(slow_head.unpack_weights(packed), w)
+    for _ in range(50):
+        m, kb, nh, n = (rng.randint(k) for k in packed.shape[:4])
+        c, e = rng.randint(8), rng.randint(8)
+        assert packed[m, kb, nh, n, c ^ (n % 8), e] == \
+            w[m, kb * 64 + c * 8 + e, nh * nb + n]
+
+
+@pytest.mark.parametrize("H,W,D", [(2, 300, 130), (3, 20, 50), (1, 129, 1),
+                                   (2, 16, 8), (1, 1226, 228), (4, 37, 37)])
+def test_tile_plan_visits_every_tile_with_a_valid_cell_once(H, W, D):
+    """The kernel's tile walk (``tile_at`` over ``tile_plan``'s count)
+    covers exactly the tiles of TILE_X columns by TILE_D disparities
+    that hold a cell with x >= d, each once, the blocks of disparities
+    fastest; so every cell with x >= d, d < D lies in a visited tile."""
+    tx, td = slow_head.TILE_X, slow_head.TILE_D
+    per_row, n_tiles = slow_head.tile_plan(H, W, D)
+    assert n_tiles == H * per_row
+    seen = [slow_head.tile_at(t, W, D) for t in range(n_tiles)]
+    assert seen == sorted(seen)  # rows, then strips, then disparity blocks
+    want = {(y, x0, d0) for y in range(H) for x0 in range(0, W, tx)
+            for d0 in range(0, D, td) if min(x0 + tx - 1, W - 1) >= d0}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    cells = {(x // tx * tx, d // td * td) for d in range(D)
+             for x in range(d, W)}
+    assert cells <= {(x0, d0) for _, x0, d0 in seen}

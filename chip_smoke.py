@@ -11,7 +11,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the path that runs it, with kernel, plain and bound times:
    the KITTI fast-arch path (370x1226, D=228, 64 features; the tower on
-   cuDNN with TF32 off against the same tower on the CPU), then the
+   cuDNN with TF32 off against the same tower on the CPU; the join's
+   winner maps against the plain volume's, and its gap to the emulation
+   of its three-level bf16 split; the vertical sweeps bit for bit), then the
    KITTI slow-arch path (kitti slow widths: 112 features, head 384
    wide with three mid layers): the head kernel over the whole volume
    (with the time of the same chain as bf16 cuBLAS matmuls beside it and
@@ -21,7 +23,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    without the volume write, the winner map fused) bit for bit;
    the blur with kitti slow's 37x37 Gaussian, and the generic lane's
    stacked horizontal and vertical sweeps (both directions in one
-   volume, the -1 direction's scanlines reversed); then the scan form's
+   volume, the -1 direction's scanlines reversed; the vertical one bit
+   for bit); then the scan form's
    two entries (the whole sweep in one launch, and one launch per
    step) on the (T, S, D) slices and D1/D2 tables the scan form builds
    for both families (horizontal T=1226, S=740; vertical T=370,
@@ -91,10 +94,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PEAK_NAMES = {F32_OPS: "f32 67 TFLOP/s", BF16_TC_OPS: "bf16 tensor cores 989 TFLOP/s"}
+
+
 def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS
-             ) -> tuple[float, str]:
+             ) -> tuple[float, str, str]:
+    """(the bound in ms, what sets it, the operations' peak it used)."""
     tb, to = nbytes / MEM_BPS * 1e3, ops / peak * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    return ((tb, "bytes") if tb >= to else (to, "operations")) \
+        + (PEAK_NAMES[peak],)
 
 
 def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
@@ -230,14 +238,30 @@ def main() -> int:
     check(torch.equal(vol_k.isnan(), vol_p.isnan()), "join NaN masks differ")
     err = float((vol_k - vol_p).nan_to_num().abs().max())
     check(err <= 1e-5, f"join max |d| {err} > 1e-5")
+    same = float((costs.wta_hwd(vol_k)[:H, :W] == costs.wta_hwd(vol_p)[:H, :W])
+                 .float().mean())
+    check(same >= 0.9999, f"join winner maps agree on {same}")
+    del vol_p
+    vol_s = join.join_plus_split_plain(a, b, D, W, H, 4)
+    err_s = float((vol_k - vol_s).nan_to_num().abs().max())
+    del vol_s, vol_k
+    print(f"  join (three-level bf16 split on wgmma): max |d| {err:.3g} "
+          f"against the f32 sum, "
+          f"{err_s:.3g} against the emulation of its arithmetic; winner maps "
+          f"equal on {same:.6f} of pixels")
     # bounds count the real cells only: pad rows, columns and lanes are
-    # layout, not work
+    # layout, not work. The join's operations are six bf16 passes (the
+    # products of a three-level split) on the tensor cores.
     cells = H * W * D
+    join_ops = 6 * 2.0 * cells * C
     rows["join"] = dict(
         err=err, ms=cuda_ms(torch, lambda: join._join_plus(a, b, D, W, H, 4), 10),
         plain_ms=cuda_ms(torch, lambda: join.join_plus_plain(a, b, D, W, H, 4), 1),
-        bound=bound_ms((2 * H * W * C + cells) * 4, 2.0 * cells * C))
-    del vol_p
+        bound=bound_ms((2 * H * W * C + cells) * 4, join_ops, BF16_TC_OPS))
+    print(f"  join bound: {rows['join']['bound'][0]:.4f} ms by "
+          f"{rows['join']['bound'][1]} (operations at the "
+          f"{BF16_TC_OPS / 1e12:.0f} TFLOP/s bf16 tensor-core peak: "
+          f"{join_ops / BF16_TC_OPS * 1e3:.4f} ms)")
 
     # the right direction's four sweeps on the join volume; the second of
     # each family is timed: it reads the accumulator and adds in place
@@ -278,6 +302,9 @@ def main() -> int:
               f"sweep {i} NaN masks differ")
         real = (slice(0, H), slice(0, W), slice(0, D))
         diff = (acc_k[real] - acc_p[real]).abs().nan_to_num()  # masks equal
+        if p["vertical"]:  # the same f32 operations in the same order
+            check(float(diff.max()) == 0.0, f"vertical sweep {i}: max |d| "
+                  f"{float(diff.max())}, expected bit-identical")
         tol = 1e-5 * acc_p[real].abs().nan_to_num()
         check(bool((diff <= tol).all()), f"sweep {i}: max |d| "
               f"{float(diff.max())} beyond rtol 1e-5")
@@ -290,7 +317,8 @@ def main() -> int:
                 err=float(diff.max()), ms=ms, plain_ms=plain_ms,
                 bound=bound_ms(3 * cells * 4 + tables
                                + (H * W * 4 if last else 0), 10.0 * cells))
-    print(f"  fused WTA maps equal on {wta_same:.6f} of pixels")
+    print(f"  fused WTA maps equal on {wta_same:.6f} of pixels; sgm_vertical "
+          f"down and up bit-identical to the plain loop")
     del acc_p
 
     # the horizontal entry in its four uses: the right-going and the
@@ -442,12 +470,13 @@ def main() -> int:
     vol_y, vplan = sgm.vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
                                  alpha1=scfg.alpha1, **skw)
 
-    def stacked_family(entry, vol, plan, kernel, plain, table_bytes):
+    def stacked_family(entry, vol, plan, kernel, plain, table_bytes,
+                       exact=False):
         """Both sweeps of a stacked family, kernel against plain, each to
         rtol 1e-5 with equal NaN masks (the same f32 operations in the
-        same order); the second sweep is timed: it reads the accumulator
-        and adds in place. The bound counts the real cells of both
-        directions, 2 * H * W * D."""
+        same order), or bit for bit if ``exact``; the second sweep is
+        timed: it reads the accumulator and adds in place. The bound
+        counts the real cells of both directions, 2 * H * W * D."""
         acc_k = torch.empty_like(vol)
         acc_p = torch.empty_like(vol)
         for i, p in enumerate(plan):
@@ -469,6 +498,9 @@ def main() -> int:
             check(torch.equal(acc_k.isnan(), acc_p.isnan()),
                   f"{entry} sweep {i} NaN masks differ")
             diff = (acc_k - acc_p).abs().nan_to_num()  # masks equal
+            check(not exact or float(diff.max()) == 0.0,
+                  f"{entry} sweep {i}: max |d| {float(diff.max())}, expected "
+                  "bit-identical")
             check(bool((diff <= 1e-5 * acc_p.abs().nan_to_num()).all()),
                   f"{entry} sweep {i}: max |d| {float(diff.max())} beyond "
                   f"rtol 1e-5")
@@ -486,7 +518,9 @@ def main() -> int:
         "sgm_vertical", vol_y, vplan,
         lambda v, a, o, d1, g, **p: sgm._sweep(v, a, o, None, d1, g, **p),
         lambda v, a, o, d1, g, **p: sgm.sweep_plain(v, a, o, None, d1, g, **p),
-        (2 * H * W + 2 * H * (W + 2 * D)) * 4)
+        (2 * H * W + 2 * H * (W + 2 * D)) * 4, exact=True)
+    print("  sgm_vertical (stacked): down and up bit-identical to the plain "
+          "loop")
     check(vplan[0]["n_rev"] == W, "the stacked vertical plan has no reversed "
           "half")
     del vol_y
@@ -758,7 +792,7 @@ def main() -> int:
          "kernel_launches": path_kcounts[name],
          "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
-         "bound_by": rows[name]["bound"][1],
+         "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
          "library_ms": rows[name].get("library_ms")}
         for name in _build.KERNELS]}))
     print(card)

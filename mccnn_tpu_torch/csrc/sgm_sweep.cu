@@ -1,5 +1,5 @@
-// SGM sweeps: one recurrence, four layouts, a launch-per-step form, and a
-// kernel of its own for the disparity-minor horizontal sweep.
+// SGM sweeps: one recurrence, four layouts, a launch-per-step form, and
+// kernels of their own for the two sweeps of the disparity-minor lane.
 //
 // Replaces five TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
@@ -19,7 +19,8 @@
 // Five entries with their own launch counts. With d fastest in every
 // layout, one step of one scanline is one contiguous row; a layout is
 // only where that row lies: cell = step * step_stride + scan * scan_stride
-// (the horizontal entry: step_stride 1, scan_stride Wp).
+// (the horizontal entry: step_stride 1, scan_stride Wp; the vertical one:
+// step_stride Ws, scan_stride 1).
 // The vertical entry serves both lanes: the (Hp, Wp, Dp) volume of one
 // direction, and the generic lane's (H, 2W, Dp) volume with both reference
 // directions stacked on the scanline axis.
@@ -62,11 +63,11 @@
 // generic lane's two stacked directions (0.74 ms); the arithmetic (about
 // ten f32 operations per cell) is far below the f32 peak. The recurrence,
 // is a chain of n_steps dependent steps per scanline, each ending in a
-// block-wide min.
+// min over d.
 //
-// Design of sweep_kernel (the vertical, hslab and scan entries; simple and
-// right first): one block of Dp threads per scanline, thread = disparity,
-// the steps a loop inside the block. The previous step lives in a register
+// Design of sweep_kernel (the hslab and scan entries; simple and right
+// first): one block of Dp threads per scanline, thread = disparity, the
+// steps a loop inside the block. The previous step lives in a register
 // and in a double-buffered shared row for the d +- 1 neighbours; the min is
 // a warp shuffle then a shared-memory pass, one __syncthreads per step. The
 // next step's volume, accumulator and penalty inputs are loaded before this
@@ -82,6 +83,13 @@
 // keeps tens of kilobytes per scanline in flight through a ring of
 // multi-step chunks filled by bulk asynchronous copies. It assumes only that
 // a scanline's steps are contiguous rows of Dp floats.
+//
+// The vertical entry (sgm_sweep_vertical) has its own kernel too,
+// vsweep_kernel: the same warp-per-scanline step, on the step-major layout,
+// where the rows of K adjacent scanlines at one step are one contiguous run.
+// A block of K warps shares one ring of short chunks, one bulk copy per step
+// and input; the host sizes the ring so that every scanline is resident in
+// one wave (see the note above the kernel).
 //
 // The scan form (sgm_sweep_scan) is the same kernel on the table layout:
 // it reads the volume and the D2 table and writes the per-step values,
@@ -142,15 +150,14 @@ __device__ __forceinline__ float relax(float prev, float pm, float up, float dn,
 }
 
 // Where a layout keeps its rows: cell = step * step_stride + scan *
-// scan_stride (in rows; d1 and wta are indexed by the cell), and which D2
-// addressing it uses (see the top of the file). The table layout is a
+// scan_stride (in rows; d1 and wta are indexed by the cell), and where its
+// reversed scanlines read D2 (see the top of the file). The table layout is a
 // template instance of the kernel (TABLE): its rows are D floats long and
 // its D2 is d2[cell, d]. As a run-time field of the layout it cost the
 // other entries 6-7% of their time on the H100 (a predicate on every load
 // of the step loop); as a template argument it costs them nothing.
 struct Layout {
   long long step_stride, scan_stride;
-  int by_step;   // D2 row = step, column from the scanline; else row = scanline
   int n_rev;     // scanlines [0, n_rev) are the reversed class
   int rev_base;  // row = scanline, reversed class: col = rev_base - step
 };
@@ -159,8 +166,7 @@ template <bool TABLE>
 __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
                              float* out, float* __restrict__ wta,
                              const float* __restrict__ d1,
-                             const float* __restrict__ g_rev,
-                             const float* __restrict__ g_nat, Layout lay,
+                             const float* __restrict__ g, Layout lay,
                              int Dp, int D, int n_steps, int T, int reverse,
                              int gw, float tau, Pen pen) {
   __shared__ float row[2][1024];
@@ -177,7 +183,6 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   // the table layout's rows are D floats: its threads d >= D hold NaN
   const bool live = !TABLE || d < D;
   const int lanes = TABLE ? D : Dp;
-  const float* g = rev ? g_rev : g_nat;
 
   auto step_of = [&](int t) { return reverse ? n_steps - 1 - t : t; };
   auto cell = [&](int s) {
@@ -186,8 +191,6 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
   // D2 of step s at disparity d
   auto d2_at = [&](int s) {
     if (TABLE) return live ? g[cell(s) * lanes + d] : 10.f;
-    if (lay.by_step)
-      return g[(size_t)s * gw + D + (rev ? scan : scan - lay.n_rev) + d];
     return g[(size_t)scan * gw + (rev ? lay.rev_base - s : D + s) + d];
   };
 
@@ -393,13 +396,94 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
   return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
 }
 
+// One step of a warp-per-scanline sweep (hsweep_kernel, vsweep_kernel):
+// lane l holds d = 4 (l + 32 q) + e of the state prev and of the step's
+// volume row v, and D2 of its disparities in d2. A real step (s < T)
+// starts the state at s == init or advances it, and v takes the state; a
+// pad step leaves both. The min over d is in-register fminf, then one
+// redux.sync on order-keeping keys (exact); the d +- 1 neighbours across
+// float4s come by two rotating shuffles a group.
+template <int NG>
+__device__ __forceinline__ void warp_step(float (&prev)[NG][4], float4 (&v)[NG],
+                                          const float (&d2)[NG][4], float D1,
+                                          bool real, bool init, int lane, int Dp,
+                                          float tau, const Pen& pen) {
+  const float INF = __int_as_float(0x7f800000);
+  const unsigned FULL = 0xffffffffu;
+  if (!real) return;  // a pad step: the volume passes through, the state stays
+  if (init) {
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      prev[q][0] = v[q].x;
+      prev[q][1] = v[q].y;
+      prev[q][2] = v[q].z;
+      prev[q][3] = v[q].w;
+    }
+  } else {
+    float m = INF;  // fminf drops NaN: NaN counts as +inf
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m = fminf(m, prev[q][e]);
+    const float pm = key_float(__reduce_min_sync(FULL, float_key(m)));
+    const StepPen sp = step_pen(D1, pm, tau, pen);
+    float ru[NG], rd[NG];  // the lane below's last d, the lane above's first
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      ru[q] = __shfl_sync(FULL, prev[q][3], (lane + 31) & 31);
+      rd[q] = __shfl_sync(FULL, prev[q][0], (lane + 1) & 31);
+    }
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      const int d0 = 4 * (lane + 32 * q);
+      float up = lane > 0 ? ru[q] : (q > 0 ? ru[q > 0 ? q - 1 : 0] : INF);
+      float dn = lane < 31 ? rd[q] : (q < NG - 1 ? rd[q < NG - 1 ? q + 1 : q] : INF);
+      if (d0 + 3 == Dp - 1) dn = INF;
+      const float n0 = relax_step(prev[q][0], pm, up, prev[q][1], v[q].x, d2[q][0], tau, sp);
+      const float n1 = relax_step(prev[q][1], pm, prev[q][0], prev[q][2], v[q].y, d2[q][1], tau, sp);
+      const float n2 = relax_step(prev[q][2], pm, prev[q][1], prev[q][3], v[q].z, d2[q][2], tau, sp);
+      const float n3 = relax_step(prev[q][3], pm, prev[q][2], dn, v[q].w, d2[q][3], tau, sp);
+      prev[q][0] = n0;
+      prev[q][1] = n1;
+      prev[q][2] = n2;
+      prev[q][3] = n3;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+    v[q] = make_float4(prev[q][0], prev[q][1], prev[q][2], prev[q][3]);
+}
+
+// The winner of a warp's row v: the least value (NaN counts as +inf, -0
+// as +0), then the least d that has it; in the lane first, then across
+// the warp by two redux.sync.
+template <int NG>
+__device__ __forceinline__ unsigned warp_winner(const float4 (&v)[NG], int lane) {
+  const float INF = __int_as_float(0x7f800000);
+  const unsigned FULL = 0xffffffffu;
+  float m = INF;
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m = fminf(m, lane_of(v[q], e));
+  unsigned bi = 4 * lane;
+#pragma unroll
+  for (int q = NG - 1; q >= 0; --q)
+#pragma unroll
+    for (int e = 3; e >= 0; --e) {
+      const float x = lane_of(v[q], e);
+      if ((isnan(x) ? INF : x) == m) bi = 4 * (lane + 32 * q) + e;
+    }
+  const unsigned bk = float_key(m + 0.f);
+  const unsigned best = __reduce_min_sync(FULL, bk);
+  return __reduce_min_sync(FULL, bk == best ? bi : 0xffffffffu);
+}
+
 // One warp (one block) per scanline, NG = ceil(Dp / 128) groups of four
 // disparities a lane: lane l holds d = 4 (l + 32 g) + e, e < 4, g < NG (one
 // float4 per group, consecutive lanes on consecutive float4s: coalesced, no
-// bank conflicts). The min over d is in-register fminf, then one redux.sync
-// on order-keeping integer keys (exact, like any min); the d +- 1 neighbours
-// across float4s come by two rotating shuffles a group; the fused winner
-// map is two more redux.sync. No __syncthreads and no shared row. The
+// bank conflicts); each step is warp_step, the fused winner map
+// warp_winner. No __syncthreads and no shared row. The
 // inputs (volume and accumulator rows) arrive in chunks of HK steps through
 // a ring of `stages` buffers filled by cp.async.bulk, one "full" mbarrier a
 // stage; lane 0 starts a chunk's copies `stages` chunks ahead, right after
@@ -416,7 +500,6 @@ __global__ void __launch_bounds__(32)
                   const float* __restrict__ g, int n_steps, int Dp, int D, int T,
                   int reverse, int gw, float tau, Pen pen, int stages) {
   extern __shared__ __align__(128) unsigned char hs_raw[];
-  const float INF = __int_as_float(0x7f800000);
   const float QNAN = __int_as_float(0x7fc00000);
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x;
@@ -500,51 +583,13 @@ __global__ void __launch_bounds__(32)
         }
       }
       const float D1 = __shfl_sync(FULL, d1c, j);
-
-      if (s < T) {
-        if (s == init) {
+      float d2[NG][4];
 #pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            prev[q][0] = v[q].x;
-            prev[q][1] = v[q].y;
-            prev[q][2] = v[q].z;
-            prev[q][3] = v[q].w;
-          }
-        } else {
-          float m = INF;  // fminf drops NaN: NaN counts as +inf
+      for (int q = 0; q < NG; ++q)
 #pragma unroll
-          for (int q = 0; q < NG; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) m = fminf(m, prev[q][e]);
-          const float pm = key_float(__reduce_min_sync(FULL, float_key(m)));
-          const StepPen sp = step_pen(D1, pm, tau, pen);
-          float ru[NG], rd[NG];  // the lane below's last d, the lane above's first
-#pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            ru[q] = __shfl_sync(FULL, prev[q][3], (lane + 31) & 31);
-            rd[q] = __shfl_sync(FULL, prev[q][0], (lane + 1) & 31);
-          }
-#pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            const int d0 = 4 * (lane + 32 * q);
-            float up = lane > 0 ? ru[q] : (q > 0 ? ru[q > 0 ? q - 1 : 0] : INF);
-            float dn = lane < 31 ? rd[q] : (q < NG - 1 ? rd[q < NG - 1 ? q + 1 : q] : INF);
-            if (d0 + 3 == Dp - 1) dn = INF;
-            const float* d2 = gs + s + (live[q] ? d0 : 0);  // dead lanes: any
-            const float n0 = relax_step(prev[q][0], pm, up, prev[q][1], v[q].x, d2[0], tau, sp);
-            const float n1 = relax_step(prev[q][1], pm, prev[q][0], prev[q][2], v[q].y, d2[1], tau, sp);
-            const float n2 = relax_step(prev[q][2], pm, prev[q][1], prev[q][3], v[q].z, d2[2], tau, sp);
-            const float n3 = relax_step(prev[q][3], pm, prev[q][2], dn, v[q].w, d2[3], tau, sp);
-            prev[q][0] = n0;
-            prev[q][1] = n1;
-            prev[q][2] = n2;
-            prev[q][3] = n3;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < NG; ++q)
-          v[q] = make_float4(prev[q][0], prev[q][1], prev[q][2], prev[q][3]);
-      }  // else a pad step: the volume passes through, the state stays
+        for (int e = 0; e < 4; ++e)
+          d2[q][e] = gs[s + (live[q] ? 4 * (lane + 32 * q) : 0) + e];  // dead lanes: any
+      warp_step<NG>(prev, v, d2, D1, s < T, s == init, lane, Dp, tau, pen);
 
 #pragma unroll
       for (int q = 0; q < NG; ++q) {
@@ -558,24 +603,7 @@ __global__ void __launch_bounds__(32)
           *reinterpret_cast<float4*>(out + (row + s) * Dp + 4 * (lane + 32 * q)) = v[q];
       }
       if (wta) {
-        // winner: the least value (NaN counts as +inf, -0 as +0), then the
-        // least d that has it; in the lane first, then across the warp
-        float m = INF;
-#pragma unroll
-        for (int q = 0; q < NG; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) m = fminf(m, lane_of(v[q], e));
-        unsigned bi = 4 * lane;
-#pragma unroll
-        for (int q = NG - 1; q >= 0; --q)
-#pragma unroll
-          for (int e = 3; e >= 0; --e) {
-            const float x = lane_of(v[q], e);
-            if ((isnan(x) ? INF : x) == m) bi = 4 * (lane + 32 * q) + e;
-          }
-        const unsigned bk = float_key(m + 0.f);
-        const unsigned best = __reduce_min_sync(FULL, bk);
-        const unsigned at = __reduce_min_sync(FULL, bk == best ? bi : 0xffffffffu);
+        const unsigned at = warp_winner<NG>(v, lane);
         if (lane == 0) wta[row + s] = (float)at;
       }
     }
@@ -610,14 +638,243 @@ int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
   return (int)cudaGetLastError();
 }
 
+// ---- the vertical sweep: a kernel of its own --------------------------------
+//
+// Step-major layout: step y of scanline x is the row at (y * Ws + x) * Dp,
+// so the rows of VW adjacent scanlines at one step are one contiguous run
+// of VW * Dp floats (4 KB at Dp = 256). A block is VW warps on VW adjacent
+// scanlines of one class (reversed, x < n_rev, or natural): the host plans
+// the blocks of each class apart, so no block straddles n_rev, and a ragged
+// last block has dead warps that leave after the set-up. Each warp runs
+// warp_step on its scanline (NG float4 groups a lane), with no block
+// barrier in the step loop. The block's volume and accumulator rows arrive in
+// chunks of VK steps through a ring of `stages` buffers: one
+// cp.async.bulk per step and input, one "full" mbarrier a stage; an "empty"
+// mbarrier a stage collects one arrival per live warp, and lane 0 of warp 0
+// refills the stage with the chunk `stages` ahead once all have read it.
+// D1 and the warp's own D2 window (g[y, D + x + d], any alignment, served
+// from L1: the block's windows overlap) are plain loads one step ahead. The
+// sum goes out by coalesced 16-byte stores; in place (out == acc) is safe
+// because a chunk's rows are written only after its copy has landed.
+//
+// Sizing: 1280 scanlines (one direction at KITTI size) or 2452 (the generic
+// lane's two stacked directions) are 10 to 19 warps an SM, so the host
+// (vertical_plan) first counts the blocks an SM must hold for every
+// scanline to be resident in one wave, then gives each block an equal share
+// of the SM's shared memory for its ring, whose chunks are short (VK steps)
+// so that even five blocks an SM keep a chunk each in flight.
+
+constexpr int VW = 4;        // scanlines (warps) per block
+constexpr int VK = 2;        // steps per chunk
+constexpr int VSTAGES = 8;   // chunks in the ring, at most
+constexpr int SM_SMEM = 233472;     // shared memory of an H100 SM
+constexpr int BLOCK_RESERVED = 1024;  // of it, kept by the card per block
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+struct VPlan {
+  int rev_blocks;  // blocks of the reversed class, x in [0, n_rev)
+  int blocks;      // all blocks
+  int per_sm;      // blocks an SM holds at once for one wave
+  int stages;      // chunks in the ring
+  int smem;        // bytes of dynamic shared memory a block
+};
+
+// The blocks and the ring of the vertical sweep (mirrored by
+// ops/sgm.py vertical_plan, which the tests check; a CUDA test holds the
+// mirror against this plan through sgm_vertical_plan).
+VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
+  VPlan p;
+  p.rev_blocks = (n_rev + VW - 1) / VW;
+  p.blocks = p.rev_blocks + (Ws - n_rev + VW - 1) / VW;
+  p.per_sm = (p.blocks + n_sm - 1) / n_sm;
+  const int budget = SM_SMEM / p.per_sm - BLOCK_RESERVED;
+  const int bars = 2 * VSTAGES * 8;
+  const int chunk = VK * VW * Dp * 4 * (has_acc ? 2 : 1);
+  p.stages = budget > bars ? (budget - bars) / chunk : 0;
+  if (p.stages > VSTAGES) p.stages = VSTAGES;
+  if (p.stages < 2) p.stages = 2;  // a huge Dp: fewer blocks resident
+  p.smem = p.stages * chunk + bars;
+  return p;
+}
+
+template <int NG>
+__global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
+    vsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
+                  float* __restrict__ wta, const float* __restrict__ d1,
+                  const float* __restrict__ g_rev,
+                  const float* __restrict__ g_nat, int Ws, int n_steps, int Dp,
+                  int D, int T, int reverse, int gw, int n_rev, int rev_blocks,
+                  float tau, Pen pen, int stages) {
+  extern __shared__ __align__(128) unsigned char vs_raw[];
+  const float QNAN = __int_as_float(0x7fc00000);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool rev = (int)blockIdx.x < rev_blocks;
+  const int x0 = rev ? blockIdx.x * VW : n_rev + (blockIdx.x - rev_blocks) * VW;
+  const int nw = min(VW, (rev ? n_rev : Ws) - x0);  // live warps
+  const int x = x0 + warp;
+  const int init = reverse ? T - 1 : 0;
+  const bool has_acc = acc != nullptr;
+  const int row_floats = VW * Dp;            // one step of the block
+  const int part = VK * row_floats;          // a chunk of one input
+  const int stage_floats = part * (has_acc ? 2 : 1);
+  const int n_chunks = (n_steps + VK - 1) / VK;
+
+  float* ring = reinterpret_cast<float*>(vs_raw);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * stage_floats);
+  unsigned long long* empty = full + VSTAGES;
+
+  // chunk c in sweep order covers the stored steps [lo, lo + cnt)
+  auto chunk_lo = [&](int c) { return (reverse ? n_chunks - 1 - c : c) * VK; };
+  auto fetch = [&](int c) {  // lane 0 of warp 0
+    const int lo = chunk_lo(c);
+    const int cnt = min(VK, n_steps - lo);
+    const unsigned bytes = (unsigned)(nw * Dp) * 4u;
+    const int st = c % stages;
+    const unsigned bar = smem_addr(full + st);
+    float* dst = ring + (size_t)st * stage_floats;
+    mbar_expect_tx(bar, cnt * bytes * (has_acc ? 2u : 1u));
+    for (int j = 0; j < cnt; ++j) {
+      const size_t src = ((size_t)(lo + j) * Ws + x0) * Dp;
+      bulk_load(smem_addr(dst + j * row_floats), vol + src, bytes, bar);
+      if (has_acc)
+        bulk_load(smem_addr(dst + part + j * row_floats), acc + src, bytes, bar);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(smem_addr(full + st), 1);
+      mbar_init(smem_addr(empty + st), nw);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < stages && c < n_chunks; ++c) fetch(c);
+  }
+  __syncthreads();
+  if (warp >= nw) return;  // a dead warp of a ragged block
+
+  bool live[NG];  // a lane's float4 lies inside the row (Dp need not be NG * 128)
+#pragma unroll
+  for (int q = 0; q < NG; ++q) live[q] = 4 * (lane + 32 * q) < Dp;
+
+  // D1 and the D2 window of a step, loaded one step ahead
+  const float* g = (rev ? g_rev : g_nat) + D + (rev ? x : x - n_rev);
+  float nd1, nd2[NG][4];
+  auto load_pen = [&](int s) {
+    nd1 = d1[(size_t)s * Ws + x];
+    const float* gr = g + (size_t)s * gw;
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nd2[q][e] = live[q] ? gr[4 * (lane + 32 * q) + e] : 0.f;
+  };
+  load_pen(reverse ? n_steps - 1 : 0);
+
+  float prev[NG][4];
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) prev[q][e] = QNAN;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int lo = chunk_lo(c);
+    const int cnt = min(VK, n_steps - lo);
+    const int st = c % stages;
+    mbar_wait(smem_addr(full + st), (unsigned)(c / stages) & 1u);
+    const float* sv = ring + (size_t)st * stage_floats + warp * Dp;
+    const float* sa = sv + part;
+
+    for (int i = 0; i < cnt; ++i) {
+      const int j = reverse ? cnt - 1 - i : i;
+      const int s = lo + j;
+      const float D1 = nd1;
+      float D2[NG][4];
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) D2[q][e] = nd2[q][e];
+      const int s_next = reverse ? s - 1 : s + 1;
+      if (s_next >= 0 && s_next < n_steps) load_pen(s_next);
+
+      float4 v[NG], a[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        const int f = lane + 32 * q;
+        v[q] = make_float4(QNAN, QNAN, QNAN, QNAN);
+        a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live[q]) {
+          v[q] = *reinterpret_cast<const float4*>(sv + j * row_floats + 4 * f);
+          if (has_acc) a[q] = *reinterpret_cast<const float4*>(sa + j * row_floats + 4 * f);
+        }
+      }
+
+      warp_step<NG>(prev, v, D2, D1, s < T, s == init, lane, Dp, tau, pen);
+
+      const size_t cell = (size_t)s * Ws + x;
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        if (has_acc) {
+          v[q].x += a[q].x;
+          v[q].y += a[q].y;
+          v[q].z += a[q].z;
+          v[q].w += a[q].w;
+        }
+        if (out && live[q])
+          *reinterpret_cast<float4*>(out + cell * Dp + 4 * (lane + 32 * q)) = v[q];
+      }
+      if (wta) {
+        const unsigned at = warp_winner<NG>(v, lane);
+        if (lane == 0) wta[cell] = (float)at;
+      }
+    }
+
+    // this warp has read the stage; once every live warp has, warp 0 gives
+    // it the chunk `stages` ahead
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(empty + st));
+    if (warp == 0 && lane == 0 && c + stages < n_chunks) {
+      mbar_wait(smem_addr(empty + st), (unsigned)(c / stages) & 1u);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fetch(c + stages);
+    }
+    __syncwarp();
+  }
+}
+
+template <int NG>
+int launch_vsweep(const float* vol, const float* acc, float* out, float* wta,
+                  const float* d1, const float* g_rev, const float* g_nat,
+                  int Hp, int Ws, int Dp, int D, int T, int reverse, int gw,
+                  int n_rev, float tau, Pen pen, cudaStream_t stream) {
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const VPlan p = vertical_plan(Ws, n_rev, Dp, acc != nullptr, n_sm);
+  err = cudaFuncSetAttribute(vsweep_kernel<NG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(vsweep_kernel<NG>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return (int)err;
+  vsweep_kernel<NG><<<p.blocks, VW * 32, p.smem, stream>>>(
+      vol, acc, out, wta, d1, g_rev, g_nat, Ws, Hp, Dp, D, T, reverse, gw, n_rev,
+      p.rev_blocks, tau, pen, p.stages);
+  return (int)cudaGetLastError();
+}
+
 template <bool TABLE = false>
 int launch(const float* vol, const float* acc, float* out, float* wta,
-           const float* d1, const float* g_rev, const float* g_nat,
-           Layout lay, int n_scan, int n_steps, int Dp, int D, int T,
-           int reverse, int gw, float tau, Pen pen, cudaStream_t stream) {
+           const float* d1, const float* g, Layout lay, int n_scan,
+           int n_steps, int Dp, int D, int T, int reverse, int gw, float tau,
+           Pen pen, cudaStream_t stream) {
   sweep_kernel<TABLE><<<n_scan, Dp, 0, stream>>>(
-      vol, acc, out, wta, d1, g_rev, g_nat, lay, Dp, D, n_steps, T, reverse, gw,
-      tau, pen);
+      vol, acc, out, wta, d1, g, lay, Dp, D, n_steps, T, reverse, gw, tau,
+      pen);
   return (int)cudaGetLastError();
 }
 
@@ -637,9 +894,33 @@ extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
                                   int Hp, int Ws, int Dp, int D, int T,
                                   int reverse, int gw, int n_rev, float tau,
                                   Pen pen, cudaStream_t stream) {
-  const Layout lay{Ws, 1, 1, n_rev, 0};
-  return launch(vol, acc, out, wta, d1, g_rev, g_nat, lay, Ws, Hp, Dp, D, T,
-                reverse, gw, tau, pen, stream);
+  if (Hp == 0 || Ws == 0) return 0;
+#define VSWEEP(NG)                                                                \
+  case NG:                                                                        \
+    return launch_vsweep<NG>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp, D, \
+                             T, reverse, gw, n_rev, tau, pen, stream)
+  switch ((Dp + 127) / 128) {
+    VSWEEP(1);
+    VSWEEP(2);
+    VSWEEP(3);
+    VSWEEP(4);
+    VSWEEP(5);
+    VSWEEP(6);
+    VSWEEP(7);
+    VSWEEP(8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VSWEEP
+}
+
+// The plan sgm_sweep_vertical launches with on a card of n_sm SMs, as
+// out = {rev_blocks, blocks, per_sm, stages, smem}; no kernel runs.
+extern "C" void sgm_vertical_plan(int Ws, int n_rev, int Dp, int has_acc, int n_sm,
+                                  int* out) {
+  const VPlan p = vertical_plan(Ws, n_rev, Dp, has_acc != 0, n_sm);
+  const int v[5] = {p.rev_blocks, p.blocks, p.per_sm, p.stages, p.smem};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
 // vol, acc, out: (Hp, Wp, Dp) float32, steps the Wp columns; wta, d1:
@@ -678,9 +959,9 @@ extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
                                int Dp, int D, int reverse, int gw, int n_rev,
                                int rev_base, float tau, Pen pen,
                                cudaStream_t stream) {
-  const Layout lay{S, 1, 0, n_rev, rev_base};
-  return launch(vol, acc, out, nullptr, d1, g, g, lay, S, W, Dp, D, W,
-                reverse, gw, tau, pen, stream);
+  const Layout lay{S, 1, n_rev, rev_base};
+  return launch(vol, acc, out, nullptr, d1, g, lay, S, W, Dp, D, W, reverse,
+                gw, tau, pen, stream);
 }
 
 // The scan form, whole sweep in one launch. vol, d2, out: (T, S, D) float32
@@ -691,9 +972,9 @@ extern "C" int sgm_sweep_scan(const float* vol, const float* d1,
                               const float* d2, float* out, int T, int S, int D,
                               float tau, Pen pen, cudaStream_t stream,
                               int* launched) {
-  const Layout lay{S, 1, 0, 0, 0};
-  const int rc = launch<true>(vol, nullptr, out, nullptr, d1, d2, d2, lay, S,
-                              T, (D + 31) / 32 * 32, D, T, 0, 0, tau, pen,
+  const Layout lay{S, 1, 0, 0};
+  const int rc = launch<true>(vol, nullptr, out, nullptr, d1, d2, lay, S, T,
+                              (D + 31) / 32 * 32, D, T, 0, 0, tau, pen,
                               stream);
   *launched = rc == 0;
   return rc;

@@ -8,10 +8,13 @@ x' = W-1-x, primes on x-flipped maps, so both sides are one kernel);
 NaN at x + d >= W, d >= D and in pad rows; ``n_fix`` border columns
 replicated in the kernel.
 
-On CUDA tensors :func:`_join_plus` launches ``csrc/join.cu``; on CPU
-tensors it runs :func:`join_plus_plain`. :func:`stereo_join_dhw` relays
-the two buffers to disparity-major (D, H, W) volumes for the generic
-lane (the fast arch with CBCA).
+On CUDA tensors :func:`_join_plus` launches ``csrc/join.cu``, which
+computes the dots from bf16 products on the tensor cores as the TPU
+kernel does, with a split of three bf16 levels where the TPU kernel has
+two (:func:`join_plus_split_plain` emulates both); on CPU tensors it
+runs :func:`join_plus_plain`, a float32 sum.
+:func:`stereo_join_dhw` relays the two buffers to disparity-major
+(D, H, W) volumes for the generic lane (the fast arch with CBCA).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from mccnn_tpu_torch.ops import _build
 
-XT = 128  # output columns per block of the kernel
+XT = 128  # the column padding of the buffers
+KC = 64  # channels a kernel launch takes: more run in slabs of 64
 
 
 def pad_dims(H: int, W: int, D: int) -> tuple[int, int, int]:
@@ -31,16 +35,16 @@ def pad_dims(H: int, W: int, D: int) -> tuple[int, int, int]:
     return -(-H // 64) * 64, -(-W // XT) * XT, -(-D // 128) * 128
 
 
-def join_plus_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
-                    n_fix: int) -> torch.Tensor:
-    """out[y, x, d] = -<a[y, :, x], b[y, :, x + d]> with the masks and
-    the border of the kernel, one disparity at a time.
-    a: (Hp, C, Wp), b: (Hp, C, >= Wp + Dp)."""
+def _join(a: torch.Tensor, D: int, W: int, H: int, n_fix: int,
+          dot) -> torch.Tensor:
+    """out[y, x, d] = -dot(d)[y, x] with the masks and the border of the
+    kernel, one disparity at a time; ``dot(d)`` is the (Hp, Wp) product
+    of a: (Hp, C, Wp) with b shifted by d."""
     Hp, _, Wp = a.shape
     Dp = -(-D // 128) * 128
     out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
     for d in range(Dp):
-        out[:, :, d] = -(a * b[:, :, d:d + Wp]).sum(1)
+        out[:, :, d] = -dot(d)
     x = torch.arange(Wp, device=a.device)[None, :, None]
     d = torch.arange(Dp, device=a.device)[None, None, :]
     y = torch.arange(Hp, device=a.device)[:, None, None]
@@ -48,6 +52,54 @@ def join_plus_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
     if n_fix > 0:
         out[:, :n_fix, :] = out[:, n_fix:n_fix + 1, :]
     return out
+
+
+def join_plus_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
+                    n_fix: int) -> torch.Tensor:
+    """out[y, x, d] = -<a[y, :, x], b[y, :, x + d]> in float32 with the
+    masks and the border of the kernel. a: (Hp, C, Wp), b: (Hp, C,
+    >= Wp + Dp)."""
+    Wp = a.shape[2]
+    return _join(a, D, W, H, n_fix,
+                 lambda d: (a * b[:, :, d:d + Wp]).sum(1))
+
+
+def _split(t: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """t as the sum of ``levels`` bf16 terms and a residual: each term
+    is bf16 (round to nearest even) of what the terms before it leave,
+    held as float32."""
+    terms = []
+    for _ in range(levels):
+        terms.append(t.to(torch.bfloat16).to(torch.float32))
+        t = t - terms[-1]
+    return terms
+
+
+def join_plus_split_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int,
+                          H: int, n_fix: int, levels: int = 3
+                          ) -> torch.Tensor:
+    """:func:`join_plus_plain` from bf16 products, summed in float32:
+    each operand split into ``levels`` bf16 terms, and the dot the sum
+    of the products a_i.b_j with i + j < ``levels`` (0-based), the
+    smallest first. bf16 keeps 8 significant bits, so each term is
+    within 2^-8 of what the terms before it leave. ``levels=3`` is the
+    CUDA kernel's arithmetic (six products, within about 4 * 2^-24
+    sum |a||b| of the float32 dot, the size of the rounding of the sums);
+    ``levels=2`` the TPU kernel's (join_pallas.py:155-165: a_hi.b_hi +
+    a_hi.b_lo + a_lo.b_hi, within about 3 * 2^-16 sum |a||b|;
+    L2-normalized maps have sum |a||b| <= 1)."""
+    sa, sb = _split(a, levels), _split(b, levels)
+    pairs = sorted(((i, j) for i in range(levels) for j in range(levels)
+                    if i + j < levels), key=lambda p: (-sum(p), -p[0]))
+    Wp = a.shape[2]
+
+    def dot(d):
+        out = torch.zeros_like(a[:, 0])
+        for i, j in pairs:
+            out = out + (sa[i] * sb[j][:, :, d:d + Wp]).sum(1)
+        return out
+
+    return _join(a, D, W, H, n_fix, dot)
 
 
 def _lib():
@@ -75,15 +127,14 @@ def _join_plus(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
                          f"b {tuple(b.shape)} for D={D}")
     if not 0 <= n_fix < 8:
         raise ValueError(f"join: n_fix must be in [0, 8), got {n_fix}")
-    if C * (2 * XT + Dp) * 4 > 232448:
-        raise ValueError(f"join: C={C}, Dp={Dp} exceed the shared memory "
-                         "of one block")
+    if C < 1:
+        raise ValueError(f"join: C={C} channels; the kernel takes 1 or more")
     out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
     rc = _lib().join_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), H, W,
                             C, Hp, Wp, b.shape[2], Dp, D, n_fix,
                             _build.stream(a))
     _build.check_launch(rc, "join")
-    _build.count("join")
+    _build.count("join", -(-C // KC))  # one kernel launch a channel slab
     return out
 
 

@@ -40,11 +40,14 @@ On CUDA tensors each sweep launches ``csrc/sgm_sweep.cu`` (entries
 ``sgm_vertical``, ``sgm_horizontal``, ``sgm_hslab``, ``sgm_scan`` and
 ``sgm_step``); on CPU tensors it runs the step loops
 :func:`sweep_plain`, :func:`hslab_plain` and :func:`sweep_scan_plain`.
-``sgm_horizontal`` has a kernel of its own: one warp per scanline, the
-volume and accumulator rows prefetched in chunks of ``HCHUNK`` steps
-through a ring of shared-memory buffers by bulk asynchronous copies
-(:func:`horizontal_chunks` is its walk over the steps); the other four
-entries share one kernel with a block of Dp threads per scanline.
+``sgm_horizontal`` and ``sgm_vertical`` have kernels of their own: one
+warp per scanline, the volume and accumulator rows prefetched through a
+ring of shared-memory buffers by bulk asynchronous copies — per scanline
+in chunks of ``HCHUNK`` steps for the horizontal one
+(:func:`horizontal_chunks` is its walk over the steps), per block of
+``VWARPS`` adjacent scanlines in chunks of ``VCHUNK`` steps for the
+vertical one (:func:`vertical_plan` is its blocks and ring). The other
+three entries share one kernel with a block of Dp threads per scanline.
 """
 
 from __future__ import annotations
@@ -228,6 +231,43 @@ def horizontal_chunks(n_steps: int, reverse: bool) -> list[list[int]]:
     blocks = [list(range(lo, min(lo + HCHUNK, n_steps)))
               for lo in range(0, n_steps, HCHUNK)]
     return [b[::-1] for b in blocks[::-1]] if reverse else blocks
+
+
+# the vertical sweep kernel's blocks and ring (VW, VK, VSTAGES, SM_SMEM and
+# BLOCK_RESERVED in csrc/sgm_sweep.cu)
+VWARPS = 4
+VCHUNK = 2
+VSTAGES = 8
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+H100_SMS = 132
+
+
+def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
+                  n_sm: int = H100_SMS) -> dict:
+    """The vertical sweep kernel's launch, as its C entry plans it
+    (``vertical_plan`` in csrc/sgm_sweep.cu; a CUDA test holds this
+    mirror against the C entry ``sgm_vertical_plan``): ``blocks``, one (x0, n)
+    run of at most ``VWARPS`` adjacent scanlines each, the reversed class
+    [0, n_rev) planned apart from the natural one so that no block reads
+    two D2 tables; ``per_sm``, the blocks an SM must hold for all of them
+    to run in one wave; ``stages``, the chunks of ``VCHUNK`` steps in a
+    block's ring, as many as an equal share of the SM's shared memory
+    holds (two at least, ``VSTAGES`` at most); ``smem``, a block's
+    dynamic shared memory in bytes (the ring and two mbarriers a
+    stage)."""
+    def runs(lo, hi):
+        return [(x, min(VWARPS, hi - x)) for x in range(lo, hi, VWARPS)]
+
+    blocks = runs(0, n_rev) + runs(n_rev, Ws)
+    per_sm = -(-len(blocks) // n_sm)
+    budget = SM_SMEM // per_sm - BLOCK_RESERVED
+    bars = 2 * VSTAGES * 8
+    chunk = VCHUNK * VWARPS * Dp * 4 * (2 if has_acc else 1)
+    stages = max(2, min(VSTAGES, (budget - bars) // chunk if budget > bars
+                        else 0))
+    return dict(blocks=blocks, per_sm=per_sm, stages=stages,
+                smem=stages * chunk + bars)
 
 
 class _Pen(ctypes.Structure):

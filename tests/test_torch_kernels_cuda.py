@@ -7,6 +7,8 @@ JAX, run it without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -32,19 +34,35 @@ def _feats(rng, H, W, C, dev):
 
 @pytest.mark.parametrize("H,W,C,D,n_fix", [(20, 140, 8, 20, 4),
                                            (70, 300, 64, 228, 4),
-                                           (3, 128, 16, 130, 0)])
+                                           (3, 128, 16, 130, 0),
+                                           (9, 1000, 64, 300, 4),
+                                           (4, 200, 64, 100, 0),
+                                           (66, 97, 33, 228, 3),
+                                           (7, 300, 112, 100, 4),
+                                           (5, 200, 130, 64, 0)])
 def test_join_kernel_matches_plain(dev, H, W, C, D, n_fix):
+    """The kernel against the float32 sum within 1e-5, and against the
+    emulation of its own arithmetic (three bf16 levels, the same products
+    summed in float32 in other orders) within 1e-6; NaN masks equal. W
+    off a multiple of 64; Dp 128, 256 and 384 (two disparity chunks);
+    rows past a multiple of 64; C below 64 (zero channels in the kernel)
+    and above it (slabs of 64 channels, one kernel launch each, the last
+    one ragged)."""
     f = _feats(np.random.RandomState(H), H, W, C, dev)
     Hp, Wp, Dp = join.pad_dims(H, W, D)
     a = join._prep(f[0], True, Hp, Wp)
     b = join._prep(f[1], True, Hp, Wp + Dp)
-    before = _build.LAUNCHES["join"]
+    before = _build.LAUNCHES["join"], _build.KERNEL_LAUNCHES["join"]
     got = join._join_plus(a, b, D, W, H, n_fix)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["join"] == before + 1
+    assert _build.LAUNCHES["join"] == before[0] + 1
+    assert _build.KERNEL_LAUNCHES["join"] == before[1] + -(-C // 64)
     want = join.join_plus_plain(a, b, D, W, H, n_fix)
     assert torch.equal(got.isnan(), want.isnan())
     assert float((got - want).nan_to_num().abs().max()) <= 1e-5
+    want = join.join_plus_split_plain(a, b, D, W, H, n_fix)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert float((got - want).nan_to_num().abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("xrev", [True, False])
@@ -166,6 +184,87 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
             assert (got is None) == (want is None)
             assert got is None or same(got, want)
     assert _build.LAUNCHES["sgm_horizontal"] == 5
+
+
+@pytest.mark.parametrize("Ws,n_rev,Dp,has_acc", [
+    (1280, 0, 256, True), (1280, 1280, 256, False),   # the fast shape
+    (2452, 1226, 256, True), (2452, 1226, 256, False),  # the stacked one
+    (23, 7, 96, True), (5, 2, 1024, True)])
+def test_vertical_plan_mirror_is_the_launched_plan(dev, Ws, n_rev, Dp,
+                                                   has_acc):
+    """``sgm.vertical_plan`` (the mirror the CPU tests check) against the
+    plan ``sgm_sweep_vertical`` launches with, from the C entry
+    ``sgm_vertical_plan``, on this card's SM count and on the H100's."""
+    fn = _build.library("sgm_sweep").sgm_vertical_plan
+    n_sms = {torch.cuda.get_device_properties(dev).multi_processor_count,
+             sgm.H100_SMS}
+    for n_sm in sorted(n_sms):
+        got = (ctypes.c_int * 5)()
+        fn(Ws, n_rev, Dp, int(has_acc), n_sm, got)
+        p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc, n_sm)
+        want = [sum(x0 < n_rev for x0, _ in p["blocks"]), len(p["blocks"]),
+                p["per_sm"], p["stages"], p["smem"]]
+        assert list(got) == want
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Hp,Ws,Dp,D,T,n_rev", [
+    (37, 9, 128, 100, 37, 0),     # T off a multiple of the chunk, Ws ragged
+    (5, 6, 128, 70, 3, 6),        # pad steps, every scanline reversed
+    (48, 13, 256, 228, 29, 5),    # pad steps, an odd split of the classes
+    (20, 8, 96, 80, 17, 3),       # Dp off a multiple of 128
+    (19, 7, 384, 300, 19, 7),     # three float4 groups a lane
+    (2, 4, 256, 130, 2, 0)])      # one chunk
+def test_vertical_sweep_kernel_is_bit_identical(dev, Hp, Ws, Dp, D, T, n_rev,
+                                                reverse):
+    """``sgm_sweep_vertical`` against ``sweep_plain`` on the same
+    tensors, with the accumulator null, separate and in place, with the
+    winner map fused, with and without the volume write. The same f32
+    operations in the same order and an exact min: equal bit for bit,
+    NaN masks and winner maps included. Scanlines x < n_rev read g_rev,
+    the others g_nat; the volume has NaN tails in d, scattered NaN cells,
+    whole NaN steps and one scanline all NaN."""
+    rng = np.random.RandomState(Ws + Dp + reverse)
+    vol = rng.rand(Hp, Ws, Dp).astype(np.float32)
+    vol[..., D:] = np.nan
+    vol[rng.rand(Hp, Ws, Dp) < 0.03] = np.nan
+    vol[:, Ws // 3, :] = np.nan
+    vol[:, :, D - D // 4:][::2] = np.nan
+    vol[Hp // 2] = np.nan
+    accv = rng.rand(Hp, Ws, Dp).astype(np.float32)
+    accv[np.isnan(vol)] = np.nan
+    vol, accv = (torch.as_tensor(v, device=dev) for v in (vol, accv))
+    d1 = torch.as_tensor((rng.rand(Hp, Ws) * 0.16).astype(np.float32),
+                         device=dev)
+    tables = []
+    for _ in range(2):
+        g = (rng.rand(Hp, D + Ws + Dp + 3) * 0.16).astype(np.float32)
+        g[rng.rand(*g.shape) < 0.05] = 10.0
+        tables.append(torch.as_tensor(g, device=dev))
+    kw = dict(vertical=True, reverse=reverse, T=T, D=D, tau=0.08,
+              g_nat=tables[1], n_rev=n_rev,
+              pen=sgm.pen_table(1.32, 24.25, 3.0, 2.0, 2.0, 1.0))
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) \
+            and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    _build.reset_launches()
+    uses = ((False, "new", False), (True, "new", False), (True, "acc", False),
+            (True, "acc", True), (True, None, True), (False, "new", True))
+    for acc, out_to, with_wta in uses:
+        bufs = []
+        for sweep in (sgm._sweep, sgm.sweep_plain):
+            a = accv.clone() if acc else None
+            o = {"new": torch.full_like(vol, -1.0), "acc": a, None: None}[out_to]
+            w = torch.full((Hp, Ws), -1.0, device=dev) if with_wta else None
+            sweep(vol, a, o, w, d1, tables[0], **kw)
+            torch.cuda.synchronize()
+            bufs.append((a, o, w))
+        for got, want in zip(*bufs):
+            assert (got is None) == (want is None)
+            assert got is None or same(got, want)
+    assert _build.LAUNCHES["sgm_vertical"] == len(uses)
 
 
 @pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
@@ -293,6 +392,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     a = torch.zeros((64, 8, 128), device=dev)
     with pytest.raises(ValueError, match="n_fix"):
         join._join_plus(a, torch.zeros((64, 8, 256), device=dev), 20, 100, 60, 9)
+    with pytest.raises(ValueError, match="channels"):
+        join._join_plus(torch.zeros((64, 0, 128), device=dev),
+                        torch.zeros((64, 0, 256), device=dev), 20, 100, 60, 0)
     with pytest.raises(ValueError, match="float32"):
         outlier.outlier_detection(torch.zeros((4, 8), device=dev,
                                               dtype=torch.float64),

@@ -147,3 +147,36 @@ def test_horizontal_chunks_cover_the_steps_once_in_sweep_order(n_steps,
         assert 1 <= len(c) <= sgm.HCHUNK and hi - lo + 1 == len(c)
         assert lo % sgm.HCHUNK == 0
         assert len(c) == sgm.HCHUNK or hi == n_steps - 1
+
+
+@pytest.mark.parametrize("Ws,n_rev,Dp,has_acc,kitti", [
+    (1280, 0, 256, True, True),       # one direction at KITTI size
+    (1280, 1280, 256, False, True),   # its x-reversed side, first sweep
+    (2452, 1226, 256, True, True),    # the generic lane's two directions
+    (2452, 1226, 256, False, True),
+    (23, 7, 96, True, False),         # ragged classes, Dp off 128
+    (150, 150, 128, True, False),
+    (5, 2, 1024, True, False)])       # the widest rows
+def test_vertical_plan_covers_each_scanline_once_in_one_wave(Ws, n_rev, Dp,
+                                                             has_acc, kitti):
+    """The vertical sweep kernel's blocks and ring: every scanline in
+    exactly one block of at most VWARPS adjacent ones; no block reads both
+    D2 tables (none straddles n_rev); the ring fits a block's shared
+    memory. At the KITTI shapes every block is resident in one wave (its
+    share of the SM's shared memory, at most 64 warps an SM) and each SM
+    keeps at least 32 KB of chunks in flight."""
+    p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc)
+    covered = [x for x0, n in p["blocks"] for x in range(x0, x0 + n)]
+    assert covered == list(range(Ws))
+    for x0, n in p["blocks"]:
+        assert 1 <= n <= sgm.VWARPS
+        assert x0 >= n_rev or x0 + n <= n_rev
+    chunk = sgm.VCHUNK * sgm.VWARPS * Dp * 4 * (2 if has_acc else 1)
+    assert 2 <= p["stages"] <= sgm.VSTAGES
+    assert p["smem"] == p["stages"] * chunk + 2 * sgm.VSTAGES * 8
+    assert p["smem"] <= sgm.SM_SMEM - sgm.BLOCK_RESERVED
+    if kitti:
+        assert len(p["blocks"]) <= p["per_sm"] * sgm.H100_SMS
+        assert p["per_sm"] * (p["smem"] + sgm.BLOCK_RESERVED) <= sgm.SM_SMEM
+        assert p["per_sm"] * sgm.VWARPS <= 64
+        assert p["per_sm"] * (p["stages"] - 1) * chunk >= 32 * 1024

@@ -2,7 +2,7 @@
 
     python -m mccnn_tpu_torch kitti fast -a predict -left L.png -right R.png \\
         -disp_max 228 [-net_fname net.npz] [-backend cpu]
-    python -m mccnn_tpu_torch kitti slow -a time
+    python -m mccnn_tpu_torch kitti slow -a time    # fastest of 3 (fast: 30)
     python -m mccnn_tpu_torch kitti census -a time
 
 Same flags and outputs as the reference's ``./main.lua`` (main.lua:10-32):
@@ -91,7 +91,9 @@ def action_predict(cfg: Config) -> None:
 
 def action_time(cfg: Config) -> None:
     """main.lua:1140-1170: fastest of N wall-clock runs at the
-    reference's synthetic sizes, inputs resident on the device."""
+    reference's synthetic sizes, inputs resident on the device, after
+    one warm-up run: N = 30 for the fast arch, 3 for the others (the
+    reference's rule, mccnn_tpu/cli.py:113), on any device."""
     dev = device_of(cfg)
     if cfg.tiny:
         H, W, disp_max = 240, 320, 32
@@ -106,7 +108,7 @@ def action_time(cfg: Config) -> None:
     stereo_predict(cfg, params, x0, x1, disp_max, device=dev)  # warm-up
     _sync(dev)
     best = float("inf")
-    for _ in range(30 if dev.type == "cuda" else 3):
+    for _ in range(30 if cfg.arch == "fast" else 3):
         t0 = _time.perf_counter()
         stereo_predict(cfg, params, x0, x1, disp_max, device=dev)
         _sync(dev)

@@ -1,5 +1,4 @@
-// SGM sweeps: one recurrence, four layouts, a launch-per-step form, and
-// kernels of their own for the two sweeps of the disparity-minor lane.
+// SGM sweeps: one recurrence, five entries, four kernels.
 //
 // Replaces five TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
@@ -16,14 +15,10 @@
 //                         order; the whole sweep in one launch)
 //   _sweep_grid          (the same function, one sweep step per sequential
 //                         grid iteration: here one kernel launch per step)
-// Five entries with their own launch counts. With d fastest in every
-// layout, one step of one scanline is one contiguous row; a layout is
-// only where that row lies: cell = step * step_stride + scan * scan_stride
-// (the horizontal entry: step_stride 1, scan_stride Wp; the vertical one:
-// step_stride Ws, scan_stride 1).
-// The vertical entry serves both lanes: the (Hp, Wp, Dp) volume of one
-// direction, and the generic lane's (H, 2W, Dp) volume with both reference
-// directions stacked on the scanline axis.
+// With d fastest in every layout, one step of one scanline is one
+// contiguous row. The vertical entry serves both lanes: the (Hp, Wp, Dp)
+// volume of one direction, and the generic lane's (H, 2W, Dp) volume with
+// both reference directions stacked on the scanline axis.
 //
 // Per step (sgm.py:116-124, the reference's sgm2, adcensus.cu:535-697):
 //   pm   = min_d prev               (NaN taken as +inf)
@@ -35,65 +30,59 @@
 // out of the neighbour coupling. The penalty class (0: D1 and D2 below
 // tau, 2: both above, else 1) picks one (P1a, P1b, P2) triple from a
 // table the host computes in float32 exactly as _penalties3 does. D1 is
-// d1[cell]. D2 is one lane-contiguous row slice, g[row, col + d]:
+// one value a cell. D2 is one lane-contiguous row slice, g[row, col + d]:
 //   vertical:   row = step y; col = D + x, x the scanline's column within
 //               its direction (scanlines < n_rev read the table g_rev,
 //               which the host lane-reverses for x-reversed storage; the
 //               others g_nat, with x counted from n_rev);
-//   horizontal: row = scanline; col = D + x on natural scanlines and
+//   horizontal: row = scanline; col = D + x;
+//   hslab:      row = scanline; col = D + x on natural scanlines and
 //               rev_base - x on the first n_rev ones (the -1 direction's,
 //               whose rows the host lane-reverses: g[x - d + D] equals
-//               rev(g)[rev_base - x + d] at rev_base = W + D - 1);
-//   table:      the scan form's built table, d2[cell, d].
+//               rev(g)[rev_base - x + d] at rev_base = W + D - 1): the
+//               window slides one float along its own row a step;
+//   scan form:  the built table, d2[cell, d].
 // The scan form's rows are D floats long, not padded: the threads d >= D
 // of a block hold NaN, which is what a pad lane holds in the other
 // layouts, so neighbours outside [0, D) never couple.
 //
-// Steps: n_steps stored steps, of which the first T are real. Steps
-// s >= T pass the volume through and leave the state alone; the state
-// starts at step 0 (forward) or T-1 (reverse), so a reverse sweep starts
-// on the last real step. Output: out = val (+ acc), in place when
-// out == acc; out may be null (no volume write). wta, if given, receives
-// the argmin over d of the written sum (NaN as +inf, ties to the lowest d).
+// Steps (the three slab entries): n_steps stored steps, of which the first
+// T are real. Steps s >= T pass the volume through and leave the state
+// alone; the state starts at step 0 (forward) or T-1 (reverse), so a
+// reverse sweep starts on the last real step. Output: out = val (+ acc),
+// in place when out == acc; out may be null (no volume write). wta, if
+// given, receives the argmin over d of the written sum (NaN as +inf, ties
+// to the lowest d).
 //
 // Bound on the H100: a sweep with an accumulator reads the volume and the
 // accumulator and writes the sum, over the real cells only (the pad lanes
 // and rows are layout, not work): 3 x 414 MB for one direction at KITTI
 // size (370 x 1226 x 228 f32; 0.37 ms at 3.35 TB/s), 3 x 827 MB for the
 // generic lane's two stacked directions (0.74 ms); the arithmetic (about
-// ten f32 operations per cell) is far below the f32 peak. The recurrence,
+// ten f32 operations per cell) is far below the f32 peak. The recurrence
 // is a chain of n_steps dependent steps per scanline, each ending in a
 // min over d.
 //
-// Design of sweep_kernel (the hslab and scan entries; simple and right
-// first): one block of Dp threads per scanline, thread = disparity, the
-// steps a loop inside the block. The previous step lives in a register
-// and in a double-buffered shared row for the d +- 1 neighbours; the min is
-// a warp shuffle then a shared-memory pass, one __syncthreads per step. The
-// next step's volume, accumulator and penalty inputs are loaded before this
-// step's reduction, so their latency overlaps it. Parallelism is one block
-// per scanline: the generic lane's stacked horizontal family has 740 blocks
-// at KITTI size.
+// The three slab entries run one warp per scanline (warp_step: no block
+// barrier, the min over d by one redux.sync) and stream their rows
+// through rings of shared-memory chunks filled by bulk asynchronous
+// copies, so that tens of kilobytes per SM are in flight:
+// - sgm_sweep_horizontal (hsweep_kernel): 384 scanlines at KITTI size,
+//   under one wave; a ring of multi-step chunks per scanline, whose steps
+//   are contiguous rows.
+// - sgm_sweep_vertical and sgm_sweep_hslab (vsweep_kernel, one template
+//   instance each): the step-major layout, where the rows of adjacent
+//   scanlines at one step are one contiguous run; a block of VW warps
+//   shares a ring of short chunks, one bulk copy a step and input, and the
+//   host sizes the ring so that every scanline is resident in one wave
+//   (vertical_plan). The two differ only in where a warp's D2 window lies,
+//   a template argument (HROW): a run-time layout field in the step loop
+//   cost every sweep 6-7% on the H100.
 //
-// The disparity-minor horizontal entry (sgm_sweep_horizontal) has 384
-// scanlines at KITTI size, under one wave of the card, so one step of
-// prefetch leaves too few bytes in flight to stream at the card's rate, and
-// nothing hides the per-step barrier. Its kernel, hsweep_kernel (see the
-// note above it), runs one warp per scanline with no block barrier and
-// keeps tens of kilobytes per scanline in flight through a ring of
-// multi-step chunks filled by bulk asynchronous copies. It assumes only that
-// a scanline's steps are contiguous rows of Dp floats.
-//
-// The vertical entry (sgm_sweep_vertical) has its own kernel too,
-// vsweep_kernel: the same warp-per-scanline step, on the step-major layout,
-// where the rows of K adjacent scanlines at one step are one contiguous run.
-// A block of K warps shares one ring of short chunks, one bulk copy per step
-// and input; the host sizes the ring so that every scanline is resident in
-// one wave (see the note above the kernel).
-//
-// The scan form (sgm_sweep_scan) is the same kernel on the table layout:
-// it reads the volume and the D2 table and writes the per-step values,
-// 3 x T x S x D x 4 B plus the D1 table; no accumulator, no winner map.
+// The scan form (sgm_sweep_scan) runs sweep_kernel: one block of Dp
+// threads per scanline, thread = disparity, the steps a loop inside the
+// block, one __syncthreads a step. It reads the volume and the D2 table
+// and writes the per-step values, 3 x T x S x D x 4 B plus the D1 table.
 // The launch-per-step form (sgm_sweep_step) keeps no state in the block:
 // step t reads step t-1's row of the output from device memory (a fourth
 // pass over the volume's size), all S scanlines in flight at once, and the
@@ -119,18 +108,6 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    if (ov < v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
 // One step of the recurrence at one disparity: prev, up and dn are the
 // previous step's values at d, d-1 and d+1 (+inf outside), pm their
 // minimum over d, v the volume's cell.
@@ -149,77 +126,43 @@ __device__ __forceinline__ float relax(float prev, float pm, float up, float dn,
   return (v + cost) - pm;
 }
 
-// Where a layout keeps its rows: cell = step * step_stride + scan *
-// scan_stride (in rows; d1 and wta are indexed by the cell), and where its
-// reversed scanlines read D2 (see the top of the file). The table layout is a
-// template instance of the kernel (TABLE): its rows are D floats long and
-// its D2 is d2[cell, d]. As a run-time field of the layout it cost the
-// other entries 6-7% of their time on the H100 (a predicate on every load
-// of the step loop); as a template argument it costs them nothing.
-struct Layout {
-  long long step_stride, scan_stride;
-  int n_rev;     // scanlines [0, n_rev) are the reversed class
-  int rev_base;  // row = scanline, reversed class: col = rev_base - step
-};
-
-template <bool TABLE>
-__global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
-                             float* out, float* __restrict__ wta,
+// The scan form, whole sweep in one block a scanline: thread d of Dp =
+// blockDim.x >= D threads; vol, d2, out: (T, S, D), d1: (T, S), in sweep
+// order. The previous step lives in a register and in a double-buffered
+// shared row for the d +- 1 neighbours; the min is a warp shuffle then a
+// shared-memory pass, one __syncthreads a step. The next step's inputs
+// are loaded before this step's reduction, so their latency overlaps it.
+__global__ void sweep_kernel(const float* __restrict__ vol,
                              const float* __restrict__ d1,
-                             const float* __restrict__ g, Layout lay,
-                             int Dp, int D, int n_steps, int T, int reverse,
-                             int gw, float tau, Pen pen) {
+                             const float* __restrict__ d2, float* out, int T,
+                             int S, int D, float tau, Pen pen) {
   __shared__ float row[2][1024];
   __shared__ float wmin[2][MAX_WARPS];
-  __shared__ float wval[2][MAX_WARPS];
-  __shared__ int widx[2][MAX_WARPS];
   const float INF = __int_as_float(0x7f800000);
   const float QNAN = __int_as_float(0x7fc00000);
   const int d = threadIdx.x;
-  const int lane = d & 31, warp = d >> 5, nw = Dp >> 5;
+  const int lane = d & 31, warp = d >> 5, nw = blockDim.x >> 5;
   const int scan = blockIdx.x;
-  const int init = reverse ? T - 1 : 0;
-  const bool rev = scan < lay.n_rev;
-  // the table layout's rows are D floats: its threads d >= D hold NaN
-  const bool live = !TABLE || d < D;
-  const int lanes = TABLE ? D : Dp;
+  const bool live = d < D;  // the threads d >= D hold NaN
 
-  auto step_of = [&](int t) { return reverse ? n_steps - 1 - t : t; };
-  auto cell = [&](int s) {
-    return (long long)s * lay.step_stride + (long long)scan * lay.scan_stride;
-  };
-  // D2 of step s at disparity d
-  auto d2_at = [&](int s) {
-    if (TABLE) return live ? g[cell(s) * lanes + d] : 10.f;
-    return g[(size_t)scan * gw + (rev ? lay.rev_base - s : D + s) + d];
-  };
-
-  // prefetch of step t: volume, accumulator, D1, D2
-  float nv, na = 0.f, nd1, nd2;
+  // prefetch of step t: volume, D1, D2
+  float nv, nd1, nd2;
   auto load = [&](int t) {
-    const int s = step_of(t);
-    const long long c = cell(s);
-    nv = live ? vol[c * lanes + d] : QNAN;
-    if (acc) na = live ? acc[c * lanes + d] : 0.f;
+    const long long c = (long long)t * S + scan;
+    nv = live ? vol[c * D + d] : QNAN;
     nd1 = d1[c];
-    nd2 = d2_at(s);
+    nd2 = live ? d2[c * D + d] : 10.f;
   };
   load(0);
 
   float prev = 0.f;
-  int rb = 0, wb = 0;  // buffer parity: recurrence steps, WTA steps
-  for (int t = 0; t < n_steps; ++t) {
-    const int s = step_of(t);
-    const long long c = cell(s);
-    const float v = nv, a = na, D1 = nd1, D2 = nd2;
-    if (t + 1 < n_steps) load(t + 1);
-
-    float outv;
-    if (s >= T) {
-      outv = v;  // pad step: pass through, state unchanged
-    } else if (s == init) {
+  int rb = 0;  // buffer parity
+  for (int t = 0; t < T; ++t) {
+    const long long c = (long long)t * S + scan;
+    const float v = nv, D1 = nd1, D2 = nd2;
+    if (t + 1 < T) load(t + 1);
+    if (t == 0) {
       prev = v;
-      outv = v;
     } else {
       row[rb][d] = prev;
       const float m = warp_min(isnan(prev) ? INF : prev);
@@ -228,35 +171,11 @@ __global__ void sweep_kernel(const float* __restrict__ vol, const float* acc,
       float pm = wmin[rb][0];
       for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[rb][w]);
       const float up = d > 0 ? row[rb][d - 1] : INF;
-      const float dn = d < Dp - 1 ? row[rb][d + 1] : INF;
+      const float dn = d < (int)blockDim.x - 1 ? row[rb][d + 1] : INF;
       prev = relax(prev, pm, up, dn, v, D1, D2, tau, pen);
-      outv = prev;
       rb ^= 1;
     }
-    const float fin = acc ? outv + a : outv;
-    if (out && live) out[c * lanes + d] = fin;
-    if (wta) {
-      float bv = isnan(fin) ? INF : fin;
-      int bi = d;
-      warp_argmin(bv, bi);
-      if (lane == 0) {
-        wval[wb][warp] = bv;
-        widx[wb][warp] = bi;
-      }
-      __syncthreads();
-      if (d == 0) {
-        for (int w = 1; w < nw; ++w) {
-          const float ov = wval[wb][w];
-          const int oi = widx[wb][w];
-          if (ov < bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        wta[c] = (float)bi;
-      }
-      wb ^= 1;
-    }
+    if (live) out[c * D + d] = prev;
   }
 }
 
@@ -638,7 +557,7 @@ int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
   return (int)cudaGetLastError();
 }
 
-// ---- the vertical sweep: a kernel of its own --------------------------------
+// ---- the step-major sweeps: vertical and hslab ------------------------------
 //
 // Step-major layout: step y of scanline x is the row at (y * Ws + x) * Dp,
 // so the rows of VW adjacent scanlines at one step are one contiguous run
@@ -652,17 +571,21 @@ int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
 // cp.async.bulk per step and input, one "full" mbarrier a stage; an "empty"
 // mbarrier a stage collects one arrival per live warp, and lane 0 of warp 0
 // refills the stage with the chunk `stages` ahead once all have read it.
-// D1 and the warp's own D2 window (g[y, D + x + d], any alignment, served
-// from L1: the block's windows overlap) are plain loads one step ahead. The
-// sum goes out by coalesced 16-byte stores; in place (out == acc) is safe
-// because a chunk's rows are written only after its copy has landed.
+// D1 and the warp's own D2 window (any alignment, served from L1) are plain
+// loads one step ahead: in the vertical entry g[y, D + x + d], where the
+// block's windows overlap within a step; in the hslab entry (HROW) the
+// scanline's own row, g[x, D + y + d] or g[x, rev_base - y + d], where a
+// window overlaps the previous step's but for one float. The sum goes out
+// by coalesced 16-byte stores; in place (out == acc) is safe because a
+// chunk's rows are written only after its copy has landed.
 //
-// Sizing: 1280 scanlines (one direction at KITTI size) or 2452 (the generic
-// lane's two stacked directions) are 10 to 19 warps an SM, so the host
-// (vertical_plan) first counts the blocks an SM must hold for every
-// scanline to be resident in one wave, then gives each block an equal share
-// of the SM's shared memory for its ring, whose chunks are short (VK steps)
-// so that even five blocks an SM keep a chunk each in flight.
+// Sizing: 1280 scanlines (one direction at KITTI size), 2452 (the generic
+// lane's two stacked vertical directions) or 740 (its two stacked
+// horizontal ones) are 5.6 to 19 warps an SM, so the host (vertical_plan)
+// first counts the blocks an SM must hold for every scanline to be
+// resident in one wave, then gives each block an equal share of the SM's
+// shared memory for its ring, whose chunks are short (VK steps) so that
+// even five blocks an SM keep a chunk each in flight.
 
 constexpr int VW = 4;        // scanlines (warps) per block
 constexpr int VK = 2;        // steps per chunk
@@ -682,9 +605,10 @@ struct VPlan {
   int smem;        // bytes of dynamic shared memory a block
 };
 
-// The blocks and the ring of the vertical sweep (mirrored by
-// ops/sgm.py vertical_plan, which the tests check; a CUDA test holds the
-// mirror against this plan through sgm_vertical_plan).
+// The blocks and the ring of the step-major sweeps, vertical and hslab, for
+// Ws scanlines (mirrored by ops/sgm.py vertical_plan, which the tests
+// check; a CUDA test holds the mirror against this plan through
+// sgm_vertical_plan).
 VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
   VPlan p;
   p.rev_blocks = (n_rev + VW - 1) / VW;
@@ -700,14 +624,14 @@ VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
   return p;
 }
 
-template <int NG>
+template <int NG, bool HROW>
 __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
     vsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
                   float* __restrict__ wta, const float* __restrict__ d1,
                   const float* __restrict__ g_rev,
                   const float* __restrict__ g_nat, int Ws, int n_steps, int Dp,
-                  int D, int T, int reverse, int gw, int n_rev, int rev_blocks,
-                  float tau, Pen pen, int stages) {
+                  int D, int T, int reverse, int gw, int n_rev, int rev_base,
+                  int rev_blocks, float tau, Pen pen, int stages) {
   extern __shared__ __align__(128) unsigned char vs_raw[];
   const float QNAN = __int_as_float(0x7fc00000);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -760,12 +684,14 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
 #pragma unroll
   for (int q = 0; q < NG; ++q) live[q] = 4 * (lane + 32 * q) < Dp;
 
-  // D1 and the D2 window of a step, loaded one step ahead
-  const float* g = (rev ? g_rev : g_nat) + D + (rev ? x : x - n_rev);
+  // D1 and the D2 window of a step, loaded one step ahead; hslab: g_rev
+  // is g_nat, one row a scanline
+  const float* g = HROW ? g_rev + (size_t)x * gw + (rev ? rev_base : D)
+                        : (rev ? g_rev : g_nat) + D + (rev ? x : x - n_rev);
   float nd1, nd2[NG][4];
   auto load_pen = [&](int s) {
     nd1 = d1[(size_t)s * Ws + x];
-    const float* gr = g + (size_t)s * gw;
+    const float* gr = HROW ? g + (rev ? -s : s) : g + (size_t)s * gw;
 #pragma unroll
     for (int q = 0; q < NG; ++q)
 #pragma unroll
@@ -844,61 +770,42 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   }
 }
 
-template <int NG>
+template <int NG, bool HROW>
 int launch_vsweep(const float* vol, const float* acc, float* out, float* wta,
                   const float* d1, const float* g_rev, const float* g_nat,
-                  int Hp, int Ws, int Dp, int D, int T, int reverse, int gw,
-                  int n_rev, float tau, Pen pen, cudaStream_t stream) {
+                  int n_steps, int Ws, int Dp, int D, int T, int reverse, int gw,
+                  int n_rev, int rev_base, float tau, Pen pen,
+                  cudaStream_t stream) {
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const VPlan p = vertical_plan(Ws, n_rev, Dp, acc != nullptr, n_sm);
-  err = cudaFuncSetAttribute(vsweep_kernel<NG>,
+  err = cudaFuncSetAttribute(vsweep_kernel<NG, HROW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(vsweep_kernel<NG>,
+    err = cudaFuncSetAttribute(vsweep_kernel<NG, HROW>,
                                cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return (int)err;
-  vsweep_kernel<NG><<<p.blocks, VW * 32, p.smem, stream>>>(
-      vol, acc, out, wta, d1, g_rev, g_nat, Ws, Hp, Dp, D, T, reverse, gw, n_rev,
-      p.rev_blocks, tau, pen, p.stages);
+  vsweep_kernel<NG, HROW><<<p.blocks, VW * 32, p.smem, stream>>>(
+      vol, acc, out, wta, d1, g_rev, g_nat, Ws, n_steps, Dp, D, T, reverse, gw,
+      n_rev, rev_base, p.rev_blocks, tau, pen, p.stages);
   return (int)cudaGetLastError();
 }
 
-template <bool TABLE = false>
-int launch(const float* vol, const float* acc, float* out, float* wta,
-           const float* d1, const float* g, Layout lay, int n_scan,
-           int n_steps, int Dp, int D, int T, int reverse, int gw, float tau,
-           Pen pen, cudaStream_t stream) {
-  sweep_kernel<TABLE><<<n_scan, Dp, 0, stream>>>(
-      vol, acc, out, wta, d1, g, lay, Dp, D, n_steps, T, reverse, gw, tau,
-      pen);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Dp is a multiple of 32, at most 1024, for the first three entries; T real
-// steps; acc and out may be null and may alias each other; wta may be null.
-// Each entry returns cudaGetLastError().
-
-// vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
-// columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
-// Dp. Columns [0, n_rev) read g_rev at D + x, the others g_nat at
-// D + x - n_rev (one direction: n_rev = Ws or 0).
-extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
-                                  float* out, float* wta, const float* d1,
-                                  const float* g_rev, const float* g_nat,
-                                  int Hp, int Ws, int Dp, int D, int T,
-                                  int reverse, int gw, int n_rev, float tau,
-                                  Pen pen, cudaStream_t stream) {
-  if (Hp == 0 || Ws == 0) return 0;
-#define VSWEEP(NG)                                                                \
-  case NG:                                                                        \
-    return launch_vsweep<NG>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp, D, \
-                             T, reverse, gw, n_rev, tau, pen, stream)
+// vsweep_kernel<NG, HROW> for NG = ceil(Dp / 128) groups, Dp <= 1024
+template <bool HROW>
+int vsweep(const float* vol, const float* acc, float* out, float* wta,
+           const float* d1, const float* g_rev, const float* g_nat, int n_steps,
+           int Ws, int Dp, int D, int T, int reverse, int gw, int n_rev,
+           int rev_base, float tau, Pen pen, cudaStream_t stream) {
+  if (n_steps == 0 || Ws == 0) return 0;
+#define VSWEEP(NG)                                                             \
+  case NG:                                                                     \
+    return launch_vsweep<NG, HROW>(vol, acc, out, wta, d1, g_rev, g_nat,       \
+                                   n_steps, Ws, Dp, D, T, reverse, gw, n_rev,  \
+                                   rev_base, tau, pen, stream)
   switch ((Dp + 127) / 128) {
     VSWEEP(1);
     VSWEEP(2);
@@ -914,8 +821,29 @@ extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
 #undef VSWEEP
 }
 
-// The plan sgm_sweep_vertical launches with on a card of n_sm SMs, as
-// out = {rev_blocks, blocks, per_sm, stages, smem}; no kernel runs.
+}  // namespace
+
+// Dp is a multiple of 32, at most 1024, for the three slab entries; T real
+// steps; acc and out may be null and may alias each other; wta may be null.
+// Each entry returns cudaGetLastError().
+
+// vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
+// columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
+// Dp. Columns [0, n_rev) read g_rev at D + x, the others g_nat at
+// D + x - n_rev (one direction: n_rev = Ws or 0).
+extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
+                                  float* out, float* wta, const float* d1,
+                                  const float* g_rev, const float* g_nat,
+                                  int Hp, int Ws, int Dp, int D, int T,
+                                  int reverse, int gw, int n_rev, float tau,
+                                  Pen pen, cudaStream_t stream) {
+  return vsweep<false>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp, D, T,
+                       reverse, gw, n_rev, 0, tau, pen, stream);
+}
+
+// The plan sgm_sweep_vertical (Ws columns) and sgm_sweep_hslab (Ws = S
+// rows) launch with on a card of n_sm SMs, as out = {rev_blocks, blocks,
+// per_sm, stages, smem}; no kernel runs.
 extern "C" void sgm_vertical_plan(int Ws, int n_rev, int Dp, int has_acc, int n_sm,
                                   int* out) {
   const VPlan p = vertical_plan(Ws, n_rev, Dp, has_acc != 0, n_sm);
@@ -953,15 +881,14 @@ extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
 // Step-major: vol, acc, out: (W, S, Dp) float32, steps the W columns x,
 // S scanlines; d1: (W, S); g: (S, gw) with gw >= D + W + Dp, read at
 // D + x on scanlines >= n_rev and at rev_base - x below (rows the host
-// lane-reversed). Every step is real.
+// lane-reversed), rev_base in [W - 1, gw - Dp]; the first T steps real.
 extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
                                const float* d1, const float* g, int W, int S,
-                               int Dp, int D, int reverse, int gw, int n_rev,
-                               int rev_base, float tau, Pen pen,
+                               int Dp, int D, int T, int reverse, int gw,
+                               int n_rev, int rev_base, float tau, Pen pen,
                                cudaStream_t stream) {
-  const Layout lay{S, 1, n_rev, rev_base};
-  return launch(vol, acc, out, nullptr, d1, g, lay, S, W, Dp, D, W, reverse,
-                gw, tau, pen, stream);
+  return vsweep<true>(vol, acc, out, nullptr, d1, g, g, W, S, Dp, D, T, reverse,
+                      gw, n_rev, rev_base, tau, pen, stream);
 }
 
 // The scan form, whole sweep in one launch. vol, d2, out: (T, S, D) float32
@@ -972,10 +899,9 @@ extern "C" int sgm_sweep_scan(const float* vol, const float* d1,
                               const float* d2, float* out, int T, int S, int D,
                               float tau, Pen pen, cudaStream_t stream,
                               int* launched) {
-  const Layout lay{S, 1, 0, 0};
-  const int rc = launch<true>(vol, nullptr, out, nullptr, d1, d2, lay, S, T,
-                              (D + 31) / 32 * 32, D, T, 0, 0, tau, pen,
-                              stream);
+  sweep_kernel<<<S, (D + 31) / 32 * 32, 0, stream>>>(vol, d1, d2, out, T, S, D,
+                                                     tau, pen);
+  const int rc = (int)cudaGetLastError();
   *launched = rc == 0;
   return rc;
 }

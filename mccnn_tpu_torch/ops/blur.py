@@ -5,7 +5,9 @@ value differs from the centre pixel by >= alpha2 (``-blur_t``),
 boundary-clipped. Inputs must be finite (disparity maps are).
 
 On CUDA tensors :func:`mean2d` launches ``csrc/blur.cu``; on CPU
-tensors it runs :func:`mean2d_plain`.
+tensors it runs :func:`mean2d_plain`. The kernel stages a block's input
+halo and the weights in shared memory (:func:`smem_bytes`), which bounds
+the kernel size it takes.
 """
 
 from __future__ import annotations
@@ -47,6 +49,23 @@ def mean2d_plain(img: torch.Tensor, kernel: torch.Tensor, alpha2: float
     return acc / cnt
 
 
+# the blur kernel's tile (TX * P and TY in csrc/blur.cu): BLUR_ROWS rows of
+# BLUR_COLS columns a block; a block's shared memory at most MAX_SMEM bytes
+BLUR_COLS = 256
+BLUR_ROWS = 8
+MAX_SMEM = 232448
+
+
+def smem_bytes(ksz: int) -> int:
+    """The dynamic shared memory the blur kernel takes for a k x k
+    kernel (``smem_bytes`` in csrc/blur.cu, which the C entry
+    ``blur_smem_bytes`` returns): the input halo, BLUR_ROWS + k - 1 rows
+    of BLUR_COLS + kw values, and the k x kw weights, kw = k rounded up
+    to a multiple of 4."""
+    kw = -(-ksz // 4) * 4
+    return ((BLUR_ROWS + ksz - 1) * (BLUR_COLS + kw) + ksz * kw) * 4
+
+
 def _lib():
     lib = _build.library("blur")
     if lib.blur_launch.argtypes is None:
@@ -54,6 +73,8 @@ def _lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.c_void_p])
         lib.blur_launch.restype = ctypes.c_int
+        lib.blur_smem_bytes.argtypes = [ctypes.c_int]
+        lib.blur_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -72,8 +93,7 @@ def mean2d(img: torch.Tensor, kernel: torch.Tensor, alpha2: float
     kernel = kernel.contiguous()
     for t, what in ((img, "blur img"), (kernel, "blur kernel")):
         _build.check_cuda_f32(t, what)
-    r = ksz // 2
-    if img.dim() != 2 or ((16 + 2 * r) * (32 + 2 * r) + ksz * ksz) * 4 > 232448:
+    if img.dim() != 2 or smem_bytes(ksz) > MAX_SMEM:
         raise ValueError(f"blur: bad shapes img {tuple(img.shape)}, k={ksz}")
     H, W = img.shape
     out = torch.empty_like(img)

@@ -40,14 +40,15 @@ On CUDA tensors each sweep launches ``csrc/sgm_sweep.cu`` (entries
 ``sgm_vertical``, ``sgm_horizontal``, ``sgm_hslab``, ``sgm_scan`` and
 ``sgm_step``); on CPU tensors it runs the step loops
 :func:`sweep_plain`, :func:`hslab_plain` and :func:`sweep_scan_plain`.
-``sgm_horizontal`` and ``sgm_vertical`` have kernels of their own: one
-warp per scanline, the volume and accumulator rows prefetched through a
-ring of shared-memory buffers by bulk asynchronous copies — per scanline
-in chunks of ``HCHUNK`` steps for the horizontal one
-(:func:`horizontal_chunks` is its walk over the steps), per block of
-``VWARPS`` adjacent scanlines in chunks of ``VCHUNK`` steps for the
-vertical one (:func:`vertical_plan` is its blocks and ring). The other
-three entries share one kernel with a block of Dp threads per scanline.
+The three slab entries run one warp per scanline, the volume and
+accumulator rows prefetched through a ring of shared-memory buffers by
+bulk asynchronous copies: ``sgm_horizontal`` per scanline in chunks of
+``HCHUNK`` steps (:func:`horizontal_chunks` is its walk over the
+steps); ``sgm_vertical`` and ``sgm_hslab`` (one kernel, two instances
+that differ only in where a scanline reads D2) per block of ``VWARPS``
+adjacent scanlines in chunks of ``VCHUNK`` steps (:func:`vertical_plan`
+is their blocks and ring). ``sgm_scan`` has a kernel of its own with a
+block of Dp threads per scanline; ``sgm_step`` one launch per step.
 """
 
 from __future__ import annotations
@@ -190,10 +191,12 @@ def sweep_plain(vol, acc, out, wta, d1, g, *, vertical, reverse, T, D, tau,
 
 
 def hslab_plain(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
-                pen):
+                pen, T=None):
     """One horizontal sweep over a step-major (W, S, Dp) volume as a step
     loop of torch ops: D2 of scanline s at step x is g[s, D + x + d], or
-    g[s, rev_base - x + d] for s < n_rev; d1 is (W, S)."""
+    g[s, rev_base - x + d] for s < n_rev; d1 is (W, S). The first T
+    steps are real (default all W); the others pass the volume through,
+    as in :func:`sweep_plain`."""
     W, _, Dp = vol.shape
 
     def d2_of(x):
@@ -201,7 +204,7 @@ def hslab_plain(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
                           g[n_rev:, D + x:D + x + Dp]])
 
     _recurrence(vol, acc, out, None, d1, d2_of, lambda t, s: t[s], W,
-                reverse=reverse, T=W, tau=tau, pen=pen)
+                reverse=reverse, T=W if T is None else T, tau=tau, pen=pen)
 
 
 def sweep_scan_plain(vol_s, d1_s, d2_s, *, tau, pen):
@@ -233,8 +236,8 @@ def horizontal_chunks(n_steps: int, reverse: bool) -> list[list[int]]:
     return [b[::-1] for b in blocks[::-1]] if reverse else blocks
 
 
-# the vertical sweep kernel's blocks and ring (VW, VK, VSTAGES, SM_SMEM and
-# BLOCK_RESERVED in csrc/sgm_sweep.cu)
+# the step-major sweep kernel's blocks and ring (VW, VK, VSTAGES, SM_SMEM and
+# BLOCK_RESERVED in csrc/sgm_sweep.cu), for sgm_vertical and sgm_hslab
 VWARPS = 4
 VCHUNK = 2
 VSTAGES = 8
@@ -245,9 +248,11 @@ H100_SMS = 132
 
 def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
                   n_sm: int = H100_SMS) -> dict:
-    """The vertical sweep kernel's launch, as its C entry plans it
+    """The step-major sweep kernel's launch, as its C entries plan it
     (``vertical_plan`` in csrc/sgm_sweep.cu; a CUDA test holds this
-    mirror against the C entry ``sgm_vertical_plan``): ``blocks``, one (x0, n)
+    mirror against the C entry ``sgm_vertical_plan``) for ``Ws``
+    scanlines: the vertical entry's columns, or the hslab entry's S
+    stacked rows. ``blocks``, one (x0, n)
     run of at most ``VWARPS`` adjacent scanlines each, the reversed class
     [0, n_rev) planned apart from the natural one so that no block reads
     two D2 tables; ``per_sm``, the blocks an SM must hold for all of them
@@ -283,7 +288,7 @@ def _lib():
         lib.sgm_sweep_horizontal.argtypes = ([ctypes.c_void_p] * 6
                                              + [ctypes.c_int] * 7 + tail)
         lib.sgm_sweep_hslab.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 8 + tail)
+                                        + [ctypes.c_int] * 9 + tail)
         for fn in (lib.sgm_sweep_scan, lib.sgm_sweep_step):
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + tail
                            + [ctypes.POINTER(ctypes.c_int)])
@@ -340,27 +345,32 @@ def _sweep(vol, acc, out, wta, d1, g, *, vertical, reverse, T, D, tau, pen,
 
 
 def _sweep_hslab(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
-                 pen):
+                 pen, T=None):
     """One horizontal sweep over a step-major (W, S, Dp) volume: the
-    kernel on CUDA tensors, :func:`hslab_plain` on CPU tensors."""
+    kernel on CUDA tensors (the vertical entry's kernel on the (W, S)
+    steps and scanlines, planned by :func:`vertical_plan` with
+    ``Ws = S``), :func:`hslab_plain` on CPU tensors."""
     kw = dict(reverse=reverse, D=D, n_rev=n_rev, rev_base=rev_base, tau=tau,
-              pen=pen)
+              pen=pen, T=T)
     if not vol.is_cuda:
         return hslab_plain(vol, acc, out, d1, g, **kw)
     W, S, Dp = vol.shape
+    T = W if T is None else T
     named = (("vol", vol), ("acc", acc), ("out", out), ("d1", d1), ("g", g))
     _check(named, "sgm hslab")
     if out is None or Dp % 32 or Dp > 1024 or d1.shape != (W, S) \
+            or not 0 < T <= W \
             or g.shape[0] != S or g.shape[1] < D + W + Dp \
             or not 0 <= n_rev <= S or rev_base - (W - 1) < 0 \
             or rev_base + Dp > g.shape[1] \
             or any(t is not None and t.shape != vol.shape for t in (acc, out)):
         raise ValueError(f"sgm hslab: bad shapes vol {tuple(vol.shape)}, "
                          f"d1 {tuple(d1.shape)}, g {tuple(g.shape)}, "
-                         f"n_rev {n_rev}, rev_base {rev_base}")
+                         f"n_rev {n_rev}, rev_base {rev_base}, T {T}")
     ptr = [None if t is None else t.data_ptr() for _, t in named]
-    rc = _lib().sgm_sweep_hslab(*ptr, W, S, Dp, D, int(reverse), g.shape[1],
-                                n_rev, rev_base, float(np.float32(tau)),
+    rc = _lib().sgm_sweep_hslab(*ptr, W, S, Dp, D, T, int(reverse),
+                                g.shape[1], n_rev, rev_base,
+                                float(np.float32(tau)),
                                 _Pen((ctypes.c_float * 9)(*pen)),
                                 _build.stream(vol))
     _build.check_launch(rc, "sgm_hslab")

@@ -189,6 +189,8 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
 @pytest.mark.parametrize("Ws,n_rev,Dp,has_acc", [
     (1280, 0, 256, True), (1280, 1280, 256, False),   # the fast shape
     (2452, 1226, 256, True), (2452, 1226, 256, False),  # the stacked one
+    (740, 370, 256, True), (740, 370, 256, False),  # hslab's stacked rows
+    (750, 375, 256, True), (37, 13, 96, True),  # classes off a multiple of 4
     (23, 7, 96, True), (5, 2, 1024, True)])
 def test_vertical_plan_mirror_is_the_launched_plan(dev, Ws, n_rev, Dp,
                                                    has_acc):
@@ -267,11 +269,66 @@ def test_vertical_sweep_kernel_is_bit_identical(dev, Hp, Ws, Dp, D, T, n_rev,
     assert _build.LAUNCHES["sgm_vertical"] == len(uses)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("W,S,Dp,D,T,n_rev", [
+    (37, 9, 32, 20, 37, 5),        # one float4 group, ragged classes
+    (29, 13, 256, 228, 29, 6),     # two groups: the KITTI rows
+    (21, 7, 1024, 1000, 21, 3),    # eight groups, the widest rows
+    (40, 11, 256, 200, 27, 11),    # pad steps, every scanline reversed
+    (33, 10, 384, 300, 17, 0),     # pad steps, none reversed
+    (3, 6, 128, 70, 3, 2)])        # one chunk and a half
+def test_hslab_sweep_kernel_is_bit_identical(dev, W, S, Dp, D, T, n_rev,
+                                             reverse):
+    """``sgm_sweep_hslab`` against ``hslab_plain`` on the same tensors,
+    with no accumulator, a separate one and one summed in place. The same
+    f32 operations in the same order and an exact min: equal bit for
+    bit, NaN masks included. Scanlines s < n_rev read their row of g at
+    rev_base - x, the others at D + x; the volume has NaN tails in d,
+    scattered NaN cells, whole NaN steps and one scanline all NaN."""
+    rng = np.random.RandomState(W + Dp + reverse)
+    vol = rng.rand(W, S, Dp).astype(np.float32)
+    vol[..., D:] = np.nan
+    vol[rng.rand(W, S, Dp) < 0.03] = np.nan
+    vol[:, S // 3, :] = np.nan
+    vol[W // 2] = np.nan
+    accv = rng.rand(W, S, Dp).astype(np.float32)
+    accv[np.isnan(vol)] = np.nan
+    vol, accv = (torch.as_tensor(v, device=dev) for v in (vol, accv))
+    d1 = torch.as_tensor((rng.rand(W, S) * 0.16).astype(np.float32),
+                         device=dev)
+    g = (rng.rand(S, D + W + Dp + 5) * 0.16).astype(np.float32)
+    g[rng.rand(*g.shape) < 0.05] = 10.0
+    g = torch.as_tensor(g, device=dev)
+    kw = dict(reverse=reverse, D=D, n_rev=n_rev, rev_base=W + D + 1, T=T,
+              tau=0.08, pen=sgm.pen_table(1.32, 24.25, 3.0, 2.0, 1.0, 1.0))
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) \
+            and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    _build.reset_launches()
+    uses = ((False, "new"), (True, "new"), (True, "acc"))
+    for acc, out_to in uses:
+        bufs = []
+        for sweep in (sgm._sweep_hslab, sgm.hslab_plain):
+            a = accv.clone() if acc else None
+            o = a if out_to == "acc" else torch.full_like(vol, -1.0)
+            sweep(vol, a, o, d1, g, **kw)
+            torch.cuda.synchronize()
+            bufs.append((a, o))
+        for got, want in zip(*bufs):
+            assert (got is None) == (want is None)
+            assert got is None or same(got, want)
+    assert _build.launches()["sgm_hslab"] == len(uses)
+
+
 @pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
 def test_generic_sgm_kernels_match_plain(dev, dirs):
     """The generic lane's stacked sweeps (hslab and the vertical entry
     with its n_rev split) against the plain step loops on the CPU: the
-    same f32 operations in the same order, rtol 1e-5."""
+    same f32 operations in the same order and an exact min, so the
+    horizontal family and the sum of both are equal bit for bit, NaN
+    masks included."""
     rng = np.random.RandomState(len(dirs))
     D, H, W = 70, 23, 150
     x0 = (rng.rand(H, W) * 0.2).astype(np.float32)
@@ -284,20 +341,31 @@ def test_generic_sgm_kernels_match_plain(dev, dirs):
         vols[k] = v
     kw = dict(pi1=1.32, pi2=24.25, tau_so=0.08, alpha1=2.0, sgm_q1=3.0,
               sgm_q2=2.0)
+    hkw = dict(pi1=1.32, pi2=24.25, tau_so=0.08, q1=3.0, q2=2.0)
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) \
+            and torch.equal(a.nan_to_num(), b.nan_to_num())
+
     before = dict(_build.LAUNCHES)
-    got = sgm.sgm_multi(torch.as_tensor(x0, device=dev),
-                        torch.as_tensor(x1, device=dev),
-                        {k: torch.as_tensor(v, device=dev)
-                         for k, v in vols.items()}, **kw)
+    on_dev = [torch.as_tensor(a, device=dev) for a in (x0, x1)]
+    got = sgm.sgm_multi(*on_dev, {k: torch.as_tensor(v, device=dev)
+                                  for k, v in vols.items()}, **kw)
+    got_h = sgm.sgm_slab_horiz(*on_dev, {k: torch.as_tensor(v, device=dev)
+                                         for k, v in vols.items()},
+                               dirs, D, H, W, **hkw)
     torch.cuda.synchronize()
-    for entry in ("sgm_hslab", "sgm_vertical"):
-        assert _build.LAUNCHES[entry] == before.get(entry, 0) + 2
-    want = sgm.sgm_multi(torch.as_tensor(x0), torch.as_tensor(x1),
-                         {k: torch.as_tensor(v) for k, v in vols.items()},
-                         **kw)
+    assert _build.LAUNCHES["sgm_hslab"] == before.get("sgm_hslab", 0) + 4
+    assert _build.LAUNCHES["sgm_vertical"] == before.get("sgm_vertical", 0) + 2
+    on_cpu = [torch.as_tensor(a) for a in (x0, x1)]
+    want = sgm.sgm_multi(*on_cpu, {k: torch.as_tensor(v)
+                                   for k, v in vols.items()}, **kw)
+    want_h = sgm.sgm_slab_horiz(*on_cpu, {k: torch.as_tensor(v)
+                                          for k, v in vols.items()},
+                                dirs, D, H, W, **hkw)
     for k in dirs:
-        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=0,
-                                   equal_nan=True)
+        assert same(got_h[k].cpu(), want_h[k])
+        assert same(got[k].cpu(), want[k])
 
 
 def _scan_case(rng, T, S, D, dev):
@@ -377,15 +445,31 @@ def test_outlier_kernel_matches_plain(dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("sigma", [1.67, 7.74])
-def test_blur_kernel_matches_plain(dev, sigma):
+@pytest.mark.parametrize("H,W,sigma", [
+    (67, 141, 1.67), (67, 141, 7.74),
+    (19, 263, 7.74),   # a width off a multiple of the 8 columns a thread
+    (11, 30, 7.74),    # an image smaller than the 49 x 49 window
+    (9, 77, 0.3)])     # k = 3
+def test_blur_kernel_matches_plain(dev, H, W, sigma):
+    """The kernel against ``mean2d_plain``, which sums in another order,
+    to 1e-4 (values below 20); its footprint as ``blur.smem_bytes``
+    reckons it; and a kernel too large for a block's shared memory is
+    refused."""
     rng = np.random.RandomState(4)
-    img = torch.as_tensor((rng.rand(67, 141) * 20).astype(np.float32),
+    img = torch.as_tensor((rng.rand(H, W) * 20).astype(np.float32),
                           device=dev)
     kern = torch.as_tensor(blur.gaussian_kernel(sigma), device=dev)
+    before = _build.launches()["blur"]
     got = blur.mean2d(img, kern, 5.0)
     want = blur.mean2d_plain(img, kern, 5.0)
+    assert _build.launches()["blur"] == before + 1
     assert float((got - want).abs().max()) <= 1e-4
+    k = kern.shape[0]
+    assert blur._lib().blur_smem_bytes(k) == blur.smem_bytes(k)
+    big = 2 * next(j for j in range(1, 200)
+                   if blur.smem_bytes(2 * j + 1) > blur.MAX_SMEM) + 1
+    with pytest.raises(ValueError, match="bad shapes"):
+        blur.mean2d(img, torch.ones((big, big), device=dev), 5.0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -58,6 +58,17 @@ def test_blur_matches_pallas_and_xla(shape, sigma, t):
     np.testing.assert_allclose(got, want_x, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("k,nbytes", [(3, 10448), (37, 58016), (49, 79184),
+                                      (113, 230992)])
+def test_blur_kernel_footprint(k, nbytes):
+    """The shared memory the blur kernel stages for a k x k kernel (the
+    halo of 8 rows of 256 columns and the weights, rows padded to 4):
+    113 is the largest k a block of the H100 takes, which the wrapper
+    refuses beyond."""
+    assert blur.smem_bytes(k) == nbytes <= blur.MAX_SMEM
+    assert k < 113 or blur.smem_bytes(k + 2) > blur.MAX_SMEM
+
+
 def test_interpolate_occlusion_matches_jax():
     d0, d1, D = _disp_pair(3)
     labels = np.array(jpost.outlier_detection(jnp.asarray(d0),

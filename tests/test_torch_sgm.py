@@ -154,6 +154,9 @@ def test_horizontal_chunks_cover_the_steps_once_in_sweep_order(n_steps,
     (1280, 1280, 256, False, True),   # its x-reversed side, first sweep
     (2452, 1226, 256, True, True),    # the generic lane's two directions
     (2452, 1226, 256, False, True),
+    (740, 370, 256, True, True),      # its stacked horizontal family (hslab)
+    (740, 370, 256, False, True),
+    (743, 371, 256, True, False),     # classes off a multiple of VWARPS
     (23, 7, 96, True, False),         # ragged classes, Dp off 128
     (150, 150, 128, True, False),
     (5, 2, 1024, True, False)])       # the widest rows
@@ -180,3 +183,22 @@ def test_vertical_plan_covers_each_scanline_once_in_one_wave(Ws, n_rev, Dp,
         assert p["per_sm"] * (p["smem"] + sgm.BLOCK_RESERVED) <= sgm.SM_SMEM
         assert p["per_sm"] * sgm.VWARPS <= 64
         assert p["per_sm"] * (p["stages"] - 1) * chunk >= 32 * 1024
+
+
+@pytest.mark.parametrize("Ws,n_rev,Dp,has_acc,want", [
+    (740, 370, 256, True, (93, 186, 2, 7, 114816)),   # hslab at KITTI size
+    (740, 370, 256, False, (93, 186, 2, 8, 65664)),
+    (750, 375, 256, True, (94, 188, 2, 7, 114816)),   # ragged classes
+    (37, 13, 96, True, (4, 10, 1, 8, 49280))])
+def test_vertical_plan_at_the_hslab_shapes(Ws, n_rev, Dp, has_acc, want):
+    """The step-major plan for the hslab entry's S stacked scanlines, as
+    (reversed-class blocks, blocks, per_sm, stages, smem): the values
+    the C entry ``sgm_vertical_plan`` gives on 132 SMs (reckoned from
+    ``vertical_plan`` in csrc/sgm_sweep.cu; the CUDA mirror test checks
+    the same shapes against the entry). At S = 740 the 186 blocks of 4
+    need two an SM; a block's ring then holds 7 chunks of 16 KB with the
+    accumulator, so the SM keeps ~192 KB in flight."""
+    p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc)
+    got = (sum(x0 < n_rev for x0, _ in p["blocks"]), len(p["blocks"]),
+           p["per_sm"], p["stages"], p["smem"])
+    assert got == want

@@ -67,6 +67,29 @@ def test_sgm_one_direction_matches_stacked(direction):
                                equal_nan=True)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_hslab_plain_pad_steps_pass_through(reverse):
+    """With T < W real steps, the step-major sweep over the first T steps
+    equals the sweep of a volume cut to them, and the pad steps pass the
+    volume (plus the accumulator) through, as in ``sweep_plain``."""
+    rng = np.random.RandomState(12 + reverse)
+    W, S, Dp, D, T, n_rev = 13, 6, 32, 20, 9, 2
+    vol = torch.as_tensor(rng.rand(W, S, Dp).astype(np.float32))
+    vol[..., D:] = torch.nan
+    acc = torch.as_tensor(rng.rand(W, S, Dp).astype(np.float32))
+    d1 = torch.as_tensor((rng.rand(W, S) * 0.16).astype(np.float32))
+    g = torch.as_tensor((rng.rand(S, D + W + Dp) * 0.16).astype(np.float32))
+    kw = dict(reverse=reverse, D=D, n_rev=n_rev, rev_base=W + D - 1,
+              tau=0.08, pen=sgm.pen_table(1.32, 24.25, 3.0, 2.0, 1.0, 1.0))
+    out = torch.empty_like(vol)
+    sgm.hslab_plain(vol, acc, out, d1, g, T=T, **kw)
+    cut = torch.empty_like(vol[:T])
+    sgm.hslab_plain(vol[:T], acc[:T], cut, d1[:T], g, **kw)
+    for got, want in ((out[:T], cut), (out[T:], vol[T:] + acc[T:])):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
 def test_hslab_plain_matches_scan_sweep():
     """One step-major horizontal sweep (the -1 direction's lane-reversed
     D2 rows included) against the JAX package's ``lax.scan`` sweep on

@@ -26,11 +26,14 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    horizontal (hslab) and vertical sweeps (both directions in one
    volume, the -1 direction's scanlines reversed; both bit for bit, NaN
    masks included); then the scan form's
-   two entries (the whole sweep in one launch, and one launch per
-   step) on the (T, S, D) slices and D1/D2 tables the scan form builds
+   two entries (the counterparts of the whole-sweep and the
+   grid-over-steps TPU kernels, one launch of the step-major kernel
+   each) on the (T, S, D) slices and D1/D2 tables the scan form builds
    for both families (horizontal T=1226, S=740; vertical T=370,
-   S=2452), required equal to the plain loop bit for bit; bounds count
-   the real cells, not the padding;
+   S=2452), the forward sweep and the backward one read in place,
+   required equal to the plain loop bit for bit, and at a small shape
+   whose rows are off a multiple of 4; bounds count the real cells, not
+   the padding;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -55,7 +58,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
-those calls made, as the C entries report them), the card line, and last
+those calls made: one a call, but a join of more than 64 channels), the
+card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 there is no CUDA card or the package is missing, and when any phase
 fails.
@@ -532,62 +536,90 @@ def main() -> int:
           "half")
     del vol_y
 
+    scan_entries = (("sgm_scan", sgm.sweep_stream), ("sgm_step", sgm.sweep_grid))
+
+    def scan_plain(vol, d1, d2, reverse, **kw):
+        """The plain loop in sweep order: a reverse sweep on the inputs
+        reversed in steps, its result reversed back."""
+        if reverse:
+            return sgm.sweep_scan_plain(vol.flip(0), d1.flip(0), d2.flip(0),
+                                        **kw).flip(0)
+        return sgm.sweep_scan_plain(vol, d1, d2, **kw)
+
+    def scan_check(what, got, want):
+        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+        check(torch.equal(got.isnan(), want.isnan()), f"{what}: NaN masks differ")
+        err = float((got - want).abs().nan_to_num().max())  # masks equal
+        check(err == 0.0, f"{what}: max |d| {err}, expected bit-identical")
+
     def scan_family(name, vol, plan):
         """Both scan-form entries against the plain loop on both sweeps
-        of a family, in sweep order as the scan form hands them over:
-        the same f32 operations in the same order, so equal bit for
-        bit, NaN masks included. The natural-order sweep is timed. The
-        bound counts every cell (the slices are not padded) and is the
-        same for both entries, which compute one function: the volume
-        and the D2 table read, the result written, the D1 table. That
-        the launch-per-step entry reads step t-1 back is its own cost,
-        not the function's."""
+        of a family, on the natural-order slices the scan form builds:
+        the forward sweep, and the backward one with ``reverse`` (read
+        and written in place). The same f32 operations in the same
+        order, so equal bit for bit, NaN masks included. Both directions
+        are timed. The bound counts every cell (the slices are not
+        padded) and is the same for both entries and directions, which
+        compute one function: the volume and the D2 table read, the
+        result written, the D1 table. Returns {(entry, reverse): row}."""
         T, S, _ = vol.shape
-        fam, errs = {}, {"sgm_scan": 0.0, "sgm_step": 0.0}
+        n = T * S * D
+        fam = {}
         for p in plan:
-            vol_s, d1, d2 = vol, p["d1"], p["d2"]
-            if p["reverse"]:
-                vol_s, d1, d2 = vol_s.flip(0), d1.flip(0), d2.flip(0)
+            d1, d2, rev = p["d1"], p["d2"], p["reverse"]
             kw = dict(tau=p["tau"], pen=p["pen"])
             t0 = time.perf_counter()
-            want = sgm.sweep_scan_plain(vol_s, d1, d2, **kw)
+            want = scan_plain(vol, d1, d2, rev, **kw)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            for entry, sweep in (("sgm_scan", sgm.sweep_stream),
-                                 ("sgm_step", sgm.sweep_grid)):
-                got = sweep(vol_s, d1, d2, **kw)
-                torch.cuda.synchronize()
-                check(torch.equal(got.isnan(), want.isnan()),
-                      f"{entry} {name} NaN masks differ")
-                diff = (got - want).abs().nan_to_num()  # masks equal
-                errs[entry] = max(errs[entry], float(diff.max()))
-                check(errs[entry] == 0.0, f"{entry} {name}: max |d| "
-                      f"{errs[entry]}, expected bit-identical")
-                del got, diff
-                if not p["reverse"]:
-                    n = T * S * D
-                    fam[entry] = dict(
-                        plain_ms=plain_ms,
-                        ms=cuda_ms(torch, lambda: sweep(vol_s, d1, d2, **kw), 5),
-                        bound=bound_ms((3 * n + T * S) * 4, 10.0 * n))
-            del want, vol_s, d1, d2
-        for entry, row in fam.items():
-            row["err"] = errs[entry]  # the larger of both sweeps'
+            for entry, sweep in scan_entries:
+                scan_check(f"{entry} {name} (reverse={rev})",
+                           sweep(vol, d1, d2, reverse=rev, **kw), want)
+                fam[entry, rev] = dict(
+                    err=0.0, plain_ms=plain_ms,
+                    ms=cuda_ms(torch, lambda: sweep(vol, d1, d2, reverse=rev,
+                                                    **kw), 5),
+                    bound=bound_ms((3 * n + T * S) * 4, 10.0 * n))
+            del want, d1, d2
         return fam
 
     vol_x, splan = sgm.scan_horiz_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
                                        **skw)
     check(vol_x.shape == (W, 2 * H, D), f"scan horizontal slices {vol_x.shape}")
     fam = scan_family("horizontal", vol_x, splan)
-    rows["sgm_scan"], rows["sgm_step"] = fam["sgm_scan"], fam["sgm_step"]
+    for entry, _ in scan_entries:
+        rows[entry] = fam[entry, False]
+        rows[f"{entry} (horizontal, reverse)"] = fam[entry, True]
     del vol_x, splan
     vol_y, splan = sgm.scan_vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
                                       alpha1=scfg.alpha1, **skw)
     check(vol_y.shape == (H, 2 * W, D), f"scan vertical slices {vol_y.shape}")
     fam = scan_family("vertical", vol_y, splan)
-    rows["sgm_scan (vertical family)"] = fam["sgm_scan"]
-    rows["sgm_step (vertical family)"] = fam["sgm_step"]
+    for entry, _ in scan_entries:
+        rows[f"{entry} (vertical family)"] = fam[entry, False]
+        rows[f"{entry} (vertical, reverse)"] = fam[entry, True]
     del vol_y, splan, vols
+    print("  sgm_scan, sgm_step: both families, forward and reverse, "
+          "bit-identical to the plain loop")
+
+    # rows off a multiple of 4 (D = 70, 1): the entries copy them into
+    # rows of a pitch of whole float4s, NaN in the volume's pad lanes
+    rs = np.random.RandomState(11)
+    for T5, S5, D5 in ((37, 50, 70), (6, 9, 1)):
+        vol5 = rs.rand(T5, S5, D5).astype(np.float32)
+        vol5[rs.rand(T5, S5, D5) < 0.03] = np.nan
+        vol5[:, :S5 // 2, D5 - D5 // 3:] = np.nan
+        d1_5 = (rs.rand(T5, S5) * 0.16).astype(np.float32)
+        d2_5 = (rs.rand(T5, S5, D5) * 0.16).astype(np.float32)
+        args = [torch.as_tensor(a, device=dev) for a in (vol5, d1_5, d2_5)]
+        kw = dict(tau=0.08, pen=sgm.pen_table(1.32, 24.25, 3.0, 2.0, 2.0, 1.0))
+        for rev in (False, True):
+            want = scan_plain(*args, rev, **kw)
+            for entry, sweep in scan_entries:
+                scan_check(f"{entry} at ({T5}, {S5}, {D5}) (reverse={rev})",
+                           sweep(*args, reverse=rev, **kw), want)
+    print("  sgm_scan, sgm_step: rows of 70 and of 1 floats (padded to a "
+          "pitch of 72 and 4), both directions, bit-identical")
     for name, row in rows.items():
         lib = row.get("library_ms")
         print(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
@@ -710,11 +742,10 @@ def main() -> int:
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
-        # every entry launches its kernel once a call but sgm_step: once
-        # a sweep step, as its C entry reports
-        want_k = dict(want, sgm_step=2 * (H + W) if form == "grid" else 0)
-        check(got_k == want_k, f"{what} {form}: kernel launches {got_k}, "
-              f"expected {want_k}")
+        # every entry launches its kernel once a call (the join once a
+        # slab of 64 channels: once for the fast net's 64)
+        check(got_k == want, f"{what} {form}: kernel launches {got_k}, "
+              f"expected {want}")
         d = d_t.cpu().numpy()
         check(d.shape == (H, W) and bool(np.isfinite(d).all()),
               f"{what} {form}: disparity map not finite or misshaped")

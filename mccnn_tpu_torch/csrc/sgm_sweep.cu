@@ -1,4 +1,4 @@
-// SGM sweeps: one recurrence, five entries, four kernels.
+// SGM sweeps: one recurrence, five entries, two kernels.
 //
 // Replaces five TPU kernels of mccnn_tpu/ops/sgm.py:
 //   _sweep_stream_vslab  (vertical sweeps, sgm_dir 2 down and 3 up:
@@ -11,10 +11,12 @@
 //                         step-major (W, S, Dp) volume: step x, scanline s)
 //   _sweep_stream        (the scan form: one generic directional sweep over
 //                         pre-built (T, S, D) slices of the volume, a (T, S)
-//                         D1 table and a built (T, S, D) D2 table, in sweep
-//                         order; the whole sweep in one launch)
+//                         D1 table and a built (T, S, D) D2 table, the whole
+//                         sweep in one launch)
 //   _sweep_grid          (the same function, one sweep step per sequential
-//                         grid iteration: here one kernel launch per step)
+//                         grid iteration; on this card the grid's sequential
+//                         axis is the kernel's step loop, so it is the same
+//                         launch)
 // With d fastest in every layout, one step of one scanline is one
 // contiguous row. The vertical entry serves both lanes: the (Hp, Wp, Dp)
 // volume of one direction, and the generic lane's (H, 2W, Dp) volume with
@@ -41,55 +43,46 @@
 //               whose rows the host lane-reverses: g[x - d + D] equals
 //               rev(g)[rev_base - x + d] at rev_base = W + D - 1): the
 //               window slides one float along its own row a step;
-//   scan form:  the built table, d2[cell, d].
-// The scan form's rows are D floats long, not padded: the threads d >= D
-// of a block hold NaN, which is what a pad lane holds in the other
-// layouts, so neighbours outside [0, D) never couple.
+//   scan form:  the built table, d2[cell, d], laid out as the volume.
+// The scan form's rows are D floats; its entries take a row pitch ld, a
+// multiple of 4 (D itself when D % 4 == 0), whose lanes d >= D hold NaN
+// in the volume, as a pad lane does in the other layouts, so neighbours
+// outside [0, D) never couple.
 //
-// Steps (the three slab entries): n_steps stored steps, of which the first
-// T are real. Steps s >= T pass the volume through and leave the state
-// alone; the state starts at step 0 (forward) or T-1 (reverse), so a
-// reverse sweep starts on the last real step. Output: out = val (+ acc),
-// in place when out == acc; out may be null (no volume write). wta, if
-// given, receives the argmin over d of the written sum (NaN as +inf, ties
-// to the lowest d).
+// Steps: n_steps stored steps, of which the first T are real. Steps
+// s >= T pass the volume through and leave the state alone; the state
+// starts at step 0 (forward) or T-1 (reverse), so a reverse sweep starts
+// on the last real step, and every step is read and written at its stored
+// position. Output: out = val (+ acc), in place when out == acc; out may
+// be null (no volume write). wta, if given, receives the argmin over d of
+// the written sum (NaN as +inf, ties to the lowest d).
 //
 // Bound on the H100: a sweep with an accumulator reads the volume and the
 // accumulator and writes the sum, over the real cells only (the pad lanes
 // and rows are layout, not work): 3 x 414 MB for one direction at KITTI
 // size (370 x 1226 x 228 f32; 0.37 ms at 3.35 TB/s), 3 x 827 MB for the
-// generic lane's two stacked directions (0.74 ms); the arithmetic (about
-// ten f32 operations per cell) is far below the f32 peak. The recurrence
-// is a chain of n_steps dependent steps per scanline, each ending in a
-// min over d.
+// generic lane's two stacked directions (0.74 ms); a scan-form sweep reads
+// the volume and the D2 table in the accumulator's place. The arithmetic
+// (about ten f32 operations per cell) is far below the f32 peak. The
+// recurrence is a chain of n_steps dependent steps per scanline, each
+// ending in a min over d.
 //
-// The three slab entries run one warp per scanline (warp_step: no block
-// barrier, the min over d by one redux.sync) and stream their rows
-// through rings of shared-memory chunks filled by bulk asynchronous
-// copies, so that tens of kilobytes per SM are in flight:
+// Both kernels run one warp per scanline (warp_step: no block barrier,
+// the min over d by one redux.sync) and stream their rows through rings
+// of shared-memory chunks filled by bulk asynchronous copies, so that
+// tens of kilobytes per SM are in flight:
 // - sgm_sweep_horizontal (hsweep_kernel): 384 scanlines at KITTI size,
 //   under one wave; a ring of multi-step chunks per scanline, whose steps
 //   are contiguous rows.
-// - sgm_sweep_vertical and sgm_sweep_hslab (vsweep_kernel, one template
-//   instance each): the step-major layout, where the rows of adjacent
-//   scanlines at one step are one contiguous run; a block of VW warps
-//   shares a ring of short chunks, one bulk copy a step and input, and the
-//   host sizes the ring so that every scanline is resident in one wave
-//   (vertical_plan). The two differ only in where a warp's D2 window lies,
-//   a template argument (HROW): a run-time layout field in the step loop
-//   cost every sweep 6-7% on the H100.
-//
-// The scan form (sgm_sweep_scan) runs sweep_kernel: one block of Dp
-// threads per scanline, thread = disparity, the steps a loop inside the
-// block, one __syncthreads a step. It reads the volume and the D2 table
-// and writes the per-step values, 3 x T x S x D x 4 B plus the D1 table.
-// The launch-per-step form (sgm_sweep_step) keeps no state in the block:
-// step t reads step t-1's row of the output from device memory (a fourth
-// pass over the volume's size), all S scanlines in flight at once, and the
-// C entry enqueues the T launches on the stream in order. The minimum over
-// d stays inside a block, so no launch waits on more than its predecessor.
-// Its cost is the T launches: at KITTI size 1226 or 370 of them, each
-// moving about 3 or 9 MB.
+// - sgm_sweep_vertical, sgm_sweep_hslab and the scan form's sgm_sweep_scan
+//   and sgm_sweep_step (vsweep_kernel, one template instance each but for
+//   the last two, which share one): the step-major layout, where the rows
+//   of adjacent scanlines at one step are one contiguous run; a block of
+//   VW warps shares a ring of short chunks, one bulk copy a step and
+//   input, and the host sizes the ring so that every scanline is resident
+//   in one wave (vertical_plan). The uses differ only in where a warp's D2
+//   lies, a template argument (D2Src): a run-time layout field in the step
+//   loop cost every sweep 6-7% on the H100.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,120 +92,6 @@ struct Pen {
 };
 
 namespace {
-
-constexpr int MAX_WARPS = 32;
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// One step of the recurrence at one disparity: prev, up and dn are the
-// previous step's values at d, d-1 and d+1 (+inf outside), pm their
-// minimum over d, v the volume's cell.
-__device__ __forceinline__ float relax(float prev, float pm, float up, float dn,
-                                       float v, float D1, float D2, float tau,
-                                       const Pen& pen) {
-  const int cls = (D1 < tau && D2 < tau) ? 0 : ((D1 > tau && D2 > tau) ? 2 : 1);
-  // selects, not pen.v[3 * cls]: a runtime index into the parameter
-  // struct would copy it to local memory
-  const float P1a = cls == 0 ? pen.v[0] : (cls == 2 ? pen.v[6] : pen.v[3]);
-  const float P1b = cls == 0 ? pen.v[1] : (cls == 2 ? pen.v[7] : pen.v[4]);
-  const float P2 = cls == 0 ? pen.v[2] : (cls == 2 ? pen.v[8] : pen.v[5]);
-  float cost = fminf(prev, pm + P2);
-  cost = fminf(cost, up + P1a);
-  cost = fminf(cost, dn + P1b);
-  return (v + cost) - pm;
-}
-
-// The scan form, whole sweep in one block a scanline: thread d of Dp =
-// blockDim.x >= D threads; vol, d2, out: (T, S, D), d1: (T, S), in sweep
-// order. The previous step lives in a register and in a double-buffered
-// shared row for the d +- 1 neighbours; the min is a warp shuffle then a
-// shared-memory pass, one __syncthreads a step. The next step's inputs
-// are loaded before this step's reduction, so their latency overlaps it.
-__global__ void sweep_kernel(const float* __restrict__ vol,
-                             const float* __restrict__ d1,
-                             const float* __restrict__ d2, float* out, int T,
-                             int S, int D, float tau, Pen pen) {
-  __shared__ float row[2][1024];
-  __shared__ float wmin[2][MAX_WARPS];
-  const float INF = __int_as_float(0x7f800000);
-  const float QNAN = __int_as_float(0x7fc00000);
-  const int d = threadIdx.x;
-  const int lane = d & 31, warp = d >> 5, nw = blockDim.x >> 5;
-  const int scan = blockIdx.x;
-  const bool live = d < D;  // the threads d >= D hold NaN
-
-  // prefetch of step t: volume, D1, D2
-  float nv, nd1, nd2;
-  auto load = [&](int t) {
-    const long long c = (long long)t * S + scan;
-    nv = live ? vol[c * D + d] : QNAN;
-    nd1 = d1[c];
-    nd2 = live ? d2[c * D + d] : 10.f;
-  };
-  load(0);
-
-  float prev = 0.f;
-  int rb = 0;  // buffer parity
-  for (int t = 0; t < T; ++t) {
-    const long long c = (long long)t * S + scan;
-    const float v = nv, D1 = nd1, D2 = nd2;
-    if (t + 1 < T) load(t + 1);
-    if (t == 0) {
-      prev = v;
-    } else {
-      row[rb][d] = prev;
-      const float m = warp_min(isnan(prev) ? INF : prev);
-      if (lane == 0) wmin[rb][warp] = m;
-      __syncthreads();
-      float pm = wmin[rb][0];
-      for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[rb][w]);
-      const float up = d > 0 ? row[rb][d - 1] : INF;
-      const float dn = d < (int)blockDim.x - 1 ? row[rb][d + 1] : INF;
-      prev = relax(prev, pm, up, dn, v, D1, D2, tau, pen);
-      rb ^= 1;
-    }
-    if (live) out[c * D + d] = prev;
-  }
-}
-
-// One step of the launch-per-step form: block = scanline, thread = d over
-// Dp = blockDim.x >= D threads; vol, d2, out: (T, S, D), d1: (T, S). Step 0
-// copies the volume; step t reads step t-1's row of out.
-__global__ void step_kernel(const float* __restrict__ vol,
-                            const float* __restrict__ d1,
-                            const float* __restrict__ d2, float* out, int t,
-                            int S, int D, float tau, Pen pen) {
-  __shared__ float row[1024];
-  __shared__ float wmin[MAX_WARPS];
-  const float INF = __int_as_float(0x7f800000);
-  const float QNAN = __int_as_float(0x7fc00000);
-  const int d = threadIdx.x;
-  const int lane = d & 31, warp = d >> 5, nw = blockDim.x >> 5;
-  const bool live = d < D;
-  const long long c = (long long)t * S + blockIdx.x;
-  const float v = live ? vol[c * D + d] : QNAN;
-  if (t == 0) {
-    if (live) out[c * D + d] = v;
-    return;
-  }
-  const float D1 = d1[c];
-  const float D2 = live ? d2[c * D + d] : 10.f;
-  const float prev = live ? out[(c - S) * D + d] : QNAN;
-  row[d] = prev;
-  const float m = warp_min(isnan(prev) ? INF : prev);
-  if (lane == 0) wmin[warp] = m;
-  __syncthreads();
-  float pm = wmin[0];
-  for (int w = 1; w < nw; ++w) pm = fminf(pm, wmin[w]);
-  const float up = d > 0 ? row[d - 1] : INF;
-  const float dn = d < (int)blockDim.x - 1 ? row[d + 1] : INF;
-  const float val = relax(prev, pm, up, dn, v, D1, D2, tau, pen);
-  if (live) out[c * D + d] = val;
-}
 
 // ---- the HWD lane's horizontal sweep: a kernel of its own ------------------
 //
@@ -276,11 +155,12 @@ __device__ __forceinline__ float key_float(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// relax() with the penalty class resolved as far as the step allows: D1 is
-// the same for every d of a step, so the step picks the triple (P1a, P1b,
-// pm + P2) that applies where D2 lies on D1's side of tau (`agree`), and
-// the mixed class's triple applies elsewhere. The same operations on the
-// same values.
+// The penalty class of a cell (0: D1 and D2 below tau, 2: both above,
+// else 1) resolved as far as the step allows: D1 is the same for every d
+// of a step, so the step picks the triple (P1a, P1b, pm + P2) that applies
+// where D2 lies on D1's side of tau (`agree`), and the mixed class's
+// triple applies elsewhere. relax_step then does the recurrence's
+// operations in its order.
 struct StepPen {
   float a1, b1, p2;   // D2 on D1's side of tau
   float am, bm, pm2;  // the mixed class
@@ -557,27 +437,35 @@ int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
   return (int)cudaGetLastError();
 }
 
-// ---- the step-major sweeps: vertical and hslab ------------------------------
+// ---- the step-major sweeps: vertical, hslab and the scan form -------------
 //
 // Step-major layout: step y of scanline x is the row at (y * Ws + x) * Dp,
 // so the rows of VW adjacent scanlines at one step are one contiguous run
-// of VW * Dp floats (4 KB at Dp = 256). A block is VW warps on VW adjacent
+// of VW * Dp floats (4 KB at Dp = 256). Dp need only be a multiple of 4 (a
+// float4 a lane, 16-byte bulk copies). A block is VW warps on VW adjacent
 // scanlines of one class (reversed, x < n_rev, or natural): the host plans
 // the blocks of each class apart, so no block straddles n_rev, and a ragged
 // last block has dead warps that leave after the set-up. Each warp runs
 // warp_step on its scanline (NG float4 groups a lane), with no block
-// barrier in the step loop. The block's volume and accumulator rows arrive in
-// chunks of VK steps through a ring of `stages` buffers: one
-// cp.async.bulk per step and input, one "full" mbarrier a stage; an "empty"
-// mbarrier a stage collects one arrival per live warp, and lane 0 of warp 0
-// refills the stage with the chunk `stages` ahead once all have read it.
-// D1 and the warp's own D2 window (any alignment, served from L1) are plain
-// loads one step ahead: in the vertical entry g[y, D + x + d], where the
-// block's windows overlap within a step; in the hslab entry (HROW) the
-// scanline's own row, g[x, D + y + d] or g[x, rev_base - y + d], where a
-// window overlaps the previous step's but for one float. The sum goes out
-// by coalesced 16-byte stores; in place (out == acc) is safe because a
-// chunk's rows are written only after its copy has landed.
+// barrier in the step loop. The block's rows arrive in chunks of VK steps
+// through a ring of `stages` buffers, each of the volume's part and, where
+// the sweep has one, a second part: one cp.async.bulk per step and input,
+// one "full" mbarrier a stage; an "empty" mbarrier a stage collects one
+// arrival per live warp, and lane 0 of warp 0 refills the stage with the
+// chunk `stages` ahead once all have read it. Where D2 comes from is the
+// template argument D2Src:
+// - COLUMN (the vertical entry) and ROW (the hslab entry): D1 and the
+//   warp's own D2 window (any alignment, served from L1) are plain loads
+//   one step ahead, g[y, D + x + d] in the vertical entry, where the
+//   block's windows overlap within a step, or the scanline's own row,
+//   g[x, D + y + d] or g[x, rev_base - y + d], where a window overlaps the
+//   previous step's but for one float; the second part of the ring holds
+//   the accumulator, if any.
+// - TABLE (the scan form): the built D2 table has the volume's layout and
+//   size and is read once, so it streams through the ring's second part
+//   (the scan form has no accumulator); D1 is a plain load one step ahead.
+// The sum goes out by coalesced 16-byte stores; in place (out == acc) is
+// safe because a chunk's rows are written only after its copy has landed.
 //
 // Sizing: 1280 scanlines (one direction at KITTI size), 2452 (the generic
 // lane's two stacked vertical directions) or 740 (its two stacked
@@ -605,8 +493,9 @@ struct VPlan {
   int smem;        // bytes of dynamic shared memory a block
 };
 
-// The blocks and the ring of the step-major sweeps, vertical and hslab, for
-// Ws scanlines (mirrored by ops/sgm.py vertical_plan, which the tests
+// The blocks and the ring of the step-major sweeps for Ws scanlines, the
+// ring with a second part (the accumulator or the scan form's D2 table)
+// where has_acc (mirrored by ops/sgm.py vertical_plan, which the tests
 // check; a CUDA test holds the mirror against this plan through
 // sgm_vertical_plan).
 VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
@@ -624,7 +513,10 @@ VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
   return p;
 }
 
-template <int NG, bool HROW>
+// Where a warp of vsweep_kernel reads D2 (see above).
+enum class D2Src { COLUMN, ROW, TABLE };
+
+template <int NG, D2Src SRC>
 __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
     vsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
                   float* __restrict__ wta, const float* __restrict__ d1,
@@ -632,6 +524,7 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
                   const float* __restrict__ g_nat, int Ws, int n_steps, int Dp,
                   int D, int T, int reverse, int gw, int n_rev, int rev_base,
                   int rev_blocks, float tau, Pen pen, int stages) {
+  constexpr bool TABLE = SRC == D2Src::TABLE;
   extern __shared__ __align__(128) unsigned char vs_raw[];
   const float QNAN = __int_as_float(0x7fc00000);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -640,10 +533,13 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   const int nw = min(VW, (rev ? n_rev : Ws) - x0);  // live warps
   const int x = x0 + warp;
   const int init = reverse ? T - 1 : 0;
-  const bool has_acc = acc != nullptr;
+  const bool has_acc = !TABLE && acc != nullptr;
+  // the ring's second part: the accumulator, or the scan form's D2 table
+  const float* second = TABLE ? g_rev : acc;
+  const bool two = TABLE || has_acc;
   const int row_floats = VW * Dp;            // one step of the block
   const int part = VK * row_floats;          // a chunk of one input
-  const int stage_floats = part * (has_acc ? 2 : 1);
+  const int stage_floats = part * (two ? 2 : 1);
   const int n_chunks = (n_steps + VK - 1) / VK;
 
   float* ring = reinterpret_cast<float*>(vs_raw);
@@ -660,12 +556,12 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
     const int st = c % stages;
     const unsigned bar = smem_addr(full + st);
     float* dst = ring + (size_t)st * stage_floats;
-    mbar_expect_tx(bar, cnt * bytes * (has_acc ? 2u : 1u));
+    mbar_expect_tx(bar, cnt * bytes * (two ? 2u : 1u));
     for (int j = 0; j < cnt; ++j) {
       const size_t src = ((size_t)(lo + j) * Ws + x0) * Dp;
       bulk_load(smem_addr(dst + j * row_floats), vol + src, bytes, bar);
-      if (has_acc)
-        bulk_load(smem_addr(dst + part + j * row_floats), acc + src, bytes, bar);
+      if (two)
+        bulk_load(smem_addr(dst + part + j * row_floats), second + src, bytes, bar);
     }
   };
 
@@ -684,18 +580,22 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
 #pragma unroll
   for (int q = 0; q < NG; ++q) live[q] = 4 * (lane + 32 * q) < Dp;
 
-  // D1 and the D2 window of a step, loaded one step ahead; hslab: g_rev
-  // is g_nat, one row a scanline
-  const float* g = HROW ? g_rev + (size_t)x * gw + (rev ? rev_base : D)
-                        : (rev ? g_rev : g_nat) + D + (rev ? x : x - n_rev);
+  // D1 and (COLUMN, ROW) the D2 window of a step, loaded one step ahead;
+  // ROW: g_rev is g_nat, one row a scanline
+  const float* g = SRC == D2Src::ROW
+                       ? g_rev + (size_t)x * gw + (rev ? rev_base : D)
+                       : (rev ? g_rev : g_nat) + D + (rev ? x : x - n_rev);
   float nd1, nd2[NG][4];
   auto load_pen = [&](int s) {
     nd1 = d1[(size_t)s * Ws + x];
-    const float* gr = HROW ? g + (rev ? -s : s) : g + (size_t)s * gw;
+    if constexpr (!TABLE) {
+      const float* gr = SRC == D2Src::ROW ? g + (rev ? -s : s) : g + (size_t)s * gw;
 #pragma unroll
-    for (int q = 0; q < NG; ++q)
+      for (int q = 0; q < NG; ++q)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) nd2[q][e] = live[q] ? gr[4 * (lane + 32 * q) + e] : 0.f;
+        for (int e = 0; e < 4; ++e)
+          nd2[q][e] = live[q] ? gr[4 * (lane + 32 * q) + e] : 0.f;
+    }
   };
   load_pen(reverse ? n_steps - 1 : 0);
 
@@ -717,11 +617,13 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
       const int j = reverse ? cnt - 1 - i : i;
       const int s = lo + j;
       const float D1 = nd1;
-      float D2[NG][4];
+      float D2[NG][4];  // TABLE: from the ring, below
+      if constexpr (!TABLE) {
 #pragma unroll
-      for (int q = 0; q < NG; ++q)
+        for (int q = 0; q < NG; ++q)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) D2[q][e] = nd2[q][e];
+          for (int e = 0; e < 4; ++e) D2[q][e] = nd2[q][e];
+      }
       const int s_next = reverse ? s - 1 : s + 1;
       if (s_next >= 0 && s_next < n_steps) load_pen(s_next);
 
@@ -733,7 +635,13 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
         a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (live[q]) {
           v[q] = *reinterpret_cast<const float4*>(sv + j * row_floats + 4 * f);
-          if (has_acc) a[q] = *reinterpret_cast<const float4*>(sa + j * row_floats + 4 * f);
+          if (two) a[q] = *reinterpret_cast<const float4*>(sa + j * row_floats + 4 * f);
+        }
+        if constexpr (TABLE) {  // dead lanes: any D2
+          D2[q][0] = a[q].x;
+          D2[q][1] = a[q].y;
+          D2[q][2] = a[q].z;
+          D2[q][3] = a[q].w;
         }
       }
 
@@ -770,7 +678,7 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   }
 }
 
-template <int NG, bool HROW>
+template <int NG, D2Src SRC>
 int launch_vsweep(const float* vol, const float* acc, float* out, float* wta,
                   const float* d1, const float* g_rev, const float* g_nat,
                   int n_steps, int Ws, int Dp, int D, int T, int reverse, int gw,
@@ -781,21 +689,22 @@ int launch_vsweep(const float* vol, const float* acc, float* out, float* wta,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const VPlan p = vertical_plan(Ws, n_rev, Dp, acc != nullptr, n_sm);
-  err = cudaFuncSetAttribute(vsweep_kernel<NG, HROW>,
+  const VPlan p = vertical_plan(Ws, n_rev, Dp,
+                                SRC == D2Src::TABLE || acc != nullptr, n_sm);
+  err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(vsweep_kernel<NG, HROW>,
+    err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC>,
                                cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return (int)err;
-  vsweep_kernel<NG, HROW><<<p.blocks, VW * 32, p.smem, stream>>>(
+  vsweep_kernel<NG, SRC><<<p.blocks, VW * 32, p.smem, stream>>>(
       vol, acc, out, wta, d1, g_rev, g_nat, Ws, n_steps, Dp, D, T, reverse, gw,
       n_rev, rev_base, p.rev_blocks, tau, pen, p.stages);
   return (int)cudaGetLastError();
 }
 
-// vsweep_kernel<NG, HROW> for NG = ceil(Dp / 128) groups, Dp <= 1024
-template <bool HROW>
+// vsweep_kernel<NG, SRC> for NG = ceil(Dp / 128) groups, Dp <= 1024
+template <D2Src SRC>
 int vsweep(const float* vol, const float* acc, float* out, float* wta,
            const float* d1, const float* g_rev, const float* g_nat, int n_steps,
            int Ws, int Dp, int D, int T, int reverse, int gw, int n_rev,
@@ -803,9 +712,9 @@ int vsweep(const float* vol, const float* acc, float* out, float* wta,
   if (n_steps == 0 || Ws == 0) return 0;
 #define VSWEEP(NG)                                                             \
   case NG:                                                                     \
-    return launch_vsweep<NG, HROW>(vol, acc, out, wta, d1, g_rev, g_nat,       \
-                                   n_steps, Ws, Dp, D, T, reverse, gw, n_rev,  \
-                                   rev_base, tau, pen, stream)
+    return launch_vsweep<NG, SRC>(vol, acc, out, wta, d1, g_rev, g_nat,        \
+                                  n_steps, Ws, Dp, D, T, reverse, gw, n_rev,   \
+                                  rev_base, tau, pen, stream)
   switch ((Dp + 127) / 128) {
     VSWEEP(1);
     VSWEEP(2);
@@ -825,7 +734,8 @@ int vsweep(const float* vol, const float* acc, float* out, float* wta,
 
 // Dp is a multiple of 32, at most 1024, for the three slab entries; T real
 // steps; acc and out may be null and may alias each other; wta may be null.
-// Each entry returns cudaGetLastError().
+// Each entry returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// row width it does not take.
 
 // vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
 // columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
@@ -837,13 +747,15 @@ extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
                                   int Hp, int Ws, int Dp, int D, int T,
                                   int reverse, int gw, int n_rev, float tau,
                                   Pen pen, cudaStream_t stream) {
-  return vsweep<false>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp, D, T,
-                       reverse, gw, n_rev, 0, tau, pen, stream);
+  return vsweep<D2Src::COLUMN>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp,
+                               D, T, reverse, gw, n_rev, 0, tau, pen, stream);
 }
 
-// The plan sgm_sweep_vertical (Ws columns) and sgm_sweep_hslab (Ws = S
-// rows) launch with on a card of n_sm SMs, as out = {rev_blocks, blocks,
-// per_sm, stages, smem}; no kernel runs.
+// The plan of vsweep_kernel for Ws scanlines on a card of n_sm SMs, with
+// the ring's second part (has_acc: an accumulator, or the scan form's D2
+// table) or without, as out = {rev_blocks, blocks, per_sm, stages, smem};
+// no kernel runs. sgm_sweep_vertical plans Ws columns, sgm_sweep_hslab and
+// the scan form Ws = S scanlines.
 extern "C" void sgm_vertical_plan(int Ws, int n_rev, int Dp, int has_acc, int n_sm,
                                   int* out) {
   const VPlan p = vertical_plan(Ws, n_rev, Dp, has_acc != 0, n_sm);
@@ -887,38 +799,33 @@ extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
                                int Dp, int D, int T, int reverse, int gw,
                                int n_rev, int rev_base, float tau, Pen pen,
                                cudaStream_t stream) {
-  return vsweep<true>(vol, acc, out, nullptr, d1, g, g, W, S, Dp, D, T, reverse,
-                      gw, n_rev, rev_base, tau, pen, stream);
+  return vsweep<D2Src::ROW>(vol, acc, out, nullptr, d1, g, g, W, S, Dp, D, T,
+                            reverse, gw, n_rev, rev_base, tau, pen, stream);
 }
 
-// The scan form, whole sweep in one launch. vol, d2, out: (T, S, D) float32
-// in sweep order, 0 < D <= 1024, rows not padded; d1: (T, S). out receives
-// the per-step values; step 0 is the volume's. *launched (host memory)
-// receives the number of kernel launches made, here and in sgm_sweep_step.
+// The scan form, the whole sweep in one launch of vsweep_kernel with the
+// D2 table streamed through the ring. vol, d2, out: (T, S, ld) float32,
+// T steps of S scanlines, D real disparities a row of pitch ld, a multiple
+// of 4 with D <= ld <= 1024, and NaN in vol's lanes [D, ld); d1: (T, S).
+// A forward sweep starts at step 0, a reverse one (reverse != 0) at step
+// T - 1; every step is read and written at its stored position. out
+// receives the per-step values; the first step's is the volume's.
 extern "C" int sgm_sweep_scan(const float* vol, const float* d1,
                               const float* d2, float* out, int T, int S, int D,
-                              float tau, Pen pen, cudaStream_t stream,
-                              int* launched) {
-  sweep_kernel<<<S, (D + 31) / 32 * 32, 0, stream>>>(vol, d1, d2, out, T, S, D,
-                                                     tau, pen);
-  const int rc = (int)cudaGetLastError();
-  *launched = rc == 0;
-  return rc;
+                              int ld, int reverse, float tau, Pen pen,
+                              cudaStream_t stream) {
+  if (ld % 4 || D < 1 || ld < D || ld > 1024) return (int)cudaErrorInvalidValue;
+  return vsweep<D2Src::TABLE>(vol, nullptr, out, nullptr, d1, d2, d2, T, S, ld, D,
+                              T, reverse, 0, 0, 0, tau, pen, stream);
 }
 
-// The scan form, one launch per step: the same arguments and result; T
-// launches of step_kernel in order on the stream.
+// The counterpart of the TPU kernel that runs one sweep step per grid
+// iteration, carrying the previous step in on-chip scratch: on this card
+// that sequential axis is the step loop of one launch, so this is
+// sgm_sweep_scan, with the same arguments and result.
 extern "C" int sgm_sweep_step(const float* vol, const float* d1,
                               const float* d2, float* out, int T, int S, int D,
-                              float tau, Pen pen, cudaStream_t stream,
-                              int* launched) {
-  const int Dp = (D + 31) / 32 * 32;
-  *launched = 0;
-  for (int t = 0; t < T; ++t) {
-    step_kernel<<<S, Dp, 0, stream>>>(vol, d1, d2, out, t, S, D, tau, pen);
-    const int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    ++*launched;
-  }
-  return 0;
+                              int ld, int reverse, float tau, Pen pen,
+                              cudaStream_t stream) {
+  return sgm_sweep_scan(vol, d1, d2, out, T, S, D, ld, reverse, tau, pen, stream);
 }

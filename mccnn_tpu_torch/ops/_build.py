@@ -10,11 +10,11 @@ reused. No PyTorch header is compiled, so a build takes seconds;
 
 ``LAUNCHES`` counts the calls of each kernel entry and
 ``KERNEL_LAUNCHES`` the kernel launches they made. Each wrapper calls
-:func:`count` where it launches its kernel and nowhere else. The two
-differ for an entry that launches its kernel several times per call:
-``sgm_step`` (once per sweep step) reports the number of launches it
-made itself; ``join`` launches once per slab of 64 channels, which its
-wrapper counts.
+:func:`count` where it launches its kernel and nowhere else. Every
+entry but one launches its kernel once a call, so the two agree there;
+``join`` launches once per slab of 64 channels (more than one only for
+more than 64 channels), which its wrapper counts, so the second counter
+stays for it.
 """
 
 from __future__ import annotations

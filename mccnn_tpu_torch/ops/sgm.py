@@ -26,9 +26,11 @@
     of the volume, a (T, S) D1 table and a built (T, S, D) D2 table, in
     sweep order, and returns the (T, S, D) per-step values
     (:func:`sgm_scan_horiz`, :func:`sgm_scan_vert`); the sweep is
-    :func:`sweep_stream` (the whole sweep in one launch) or
-    :func:`sweep_grid` (one launch per step). It is the form the
-    row-sharded inference of the JAX package is built on.
+    :func:`sweep_stream` or :func:`sweep_grid`, the counterparts of the
+    JAX package's whole-sweep and grid-over-steps kernels, which run one
+    kernel here. A reverse sweep reads and writes its steps in place. It
+    is the form the row-sharded inference of the JAX package is built
+    on.
 
 Penalties (adcensus.cu:586-613): D1 = |x0[p] - x0[p - step]|,
 D2 = |x1[q] - x1[q - step]| at the match pixel q (10 where q or
@@ -44,11 +46,12 @@ The three slab entries run one warp per scanline, the volume and
 accumulator rows prefetched through a ring of shared-memory buffers by
 bulk asynchronous copies: ``sgm_horizontal`` per scanline in chunks of
 ``HCHUNK`` steps (:func:`horizontal_chunks` is its walk over the
-steps); ``sgm_vertical`` and ``sgm_hslab`` (one kernel, two instances
-that differ only in where a scanline reads D2) per block of ``VWARPS``
+steps); ``sgm_vertical`` and ``sgm_hslab`` per block of ``VWARPS``
 adjacent scanlines in chunks of ``VCHUNK`` steps (:func:`vertical_plan`
-is their blocks and ring). ``sgm_scan`` has a kernel of its own with a
-block of Dp threads per scanline; ``sgm_step`` one launch per step.
+is their blocks and ring). The scan form's ``sgm_scan`` and ``sgm_step``
+run the same kernel as those two, its D2 table streamed through the
+ring where their accumulator goes; the instances differ only in where a
+scanline reads D2.
 """
 
 from __future__ import annotations
@@ -251,8 +254,10 @@ def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
     """The step-major sweep kernel's launch, as its C entries plan it
     (``vertical_plan`` in csrc/sgm_sweep.cu; a CUDA test holds this
     mirror against the C entry ``sgm_vertical_plan``) for ``Ws``
-    scanlines: the vertical entry's columns, or the hslab entry's S
-    stacked rows. ``blocks``, one (x0, n)
+    scanlines: the vertical entry's columns, or the S scanlines of the
+    hslab entry and of the scan form; ``has_acc``: the ring carries a
+    second input, the accumulator or the scan form's D2 table (always).
+    ``blocks``, one (x0, n)
     run of at most ``VWARPS`` adjacent scanlines each, the reversed class
     [0, n_rev) planned apart from the natural one so that no block reads
     two D2 tables; ``per_sm``, the blocks an SM must hold for all of them
@@ -290,8 +295,7 @@ def _lib():
         lib.sgm_sweep_hslab.argtypes = ([ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 9 + tail)
         for fn in (lib.sgm_sweep_scan, lib.sgm_sweep_step):
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + tail
-                           + [ctypes.POINTER(ctypes.c_int)])
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + tail
         for fn in (lib.sgm_sweep_vertical, lib.sgm_sweep_horizontal,
                    lib.sgm_sweep_hslab, lib.sgm_sweep_scan,
                    lib.sgm_sweep_step):
@@ -377,10 +381,17 @@ def _sweep_hslab(vol, acc, out, d1, g, *, reverse, D, n_rev, rev_base, tau,
     _build.count("sgm_hslab")
 
 
-def _sweep_scan(entry, vol_s, d1_s, d2_s, tau, pen):
+def _sweep_scan(entry, vol_s, d1_s, d2_s, reverse, tau, pen):
     """A scan-form sweep: the C entry ``sgm_sweep_<entry>`` on CUDA
-    tensors, :func:`sweep_scan_plain` on CPU tensors."""
+    tensors, :func:`sweep_scan_plain` on CPU tensors (a reverse sweep on
+    the inputs reversed in steps, its result reversed back). The kernel
+    reads rows of a pitch of whole float4s: when D % 4 != 0 the inputs
+    are copied once into rows padded to it (NaN in the volume) and the
+    result is the [..., :D] view of the padded output."""
     if not vol_s.is_cuda:
+        if reverse:
+            return sweep_scan_plain(vol_s.flip(0), d1_s.flip(0), d2_s.flip(0),
+                                    tau=tau, pen=pen).flip(0)
         return sweep_scan_plain(vol_s, d1_s, d2_s, tau=tau, pen=pen)
     named = (("vol", vol_s), ("d1", d1_s), ("d2", d2_s))
     _check(named, f"sgm {entry}")
@@ -390,33 +401,37 @@ def _sweep_scan(entry, vol_s, d1_s, d2_s, tau, pen):
         raise ValueError(f"sgm {entry}: bad shapes vol {tuple(vol_s.shape)}, "
                          f"d1 {tuple(d1_s.shape)}, d2 {tuple(d2_s.shape)}")
     T, S, D = vol_s.shape
+    ld = -(-D // 4) * 4
+    if ld != D:
+        vol_s, d2_s = _pad_d(vol_s, ld), _pad_d(d2_s, ld)
     out = torch.empty_like(vol_s)
-    launched = ctypes.c_int(0)
     rc = getattr(_lib(), f"sgm_sweep_{entry}")(
         vol_s.data_ptr(), d1_s.data_ptr(), d2_s.data_ptr(), out.data_ptr(),
-        T, S, D, float(np.float32(tau)), _Pen((ctypes.c_float * 9)(*pen)),
-        _build.stream(vol_s), ctypes.byref(launched))
+        T, S, D, ld, int(reverse), float(np.float32(tau)),
+        _Pen((ctypes.c_float * 9)(*pen)), _build.stream(vol_s))
     _build.check_launch(rc, f"sgm_{entry}")
-    _build.count(f"sgm_{entry}", launched.value)
-    return out
+    _build.count(f"sgm_{entry}")
+    return out if ld == D else out[..., :D]
 
 
-def sweep_stream(vol_s, d1_s, d2_s, *, tau, pen):
+def sweep_stream(vol_s, d1_s, d2_s, *, tau, pen, reverse=False):
     """The scan-form sweep with the whole sweep in one launch (entry
-    ``sgm_scan``, the counterpart of ``_sweep_stream``, sgm.py:157):
-    the contract of :func:`sweep_scan_plain`, which runs on CPU
-    tensors."""
-    return _sweep_scan("scan", vol_s, d1_s, d2_s, tau, pen)
+    ``sgm_scan``, the counterpart of ``_sweep_stream``, sgm.py:157) over
+    (T, S, D) slices in natural step order: step 0 first, or with
+    ``reverse`` step T - 1 first, each step's value written at its own
+    position. On CPU tensors :func:`sweep_scan_plain` (on the reversed
+    steps for ``reverse``)."""
+    return _sweep_scan("scan", vol_s, d1_s, d2_s, reverse, tau, pen)
 
 
-def sweep_grid(vol_s, d1_s, d2_s, *, tau, pen):
-    """The scan-form sweep with one kernel launch per step, the state
-    being the previous step's row of the output (entry ``sgm_step``, the
-    counterpart of ``_sweep_grid``, sgm.py:1005): the contract of
-    :func:`sweep_scan_plain`, which runs on CPU tensors.
-    ``_build.LAUNCHES`` rises by one per call, ``_build.KERNEL_LAUNCHES``
-    by the number of kernel launches the C entry reports (T)."""
-    return _sweep_scan("step", vol_s, d1_s, d2_s, tau, pen)
+def sweep_grid(vol_s, d1_s, d2_s, *, tau, pen, reverse=False):
+    """The counterpart of ``_sweep_grid`` (sgm.py:1005, entry
+    ``sgm_step``), the TPU kernel that runs one step per iteration of a
+    sequential grid axis and carries the previous step in on-chip
+    scratch. On this card that axis is the step loop of one kernel
+    launch, the same kernel as :func:`sweep_stream`'s, with the same
+    contract."""
+    return _sweep_scan("step", vol_s, d1_s, d2_s, reverse, tau, pen)
 
 
 def sweep_plan(x0, x1, D, H, W, shape, *, xrev, pi1, pi2, tau_so, alpha1,
@@ -653,18 +668,13 @@ def scan_vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
 def _scan_sum(sweep, vol_t, plan, vols: dict, dirs, n, perm) -> dict:
     """Both sweeps of a scan-form family, added into a zero volume per
     direction: the forward sweep runs the natural step order, the
-    backward one the reversed order, its result un-reversed. ``n`` is
-    the scanline count of one direction and ``perm`` takes a direction's
-    (T, n, D) block to (D, H, W)."""
+    backward one the reversed order, both on the natural-order inputs
+    (``reverse``). ``n`` is the scanline count of one direction and
+    ``perm`` takes a direction's (T, n, D) block to (D, H, W)."""
     outs = {d: torch.zeros_like(vols[d]) for d in dirs}
     for p in plan:
-        vol_s, d1, d2 = vol_t, p["d1"], p.pop("d2")
-        if p["reverse"]:
-            vol_s, d1, d2 = vol_s.flip(0), d1.flip(0), d2.flip(0)
-        res = sweep(vol_s, d1, d2, tau=p["tau"], pen=p["pen"])
-        del vol_s, d2
-        if p["reverse"]:
-            res = res.flip(0)
+        res = sweep(vol_t, p["d1"], p.pop("d2"), tau=p["tau"], pen=p["pen"],
+                    reverse=p["reverse"])
         for i, d in enumerate(dirs):
             outs[d] += res[:, i * n:(i + 1) * n].permute(*perm)
     return outs
@@ -673,8 +683,8 @@ def _scan_sum(sweep, vol_t, plan, vols: dict, dirs, n, perm) -> dict:
 def sgm_scan_horiz(sweep, x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2,
                    tau_so, q1, q2) -> dict:
     """Horizontal family (sgm_dir 0: right, 1: left) in the scan form on
-    the sweep implementation ``sweep`` (:func:`sweep_stream`,
-    :func:`sweep_grid` or :func:`sweep_scan_plain`). Returns
+    the sweep implementation ``sweep`` (:func:`sweep_stream` or
+    :func:`sweep_grid`). Returns
     {direction: (D, H, W) sum of both sweeps}."""
     vol_x, plan = scan_horiz_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1,
                                   pi2=pi2, tau_so=tau_so, q1=q1, q2=q2)

@@ -10,7 +10,8 @@ generic lane, by default what ``MCCNN_SGM_HSLAB`` selects) on a seeded
 under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
 tower's convolutions and the plain torch operations, the top kernels by
-device time, and the device's busy share of the wall time of the run.
+device time, the device's busy share of the wall time of the run, and
+the peak device memory of that run.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from mccnn_tpu_torch.models import towers
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
-HAND = ("join_kernel", "sweep_kernel", "step_kernel", "outlier_kernel",
+HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "blur_kernel", "head_chain_kernel")
 
 
@@ -60,6 +61,7 @@ def main(argv=None) -> None:
     for _ in range(2):
         stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -88,7 +90,8 @@ def main(argv=None) -> None:
           f"stereo_predict{form} 370x1226 "
           f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "
           f"{total_ms:.3f} ms in {sum(e.count for e in kernels)} kernel "
-          f"launches, busy {total_ms / wall_ms:.3f}")
+          f"launches, busy {total_ms / wall_ms:.3f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms in {n} launches")
     print(f"top {args.top} kernels by device time:")

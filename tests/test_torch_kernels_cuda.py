@@ -190,6 +190,7 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
     (1280, 0, 256, True), (1280, 1280, 256, False),   # the fast shape
     (2452, 1226, 256, True), (2452, 1226, 256, False),  # the stacked one
     (740, 370, 256, True), (740, 370, 256, False),  # hslab's stacked rows
+    (740, 0, 228, True), (2452, 0, 228, True),  # the scan form's families
     (750, 375, 256, True), (37, 13, 96, True),  # classes off a multiple of 4
     (23, 7, 96, True), (5, 2, 1024, True)])
 def test_vertical_plan_mirror_is_the_launched_plan(dev, Ws, n_rev, Dp,
@@ -382,23 +383,31 @@ def _scan_case(rng, T, S, D, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (vol, d1, d2))
 
 
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("entry", ["sgm_scan", "sgm_step"])
 @pytest.mark.parametrize("T,S,D", [(37, 50, 70), (9, 131, 228), (64, 3, 32),
                                    (5, 7, 1)])
-def test_scan_sweep_kernels_match_plain(dev, entry, T, S, D):
+def test_scan_sweep_kernels_match_plain(dev, entry, T, S, D, reverse):
     """The two scan-form entries against ``sweep_scan_plain`` on the
-    same tensors: the same f32 operations in the same order, so equal
-    bit for bit, NaN masks included; D below, at and off a multiple of
-    32 (the rows are not padded)."""
+    same tensors (a reverse sweep: on the tensors reversed in steps, its
+    result reversed back): the same f32 operations in the same order, so
+    equal bit for bit, NaN masks included; one kernel launch a call; D
+    below, at and off a multiple of 32, and off a multiple of 4 (70 and
+    1: the rows padded to a pitch of whole float4s)."""
     vol, d1, d2 = _scan_case(np.random.RandomState(T + D), T, S, D, dev)
     pen = sgm.pen_table(1.32, 24.25, 3.0, 2.0, 2.0, 1.0)
     sweep = sgm.sweep_stream if entry == "sgm_scan" else sgm.sweep_grid
     _build.reset_launches()
-    got = sweep(vol, d1, d2, tau=0.08, pen=pen)
+    got = sweep(vol, d1, d2, tau=0.08, pen=pen, reverse=reverse)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[entry] == 1
-    assert _build.KERNEL_LAUNCHES[entry] == (T if entry == "sgm_step" else 1)
-    want = sgm.sweep_scan_plain(vol, d1, d2, tau=0.08, pen=pen)
+    assert _build.KERNEL_LAUNCHES[entry] == 1
+    if reverse:
+        want = sgm.sweep_scan_plain(vol.flip(0), d1.flip(0), d2.flip(0),
+                                    tau=0.08, pen=pen).flip(0)
+    else:
+        want = sgm.sweep_scan_plain(vol, d1, d2, tau=0.08, pen=pen)
+    assert got.shape == want.shape
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 

@@ -156,6 +156,8 @@ def test_horizontal_chunks_cover_the_steps_once_in_sweep_order(n_steps,
     (2452, 1226, 256, False, True),
     (740, 370, 256, True, True),      # its stacked horizontal family (hslab)
     (740, 370, 256, False, True),
+    (740, 0, 228, True, True),        # the scan form's horizontal family:
+    (2452, 0, 228, True, True),       # rows of D = 228, the D2 table in the ring
     (743, 371, 256, True, False),     # classes off a multiple of VWARPS
     (23, 7, 96, True, False),         # ragged classes, Dp off 128
     (150, 150, 128, True, False),
@@ -189,15 +191,21 @@ def test_vertical_plan_covers_each_scanline_once_in_one_wave(Ws, n_rev, Dp,
     (740, 370, 256, True, (93, 186, 2, 7, 114816)),   # hslab at KITTI size
     (740, 370, 256, False, (93, 186, 2, 8, 65664)),
     (750, 375, 256, True, (94, 188, 2, 7, 114816)),   # ragged classes
-    (37, 13, 96, True, (4, 10, 1, 8, 49280))])
+    (37, 13, 96, True, (4, 10, 1, 8, 49280)),
+    (740, 0, 228, True, (0, 185, 2, 7, 102272)),   # scan form, horizontal
+    (2452, 0, 228, True, (0, 613, 5, 3, 43904))])  # scan form, vertical
 def test_vertical_plan_at_the_hslab_shapes(Ws, n_rev, Dp, has_acc, want):
-    """The step-major plan for the hslab entry's S stacked scanlines, as
-    (reversed-class blocks, blocks, per_sm, stages, smem): the values
-    the C entry ``sgm_vertical_plan`` gives on 132 SMs (reckoned from
-    ``vertical_plan`` in csrc/sgm_sweep.cu; the CUDA mirror test checks
-    the same shapes against the entry). At S = 740 the 186 blocks of 4
-    need two an SM; a block's ring then holds 7 chunks of 16 KB with the
-    accumulator, so the SM keeps ~192 KB in flight."""
+    """The step-major plan for the S stacked scanlines of the hslab
+    entry and of the scan form, as (reversed-class blocks, blocks,
+    per_sm, stages, smem): the values the C entry ``sgm_vertical_plan``
+    gives on 132 SMs (reckoned from ``vertical_plan`` in
+    csrc/sgm_sweep.cu; the CUDA mirror test checks the same shapes
+    against the entry). At S = 740 the 186 blocks of 4 need two an SM; a
+    block's ring then holds 7 chunks of 16 KB with the accumulator, so
+    the SM keeps ~192 KB in flight. The scan form streams its D2 table
+    where the accumulator goes (has_acc) over unpadded rows of 228
+    floats, no scanline reversed: 7 chunks of 14.25 KB at S = 740, and 3
+    at S = 2452, five blocks an SM."""
     p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc)
     got = (sum(x0 < n_rev for x0, _ in p["blocks"]), len(p["blocks"]),
            p["per_sm"], p["stages"], p["smem"])

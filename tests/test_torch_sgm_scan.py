@@ -1,7 +1,8 @@
 """The port's scan-form SGM (plain versions, on the CPU) against the JAX
 package: ``sweep_scan_plain`` against the ``lax.scan`` sweep ``_sweep``,
 against ``_sweep_grid`` (which interprets itself off the chip) and
-against ``_sweep_stream`` in interpret mode; ``sgm_multi`` in the scan
+against ``_sweep_stream`` in interpret mode; the wrappers' reverse
+sweeps against both on reversed steps; ``sgm_multi`` in the scan
 forms against ``sgm_pair`` under ``MCCNN_SGM_HSLAB=0`` and against the
 port's slab form."""
 
@@ -94,6 +95,30 @@ def test_sweep_scan_plain_matches_jax_sweep_stream(interpret, sgm_dir, D):
           _jax(jsgm._sweep_stream, vol, d1, d2, sgm_dir))
 
 
+@pytest.mark.parametrize("port", ["sweep_stream", "sweep_grid"])
+@pytest.mark.parametrize("jax_sweep", ["_sweep_grid", "_sweep_stream"])
+@pytest.mark.parametrize("D", [32, 70, 228])
+@pytest.mark.parametrize("sgm_dir", [0, 1, 2, 3])
+def test_reverse_sweep_matches_jax_on_reversed_steps(interpret, sgm_dir, D,
+                                                     jax_sweep, port):
+    """``sweep_stream`` / ``sweep_grid`` with ``reverse=True`` on CPU
+    tensors in natural step order against the JAX package's
+    ``_sweep_grid`` and ``_sweep_stream`` (interpret mode) on the inputs
+    reversed in steps, their result reversed back: the JAX scan form's
+    backward sweep. D at a multiple of 32, off a multiple of 4, and
+    KITTI's 228."""
+    vol, d1, d2 = _slices(30 + sgm_dir + D, T=5, S=4, D=D)
+    pen = sgm.pen_table(PEN["pi1"], PEN["pi2"], PEN["q1"], PEN["q2"],
+                        PEN["alpha1"] if sgm_dir == 2 else 1.0,
+                        PEN["alpha1"] if sgm_dir == 3 else 1.0)
+    got = getattr(sgm, port)(torch.as_tensor(vol), torch.as_tensor(d1),
+                             torch.as_tensor(d2), tau=PEN["tau_so"], pen=pen,
+                             reverse=True).numpy()
+    want = _jax(getattr(jsgm, jax_sweep), vol[::-1], d1[::-1], d2[::-1],
+                sgm_dir)[::-1]
+    _same(got, want)
+
+
 def _case(seed, D=13, H=11, W=37):
     rng = np.random.RandomState(seed)
     x0 = (rng.rand(H, W) * 0.2).astype(np.float32)
@@ -181,20 +206,23 @@ def test_bad_form_raises(form):
 
 def test_cpu_sweeps_count_no_launch_and_count_keeps_both_numbers():
     """A wrapper on CPU tensors runs the plain version and counts
-    nothing; ``_build.count`` records one entry call and the kernel
-    launches that call reported."""
+    nothing, in either direction; ``_build.count`` records one entry call
+    and the kernel launches that call made (one for the scan entries;
+    a join of more than 64 channels makes one a slab)."""
     from mccnn_tpu_torch.ops import _build
     _build.reset_launches()
     vol, d1, d2 = _slices(1, 8, 5)
     for sweep in (sgm.sweep_stream, sgm.sweep_grid):
-        sweep(torch.as_tensor(vol), torch.as_tensor(d1), torch.as_tensor(d2),
-              tau=0.08, pen=sgm.pen_table(1.0, 3.0, 2.0, 4.0, 1.0, 1.0))
+        for reverse in (False, True):
+            sweep(torch.as_tensor(vol), torch.as_tensor(d1),
+                  torch.as_tensor(d2), tau=0.08, reverse=reverse,
+                  pen=sgm.pen_table(1.0, 3.0, 2.0, 4.0, 1.0, 1.0))
     assert not any(_build.launches().values())
     assert not any(_build.kernel_launches().values())
-    _build.count("sgm_step", 7)
-    _build.count("sgm_scan")
-    assert _build.launches()["sgm_step"] == _build.launches()["sgm_scan"] == 1
-    assert _build.kernel_launches()["sgm_step"] == 7
-    assert _build.kernel_launches()["sgm_scan"] == 1
+    _build.count("join", 2)
+    _build.count("sgm_step")
+    assert _build.launches()["join"] == _build.launches()["sgm_step"] == 1
+    assert _build.kernel_launches()["join"] == 2
+    assert _build.kernel_launches()["sgm_step"] == 1
     _build.reset_launches()
     assert not any(_build.kernel_launches().values())

@@ -13,7 +13,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    the KITTI fast-arch path (370x1226, D=228, 64 features; the tower on
    cuDNN with TF32 off against the same tower on the CPU; the join's
    winner maps against the plain volume's, and its gap to the emulation
-   of its three-level bf16 split; the vertical sweeps bit for bit), then the
+   of its three-level bf16 split; the vertical sweeps bit for bit; the
+   outlier labels equal, there and on seeded maps at the Middlebury
+   ``-a time`` shape, 1000x1500, D=200, timed in a CUDA graph), then the
    KITTI slow-arch path (kitti slow widths: 112 features, head 384
    wide with three mid layers): the head kernel over the whole volume
    (with the time of the same chain as bf16 cuBLAS matmuls beside it and
@@ -129,6 +131,29 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int, replays: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a
+    CUDA graph, replayed once to warm up and then ``replays`` times
+    between CUDA events. For a kernel shorter than its wrapper's host
+    time, where :func:`cuda_ms` would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def kitti_pair(rng, h, w, shift):
@@ -361,14 +386,39 @@ def main() -> int:
 
     d_r = costs.wta_hwd(vol_r)[:H, :W].contiguous()
     d_l = costs.wta_hwd(vol_l)[:H, :W].flip(1).contiguous()
-    lab_k = outlier.outlier_detection(d_l, d_r, D)
-    lab_p = outlier.outlier_detection_plain(d_l, d_r, D)
-    check(torch.equal(lab_k, lab_p), "outlier labels differ")
-    taps = float(H * sum(min(D, x + 1) for x in range(W)))
-    rows["outlier"] = dict(
-        err=0.0, ms=cuda_ms(torch, lambda: outlier.outlier_detection(d_l, d_r, D), 20),
-        plain_ms=cuda_ms(torch, lambda: outlier.outlier_detection_plain(d_l, d_r, D), 2),
-        bound=bound_ms(3 * H * W * 4, 4.0 * taps))
+    def outlier_row(d0, d1, d, what):
+        """The outlier kernel against its plain version, equal. Its time
+        is device time in a CUDA graph (the kernel takes a few
+        microseconds, less than its wrapper's host time), printed beside
+        the time by events around eager calls. The bound: the bytes (two
+        maps read, the labels written) and, at the instruction rate, three
+        f32 instructions (convert, subtract, compare of the magnitude) for
+        each of the five candidates of every right value in (-3, D + 3)
+        and for the match test of every pixel."""
+        lab_k = outlier.outlier_detection(d0, d1, d)
+        lab_p = outlier.outlier_detection_plain(d0, d1, d)
+        check(torch.equal(lab_k, lab_p), f"outlier labels differ {what}")
+        h, w = d0.shape
+        n_in = int(((d1 > -3) & (d1 < d + 3)).sum())
+        row = dict(
+            err=0.0, ms=graph_ms(torch, lambda: outlier.outlier_detection(d0, d1, d), 20),
+            plain_ms=cuda_ms(torch, lambda: outlier.outlier_detection_plain(d0, d1, d), 2),
+            bound=bound_ms(3 * h * w * 4, 3.0 * (5 * n_in + h * w), F32_INSTR))
+        eager = cuda_ms(torch, lambda: outlier.outlier_detection(d0, d1, d), 20)
+        shares = [round(float((lab_k == v).float().mean()), 4) for v in (0, 1, 2)]
+        print(f"  outlier {what}: labels equal to the plain version (match / "
+              f"occlusion / mismatch {shares}); kernel {row['ms']:.4f} ms a call "
+              f"in a CUDA graph, {eager:.4f} ms by events around eager calls, "
+              f"plain {row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]})")
+        return row
+
+    rows["outlier"] = outlier_row(d_l, d_r, D, f"at {H}x{W}, D={D}")
+    # the Middlebury -a time shape (mccnn_tpu_torch/cli.py), seeded maps
+    hm, wm, dm = 1000, 1500, 200
+    outlier_row(*(torch.as_tensor(a, device=dev)
+                  for a in outlier.probe_maps(7, hm, wm, dm)), dm,
+                f"at {hm}x{wm}, D={dm} (probe maps)")
 
     def blur_row(img, sigma, t):
         """The blur kernel against its plain version on ``img`` with the

@@ -38,6 +38,9 @@ KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the most shared memory a block can take on the H100, in bytes
+MAX_SMEM = 232448
+
 LAUNCHES: collections.Counter = collections.Counter()
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}

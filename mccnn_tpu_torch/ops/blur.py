@@ -50,10 +50,9 @@ def mean2d_plain(img: torch.Tensor, kernel: torch.Tensor, alpha2: float
 
 
 # the blur kernel's tile (TX * P and TY in csrc/blur.cu): BLUR_ROWS rows of
-# BLUR_COLS columns a block; a block's shared memory at most MAX_SMEM bytes
+# BLUR_COLS columns a block
 BLUR_COLS = 256
 BLUR_ROWS = 8
-MAX_SMEM = 232448
 
 
 def smem_bytes(ksz: int) -> int:
@@ -93,7 +92,7 @@ def mean2d(img: torch.Tensor, kernel: torch.Tensor, alpha2: float
     kernel = kernel.contiguous()
     for t, what in ((img, "blur img"), (kernel, "blur kernel")):
         _build.check_cuda_f32(t, what)
-    if img.dim() != 2 or smem_bytes(ksz) > MAX_SMEM:
+    if img.dim() != 2 or smem_bytes(ksz) > _build.MAX_SMEM:
         raise ValueError(f"blur: bad shapes img {tuple(img.shape)}, k={ksz}")
     H, W = img.shape
     out = torch.empty_like(img)

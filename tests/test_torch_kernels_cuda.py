@@ -441,17 +441,49 @@ def test_scan_forms_equal_the_slab_form(dev, form):
         assert torch.equal(got[k].nan_to_num(), want[k].nan_to_num())
 
 
-def test_outlier_kernel_matches_plain(dev):
-    rng = np.random.RandomState(3)
-    H, W, D = 37, 300, 64
-    d1 = rng.randint(0, D, size=(H, W)).astype(np.float32)
-    d0 = d1.copy()
-    m = rng.rand(H, W) < 0.4
-    d0[m] = rng.randint(0, D, size=int(m.sum())) + 0.3
+@pytest.mark.parametrize("maps,H,W,D", [
+    ("random", 37, 300, 64),
+    ("probe", 9, 300, 40),     # W off a multiple of the 256 threads a block
+    ("probe", 6, 513, 228),
+    ("probe", 5, 30, 64),      # W < D
+    ("probe", 7, 50, 1),       # D = 1
+    ("probe", 4, 2100, 200)])  # more columns than a thread's first loads
+def test_outlier_kernel_matches_plain(dev, maps, H, W, D):
+    """The kernel against ``outlier_detection_plain`` on the card, equal,
+    one launch a call: on random maps, and on ``probe_maps`` (values at
+    k +- 1.1f and an ulp either side, negative, past D, NaN, +-inf, 1e30);
+    its footprint as ``outlier.smem_bytes`` reckons it."""
+    if maps == "random":
+        rng = np.random.RandomState(3)
+        d1 = rng.randint(0, D, size=(H, W)).astype(np.float32)
+        d0 = d1.copy()
+        m = rng.rand(H, W) < 0.4
+        d0[m] = rng.randint(0, D, size=int(m.sum())) + 0.3
+    else:
+        d0, d1 = outlier.probe_maps(W, H, W, D)
     t0, t1 = torch.as_tensor(d0, device=dev), torch.as_tensor(d1, device=dev)
+    before = _build.launches()["outlier"]
     got = outlier.outlier_detection(t0, t1, D)
+    torch.cuda.synchronize()
+    assert _build.launches()["outlier"] == before + 1
     want = outlier.outlier_detection_plain(t0, t1, D)
     assert torch.equal(got, want)
+    assert outlier._lib().outlier_smem_bytes(W) == outlier.smem_bytes(W)
+
+
+def test_outlier_kernel_takes_the_widest_rows(dev):
+    """The widest rows whose footprint a block holds run (above 48 KB of
+    shared memory, so the launch raises the kernel's limit) and equal the
+    plain version; one column more is refused."""
+    W = _build.MAX_SMEM // outlier.smem_bytes(1)
+    assert outlier.smem_bytes(W) <= _build.MAX_SMEM < outlier.smem_bytes(W + 1)
+    d0, d1 = outlier.probe_maps(5, 2, W, 228)
+    t0, t1 = torch.as_tensor(d0, device=dev), torch.as_tensor(d1, device=dev)
+    got = outlier.outlier_detection(t0, t1, 228)
+    assert torch.equal(got, outlier.outlier_detection_plain(t0, t1, 228))
+    z = torch.zeros((2, W + 1), device=dev)
+    with pytest.raises(ValueError, match="bad shapes"):
+        outlier.outlier_detection(z, z, 228)
 
 
 @pytest.mark.parametrize("H,W,sigma", [
@@ -476,7 +508,7 @@ def test_blur_kernel_matches_plain(dev, H, W, sigma):
     k = kern.shape[0]
     assert blur._lib().blur_smem_bytes(k) == blur.smem_bytes(k)
     big = 2 * next(j for j in range(1, 200)
-                   if blur.smem_bytes(2 * j + 1) > blur.MAX_SMEM) + 1
+                   if blur.smem_bytes(2 * j + 1) > _build.MAX_SMEM) + 1
     with pytest.raises(ValueError, match="bad shapes"):
         blur.mean2d(img, torch.ones((big, big), device=dev), 5.0)
 

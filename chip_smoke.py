@@ -34,13 +34,32 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    for both families (horizontal T=1226, S=740; vertical T=370,
    S=2452), the forward sweep and the backward one read in place,
    required equal to the plain loop bit for bit, and at a small shape
-   whose rows are off a multiple of 4; bounds count the real cells, not
-   the padding;
+   whose rows are off a multiple of 4; the 16-bit instances of the HWD
+   lane's kernels: the join stored as bf16 and f16 (and with d_true =
+   200) equal to the float32 kernel's volume rounded, bit for bit, and
+   the vertical and horizontal sweeps on the volume stored as bf16 and
+   f16, chained as on the path, forward and reverse, with and without
+   the volume write, equal to the plain loop bit for bit; bounds count
+   the real cells, not the padding; then (phase 3b) every kernel that
+   phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
+   on their inputs (seeded random weights at mb's widths, phase 7's
+   pair), against its plain version with its KITTI tolerance: the join
+   (padded 1024x1536x256, C=64) in float32 and its bf16 and f16 stores
+   (and d_true = 150) equal to the float32 volume rounded; the vertical
+   and horizontal sweeps chained as on the path in f32, bf16 and f16,
+   both directions, bit for bit at every sweep; both blurs; the slow
+   head over the whole volume (two mid layers, 384 wide); the stacked
+   hslab and vertical sweeps of the -1 direction bit for bit; each with
+   kernel, plain and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
    all-plain path (the CPU); then pairs/s (median of 10 runs after
    warm-up) on that pair and on bench.py's synthetic 350x1242 pair;
+   then (phase 4b) the same path with ``-vol_dtype bfloat16``,
+   ``-vol_dtype float16`` and ``-dtype bfloat16``: launch counts, the
+   share of pixels moved by more than 1 px against the float32 map, the
+   accuracy, pairs/s (median of 10, with the spread) and peak memory;
 5. the slow-arch ``stereo_predict`` on the same pair: the launch count
    of every kernel in one run and the accuracy, with a head set by hand
    to score the L1 distance of the descriptors (a random head does not
@@ -56,7 +75,14 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    kitti fast arch with CBCA (the join kernel feeding the generic lane;
    launch counts at full size, the all-plain comparison at 96x320,
    D=48), and the census kernel path against the all-plain path at
-   96x320, D=48.
+   96x320, D=48;
+7. Middlebury at the ``-a time`` shape, 1000x1500, D=200, on a seeded
+   textured pair of true disparity 60: mb fast with the left direction
+   alone (``-a time``) and with both (``-a predict``), and mb slow (the
+   generic lane, CBCA x2 and x16, a head set by hand as in phase 5):
+   launch counts, accuracy, pairs/s (median of 10, of 3 for mb slow,
+   with the spread) and peak memory; both against the all-plain path on
+   the CPU at 96x320, D=48 with mb's own parameters.
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
@@ -90,6 +116,8 @@ F32_INSTR = F32_OPS / 2
 BF16_TC_OPS = 989e12
 
 H, W, D, SHIFT = 370, 1226, 228, 40
+# the true disparity of the Middlebury phase's pair
+MB_SHIFT = 60
 
 # the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
 # shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
@@ -170,6 +198,45 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def identical(a, b) -> bool:
+    """Equal values and equal NaN masks (bit for bit but for the NaN
+    payloads and the sign of zero)."""
+    return bool(a.isnan().equal(b.isnan())
+                and a.nan_to_num().equal(b.nan_to_num()))
+
+
+def cells_of(d: int, h: int = H, w: int = W) -> int:
+    """The real cells of an (h, w) volume of d disparities."""
+    return h * w * d
+
+
+def timed(torch, fn, runs: int, warm: int = 2) -> tuple[float, list]:
+    """pairs/s of ``fn`` as the median of ``runs`` synchronized calls
+    after ``warm`` warm-up calls, and each run's time in ms."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1.0 / statistics.median(times), [round(t * 1e3, 2) for t in times]
+
+
+def spread(times: list) -> str:
+    return f"runs {min(times)}-{max(times)} ms: {times}"
+
+
+def peak_line(torch, held: float) -> str:
+    """The peak device memory since the last reset, and how far it rose
+    above ``held``, the GiB the script itself held at the reset (the
+    pair's own peak)."""
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return f"peak {peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} held)"
+
+
 def matching_head(net, feats):
     """Set the slow net's head by hand so that it scores the L1 distance
     of the two descriptors: layer 0 maps to [fl - fr, fr - fl] on its
@@ -217,6 +284,7 @@ def head_library(torch, slow_head, A, B, mids_w, mids_b, w_last, b_last, D):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -249,6 +317,11 @@ def main() -> int:
     rng = np.random.RandomState(0)
     x0, x1 = kitti_pair(rng, H, W, SHIFT)
     rows = {}
+    # the 16-bit instances of kernels 1-3 (their rows print before the
+    # kernels' JSON line, which keeps one row a kernel)
+    rows16 = {}
+    DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
 
     # --- phase 3: kernels against their plain versions -----------------
     images = torch.as_tensor(np.stack([x0, x1])[:, None])
@@ -279,7 +352,42 @@ def main() -> int:
     del vol_p
     vol_s = join.join_plus_split_plain(a, b, D, W, H, 4)
     err_s = float((vol_k - vol_s).nan_to_num().abs().max())
-    del vol_s, vol_k
+    del vol_s
+
+    def join_stores(a, b, vol_k, d, w, h, n_fix, d_true, where):
+        """The 16-bit stores of the join on (a, b): the float32 kernel's
+        volume ``vol_k`` rounded, bit for bit (one float32 staging tile,
+        one rounding), stored as bf16 and as f16, and as bf16 with the
+        lanes d >= ``d_true`` NaN. Returns {dtype: row} of both storage
+        types, timed, the bound's bytes at 2 a cell."""
+        for dt, dtr in ((torch.bfloat16, None), (torch.float16, None),
+                        (torch.bfloat16, d_true)):
+            want = vol_k
+            if dtr is not None:
+                want = vol_k.clone()
+                want[..., dtr:] = torch.nan
+            want = want.to(dt)
+            got = join._join_plus(a, b, d, w, h, n_fix, d_true=dtr,
+                                  out_dtype=dt)
+            torch.cuda.synchronize()
+            check(identical(got, want), f"join {where} stored as {dt} "
+                  f"(d_true {dtr}) is not the float32 kernel's volume rounded")
+            del got, want
+        print(f"  join {where}: bfloat16 and float16 stores equal to the "
+              f"float32 kernel's volume rounded, bit for bit; with d_true = "
+              f"{d_true} the lanes d >= {d_true} NaN")
+        c, n = a.shape[1], cells_of(d, h, w)
+        return {dt: dict(err=0.0, plain_ms=None, ms=cuda_ms(
+                    torch, lambda: join._join_plus(a, b, d, w, h, n_fix,
+                                                   out_dtype=dt), 10),
+                         bound=bound_ms(2 * h * w * c * 4 + n * 2,
+                                        6 * 2.0 * n * c, BF16_TC_OPS))
+                for dt in (torch.bfloat16, torch.float16)}
+
+    for dt, row in join_stores(a, b, vol_k, D, W, H, 4, 200,
+                               f"at {H}x{W}, D={D}").items():
+        rows16[f"join ({DT_NAME[dt]} storage)"] = row
+    del vol_k
     print(f"  join (three-level bf16 split on wgmma): max |d| {err:.3g} "
           f"against the f32 sum, "
           f"{err_s:.3g} against the emulation of its arithmetic; winner maps "
@@ -384,6 +492,55 @@ def main() -> int:
           "write, bit-identical to the plain loop (volume and winner map)")
     del acc_k
 
+    # the 16-bit instances of both entries on the volume stored as bf16 and
+    # f16, the four sweeps chained as on the path: each sweep (vertical
+    # down and up, horizontal right and left: forward and reverse) with and
+    # without the volume write, the winner map fused, against the plain
+    # loop on the same 16-bit tensors, bit for bit; the second sweep of
+    # each family is timed, as the float32 rows are
+    for dt in (torch.bfloat16, torch.float16):
+        vol16 = vol_r.to(dt)
+        acc16 = None
+        for i, p in enumerate(plan):
+            p = dict(p)
+            d1, g = p.pop("d1"), p.pop("g")
+            entry = "sgm_vertical" if p["vertical"] else "sgm_horizontal"
+            what = (f"{entry} in {DT_NAME[dt]} (reverse={p['reverse']}, "
+                    f"sweep {i})")
+            for with_out in (True, False):
+                res = []
+                for sweep in (sgm._sweep, sgm.sweep_plain):
+                    a16 = None if acc16 is None else acc16.clone()
+                    o16 = ((torch.empty_like(vol16) if a16 is None else a16)
+                           if with_out else None)
+                    w = torch.empty((Hp, Wp), device=dev)
+                    sweep(vol16, a16, o16, w, d1, g, **p)
+                    res.append((o16, w))
+                torch.cuda.synchronize()
+                (o_k, w_k), (o_p, w_p) = res
+                check(torch.equal(w_k, w_p), f"{what}: winner maps differ")
+                if with_out:
+                    check(o_k.dtype == dt and identical(o_k, o_p),
+                          f"{what}: volumes differ")
+                    nxt = o_k
+                del res, o_k, o_p, w_k, w_p
+            if i in (1, 3):
+                scratch = acc16.clone()
+                wbuf = torch.empty((Hp, Wp), device=dev) if i == 3 else None
+                rows16[f"{entry} ({DT_NAME[dt]} storage)"] = dict(
+                    err=0.0, plain_ms=None,
+                    ms=cuda_ms(torch, lambda: sgm._sweep(
+                        vol16, scratch, scratch, wbuf, d1, g, **p), 5),
+                    bound=bound_ms(3 * cells_of(D) * 2 + tables
+                                   + (H * W * 4 if i == 3 else 0),
+                                   10.0 * cells_of(D)))
+                del scratch, wbuf
+            acc16 = nxt
+        del vol16, acc16, nxt, a16, o16, w
+    print("  sgm_vertical, sgm_horizontal in bf16 and f16 storage: the four "
+          "chained sweeps (forward and reverse), with and without the volume "
+          "write, bit-identical to the plain loop (volume and winner map)")
+
     d_r = costs.wta_hwd(vol_r)[:H, :W].contiguous()
     d_l = costs.wta_hwd(vol_l)[:H, :W].flip(1).contiguous()
     def outlier_row(d0, d1, d, what):
@@ -431,19 +588,21 @@ def main() -> int:
         kern = torch.as_tensor(blur.gaussian_kernel(sigma), device=dev)
         k = kern.shape[0]
         r = k // 2
+        h, w = img.shape
         b_k = blur.mean2d(img, kern, t)
         b_p = blur.mean2d_plain(img, kern, t)
         diff = (b_k - b_p).abs()
         err = float(diff.max())
-        print(f"  blur ({k}x{k}): max |d| {err!r} to the plain version")
+        print(f"  blur ({k}x{k}) at {h}x{w}: max |d| {err!r} to the plain "
+              "version")
         check(bool((diff <= 1e-4 + 1e-6 * b_p.abs()).all()),
               f"blur ({k}x{k}) max |d| {err} beyond 1e-4 + 1e-6 |value|")
-        ny = sum(min(H - 1, y + r) - max(0, y - r) + 1 for y in range(H))
-        nx = sum(min(W - 1, x + r) - max(0, x - r) + 1 for x in range(W))
+        ny = sum(min(h - 1, y + r) - max(0, y - r) + 1 for y in range(h))
+        nx = sum(min(w - 1, x + r) - max(0, x - r) + 1 for x in range(w))
         return dict(
             err=err, ms=cuda_ms(torch, lambda: blur.mean2d(img, kern, t), 10),
             plain_ms=cuda_ms(torch, lambda: blur.mean2d_plain(img, kern, t), 1),
-            bound=bound_ms((2 * H * W + k * k) * 4, 4.0 * ny * nx, F32_INSTR))
+            bound=bound_ms((2 * h * w + k * k) * 4, 4.0 * ny * nx, F32_INSTR))
 
     rows["blur"] = blur_row(d_l.clone(), cfg.blur_sigma, cfg.blur_t)
     del vol_l, vol_r
@@ -533,12 +692,13 @@ def main() -> int:
     vol_y, vplan = sgm.vert_plan(x0_t, x1_t, vols, (-1, 1), D, H, W,
                                  alpha1=scfg.alpha1, **skw)
 
-    def stacked_family(entry, vol, plan, kernel, plain, table_bytes):
+    def stacked_family(entry, vol, plan, kernel, plain, table_bytes,
+                       n=2 * H * W * D):
         """Both sweeps of a stacked family, kernel against plain, each
         bit for bit with equal NaN masks (the same f32 operations in the
         same order and an exact min); the second sweep is timed: it reads
         the accumulator and adds in place. The bound counts the real
-        cells of both directions, 2 * H * W * D."""
+        cells of the stacked directions, ``n`` (both at KITTI size)."""
         acc_k = torch.empty_like(vol)
         acc_p = torch.empty_like(vol)
         for i, p in enumerate(plan):
@@ -563,7 +723,6 @@ def main() -> int:
             check(float(diff.max()) == 0.0,
                   f"{entry} sweep {i}: max |d| {float(diff.max())}, expected "
                   "bit-identical")
-        n = 2 * H * W * D
         return dict(err=float(diff.max()), ms=ms, plain_ms=plain_ms,
                     bound=bound_ms(3 * n * 4 + table_bytes, 10.0 * n))
 
@@ -676,6 +835,205 @@ def main() -> int:
               f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), "
               f"max |d| {row['err']:.3g}"
               + ("" if lib is None else f", library {lib:.3f} ms"))
+    for name, row in rows16.items():
+        print(f"  {name}: kernel {row['ms']:.4f} ms, bound "
+              f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), equal to the "
+              f"plain version bit for bit")
+
+    # --- phase 3b: the Middlebury paths' kernels at 1000x1500, D=200 ------
+    # (hm, wm, dm: the -a time shape) on the inputs phase 7's mb fast and
+    # mb slow give them: seeded random weights at mb's widths on phase 7's
+    # textured pair. Each against its plain version with the tolerance of
+    # its KITTI check above; the sweeps and the 16-bit stores bit for bit.
+    # Their times print as rows of their own: the kernels' JSON line keeps
+    # the KITTI rows.
+    t3b = time.perf_counter()
+    rows_mb = {}
+    m0, m1 = kitti_pair(np.random.RandomState(3), hm, wm, MB_SHIFT)
+    m0_, m1_ = (torch.as_tensor(v, device=dev) for v in (m0, m1))
+    mimages = torch.stack([m0_, m1_])[:, None]
+    mfcfg = make_config("mb", "fast", a="predict")
+    mtower = towers.init_fast(mfcfg, torch.Generator().manual_seed(
+        mfcfg.seed)).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        mfeats = mtower(mimages)
+    mfl, mfr = mfeats[0].permute(1, 2, 0), mfeats[1].permute(1, 2, 0)
+    del mtower, mfeats
+    Cm = mfl.shape[-1]
+    Hq, Wq, Dq = join.pad_dims(hm, wm, dm)
+    nfm = (mfcfg.ws - 1) // 2
+    # the left side, the only one of -a time: x-flipped maps
+    ja = join._prep(mfl, True, Hq, Wq)
+    jb = join._prep(mfr, True, Hq, Wq + Dq)
+    mvol_l = join._join_plus(ja, jb, dm, wm, hm, nfm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = join.join_plus_plain(ja, jb, dm, wm, hm, nfm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(torch.equal(mvol_l.isnan(), want.isnan()), "mb join NaN masks differ")
+    err = float((mvol_l - want).nan_to_num().abs().max())
+    check(err <= 1e-5, f"mb join max |d| {err} > 1e-5")
+    del want
+    mcells = cells_of(dm, hm, wm)
+    rows_mb["join (f32 storage)"] = dict(
+        err=err, plain_ms=plain_ms,
+        ms=cuda_ms(torch, lambda: join._join_plus(ja, jb, dm, wm, hm, nfm), 10),
+        bound=bound_ms((2 * hm * wm * Cm + mcells) * 4, 6 * 2.0 * mcells * Cm,
+                       BF16_TC_OPS))
+    print(f"phase 3b: join at {hm}x{wm}, D={dm} (padded to {Hq}x{Wq}x{Dq}), "
+          f"C={Cm}: max |d| {err:.3g} against the f32 sum")
+    for dt, row in join_stores(ja, jb, mvol_l, dm, wm, hm, nfm, 150,
+                               f"at {hm}x{wm}, D={dm}").items():
+        rows_mb[f"join ({DT_NAME[dt]} storage)"] = row
+    del ja, jb
+    mvol_r = join.stereo_join_hwd(mfl, mfr, dm, n_fix=nfm)[1]
+    del mfl, mfr
+
+    def hwd_chain(what, vol, plan, write_last):
+        """The four sweeps of one direction chained as ``sgm_slab_hwd``
+        runs them on the path: the first writes the accumulator, the
+        others add into it in place, the last fuses the WTA and writes
+        the volume unless ``write_last`` is false (the right direction's
+        last sweep). Kernel against the plain loop on the same tensors at
+        every sweep, bit for bit (volume with its NaN mask, winner map).
+        Returns {entry: (ms, plain ms)} of the second sweep of each
+        family, the one timed at KITTI size."""
+        hp, wp = vol.shape[:2]
+        acc_k = acc_p = None
+        times = {}
+        for i, p in enumerate(plan):
+            p = dict(p)
+            d1, g = p.pop("d1"), p.pop("g")
+            last = i == len(plan) - 1
+            entry = "sgm_vertical" if p["vertical"] else "sgm_horizontal"
+            write = write_last or not last
+            res = []
+            for sweep, acc in ((sgm._sweep, acc_k), (sgm.sweep_plain, acc_p)):
+                out = torch.empty_like(vol) if acc is None else acc
+                w = torch.empty((hp, wp), device=dev) if last else None
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sweep(vol, acc, out if write else None, w, d1, g, **p)
+                torch.cuda.synchronize()
+                res.append((out, w, (time.perf_counter() - t) * 1e3))
+            (acc_k, w_k, _), (acc_p, w_p, plain_ms) = res
+            check(acc_k.dtype == vol.dtype and identical(acc_k, acc_p),
+                  f"{what} sweep {i} ({entry}): volumes differ")
+            if last:
+                check(torch.equal(w_k, w_p), f"{what}: winner maps differ")
+            if i in (1, 3):
+                scratch = acc_k.clone()
+                times[entry] = (cuda_ms(torch, lambda: sgm._sweep(
+                    vol, scratch, scratch if write else None, w, d1, g, **p),
+                    5), plain_ms)
+                del scratch
+            del res
+        return times, w_k
+
+    mkw = dict(pi1=mfcfg.pi1, pi2=mfcfg.pi2, tau_so=mfcfg.tau_so,
+               alpha1=mfcfg.alpha1, q1=mfcfg.sgm_q1, q2=mfcfg.sgm_q2)
+    mtables = (hm * wm + hm * (wm + 2 * dm)) * 4
+    for xrev, vol32 in ((True, mvol_l), (False, mvol_r)):
+        side = "left" if xrev else "right"
+        mplan = sgm.sweep_plan(m0_, m1_, dm, hm, wm, vol32.shape, xrev=xrev,
+                               **mkw)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            vol = vol32 if dt == torch.float32 else vol32.to(dt)
+            times, wmap = hwd_chain(f"mb {side} {DT_NAME[dt]}", vol, mplan,
+                                    write_last=xrev)
+            if xrev:
+                elem = vol.element_size()
+                for entry, (ms, plain_ms) in times.items():
+                    last = entry == "sgm_horizontal"
+                    rows_mb[f"{entry} ({DT_NAME[dt]} storage)"] = dict(
+                        err=0.0, ms=ms, plain_ms=plain_ms,
+                        bound=bound_ms(3 * mcells * elem + mtables
+                                       + (hm * wm * 4 if last else 0),
+                                       10.0 * mcells))
+            if xrev and dt == torch.float32:
+                # the fast path's blur runs on this winner map, the x-flipped
+                # left map as the path makes it
+                fast_map = wmap[:hm, :wm].flip(1).contiguous()
+            del vol, wmap
+        del mplan
+    del mvol_l, mvol_r, vol32
+    print("  sgm_vertical, sgm_horizontal at the mb shape, f32, bf16 and f16, "
+          "left (-a time; every sweep writes) and right (the last sweep "
+          "without the volume write): bit-identical to the plain loop at "
+          "every sweep (volume and winner map)")
+    rows_mb["blur (mb fast)"] = blur_row(fast_map, mfcfg.blur_sigma,
+                                         mfcfg.blur_t)
+    del fast_map
+
+    # mb slow: its head over the whole volume, its blur, and the generic
+    # lane's two stacked families with the -1 direction alone (-a time)
+    mscfg = make_config("mb", "slow", a="time")
+    msnet = towers.init_slow(mscfg, torch.Generator().manual_seed(
+        mscfg.seed)).to(dev).eval()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        msf = msnet(mimages)
+    mops = slow_head.head_operands(msnet, msf[0].permute(1, 2, 0),
+                                   msf[1].permute(1, 2, 0))
+    del msf, msnet
+    s_k = slow_head.slow_head_volume(*mops, dm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s_p = slow_head.slow_head_plain(*mops, dm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    xs = torch.arange(wm, device=dev)[None, None, :]
+    ds = torch.arange(dm, device=dev)[:, None, None]
+    valid = (xs >= ds).expand(dm, hm, wm)
+    diff = (s_k - s_p).abs()[valid]
+    err, mean_err = float(diff.max()), float(diff.mean())
+    del diff, s_p, valid
+    print(f"  slow_head at {hm}x{wm}, D={dm} ({mops[2].shape[0]} mid layers, "
+          f"{mops[0].shape[-1]} wide) over the cells with x >= d: max |d| "
+          f"{err:.3g}, mean |d| {mean_err:.3g}")
+    check(err <= 1e-3 and mean_err <= 1e-5,
+          f"mb slow_head max |d| {err} > 1e-3 or mean |d| {mean_err} > 1e-5")
+    A_, B_, mw_ = mops[:3]
+    mhead_cells = float(hm * sum(max(0, wm - d) for d in range(dm)))
+    rows_mb["slow_head"] = dict(
+        err=err, plain_ms=plain_ms,
+        ms=cuda_ms(torch, lambda: slow_head.slow_head_volume(*mops, dm), 2),
+        bound=bound_ms((A_.numel() + B_.numel() + s_k.numel()) * 4
+                       + mw_.numel() * 2,
+                       2.0 * mhead_cells * mw_.shape[0] * mw_.shape[1]
+                       * mw_.shape[2], BF16_TC_OPS))
+    del A_, B_, mw_, mops
+    mvols = {-1: slow_head.masked_volumes(s_k)[0]}
+    del s_k
+    rows_mb["blur (mb slow)"] = blur_row(costs.wta(mvols[-1]),
+                                         mscfg.blur_sigma, mscfg.blur_t)
+    mskw = dict(pi1=mscfg.pi1, pi2=mscfg.pi2, tau_so=mscfg.tau_so,
+                q1=mscfg.sgm_q1, q2=mscfg.sgm_q2)
+    vol_x, hplan = sgm.horiz_plan(m0_, m1_, mvols, (-1,), dm, hm, wm, **mskw)
+    rows_mb["sgm_hslab"] = stacked_family(
+        "sgm_hslab (mb)", vol_x, hplan, sgm._sweep_hslab, sgm.hslab_plain,
+        (hm * wm + hm * (wm + 2 * dm)) * 4, n=mcells)
+    del vol_x, hplan
+    vol_y, vplan = sgm.vert_plan(m0_, m1_, mvols, (-1,), dm, hm, wm,
+                                 alpha1=mscfg.alpha1, **mskw)
+    rows_mb["sgm_vertical (mb slow, stacked)"] = stacked_family(
+        "sgm_vertical (mb)", vol_y, vplan,
+        lambda v, a, o, d1, g, **p: sgm._sweep(v, a, o, None, d1, g, **p),
+        lambda v, a, o, d1, g, **p: sgm.sweep_plain(v, a, o, None, d1, g, **p),
+        (hm * wm + 2 * hm * (wm + 2 * dm)) * 4, n=mcells)
+    del vol_y, vplan, mvols, mimages
+    print("  sgm_hslab, sgm_vertical (stacked, the -1 direction) at the mb "
+          "shape: bit-identical to the plain loop")
+    for name, row in rows_mb.items():
+        plain = ("" if row["plain_ms"] is None
+                 else f", plain {row['plain_ms']:.3f} ms")
+        print(f"  mb {name}: kernel {row['ms']:.4f} ms{plain}, bound "
+              f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), max |d| "
+              f"{row['err']:.3g}")
+    torch.cuda.empty_cache()
+    print(f"  phase 3b took {time.perf_counter() - t3b:.0f} s")
 
     # --- phase 4: the main path ----------------------------------------
     _build.reset_launches()
@@ -693,18 +1051,9 @@ def main() -> int:
     print(f"  pixels within 1 px of the true disparity {SHIFT}: {good:.4f}")
     check(good >= 0.9, f"only {good:.4f} of pixels within 1 px")
 
-    def pairs_per_s(p0, p1):
+    def pairs_per_s(p0, p1, c=cfg):
         t0_, t1_ = (torch.as_tensor(v, device=dev) for v in (p0, p1))
-        for _ in range(2):
-            stereo_predict(cfg, tower, t0_, t1_, D)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(10):
-            t = time.perf_counter()
-            stereo_predict(cfg, tower, t0_, t1_, D)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return 1.0 / statistics.median(times), times
+        return timed(torch, lambda: stereo_predict(c, tower, t0_, t1_, D), 10)
 
     torch.cuda.reset_peak_memory_stats()
     pps_a, times_a = pairs_per_s(x0, x1)
@@ -712,9 +1061,9 @@ def main() -> int:
     base = np.random.RandomState(42).randn(350, 1242 + D).astype(np.float32)
     pps_b, times_b = pairs_per_s(base[:, D:], base[:, :-D])
     print(f"  370x1226: {pps_a:.3f} pairs/s (median of 10; runs "
-          f"{[round(t * 1e3, 2) for t in times_a]} ms), peak {peak:.2f} GiB")
+          f"{times_a} ms), peak {peak:.2f} GiB")
     print(f"  350x1242 (bench pair): {pps_b:.3f} pairs/s (median of 10; runs "
-          f"{[round(t * 1e3, 2) for t in times_b]} ms)")
+          f"{times_b} ms)")
 
     t = time.perf_counter()
     d_plain = stereo_predict(cfg, tower, x0, x1, D, device="cpu").numpy()
@@ -722,6 +1071,43 @@ def main() -> int:
     print(f"  kernel path vs all-plain path (CPU, {time.perf_counter() - t:.0f} s):"
           f" {frac:.5f} of pixels differ by > 0.51")
     check(frac < 0.01, f"{frac} of pixels differ from the plain path")
+
+    # --- phase 4b: the fast path with 16-bit volumes and bf16 compute ---
+    d32 = d
+    fast_want = want
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    pairs_per_s(x0, x1)
+    print(f"phase 4b: kitti fast float32: {peak_line(torch, held)}")
+    for flag, over in (("-vol_dtype bfloat16", dict(vol_dtype="bfloat16")),
+                       ("-vol_dtype float16", dict(vol_dtype="float16")),
+                       ("-dtype bfloat16", dict(dtype="bfloat16"))):
+        c16 = make_config("kitti", "fast", a="predict", **over)
+        _build.reset_launches()
+        d16 = stereo_predict(c16, tower, x0, x1, D)
+        torch.cuda.synchronize()
+        got = _build.launches()
+        print(f"phase 4b: kitti fast {flag}: launches in one stereo_predict: "
+              f"{got}")
+        check(got == fast_want, f"{flag}: launch counts {got}, expected "
+              f"{fast_want}")
+        d16 = d16.cpu().numpy()
+        check(d16.shape == (H, W) and bool(np.isfinite(d16).all()),
+              f"{flag}: disparity map not finite or misshaped")
+        moved = float((np.abs(d16 - d32) > 1.0).mean())
+        mad = float(np.abs(d16 - d32).mean())
+        good = float((np.abs(d16[:, SHIFT + 8:] - SHIFT) <= 1.0).mean())
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        pps, times = pairs_per_s(x0, x1, c16)
+        print(f"  {flag}: {moved:.5f} of pixels moved by > 1 px against the "
+              f"float32 run (mean |d| {mad:.5f}); {good:.4f} within 1 px of "
+              f"the true disparity; {pps:.3f} pairs/s (median of 10; "
+              f"{spread(times)}), {peak_line(torch, held)}")
+        # the bounds of the JAX package's 16-bit test on noise input
+        check(moved < 0.15 and mad < 1.0, f"{flag}: moved {moved}, mean |d| "
+              f"{mad} against the float32 run")
+        check(good >= 0.9, f"{flag}: only {good:.4f} within 1 px")
 
     # --- phase 5: the slow-arch path ----------------------------------
     hand = matching_head(towers.init_slow(
@@ -854,6 +1240,74 @@ def main() -> int:
         check(frac < 0.01, f"{what}: {frac} of pixels differ from the plain "
               "path")
 
+    # --- phase 7: Middlebury at the -a time shape --------------------------
+    # (mccnn_tpu_torch/cli.py): 1000x1500, D=200, on a seeded textured pair
+    # of true disparity MB_SHIFT; mb has no outlier stage
+    # (phase 3b's pair)
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+
+    def mb_path(what, mcfg, net, want_mb, runs):
+        """One ``stereo_predict`` at the Middlebury shape: launch counts,
+        the map checked against the true disparity, then pairs/s (median
+        of ``runs`` after a warm-up, with the spread) and the peak
+        memory of those runs."""
+        _build.reset_launches()
+        d_m = stereo_predict(mcfg, net, m0_, m1_, dm)
+        torch.cuda.synchronize()
+        got = _build.launches()
+        print(f"phase 7: launches in one {what} stereo_predict at {hm}x{wm}, "
+              f"D={dm}: {got}")
+        want = dict.fromkeys(_build.KERNELS, 0)
+        want.update(want_mb)
+        check(got == want, f"{what}: launch counts {got}, expected {want}")
+        d_m = d_m.cpu().numpy()
+        check(d_m.shape == (hm, wm) and bool(np.isfinite(d_m).all()),
+              f"{what}: disparity map not finite or misshaped")
+        good = float((np.abs(d_m[:, MB_SHIFT + 8:] - MB_SHIFT) <= 1.0).mean())
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        pps, times = timed(torch, lambda: stereo_predict(mcfg, net, m0_, m1_,
+                                                         dm), runs, warm=1)
+        print(f"  {what}: {good:.4f} of pixels within 1 px of the true "
+              f"disparity {MB_SHIFT}; {pps:.4f} pairs/s (median of {runs}; "
+              f"{spread(times)}), {peak_line(torch, held)}")
+        check(good >= 0.9, f"{what}: only {good:.4f} within 1 px")
+
+    mcfg_t = make_config("mb", "fast", a="time")
+    mtower = towers.init_fast(mcfg_t, torch.Generator().manual_seed(
+        mcfg_t.seed)).to(dev)
+    mb_path("mb fast -a time (left direction)", mcfg_t, mtower,
+            dict(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1), 10)
+    mb_path("mb fast -a predict (both directions)",
+            make_config("mb", "fast", a="predict"), mtower,
+            dict(join=2, sgm_vertical=4, sgm_horizontal=4, blur=1), 10)
+    mscfg = make_config("mb", "slow", a="time")
+    mhand = towers.init_slow(mscfg, torch.Generator().manual_seed(
+        mscfg.seed)).to(dev).eval()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        mfeats = mhand(torch.stack([m0_, m1_])[:, None])
+    matching_head(mhand, mfeats)
+    del mfeats
+    mb_path("mb slow -a time (left direction, head set by hand)", mscfg, mhand,
+            dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1), 3)
+
+    # the all-plain comparison at 96x320, D=48 with mb's own parameters
+    for what, mcfg, net in (("mb fast", mcfg_t, mtower),
+                            ("mb slow", mscfg, mhand)):
+        t = time.perf_counter()
+        d_k = stereo_predict(mcfg, net, s0, s1, dd).cpu().numpy()
+        d_plain = stereo_predict(mcfg, net, s0, s1, dd, device="cpu").numpy()
+        frac = float((np.abs(d_k - d_plain) > 0.51).mean())
+        print(f"  {what} kernel path vs all-plain path (CPU) at {h}x{w}, "
+              f"D={dd} ({time.perf_counter() - t:.0f} s): {frac:.5f} of pixels "
+              f"differ by > 0.51")
+        check(frac < 0.01, f"{what}: {frac} of pixels differ from the plain "
+              "path")
+    del mtower, mhand, m0_, m1_
+    print(f"  phase 7 took {time.perf_counter() - t7:.0f} s")
+
     # launches: each kernel's count on the path that runs it (entry
     # calls, and the kernel launches they made); the three shared ones
     # (vertical sweep, outlier, blur) are the fast path's
@@ -873,6 +1327,8 @@ def main() -> int:
                "sgm_hslab": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:267"),
                "sgm_scan": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:157"),
                "sgm_step": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:1005")}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.0f} s, the build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mccnn_tpu_torch/csrc/{sources[name][0]}",

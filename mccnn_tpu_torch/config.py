@@ -107,10 +107,10 @@ class Config:
     blur_sigma: float = 7.74
     blur_t: float = 5.0
 
-    # extensions with no reference analog; the port runs float32 only
-    # so far and refuses the others (ROADMAP.md, queue 1)
+    # extensions with no reference analog (pipeline.py: the dtype
+    # contract of the JAX package's check_vol_dtype)
     dtype: str = "float32"  # compute dtype for the matching network
-    vol_dtype: str = "float32"  # cost-volume storage dtype
+    vol_dtype: str = "float32"  # cost-volume storage dtype (HWD lane)
     backend: str = ""  # "cpu" runs the plain versions on the host; "" = CUDA
     data_dir: str = ""  # override dataset directory
     checkpoint_every: int = 0  # mid-train checkpointing (0 = reference behavior)

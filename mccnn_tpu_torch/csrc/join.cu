@@ -2,11 +2,18 @@
 //
 // Replaces the TPU kernel mccnn_tpu/ops/join_pallas.py::_join_plus:
 //   out[y, x, d] = -<a[y, :, x], b[y, :, x + d]>
-// NaN where x + d >= W, d >= D or y >= H; rows x < n_fix of the first
-// column tile replaced by row n_fix, NaNs included (fix_border,
-// main.lua:922-927). Both reference sides run this kernel: the left side
-// on x-flipped maps (the mirror identity), so its volume comes out
-// x-reversed.
+// NaN where x + d >= W, d >= d_true (the real disparity count, at most
+// D; D itself unless the caller bucketed D), d >= D or y >= H; rows
+// x < n_fix of the first column tile replaced by row n_fix, NaNs included
+// (fix_border, main.lua:922-927). Both reference sides run this kernel:
+// the left side on x-flipped maps (the mirror identity), so its volume
+// comes out x-reversed.
+//
+// Storage: the volume is float32, bfloat16 or float16 (out_dtype of the
+// TPU kernel, join_pallas.py:239-245; a template argument here). The dots
+// and the masks are float32 whatever the storage; only the store rounds,
+// to nearest even (a NaN stays a NaN), so a 16-bit volume is the float32
+// one rounded, bit for bit.
 //
 // Arithmetic: bf16 products on the tensor cores, as the TPU kernel's
 // (join_pallas.py:148-165), with one split level more. Each f32 operand
@@ -59,11 +66,16 @@
 // request whatever its size, so issuing a tile's 128 operand copies took
 // 9.6 kclk and its 64 row stores 4.5 kclk of the tile's 20: 0.679 ms a
 // side, against 0.394 with cp.async and plain stores, and 0.336 with the
-// stores in a warpgroup of their own (PERF.md).
+// stores in a warpgroup of their own (PERF.md). A 16-bit volume is
+// written by the same warpgroup from the same float32 staging tile, eight
+// values a 16-byte store: half the bytes written.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -170,6 +182,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return d;
 }
 
+// Two 16-bit values (round to nearest even) in one word, lo in the low
+// half, for a volume stored as OUT.
+template <typename OUT>
+__device__ __forceinline__ uint32_t pack_out(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack_out<__nv_bfloat16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack_out<__half>(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
 // The LV split levels of the pair (v0, v1), v0 in the low halves; v0 and
 // v1 are left as the residuals past the last level.
 __device__ __forceinline__ void split2(float& v0, float& v1, uint32_t (&w)[LV]) {
@@ -256,10 +285,17 @@ __device__ __forceinline__ void gram_block(float (&d)[32], const uint32_t (&fa)[
   }
 }
 
+// OUT: the volume's storage type. With `add`, the staging tile is added
+// to the float32 sums of the channel slabs before this one, read from
+// `prev`: `out` itself for a float32 volume (so neither pointer is
+// __restrict__), a float32 buffer for a 16-bit one.
+template <typename OUT>
 __global__ void __launch_bounds__(THREADS, 1)
     join_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ out, int H, int W, int C, int Ct, int Hp,
-                int Wp, int Wb, int Dp, int D, int n_fix, int add) {
+                OUT* out, const float* prev, int H,
+                int W, int C, int Ct, int Hp, int Wp, int Wb, int Dp,
+                int d_true, int n_fix, int add) {
+  constexpr bool F32 = std::is_same<OUT, float>::value;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
@@ -305,30 +341,45 @@ __global__ void __launch_bounds__(THREADS, 1)
   enum { BAR_WG = 1, BAR_FULL = 2, BAR_FREE = 3 };
   if (tid >= CT) {
     // ---- the store warpgroup: each staging tile out, 16 bytes a thread
-    // (added to what is there for a channel slab past the first) ---------
+    // (added to the sums so far for a channel slab past the first): four
+    // floats, or eight 16-bit values ---------------------------------------
     const int st = tid - CT;
+    constexpr int VPS = F32 ? 4 : 8;  // values a 16-byte store
     int n_tiles = 0;
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) n_tiles += n_xt;
     bar_arrive(BAR_FREE, THREADS);
     int done = 0;
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
       const int y = it / n_chunks, d0 = (it % n_chunks) * DB;
-      const int q4 = min(DB, Dp - d0) / 4;
+      const int nq = min(DB, Dp - d0) / VPS;
       for (int xt = 0; xt < n_xt; ++xt) {
         bar_sync(BAR_FULL, THREADS);
-        float* orow = out + ((size_t)y * Wp + xt * XM) * Dp + d0;
-        for (int k = st; k < XM * q4; k += CT) {
-          const int r = k / q4, q = k % q4;
-          float4* p = reinterpret_cast<float4*>(orow + (size_t)r * Dp) + q;
-          float4 v = *reinterpret_cast<const float4*>(ost + r * OS + 4 * q);
-          if (add) {
-            const float4 o = __ldcs(p);
-            v.x += o.x;
-            v.y += o.y;
-            v.z += o.z;
-            v.w += o.w;
+        for (int k = st; k < XM * nq; k += CT) {
+          const int r = k / nq, q = k % nq;
+          const float* sp = ost + r * OS + VPS * q;
+          const size_t at = ((size_t)y * Wp + xt * XM + r) * Dp + d0 + VPS * q;
+          float v[VPS];
+#pragma unroll
+          for (int i = 0; i < VPS; i += 4) {
+            float4 s = *reinterpret_cast<const float4*>(sp + i);
+            if (add) {
+              const float4 o = __ldcs(reinterpret_cast<const float4*>(prev + at + i));
+              s.x += o.x;
+              s.y += o.y;
+              s.z += o.z;
+              s.w += o.w;
+            }
+            v[i] = s.x;
+            v[i + 1] = s.y;
+            v[i + 2] = s.z;
+            v[i + 3] = s.w;
           }
-          __stcs(p, v);
+          if constexpr (F32)
+            __stcs(reinterpret_cast<float4*>(out + at), make_float4(v[0], v[1], v[2], v[3]));
+          else
+            __stcs(reinterpret_cast<uint4*>(out + at),
+                   make_uint4(pack_out<OUT>(v[0], v[1]), pack_out<OUT>(v[2], v[3]),
+                              pack_out<OUT>(v[4], v[5]), pack_out<OUT>(v[6], v[7])));
         }
         if (++done < n_tiles) bar_arrive(BAR_FREE, THREADS);
       }
@@ -388,10 +439,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int i = 16 * warp + g + 8 * h;
           // row i keeps Gram columns j in [i, i + dbc); of them j < jk are
-          // in frame (x + d < W) and real (d < D); j counted from 2 t4
+          // in frame (x + d < W) and real (d < d_true); j counted from 2 t4
           float* rp = ost + i * OS - i + 2 * t4;
           const int jlo = i - 2 * t4, jhi = i + dbc - 2 * t4;
-          const int jk = i + min(D - d0, W - x0 - i - d0) - 2 * t4;
+          const int jk = i + min(d_true - d0, W - x0 - i - d0) - 2 * t4;
 #pragma unroll
           for (int n8 = 0; n8 < 8; ++n8)
 #pragma unroll
@@ -411,32 +462,77 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// One launch of join_kernel<OUT> on the channel slab [c0, c0 + cs); its
+// dynamic shared memory attribute is set once a join_launch.
+template <typename OUT>
+cudaError_t launch_slab(const float* a, const float* b, OUT* out, const float* prev,
+                        int grid, int H, int W, int c0, int cs, int C, int Hp,
+                        int Wp, int Wb, int Dp, int d_true, int n_fix,
+                        cudaStream_t stream) {
+  join_kernel<OUT><<<grid, THREADS, SMEM, stream>>>(
+      a + (size_t)c0 * Wp, b + (size_t)c0 * Wb, out, prev, H, W, cs, C, Hp, Wp, Wb,
+      Dp, d_true, n_fix, c0 > 0);
+  return cudaGetLastError();
+}
+
+// Every channel slab into a volume stored as OUT, each slab past the first
+// adding the float32 sum of those before it. A float32 volume holds that
+// sum itself (prev = out); a 16-bit volume of more than one slab sums the
+// slabs before the last in the float32 buffer tmp, and the last slab adds
+// that sum and rounds once.
+template <typename OUT>
+int launch_all(const float* a, const float* b, OUT* out, float* tmp, int grid,
+               int H, int W, int C, int Hp, int Wp, int Wb, int Dp, int d_true,
+               int n_fix, cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<OUT, float>::value;
+  cudaError_t err = cudaFuncSetAttribute(
+      join_kernel<OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err == cudaSuccess && !F32 && C > KC)
+    err = cudaFuncSetAttribute(join_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  const float* prev = F32 ? reinterpret_cast<const float*>(out) : tmp;
+  for (int c0 = 0; c0 < C && err == cudaSuccess; c0 += KC) {
+    const int cs = C - c0 < KC ? C - c0 : KC;
+    if (F32 || c0 + KC >= C)
+      err = launch_slab<OUT>(a, b, out, prev, grid, H, W, c0, cs, C, Hp, Wp, Wb, Dp,
+                             d_true, n_fix, stream);
+    else
+      err = launch_slab<float>(a, b, tmp, tmp, grid, H, W, c0, cs, C, Hp, Wp, Wb,
+                               Dp, d_true, n_fix, stream);
+  }
+  return (int)err;
+}
+
 }  // namespace
 
-// a: (Hp, C, Wp), b: (Hp, C, Wb) with Wb >= Wp + Dp and Wb % 4 == 0, out:
-// (Hp, Wp, Dp), all float32 and contiguous. Wp % 64 == 0, Dp % 128 == 0,
-// C > 0, 0 <= n_fix < 8. Launches the kernel once for each slab of 64
+// a: (Hp, C, Wp), b: (Hp, C, Wb) with Wb >= Wp + Dp and Wb % 4 == 0, both
+// float32; out: (Hp, Wp, Dp) of the storage type out_dtype (0 float32, 1
+// bfloat16, 2 float16); all contiguous. Wp % 64 == 0, Dp % 128 == 0,
+// C > 0, 0 <= n_fix < 8, 0 < d_true <= D <= Dp. tmp: a float32
+// (Hp, Wp, Dp) buffer for a 16-bit volume of more than 64 channels, else
+// unused (may be null). Launches the kernel once for each slab of 64
 // channels, ceil(C / 64) times. Returns the first CUDA error of a launch.
-extern "C" int join_launch(const float* a, const float* b, float* out, int H,
-                           int W, int C, int Hp, int Wp, int Wb, int Dp, int D,
-                           int n_fix, cudaStream_t stream) {
+extern "C" int join_launch(const float* a, const float* b, void* out, float* tmp,
+                           int H, int W, int C, int Hp, int Wp, int Wb, int Dp,
+                           int D, int d_true, int n_fix, int out_dtype,
+                           cudaStream_t stream) {
+  if (out_dtype < 0 || out_dtype > 2 || d_true < 1 || d_true > D ||
+      (out_dtype != 0 && C > KC && tmp == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int n_items = Hp * ((Dp + DB - 1) / DB);
   if (n_items == 0 || Wp == 0) return 0;
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
   if (err != cudaSuccess) return (int)err;
   const int grid = n_items < n_sm ? n_items : n_sm;  // one block an SM
-  for (int c0 = 0; c0 < C && err == cudaSuccess; c0 += KC) {
-    const int cs = C - c0 < KC ? C - c0 : KC;
-    join_kernel<<<grid, THREADS, SMEM, stream>>>(a + (size_t)c0 * Wp, b + (size_t)c0 * Wb,
-                                                 out, H, W, cs, C, Hp, Wp, Wb, Dp, D,
-                                                 n_fix, c0 > 0);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  if (out_dtype == 1)
+    return launch_all(a, b, static_cast<__nv_bfloat16*>(out), tmp, grid, H, W, C, Hp,
+                      Wp, Wb, Dp, d_true, n_fix, stream);
+  if (out_dtype == 2)
+    return launch_all(a, b, static_cast<__half*>(out), tmp, grid, H, W, C, Hp, Wp,
+                      Wb, Dp, d_true, n_fix, stream);
+  return launch_all(a, b, static_cast<float*>(out), tmp, grid, H, W, C, Hp, Wp, Wb,
+                    Dp, d_true, n_fix, stream);
 }

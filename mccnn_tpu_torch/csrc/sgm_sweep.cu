@@ -49,6 +49,17 @@
 // in the volume, as a pad lane does in the other layouts, so neighbours
 // outside [0, D) never couple.
 //
+// Storage (the HWD lane's two entries, sgm_sweep_vertical and
+// sgm_sweep_horizontal): the volume, the accumulator and the output are
+// float32, bfloat16 or float16 (the JAX package's -vol_dtype), a template
+// argument of the kernel (a run-time layout field in the step loop cost
+// 6-7%, see below). A 16-bit row is read as 8 bytes a lane and widened to
+// float32; the recurrence state stays the unrounded float32 value; the sum
+// val + acc is formed in float32, the winner map taken from it, and only
+// the stored sum rounds (to nearest even), as in _sweep_stream_vslab and
+// _sweep_stream_hnat (sgm.py:640-690, :878-891). The other three entries
+// take float32 only.
+//
 // Steps: n_steps stored steps, of which the first T are real. Steps
 // s >= T pass the volume through and leave the state alone; the state
 // starts at step 0 (forward) or T-1 (reverse), so a reverse sweep starts
@@ -62,7 +73,8 @@
 // and rows are layout, not work): 3 x 414 MB for one direction at KITTI
 // size (370 x 1226 x 228 f32; 0.37 ms at 3.35 TB/s), 3 x 827 MB for the
 // generic lane's two stacked directions (0.74 ms); a scan-form sweep reads
-// the volume and the D2 table in the accumulator's place. The arithmetic
+// the volume and the D2 table in the accumulator's place. A 16-bit volume
+// halves those bytes (0.19 ms for one direction at KITTI size). The arithmetic
 // (about ten f32 operations per cell) is far below the f32 peak. The
 // recurrence is a chain of n_steps dependent steps per scanline, each
 // ending in a min over d.
@@ -84,8 +96,12 @@
 //   lies, a template argument (D2Src): a run-time layout field in the step
 //   loop cost every sweep 6-7% on the H100.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 struct Pen {
   float v[9];  // class c: (P1a, P1b, P2) at v[3c .. 3c+2]
@@ -96,8 +112,8 @@ namespace {
 // ---- the HWD lane's horizontal sweep: a kernel of its own ------------------
 //
 // Its only layout assumption: the steps of one scanline are contiguous rows
-// of Dp floats (row y of the (Hp, Wp, Dp) volume is one run of Wp * Dp
-// floats), so a chunk of HK steps is one contiguous run of HK * Dp * 4 bytes.
+// of Dp values (row y of the (Hp, Wp, Dp) volume is one run of Wp * Dp
+// values), so a chunk of HK steps is one contiguous run of HK * Dp values.
 
 constexpr int HK = 8;       // steps per chunk
 constexpr int HSTAGES = 4;  // chunks in the ring, at most
@@ -189,6 +205,57 @@ __device__ __forceinline__ float relax_step(float prev, float pm, float up,
   cost = fminf(cost, up + (agree ? sp.a1 : sp.am));
   cost = fminf(cost, dn + (agree ? sp.b1 : sp.bm));
   return (v + cost) - pm;
+}
+
+// Four consecutive values of a row stored as T, widened to float32: one
+// 16-byte load for float32, one 8-byte load for a 16-bit type.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p);
+
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <>
+__device__ __forceinline__ float4 load4<__half>(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// v rounded to T (to nearest even; a NaN stays a NaN) at p: the
+// counterpart of load4.
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float4& v);
+
+template <>
+__device__ __forceinline__ void store4<float>(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, const float4& v) {
+  uint2 u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u.x) : "f"(v.y), "f"(v.x));
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u.y) : "f"(v.w), "f"(v.z));
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <>
+__device__ __forceinline__ void store4<__half>(__half* p, const float4& v) {
+  uint2 u;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(u.x) : "f"(v.y), "f"(v.x));
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(u.y) : "f"(v.w), "f"(v.z));
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float lane_of(const float4& v, int e) {
@@ -292,9 +359,9 @@ __device__ __forceinline__ unsigned warp_winner(const float4 (&v)[NG], int lane)
 // register a lane, loaded a chunk ahead. The sum goes out by coalesced
 // 16-byte stores; in place (out == acc) is safe because a chunk is written
 // only after its copy has landed.
-template <int NG>
+template <int NG, typename S>
 __global__ void __launch_bounds__(32)
-    hsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
+    hsweep_kernel(const S* __restrict__ vol, const S* acc, S* out,
                   float* __restrict__ wta, const float* __restrict__ d1,
                   const float* __restrict__ g, int n_steps, int Dp, int D, int T,
                   int reverse, int gw, float tau, Pen pen, int stages) {
@@ -305,12 +372,12 @@ __global__ void __launch_bounds__(32)
   const int scan = blockIdx.x;
   const int init = reverse ? T - 1 : 0;
   const bool has_acc = acc != nullptr;
-  const int chunk_floats = HK * Dp;
+  const int chunk_floats = HK * Dp;  // values of one input a chunk
   const int stage_floats = chunk_floats * (has_acc ? 2 : 1);
   const int n_chunks = (n_steps + HK - 1) / HK;
   const size_t row = (size_t)scan * n_steps;  // cell of step 0
 
-  float* ring = reinterpret_cast<float*>(hs_raw);
+  S* ring = reinterpret_cast<S*>(hs_raw);
   unsigned long long* bars =
       reinterpret_cast<unsigned long long*>(ring + (size_t)stages * stage_floats);
   float* gs = reinterpret_cast<float*>(bars + HSTAGES);
@@ -319,13 +386,15 @@ __global__ void __launch_bounds__(32)
   auto chunk_lo = [&](int c) { return (reverse ? n_chunks - 1 - c : c) * HK; };
   auto fetch = [&](int c) {  // lane 0
     const int lo = chunk_lo(c);
-    const unsigned bytes = (unsigned)(min(HK, n_steps - lo) * Dp) * 4u;
+    const unsigned bytes = (unsigned)(min(HK, n_steps - lo) * Dp) * (unsigned)sizeof(S);
     const int st = c % stages;
     const unsigned bar = smem_addr(bars + st);
     const unsigned dst = smem_addr(ring + (size_t)st * stage_floats);
     mbar_expect_tx(bar, has_acc ? 2 * bytes : bytes);
     bulk_load(dst, vol + (row + lo) * Dp, bytes, bar);
-    if (has_acc) bulk_load(dst + chunk_floats * 4, acc + (row + lo) * Dp, bytes, bar);
+    if (has_acc)
+      bulk_load(dst + chunk_floats * (unsigned)sizeof(S), acc + (row + lo) * Dp, bytes,
+                bar);
   };
   // D1 of the chunk's step lo + lane (lanes >= cnt: unused)
   auto d1_of = [&](int c) {
@@ -363,8 +432,8 @@ __global__ void __launch_bounds__(32)
     d1n = d1_of(c + 1);
     const int st = c % stages;
     mbar_wait(smem_addr(bars + st), (unsigned)(c / stages) & 1u);
-    const float* sv = ring + (size_t)st * stage_floats;
-    const float* sa = sv + chunk_floats;
+    const S* sv = ring + (size_t)st * stage_floats;
+    const S* sa = sv + chunk_floats;
 
 #pragma unroll 2
     for (int i = 0; i < cnt; ++i) {
@@ -377,8 +446,8 @@ __global__ void __launch_bounds__(32)
         v[q] = make_float4(QNAN, QNAN, QNAN, QNAN);
         a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (live[q]) {
-          v[q] = *reinterpret_cast<const float4*>(sv + j * Dp + 4 * f);
-          if (has_acc) a[q] = *reinterpret_cast<const float4*>(sa + j * Dp + 4 * f);
+          v[q] = load4<S>(sv + j * Dp + 4 * f);
+          if (has_acc) a[q] = load4<S>(sa + j * Dp + 4 * f);
         }
       }
       const float D1 = __shfl_sync(FULL, d1c, j);
@@ -398,8 +467,7 @@ __global__ void __launch_bounds__(32)
           v[q].z += a[q].z;
           v[q].w += a[q].w;
         }
-        if (out && live[q])
-          *reinterpret_cast<float4*>(out + (row + s) * Dp + 4 * (lane + 32 * q)) = v[q];
+        if (out && live[q]) store4<S>(out + (row + s) * Dp + 4 * (lane + 32 * q), v[q]);
       }
       if (wta) {
         const unsigned at = warp_winner<NG>(v, lane);
@@ -416,24 +484,23 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-template <int NG>
-int launch_hsweep(const float* vol, const float* acc, float* out, float* wta,
-                  const float* d1, const float* g, int n_scan, int n_steps, int Dp,
-                  int D, int T, int reverse, int gw, float tau, Pen pen,
-                  cudaStream_t stream) {
+template <int NG, typename S>
+int launch_hsweep(const S* vol, const S* acc, S* out, float* wta, const float* d1,
+                  const float* g, int n_scan, int n_steps, int Dp, int D, int T,
+                  int reverse, int gw, float tau, Pen pen, cudaStream_t stream) {
   // the ring as deep as HSTAGES if that leaves room for three blocks on an
   // SM (72 KB each), at least two chunks deep
-  const size_t stage = (size_t)HK * Dp * 4 * (acc ? 2 : 1);
+  const size_t stage = (size_t)HK * Dp * sizeof(S) * (acc ? 2 : 1);
   const size_t fixed = HSTAGES * 8 + (size_t)(n_steps + Dp) * 4;
   int stages = HSTAGES;
   while (stages > 2 && stages * stage + fixed > 72 * 1024) --stages;
   const size_t smem = stages * stage + fixed;
   cudaError_t err = cudaFuncSetAttribute(
-      hsweep_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      hsweep_kernel<NG, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  hsweep_kernel<NG><<<n_scan, 32, smem, stream>>>(vol, acc, out, wta, d1, g, n_steps,
-                                                  Dp, D, T, reverse, gw, tau, pen,
-                                                  stages);
+  hsweep_kernel<NG, S><<<n_scan, 32, smem, stream>>>(vol, acc, out, wta, d1, g,
+                                                     n_steps, Dp, D, T, reverse, gw,
+                                                     tau, pen, stages);
   return (int)cudaGetLastError();
 }
 
@@ -493,19 +560,20 @@ struct VPlan {
   int smem;        // bytes of dynamic shared memory a block
 };
 
-// The blocks and the ring of the step-major sweeps for Ws scanlines, the
-// ring with a second part (the accumulator or the scan form's D2 table)
-// where has_acc (mirrored by ops/sgm.py vertical_plan, which the tests
-// check; a CUDA test holds the mirror against this plan through
-// sgm_vertical_plan).
-VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
+// The blocks and the ring of the step-major sweeps for Ws scanlines of
+// values of `elem` bytes, the ring with a second part (the accumulator or
+// the scan form's D2 table) where has_acc (mirrored by ops/sgm.py
+// vertical_plan, which the tests check; a CUDA test holds the mirror
+// against this plan through sgm_vertical_plan). A 16-bit volume fits
+// twice the chunks of the same length in the same shared memory.
+VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int elem, int n_sm) {
   VPlan p;
   p.rev_blocks = (n_rev + VW - 1) / VW;
   p.blocks = p.rev_blocks + (Ws - n_rev + VW - 1) / VW;
   p.per_sm = (p.blocks + n_sm - 1) / n_sm;
   const int budget = SM_SMEM / p.per_sm - BLOCK_RESERVED;
   const int bars = 2 * VSTAGES * 8;
-  const int chunk = VK * VW * Dp * 4 * (has_acc ? 2 : 1);
+  const int chunk = VK * VW * Dp * elem * (has_acc ? 2 : 1);
   p.stages = budget > bars ? (budget - bars) / chunk : 0;
   if (p.stages > VSTAGES) p.stages = VSTAGES;
   if (p.stages < 2) p.stages = 2;  // a huge Dp: fewer blocks resident
@@ -516,15 +584,16 @@ VPlan vertical_plan(int Ws, int n_rev, int Dp, bool has_acc, int n_sm) {
 // Where a warp of vsweep_kernel reads D2 (see above).
 enum class D2Src { COLUMN, ROW, TABLE };
 
-template <int NG, D2Src SRC>
+template <int NG, D2Src SRC, typename S>
 __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
-    vsweep_kernel(const float* __restrict__ vol, const float* acc, float* out,
+    vsweep_kernel(const S* __restrict__ vol, const S* acc, S* out,
                   float* __restrict__ wta, const float* __restrict__ d1,
                   const float* __restrict__ g_rev,
                   const float* __restrict__ g_nat, int Ws, int n_steps, int Dp,
                   int D, int T, int reverse, int gw, int n_rev, int rev_base,
                   int rev_blocks, float tau, Pen pen, int stages) {
   constexpr bool TABLE = SRC == D2Src::TABLE;
+  static_assert(!TABLE || std::is_same<S, float>::value, "the scan form is float32");
   extern __shared__ __align__(128) unsigned char vs_raw[];
   const float QNAN = __int_as_float(0x7fc00000);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -535,14 +604,14 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   const int init = reverse ? T - 1 : 0;
   const bool has_acc = !TABLE && acc != nullptr;
   // the ring's second part: the accumulator, or the scan form's D2 table
-  const float* second = TABLE ? g_rev : acc;
+  const S* second = TABLE ? reinterpret_cast<const S*>(g_rev) : acc;
   const bool two = TABLE || has_acc;
   const int row_floats = VW * Dp;            // one step of the block
   const int part = VK * row_floats;          // a chunk of one input
   const int stage_floats = part * (two ? 2 : 1);
   const int n_chunks = (n_steps + VK - 1) / VK;
 
-  float* ring = reinterpret_cast<float*>(vs_raw);
+  S* ring = reinterpret_cast<S*>(vs_raw);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + (size_t)stages * stage_floats);
   unsigned long long* empty = full + VSTAGES;
@@ -552,10 +621,10 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   auto fetch = [&](int c) {  // lane 0 of warp 0
     const int lo = chunk_lo(c);
     const int cnt = min(VK, n_steps - lo);
-    const unsigned bytes = (unsigned)(nw * Dp) * 4u;
+    const unsigned bytes = (unsigned)(nw * Dp) * (unsigned)sizeof(S);
     const int st = c % stages;
     const unsigned bar = smem_addr(full + st);
-    float* dst = ring + (size_t)st * stage_floats;
+    S* dst = ring + (size_t)st * stage_floats;
     mbar_expect_tx(bar, cnt * bytes * (two ? 2u : 1u));
     for (int j = 0; j < cnt; ++j) {
       const size_t src = ((size_t)(lo + j) * Ws + x0) * Dp;
@@ -610,8 +679,8 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
     const int cnt = min(VK, n_steps - lo);
     const int st = c % stages;
     mbar_wait(smem_addr(full + st), (unsigned)(c / stages) & 1u);
-    const float* sv = ring + (size_t)st * stage_floats + warp * Dp;
-    const float* sa = sv + part;
+    const S* sv = ring + (size_t)st * stage_floats + warp * Dp;
+    const S* sa = sv + part;
 
     for (int i = 0; i < cnt; ++i) {
       const int j = reverse ? cnt - 1 - i : i;
@@ -634,8 +703,8 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
         v[q] = make_float4(QNAN, QNAN, QNAN, QNAN);
         a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (live[q]) {
-          v[q] = *reinterpret_cast<const float4*>(sv + j * row_floats + 4 * f);
-          if (two) a[q] = *reinterpret_cast<const float4*>(sa + j * row_floats + 4 * f);
+          v[q] = load4<S>(sv + j * row_floats + 4 * f);
+          if (two) a[q] = load4<S>(sa + j * row_floats + 4 * f);
         }
         if constexpr (TABLE) {  // dead lanes: any D2
           D2[q][0] = a[q].x;
@@ -656,8 +725,7 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
           v[q].z += a[q].z;
           v[q].w += a[q].w;
         }
-        if (out && live[q])
-          *reinterpret_cast<float4*>(out + cell * Dp + 4 * (lane + 32 * q)) = v[q];
+        if (out && live[q]) store4<S>(out + cell * Dp + 4 * (lane + 32 * q), v[q]);
       }
       if (wta) {
         const unsigned at = warp_winner<NG>(v, lane);
@@ -678,43 +746,42 @@ __global__ void __launch_bounds__(VW * 32, NG <= 2 ? 5 : 1)
   }
 }
 
-template <int NG, D2Src SRC>
-int launch_vsweep(const float* vol, const float* acc, float* out, float* wta,
-                  const float* d1, const float* g_rev, const float* g_nat,
-                  int n_steps, int Ws, int Dp, int D, int T, int reverse, int gw,
-                  int n_rev, int rev_base, float tau, Pen pen,
-                  cudaStream_t stream) {
+template <int NG, D2Src SRC, typename S>
+int launch_vsweep(const S* vol, const S* acc, S* out, float* wta, const float* d1,
+                  const float* g_rev, const float* g_nat, int n_steps, int Ws, int Dp,
+                  int D, int T, int reverse, int gw, int n_rev, int rev_base,
+                  float tau, Pen pen, cudaStream_t stream) {
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const VPlan p = vertical_plan(Ws, n_rev, Dp,
-                                SRC == D2Src::TABLE || acc != nullptr, n_sm);
-  err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC>,
+  const VPlan p = vertical_plan(Ws, n_rev, Dp, SRC == D2Src::TABLE || acc != nullptr,
+                                (int)sizeof(S), n_sm);
+  err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC, S>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC>,
+    err = cudaFuncSetAttribute(vsweep_kernel<NG, SRC, S>,
                                cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return (int)err;
-  vsweep_kernel<NG, SRC><<<p.blocks, VW * 32, p.smem, stream>>>(
+  vsweep_kernel<NG, SRC, S><<<p.blocks, VW * 32, p.smem, stream>>>(
       vol, acc, out, wta, d1, g_rev, g_nat, Ws, n_steps, Dp, D, T, reverse, gw,
       n_rev, rev_base, p.rev_blocks, tau, pen, p.stages);
   return (int)cudaGetLastError();
 }
 
-// vsweep_kernel<NG, SRC> for NG = ceil(Dp / 128) groups, Dp <= 1024
-template <D2Src SRC>
-int vsweep(const float* vol, const float* acc, float* out, float* wta,
-           const float* d1, const float* g_rev, const float* g_nat, int n_steps,
-           int Ws, int Dp, int D, int T, int reverse, int gw, int n_rev,
-           int rev_base, float tau, Pen pen, cudaStream_t stream) {
+// vsweep_kernel<NG, SRC, S> for NG = ceil(Dp / 128) groups, Dp <= 1024
+template <D2Src SRC, typename S = float>
+int vsweep(const S* vol, const S* acc, S* out, float* wta, const float* d1,
+           const float* g_rev, const float* g_nat, int n_steps, int Ws, int Dp,
+           int D, int T, int reverse, int gw, int n_rev, int rev_base, float tau,
+           Pen pen, cudaStream_t stream) {
   if (n_steps == 0 || Ws == 0) return 0;
 #define VSWEEP(NG)                                                             \
   case NG:                                                                     \
-    return launch_vsweep<NG, SRC>(vol, acc, out, wta, d1, g_rev, g_nat,        \
-                                  n_steps, Ws, Dp, D, T, reverse, gw, n_rev,   \
-                                  rev_base, tau, pen, stream)
+    return launch_vsweep<NG, SRC, S>(vol, acc, out, wta, d1, g_rev, g_nat,     \
+                                     n_steps, Ws, Dp, D, T, reverse, gw,       \
+                                     n_rev, rev_base, tau, pen, stream)
   switch ((Dp + 127) / 128) {
     VSWEEP(1);
     VSWEEP(2);
@@ -730,51 +797,16 @@ int vsweep(const float* vol, const float* acc, float* out, float* wta,
 #undef VSWEEP
 }
 
-}  // namespace
-
-// Dp is a multiple of 32, at most 1024, for the three slab entries; T real
-// steps; acc and out may be null and may alias each other; wta may be null.
-// Each entry returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// row width it does not take.
-
-// vol, acc, out: (Hp, Ws, Dp) float32, steps the Hp rows, Ws scanline
-// columns; wta, d1: (Hp, Ws); g_rev, g_nat: (Hp, gw) with gw >= D + Ws +
-// Dp. Columns [0, n_rev) read g_rev at D + x, the others g_nat at
-// D + x - n_rev (one direction: n_rev = Ws or 0).
-extern "C" int sgm_sweep_vertical(const float* vol, const float* acc,
-                                  float* out, float* wta, const float* d1,
-                                  const float* g_rev, const float* g_nat,
-                                  int Hp, int Ws, int Dp, int D, int T,
-                                  int reverse, int gw, int n_rev, float tau,
-                                  Pen pen, cudaStream_t stream) {
-  return vsweep<D2Src::COLUMN>(vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp,
-                               D, T, reverse, gw, n_rev, 0, tau, pen, stream);
-}
-
-// The plan of vsweep_kernel for Ws scanlines on a card of n_sm SMs, with
-// the ring's second part (has_acc: an accumulator, or the scan form's D2
-// table) or without, as out = {rev_blocks, blocks, per_sm, stages, smem};
-// no kernel runs. sgm_sweep_vertical plans Ws columns, sgm_sweep_hslab and
-// the scan form Ws = S scanlines.
-extern "C" void sgm_vertical_plan(int Ws, int n_rev, int Dp, int has_acc, int n_sm,
-                                  int* out) {
-  const VPlan p = vertical_plan(Ws, n_rev, Dp, has_acc != 0, n_sm);
-  const int v[5] = {p.rev_blocks, p.blocks, p.per_sm, p.stages, p.smem};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
-}
-
-// vol, acc, out: (Hp, Wp, Dp) float32, steps the Wp columns; wta, d1:
-// (Hp, Wp); g: (Hp, gw) with gw >= D + Wp + Dp, read at D + x.
-extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
-                                    float* out, float* wta, const float* d1,
-                                    const float* g, int Hp, int Wp, int Dp,
-                                    int D, int T, int reverse, int gw,
-                                    float tau, Pen pen, cudaStream_t stream) {
+// hsweep_kernel<NG, S> for NG = ceil(Dp / 128) groups, Dp <= 1024
+template <typename S>
+int hsweep(const S* vol, const S* acc, S* out, float* wta, const float* d1,
+           const float* g, int Hp, int Wp, int Dp, int D, int T, int reverse, int gw,
+           float tau, Pen pen, cudaStream_t stream) {
   if (Hp == 0 || Wp == 0) return 0;
 #define HSWEEP(NG)                                                              \
   case NG:                                                                      \
-    return launch_hsweep<NG>(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse, \
-                             gw, tau, pen, stream)
+    return launch_hsweep<NG, S>(vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T,    \
+                                reverse, gw, tau, pen, stream)
   switch ((Dp + 127) / 128) {
     HSWEEP(1);
     HSWEEP(2);
@@ -790,6 +822,84 @@ extern "C" int sgm_sweep_horizontal(const float* vol, const float* acc,
 #undef HSWEEP
 }
 
+// The storage codes of the HWD entries: 0 float32, 1 bfloat16, 2 float16.
+#define BY_STORAGE(dtype, FN, ...)                                              \
+  switch (dtype) {                                                              \
+    case 0:                                                                     \
+      return FN<float>(__VA_ARGS__);                                            \
+    case 1:                                                                     \
+      return FN<__nv_bfloat16>(__VA_ARGS__);                                    \
+    case 2:                                                                     \
+      return FN<__half>(__VA_ARGS__);                                           \
+    default:                                                                    \
+      return (int)cudaErrorInvalidValue;                                        \
+  }
+
+template <typename S>
+int vertical(const void* vol, const void* acc, void* out, float* wta, const float* d1,
+             const float* g_rev, const float* g_nat, int Hp, int Ws, int Dp, int D,
+             int T, int reverse, int gw, int n_rev, float tau, Pen pen,
+             cudaStream_t stream) {
+  return vsweep<D2Src::COLUMN, S>(static_cast<const S*>(vol), static_cast<const S*>(acc),
+                                  static_cast<S*>(out), wta, d1, g_rev, g_nat, Hp, Ws,
+                                  Dp, D, T, reverse, gw, n_rev, 0, tau, pen, stream);
+}
+
+template <typename S>
+int horizontal(const void* vol, const void* acc, void* out, float* wta,
+               const float* d1, const float* g, int Hp, int Wp, int Dp, int D, int T,
+               int reverse, int gw, float tau, Pen pen, cudaStream_t stream) {
+  return hsweep<S>(static_cast<const S*>(vol), static_cast<const S*>(acc),
+                   static_cast<S*>(out), wta, d1, g, Hp, Wp, Dp, D, T, reverse, gw, tau,
+                   pen, stream);
+}
+
+}  // namespace
+
+// Dp is a multiple of 32, at most 1024, for the three slab entries; T real
+// steps; acc and out may be null and may alias each other; wta may be null.
+// Each entry returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// row width or a storage code it does not take.
+
+// vol, acc, out: (Hp, Ws, Dp) of the storage `dtype` (0 float32, 1
+// bfloat16, 2 float16), steps the Hp rows, Ws scanline columns; wta, d1:
+// (Hp, Ws) float32; g_rev, g_nat: (Hp, gw) float32 with gw >= D + Ws +
+// Dp. Columns [0, n_rev) read g_rev at D + x, the others g_nat at
+// D + x - n_rev (one direction: n_rev = Ws or 0).
+extern "C" int sgm_sweep_vertical(const void* vol, const void* acc, void* out,
+                                  float* wta, const float* d1, const float* g_rev,
+                                  const float* g_nat, int Hp, int Ws, int Dp, int D,
+                                  int T, int reverse, int gw, int n_rev, int dtype,
+                                  float tau, Pen pen, cudaStream_t stream) {
+  BY_STORAGE(dtype, vertical, vol, acc, out, wta, d1, g_rev, g_nat, Hp, Ws, Dp, D, T,
+             reverse, gw, n_rev, tau, pen, stream)
+}
+
+// The plan of vsweep_kernel for Ws scanlines of values of `elem` bytes on
+// a card of n_sm SMs, with the ring's second part (has_acc: an
+// accumulator, or the scan form's D2 table) or without, as out =
+// {rev_blocks, blocks, per_sm, stages, smem}; no kernel runs.
+// sgm_sweep_vertical plans Ws columns, sgm_sweep_hslab and the scan form
+// Ws = S scanlines.
+extern "C" void sgm_vertical_plan(int Ws, int n_rev, int Dp, int has_acc, int elem,
+                                  int n_sm, int* out) {
+  const VPlan p = vertical_plan(Ws, n_rev, Dp, has_acc != 0, elem, n_sm);
+  const int v[5] = {p.rev_blocks, p.blocks, p.per_sm, p.stages, p.smem};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+}
+
+// vol, acc, out: (Hp, Wp, Dp) of the storage `dtype`, steps the Wp
+// columns; wta, d1: (Hp, Wp) float32; g: (Hp, gw) float32 with
+// gw >= D + Wp + Dp, read at D + x.
+extern "C" int sgm_sweep_horizontal(const void* vol, const void* acc, void* out,
+                                    float* wta, const float* d1, const float* g,
+                                    int Hp, int Wp, int Dp, int D, int T,
+                                    int reverse, int gw, int dtype, float tau,
+                                    Pen pen, cudaStream_t stream) {
+  BY_STORAGE(dtype, horizontal, vol, acc, out, wta, d1, g, Hp, Wp, Dp, D, T, reverse,
+             gw, tau, pen, stream)
+}
+
 // Step-major: vol, acc, out: (W, S, Dp) float32, steps the W columns x,
 // S scanlines; d1: (W, S); g: (S, gw) with gw >= D + W + Dp, read at
 // D + x on scanlines >= n_rev and at rev_base - x below (rows the host
@@ -799,8 +909,8 @@ extern "C" int sgm_sweep_hslab(const float* vol, const float* acc, float* out,
                                int Dp, int D, int T, int reverse, int gw,
                                int n_rev, int rev_base, float tau, Pen pen,
                                cudaStream_t stream) {
-  return vsweep<D2Src::ROW>(vol, acc, out, nullptr, d1, g, g, W, S, Dp, D, T,
-                            reverse, gw, n_rev, rev_base, tau, pen, stream);
+  return vsweep<D2Src::ROW, float>(vol, acc, out, nullptr, d1, g, g, W, S, Dp, D, T,
+                                   reverse, gw, n_rev, rev_base, tau, pen, stream);
 }
 
 // The scan form, the whole sweep in one launch of vsweep_kernel with the
@@ -815,8 +925,8 @@ extern "C" int sgm_sweep_scan(const float* vol, const float* d1,
                               int ld, int reverse, float tau, Pen pen,
                               cudaStream_t stream) {
   if (ld % 4 || D < 1 || ld < D || ld > 1024) return (int)cudaErrorInvalidValue;
-  return vsweep<D2Src::TABLE>(vol, nullptr, out, nullptr, d1, d2, d2, T, S, ld, D,
-                              T, reverse, 0, 0, 0, tau, pen, stream);
+  return vsweep<D2Src::TABLE, float>(vol, nullptr, out, nullptr, d1, d2, d2, T, S, ld,
+                                     D, T, reverse, 0, 0, 0, tau, pen, stream);
 }
 
 // The counterpart of the TPU kernel that runs one sweep step per grid

@@ -9,6 +9,15 @@
 
 The patch (VALID) mode waits for training (ROADMAP.md, queue 1).
 
+Both towers take the compute dtype of ``-dtype`` (``apply_tower``,
+mccnn_tpu/models/towers.py:70-93): in a 16-bit dtype every layer's
+input and weights are rounded to it, the products summed in float32,
+the bias added in float32 and the sum rounded once, and ReLU and the L2
+normalization run on the rounded values; the output is widened to
+float32. The layer is the float32 convolution of the rounded operands
+(:func:`_conv`): a cuDNN bf16 convolution would round its sum before
+the bias add, twice where the JAX package rounds once.
+
 Weights are interchangeable with the JAX package's parameter tree
 ``{"tower": [{"w": (ks, ks, cin, cout), "b": (cout,)}], "head":
 [{"w": (n_in, n_out), "b": (n_out,)}]}`` (HWIO convs, (in, out)
@@ -33,6 +42,18 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return x / torch.sqrt((x * x).sum(dim=1, keepdim=True) + eps)
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One conv layer in ``dtype``: as it is in float32; otherwise
+    ``x`` (already in ``dtype``) and the weights rounded to it, summed
+    in float32 (the caller turns TF32 off), the bias added in float32
+    and the result rounded to ``dtype``."""
+    if dtype == torch.float32:
+        return conv(x)
+    h = torch.nn.functional.conv2d(x.float(), conv.weight.to(dtype).float(),
+                                   None, padding=conv.padding)
+    return (h + conv.bias[:, None, None]).to(dtype)
+
+
 class FastTower(nn.Module):
     """Conv tower over (N, n_input_plane, H, W) images; returns
     L2-normalized (N, fm, H, W) features at full resolution."""
@@ -45,12 +66,14 @@ class FastTower(nn.Module):
             nn.Conv2d(n_input_plane if i == 0 else fm, fm, ks, padding=ks // 2)
             for i in range(l1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+        x = x.to(dtype)
         for i, conv in enumerate(self.convs):
-            x = conv(x)
+            x = _conv(conv, x, dtype)
             if i < len(self.convs) - 1:
                 x = torch.relu(x)
-        return l2_normalize(x)
+        return l2_normalize(x).float()
 
 
 class SlowNet(nn.Module):
@@ -71,10 +94,12 @@ class SlowNet(nn.Module):
             [nn.Linear(2 * fm if i == 0 else nh2, nh2) for i in range(l2)]
             + [nn.Linear(nh2, 1)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+        x = x.to(dtype)
         for conv in self.convs:
-            x = torch.relu(conv(x))
-        return x
+            x = torch.relu(_conv(conv, x, dtype))
+        return x.float()
 
     def score(self, pair: torch.Tensor) -> torch.Tensor:
         """(..., 2*fm) -> (...,) sigmoid match score, a dissimilarity

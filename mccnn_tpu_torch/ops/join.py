@@ -1,12 +1,16 @@
 """Fast-arch cost volumes in the padded disparity-minor layout.
 
 Same contract as the JAX package's ``stereo_join_mxu_hwd``
-(mccnn_tpu/ops/join_pallas.py): (Hp, Wp, Dp) float32 buffers with Hp,
-Wp and Dp rounded up to 64, 128 and 128; the left volume x-REVERSED
-(the mirror identity <fl[x], fr[x-d]> = <fl'[x'], fr'[x'+d]> at
-x' = W-1-x, primes on x-flipped maps, so both sides are one kernel);
-NaN at x + d >= W, d >= D and in pad rows; ``n_fix`` border columns
-replicated in the kernel.
+(mccnn_tpu/ops/join_pallas.py): (Hp, Wp, Dp) buffers with Hp, Wp and
+Dp rounded up to 64, 128 and 128; the left volume x-REVERSED (the
+mirror identity <fl[x], fr[x-d]> = <fl'[x'], fr'[x'+d]> at x' = W-1-x,
+primes on x-flipped maps, so both sides are one kernel); NaN at
+x + d >= W, d >= d_true (the real disparity count, D by default),
+d >= D and in pad rows; ``n_fix`` border columns replicated in the
+kernel. The buffers are stored as ``out_dtype`` (float32, bfloat16 or
+float16): the dots are float32 whatever the storage, and only the store
+rounds (to nearest even), so a 16-bit buffer is the float32 one
+rounded.
 
 On CUDA tensors :func:`_join_plus` launches ``csrc/join.cu``, which
 computes the dots from bf16 products on the tensor cores as the TPU
@@ -27,6 +31,8 @@ from mccnn_tpu_torch.ops import _build
 
 XT = 128  # the column padding of the buffers
 KC = 64  # channels a kernel launch takes: more run in slabs of 64
+# the out_dtype code of join_launch for each storage dtype
+STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def pad_dims(H: int, W: int, D: int) -> tuple[int, int, int]:
@@ -35,33 +41,37 @@ def pad_dims(H: int, W: int, D: int) -> tuple[int, int, int]:
     return -(-H // 64) * 64, -(-W // XT) * XT, -(-D // 128) * 128
 
 
-def _join(a: torch.Tensor, D: int, W: int, H: int, n_fix: int,
-          dot) -> torch.Tensor:
+def _join(a: torch.Tensor, D: int, W: int, H: int, n_fix: int, dot,
+          d_true=None, out_dtype=torch.float32) -> torch.Tensor:
     """out[y, x, d] = -dot(d)[y, x] with the masks and the border of the
-    kernel, one disparity at a time; ``dot(d)`` is the (Hp, Wp) product
-    of a: (Hp, C, Wp) with b shifted by d."""
+    kernel, one disparity at a time, then rounded to ``out_dtype``;
+    ``dot(d)`` is the (Hp, Wp) float32 product of a: (Hp, C, Wp) with b
+    shifted by d."""
     Hp, _, Wp = a.shape
     Dp = -(-D // 128) * 128
+    d_true = D if d_true is None else d_true
     out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
     for d in range(Dp):
         out[:, :, d] = -dot(d)
     x = torch.arange(Wp, device=a.device)[None, :, None]
     d = torch.arange(Dp, device=a.device)[None, None, :]
     y = torch.arange(Hp, device=a.device)[:, None, None]
-    out = torch.where((x + d < W) & (d < D) & (y < H), out, torch.nan)
+    out = torch.where((x + d < W) & (d < min(D, d_true)) & (y < H), out,
+                      torch.nan)
     if n_fix > 0:
         out[:, :n_fix, :] = out[:, n_fix:n_fix + 1, :]
-    return out
+    return out.to(out_dtype)
 
 
 def join_plus_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
-                    n_fix: int) -> torch.Tensor:
+                    n_fix: int, d_true=None, out_dtype=torch.float32
+                    ) -> torch.Tensor:
     """out[y, x, d] = -<a[y, :, x], b[y, :, x + d]> in float32 with the
-    masks and the border of the kernel. a: (Hp, C, Wp), b: (Hp, C,
-    >= Wp + Dp)."""
+    masks and the border of the kernel, stored as ``out_dtype``.
+    a: (Hp, C, Wp), b: (Hp, C, >= Wp + Dp); lanes d >= ``d_true`` NaN."""
     Wp = a.shape[2]
     return _join(a, D, W, H, n_fix,
-                 lambda d: (a * b[:, :, d:d + Wp]).sum(1))
+                 lambda d: (a * b[:, :, d:d + Wp]).sum(1), d_true, out_dtype)
 
 
 def _split(t: torch.Tensor, levels: int) -> list[torch.Tensor]:
@@ -76,8 +86,8 @@ def _split(t: torch.Tensor, levels: int) -> list[torch.Tensor]:
 
 
 def join_plus_split_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int,
-                          H: int, n_fix: int, levels: int = 3
-                          ) -> torch.Tensor:
+                          H: int, n_fix: int, levels: int = 3, d_true=None,
+                          out_dtype=torch.float32) -> torch.Tensor:
     """:func:`join_plus_plain` from bf16 products, summed in float32:
     each operand split into ``levels`` bf16 terms, and the dot the sum
     of the products a_i.b_j with i + j < ``levels`` (0-based), the
@@ -87,7 +97,8 @@ def join_plus_split_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int,
     sum |a||b| of the float32 dot, the size of the rounding of the sums);
     ``levels=2`` the TPU kernel's (join_pallas.py:155-165: a_hi.b_hi +
     a_hi.b_lo + a_lo.b_hi, within about 3 * 2^-16 sum |a||b|;
-    L2-normalized maps have sum |a||b| <= 1)."""
+    L2-normalized maps have sum |a||b| <= 1). ``d_true`` and
+    ``out_dtype`` as in :func:`join_plus_plain`."""
     sa, sb = _split(a, levels), _split(b, levels)
     pairs = sorted(((i, j) for i in range(levels) for j in range(levels)
                     if i + j < levels), key=lambda p: (-sum(p), -p[0]))
@@ -99,24 +110,30 @@ def join_plus_split_plain(a: torch.Tensor, b: torch.Tensor, D: int, W: int,
             out = out + (sa[i] * sb[j][:, :, d:d + Wp]).sum(1)
         return out
 
-    return _join(a, D, W, H, n_fix, dot)
+    return _join(a, D, W, H, n_fix, dot, d_true, out_dtype)
 
 
 def _lib():
     lib = _build.library("join")
     if lib.join_launch.argtypes is None:
         lib.join_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.join_launch.restype = ctypes.c_int
     return lib
 
 
 def _join_plus(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
-               n_fix: int) -> torch.Tensor:
-    """The join of one side: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+               n_fix: int, d_true=None, out_dtype=torch.float32
+               ) -> torch.Tensor:
+    """The join of one side, stored as ``out_dtype``, lanes d >= d_true
+    NaN: the kernel on CUDA tensors, the plain version on CPU tensors."""
+    d_true = D if d_true is None else int(d_true)
+    code = STORAGE.get(out_dtype)
+    if code is None or not 0 < d_true <= D:
+        raise ValueError(f"join: out_dtype {out_dtype} and d_true {d_true} "
+                         f"(0 < d_true <= D={D}) not taken")
     if not a.is_cuda:
-        return join_plus_plain(a, b, D, W, H, n_fix)
+        return join_plus_plain(a, b, D, W, H, n_fix, d_true, out_dtype)
     Hp, C, Wp = a.shape
     Dp = -(-D // 128) * 128
     for t, what in ((a, "join a"), (b, "join b")):
@@ -129,9 +146,13 @@ def _join_plus(a: torch.Tensor, b: torch.Tensor, D: int, W: int, H: int,
         raise ValueError(f"join: n_fix must be in [0, 8), got {n_fix}")
     if C < 1:
         raise ValueError(f"join: C={C} channels; the kernel takes 1 or more")
-    out = torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
-    rc = _lib().join_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), H, W,
-                            C, Hp, Wp, b.shape[2], Dp, D, n_fix,
+    out = torch.empty((Hp, Wp, Dp), dtype=out_dtype, device=a.device)
+    # a 16-bit volume of several channel slabs sums them in float32 first
+    tmp = (torch.empty((Hp, Wp, Dp), dtype=torch.float32, device=a.device)
+           if code and C > KC else None)
+    rc = _lib().join_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                            None if tmp is None else tmp.data_ptr(), H, W, C,
+                            Hp, Wp, b.shape[2], Dp, D, d_true, n_fix, code,
                             _build.stream(a))
     _build.check_launch(rc, "join")
     _build.count("join", -(-C // KC))  # one kernel launch a channel slab
@@ -149,12 +170,15 @@ def _prep(f: torch.Tensor, flip: bool, Hp: int, width: int) -> torch.Tensor:
 
 
 def stereo_join_hwd(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
-                    n_fix: int = 0, sides: str = "both"):
+                    n_fix: int = 0, sides: str = "both", d_true=None,
+                    out_dtype: torch.dtype = torch.float32):
     """Both cost volumes, (vol_l_xrev, vol_r), each (Hp, Wp, Dp):
     ``vol_r[y, x, d] = -<fr[y,x], fl[y,x+d]>`` and
     ``vol_l_xrev[y, x', d] = vol_L[y, W-1-x', d]``. feat_l/feat_r:
     (H, W, C) L2-normalized maps. ``sides="left"`` returns the left
-    volume alone."""
+    volume alone. ``d_true``: the real disparity count when ``disp_max``
+    was padded (lanes d >= d_true NaN; None: all of disp_max);
+    ``out_dtype``: the storage dtype, float32, bfloat16 or float16."""
     if sides not in ("both", "left"):
         raise ValueError(f"sides must be 'both' or 'left', got {sides!r}")
     H, W, _ = feat_l.shape
@@ -162,12 +186,15 @@ def stereo_join_hwd(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
     Hp, Wp, Dp = pad_dims(H, W, D)
     feat_l = feat_l.to(torch.float32)
     feat_r = feat_r.to(torch.float32)
+    kw = dict(d_true=d_true, out_dtype=out_dtype)
     vol_l_xrev = _join_plus(_prep(feat_l, True, Hp, Wp),
-                            _prep(feat_r, True, Hp, Wp + Dp), D, W, H, n_fix)
+                            _prep(feat_r, True, Hp, Wp + Dp), D, W, H, n_fix,
+                            **kw)
     if sides == "left":
         return vol_l_xrev
     vol_r = _join_plus(_prep(feat_r, False, Hp, Wp),
-                       _prep(feat_l, False, Hp, Wp + Dp), D, W, H, n_fix)
+                       _prep(feat_l, False, Hp, Wp + Dp), D, W, H, n_fix,
+                       **kw)
     return vol_l_xrev, vol_r
 
 

@@ -181,14 +181,15 @@ def subpixel_enhancement_hwd(d0: torch.Tensor, vol: torch.Tensor,
     same storage order. NaN neighbours keep d (the denominator compare
     fails). ``denom_thresh`` 4e-5 for an undivided 4-sweep SGM sum: the
     samples are then exactly 4x the reference's and only the threshold
-    scales."""
+    scales. A 16-bit volume's samples are widened to float32 before the
+    parabola (mccnn_tpu/ops/post.py:390-406)."""
     d = d0.to(torch.int32)
     Dp = vol.shape[-1]
 
     def sel(offset):
         i = (d + offset).long()
         inside = (i >= 0) & (i < Dp)
-        v = vol.gather(-1, i.clamp(0, Dp - 1)[..., None])[..., 0]
+        v = vol.gather(-1, i.clamp(0, Dp - 1)[..., None])[..., 0].float()
         return torch.where(inside, v, 0.0)
 
     cn, cz, cp = sel(-1), sel(0), sel(1)

@@ -6,7 +6,10 @@
   :func:`sgm_slab_hwd`. Per reference direction two vertical sweeps
   (down, up), then two horizontal sweeps (right, left), chained through
   one accumulator; the sum is NOT divided by 4; the winner-take-all map
-  of the sum comes out of the last sweep.
+  of the sum comes out of the last sweep. The volume, the accumulator and
+  the sweeps' outputs are stored as float32, bfloat16 or float16 (the
+  volume's dtype, ``-vol_dtype``); the recurrence and the winner map are
+  float32 and only the stored sums round (sgm.py:640-690, :878-891).
 - Generic lane, on (D, H, W) volumes (``sgm._sgm_multi``,
   sgm.py:1334-1441): :func:`sgm_multi`, :func:`sgm`, :func:`sgm_pair`,
   whatever made the volumes (the slow head, census, ad, the fast join).
@@ -128,7 +131,10 @@ def _recurrence(vol, acc, out, wta, d1, d2_of, step_view, n_steps, *,
                 reverse, T, tau, pen):
     """The step loop of every plain sweep: ``step_view(t, s)`` is the
     (scanlines, ...) slice of step s of a buffer, ``d2_of(s)`` the
-    (scanlines, Dp) D2 block of step s."""
+    (scanlines, Dp) D2 block of step s. ``vol``, ``acc`` and ``out`` may
+    be stored in a 16-bit dtype: their rows are widened to float32, the
+    state stays float32, and the float32 sum rounds only where it is
+    stored; the winner map is taken from the float32 sum."""
     dev = vol.device
     tau = torch.tensor(tau, dtype=torch.float32, device=dev)
     pens = torch.tensor(pen, dtype=torch.float32, device=dev).reshape(3, 3)
@@ -136,7 +142,7 @@ def _recurrence(vol, acc, out, wta, d1, d2_of, step_view, n_steps, *,
     init = T - 1 if reverse else 0
     prev = None
     for s in (range(n_steps - 1, -1, -1) if reverse else range(n_steps)):
-        v = step_view(vol, s)
+        v = step_view(vol, s).float()
         if s >= T:
             outv = v
         elif s == init:
@@ -156,7 +162,7 @@ def _recurrence(vol, acc, out, wta, d1, d2_of, step_view, n_steps, *,
             cost = torch.fmin(cost, up + P1a)
             cost = torch.fmin(cost, dn + P1b)
             prev = outv = v + cost - pm
-        fin = outv + step_view(acc, s) if acc is not None else outv
+        fin = outv + step_view(acc, s).float() if acc is not None else outv
         if out is not None:
             step_view(out, s).copy_(fin)
         if wta is not None:
@@ -250,7 +256,7 @@ H100_SMS = 132
 
 
 def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
-                  n_sm: int = H100_SMS) -> dict:
+                  n_sm: int = H100_SMS, elem: int = 4) -> dict:
     """The step-major sweep kernel's launch, as its C entries plan it
     (``vertical_plan`` in csrc/sgm_sweep.cu; a CUDA test holds this
     mirror against the C entry ``sgm_vertical_plan``) for ``Ws``
@@ -263,9 +269,9 @@ def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
     two D2 tables; ``per_sm``, the blocks an SM must hold for all of them
     to run in one wave; ``stages``, the chunks of ``VCHUNK`` steps in a
     block's ring, as many as an equal share of the SM's shared memory
-    holds (two at least, ``VSTAGES`` at most); ``smem``, a block's
-    dynamic shared memory in bytes (the ring and two mbarriers a
-    stage)."""
+    holds (two at least, ``VSTAGES`` at most) for values of ``elem``
+    bytes; ``smem``, a block's dynamic shared memory in bytes (the ring
+    and two mbarriers a stage)."""
     def runs(lo, hi):
         return [(x, min(VWARPS, hi - x)) for x in range(lo, hi, VWARPS)]
 
@@ -273,7 +279,7 @@ def vertical_plan(Ws: int, n_rev: int, Dp: int, has_acc: bool,
     per_sm = -(-len(blocks) // n_sm)
     budget = SM_SMEM // per_sm - BLOCK_RESERVED
     bars = 2 * VSTAGES * 8
-    chunk = VCHUNK * VWARPS * Dp * 4 * (2 if has_acc else 1)
+    chunk = VCHUNK * VWARPS * Dp * elem * (2 if has_acc else 1)
     stages = max(2, min(VSTAGES, (budget - bars) // chunk if budget > bars
                         else 0))
     return dict(blocks=blocks, per_sm=per_sm, stages=stages,
@@ -289,9 +295,9 @@ def _lib():
     if lib.sgm_sweep_vertical.argtypes is None:
         tail = [ctypes.c_float, _Pen, ctypes.c_void_p]
         lib.sgm_sweep_vertical.argtypes = ([ctypes.c_void_p] * 7
-                                           + [ctypes.c_int] * 8 + tail)
+                                           + [ctypes.c_int] * 9 + tail)
         lib.sgm_sweep_horizontal.argtypes = ([ctypes.c_void_p] * 6
-                                             + [ctypes.c_int] * 7 + tail)
+                                             + [ctypes.c_int] * 8 + tail)
         lib.sgm_sweep_hslab.argtypes = ([ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 9 + tail)
         for fn in (lib.sgm_sweep_scan, lib.sgm_sweep_step):
@@ -303,6 +309,11 @@ def _lib():
     return lib
 
 
+# the dtype code of sgm_sweep_vertical / sgm_sweep_horizontal for each
+# storage dtype of the volume (BY_STORAGE in csrc/sgm_sweep.cu)
+STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _check(named, what):
     for name, t in named:
         if t is not None:
@@ -312,16 +323,25 @@ def _check(named, what):
 def _sweep(vol, acc, out, wta, d1, g, *, vertical, reverse, T, D, tau, pen,
            g_nat=None, n_rev=0):
     """One sweep over an (Hp, Ws, Dp) volume: the kernel on CUDA
-    tensors, :func:`sweep_plain` on CPU tensors."""
+    tensors, :func:`sweep_plain` on CPU tensors. ``vol``, ``acc`` and
+    ``out`` share one storage dtype (float32, bfloat16 or float16); the
+    tables and the winner map are float32."""
     kw = dict(vertical=vertical, reverse=reverse, T=T, D=D, tau=tau, pen=pen,
               g_nat=g_nat, n_rev=n_rev)
     if not vol.is_cuda:
         return sweep_plain(vol, acc, out, wta, d1, g, **kw)
     g_nat = g if g_nat is None else g_nat
     Hp, Ws, Dp = vol.shape
+    code = STORAGE.get(vol.dtype)
+    if code is None:
+        raise ValueError(f"sgm vol: expected float32, bfloat16 or float16, "
+                         f"got {vol.dtype}")
     named = (("vol", vol), ("acc", acc), ("out", out), ("wta", wta),
              ("d1", d1), ("g", g), ("g_nat", g_nat))
-    _check(named, "sgm")
+    for name, t in named[:3]:
+        if t is not None:
+            _build.check_cuda(t, f"sgm {name}", vol.dtype)
+    _check(named[3:], "sgm")
     reach = D + max(n_rev, Ws - n_rev) + Dp if vertical else D + Ws + Dp
     if Dp % 32 or Dp > 1024 or d1.shape != (Hp, Ws) \
             or g.shape[0] != Hp \
@@ -336,13 +356,13 @@ def _sweep(vol, acc, out, wta, d1, g, *, vertical, reverse, T, D, tau, pen,
     fl, pen_c = float(np.float32(tau)), _Pen((ctypes.c_float * 9)(*pen))
     if vertical:
         rc = _lib().sgm_sweep_vertical(*ptr, Hp, Ws, Dp, D, T, int(reverse),
-                                       g.shape[1], n_rev, fl, pen_c,
+                                       g.shape[1], n_rev, code, fl, pen_c,
                                        _build.stream(vol))
         entry = "sgm_vertical"
     else:
         rc = _lib().sgm_sweep_horizontal(*ptr[:6], Hp, Ws, Dp, D, T,
-                                         int(reverse), g.shape[1], fl, pen_c,
-                                         _build.stream(vol))
+                                         int(reverse), g.shape[1], code, fl,
+                                         pen_c, _build.stream(vol))
         entry = "sgm_horizontal"
     _build.check_launch(rc, entry)
     _build.count(entry)
@@ -475,11 +495,11 @@ def sgm_slab_hwd(x0, x1, vol, D, H, W, *, xrev, pi1, pi2, tau_so, alpha1,
     x-reversed storage, False for the right (+1) one.
 
     The first sweep writes the accumulator, the others add into it in
-    place. Returns the (Hp, Wp, Dp) sum in the same storage order (not
-    divided by 4; pad rows and columns NaN); with ``wta`` also the
-    (Hp, Wp) winner map of the sum (pad cells 0), as ``(vol, map)``, or
-    the map alone when ``materialize=False`` skips the last volume
-    write."""
+    place. Returns the (Hp, Wp, Dp) sum in the same storage order and
+    dtype (not divided by 4; pad rows and columns NaN); with ``wta`` also
+    the float32 (Hp, Wp) winner map of the float32 sum (pad cells 0), as
+    ``(vol, map)``, or the map alone when ``materialize=False`` skips the
+    last volume write."""
     if not (materialize or wta):
         raise ValueError("materialize=False needs wta=True")
     Hp, Wp, Dp = vol.shape

@@ -223,20 +223,25 @@ def pad_head(A, B, mids_w, mids_b, w_last):
 
 
 @torch.no_grad()
-def head_operands(net, fl: torch.Tensor, fr: torch.Tensor):
+def head_operands(net, fl: torch.Tensor, fr: torch.Tensor,
+                  dtype: torch.dtype = torch.float32):
     """(A, B, mids_w, mids_b, w_last, b_last) of the factored head for
     feature maps fl, fr (H, W, C); mids_w bf16 in (in, out) layout, the
-    width padded for the kernel. Detached: a view of a parameter keeps
-    requires_grad even under no_grad."""
+    width padded for the kernel. In a 16-bit compute ``dtype`` the
+    features and the first layer's weights are rounded to it and their
+    products summed in float32 (slow_head_pallas.py:193-197); A and B
+    stay float32. Detached: a view of a parameter keeps requires_grad
+    even under no_grad."""
     head = net.head
     if len(head) < 3:
         raise ValueError("the slow head kernel needs at least one mid layer "
                          f"(l2 >= 2), got l2={len(head) - 1}")
     C = fl.shape[-1]
     w0 = head[0].weight.T  # (2C, nh2)
+    fl, fr, w0 = (t.to(dtype).float() for t in (fl, fr, w0))
     with f32_matmul():
-        A = fl.float() @ w0[:C] + head[0].bias
-        B = fr.float() @ w0[C:]
+        A = fl @ w0[:C] + head[0].bias
+        B = fr @ w0[C:]
     mids_w = torch.stack([l.weight.T for l in head[1:-1]]).to(torch.bfloat16)
     mids_b = torch.stack([l.bias for l in head[1:-1]]).float()
     A, B, mids_w, mids_b = (t.detach() for t in (A, B, mids_w, mids_b))
@@ -261,9 +266,11 @@ def masked_volumes(s: torch.Tensor):
 
 
 @torch.no_grad()
-def slow_volumes(net, fl: torch.Tensor, fr: torch.Tensor, disp_max: int):
+def slow_volumes(net, fl: torch.Tensor, fr: torch.Tensor, disp_max: int,
+                 dtype: torch.dtype = torch.float32):
     """Both slow-arch cost volumes (vol_l, vol_r), each (D, H, W) with
     NaN out of frame, for feature maps fl, fr (H, W, C). ``net``: a
-    :class:`~mccnn_tpu_torch.models.towers.SlowNet`."""
-    return masked_volumes(slow_head_volume(*head_operands(net, fl, fr),
+    :class:`~mccnn_tpu_torch.models.towers.SlowNet`; ``dtype``: the
+    compute dtype of :func:`head_operands`."""
+    return masked_volumes(slow_head_volume(*head_operands(net, fl, fr, dtype),
                                            int(disp_max)))

@@ -28,6 +28,15 @@ Orchestration contract: ``stereo_predict`` (main.lua:929-1082).
 ``sm_terminate`` stops after a named stage and ``sm_skip`` skips one,
 with the gate placement of main.lua:988-1080 (the mismatch stage is
 skipped by ``-sm_skip occlusion``).
+
+Dtypes (``check_vol_dtype``, mccnn_tpu/pipeline.py:445-465): ``-dtype``
+is the compute dtype of the networks (``models.towers``, the slow head's
+operands); ``-vol_dtype`` the storage dtype of the HWD lane's volumes
+through the join and the sweeps, where every arithmetic step stays
+float32 and only the stored values round; the volume dumps widen back to
+float32. ``disp_true`` (shape bucketing, mccnn_tpu/pipeline.py:468-503):
+the real disparity count when ``disp_max`` was padded: NaN lanes from
+the join on the HWD lane, 1e9 planes on the generic lane.
 """
 
 from __future__ import annotations
@@ -36,8 +45,12 @@ import torch
 
 from mccnn_tpu_torch.config import Config
 from mccnn_tpu_torch.models.towers import FastTower, SlowNet
-from mccnn_tpu_torch.ops import (blur, costs, cross, join, outlier, post, sgm,
-                                 slow_head)
+from mccnn_tpu_torch.ops import (blur, costs, cross, join, outlier, post,
+                                 sgm, slow_head)
+
+# the dtypes -dtype and -vol_dtype may name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,9 +74,10 @@ def _active_after(terminate: str, stage: str) -> bool:
 
 
 def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
-    """Stored (H', Wp, Dp) volume -> natural (D, H, W) for the .bin
-    dumps; ``scale4`` applies the deferred /4 of the sweep sum."""
-    v = vol[:H, :W, :D]
+    """Stored (H', Wp, Dp) volume -> natural float32 (D, H, W) for the
+    .bin dumps (a 16-bit volume widened); ``scale4`` applies the deferred
+    /4 of the sweep sum."""
+    v = vol[:H, :W, :D].float()
     if xrev:
         v = v.flip(1)
     if scale4:
@@ -71,62 +85,80 @@ def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
     return v.permute(2, 0, 1).contiguous()
 
 
-def _check_lane(cfg: Config) -> None:
-    """The port runs every arch in float32 without the volume cache;
-    the configurations it does not run yet name the ROADMAP item that
-    will bring them."""
+def _check_lane(cfg: Config, hwd: bool) -> None:
+    """The volume cache is not ported yet (its ROADMAP item is named).
+    The ``-vol_dtype`` contract of ``check_vol_dtype``
+    (mccnn_tpu/pipeline.py:445-465): 16-bit volume storage exists only
+    on the HWD lane (``hwd``), and a configuration that would run the
+    float32 generic lane instead raises rather than misreport. float16
+    is allowed: the JAX package bans it on the TPU only because the
+    Mosaic dialect has no float16 vectors there; the H100's kernels
+    store it as they store bfloat16 (``cvt.rn.f16x2.f32``)."""
     if cfg.use_cache or cfg.make_cache:
         raise NotImplementedError("the volume cache is not ported yet "
                                   "(ROADMAP.md queue 1, item 15)")
-    if cfg.dtype != "float32" or cfg.vol_dtype != "float32":
-        raise NotImplementedError("-dtype/-vol_dtype other than float32 are "
-                                  "not ported yet (ROADMAP.md queue 1, item 9)")
+    if cfg.vol_dtype != "float32" and not hwd:
+        raise ValueError(
+            f"-vol_dtype {cfg.vol_dtype} requires the fast HWD lane (fast "
+            "arch, cbca_i1=cbca_i2=0, no volume cache, the slab SGM form)")
 
 
-def _tower(net, images):
-    """The conv tower; on CUDA with TF32 off (TF32 would drift the
-    features from the f32 reference and flip WTA near-ties), set here,
-    not globally."""
+def _tower(net, images, dtype=torch.float32):
+    """The conv tower in the compute ``dtype``; on CUDA with TF32 off
+    (TF32 would drift the features from the f32 reference and flip WTA
+    near-ties), set here, not globally."""
     if images.is_cuda:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return net(images)
-    return net(images)
+            return net(images, dtype)
+    return net(images, dtype)
 
 
 @torch.no_grad()
-def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int):
+def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int,
+                      dtype=torch.float32):
     """Slow-arch cost volumes (vol_l, vol_r), each (D, H, W), NaN out of
-    frame; the score is P(non-match), lower is better."""
-    feats = _tower(net, torch.stack([x0, x1])[:, None])
+    frame; the score is P(non-match), lower is better. ``dtype``: the
+    compute dtype of the tower and the head's first layer."""
+    feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)
     fl = feats[0].permute(1, 2, 0)  # (H, W, C)
     fr = feats[1].permute(1, 2, 0)
-    return slow_head.slow_volumes(net, fl, fr, disp_max)
+    return slow_head.slow_volumes(net, fl, fr, disp_max, dtype)
 
 
 @torch.no_grad()
-def _volumes(net, x0, x1, *, arch, disp_max, ws) -> dict:
+def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
+             disp_true=None) -> dict:
     """Cost volumes of both reference directions, (D, H, W) each
     (mccnn_tpu/pipeline.py:97-149): {-1: vol_l, +1: vol_r}. The fast
     and slow arches get the CNN border fixed; ad and census use no
-    network (``net`` is None)."""
+    network (``net`` is None). ``disp_true`` < disp_max: the planes
+    d >= disp_true hold 1e9 (``mask_pad``, mccnn_tpu/pipeline.py:
+    120-125), a large finite cost that CBCA averages to itself and the
+    SGM and WTA never select."""
     if arch == "ad":
-        return {-1: costs.ad_volume(x0, x1, disp_max, -1),
+        vols = {-1: costs.ad_volume(x0, x1, disp_max, -1),
                 1: costs.ad_volume(x1, x0, disp_max, 1)}
-    if arch == "census":
-        return {-1: costs.census_volume(x0, x1, disp_max, -1),
+    elif arch == "census":
+        vols = {-1: costs.census_volume(x0, x1, disp_max, -1),
                 1: costs.census_volume(x1, x0, disp_max, 1)}
-    if arch == "fast":
-        feats = _tower(net, torch.stack([x0, x1])[:, None])
-        vol_l, vol_r = join.stereo_join_dhw(feats[0].permute(1, 2, 0),
-                                            feats[1].permute(1, 2, 0),
-                                            disp_max)
-    elif arch == "slow":
-        vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max)
     else:
-        raise ValueError(arch)
-    n = (ws - 1) // 2
-    return {-1: costs.fix_border(vol_l, -1, n),
-            1: costs.fix_border(vol_r, 1, n)}
+        if arch == "fast":
+            feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)
+            vol_l, vol_r = join.stereo_join_dhw(feats[0].permute(1, 2, 0),
+                                                feats[1].permute(1, 2, 0),
+                                                disp_max)
+        elif arch == "slow":
+            vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max, dtype)
+        else:
+            raise ValueError(arch)
+        n = (ws - 1) // 2
+        vols = {-1: costs.fix_border(vol_l, -1, n),
+                1: costs.fix_border(vol_r, 1, n)}
+    if disp_true is not None and disp_true < disp_max:
+        real = torch.arange(disp_max, device=x0.device)[:, None, None] \
+            < disp_true
+        vols = {k: torch.where(real, v, 1e9) for k, v in vols.items()}
+    return vols
 
 
 def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
@@ -199,22 +231,26 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
 
 def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
               tau_so, alpha1, sgm_q1, sgm_q2, sgm_i, blur_t, sm_terminate,
-              sm_skip, return_vols, directions=(1, -1)):
-    """The fast-arch pipeline body (mccnn_tpu/pipeline.py:232-375)."""
+              sm_skip, return_vols, directions=(1, -1), dtype=torch.float32,
+              vol_dtype=torch.float32, disp_true=None):
+    """The fast-arch pipeline body (mccnn_tpu/pipeline.py:232-375), the
+    tower in the compute ``dtype``, the volumes stored as ``vol_dtype``,
+    lanes d >= ``disp_true`` NaN from the join on."""
     single = tuple(directions) == (-1,)
     if single and kitti:
         raise ValueError("KITTI runs both reference directions")
     D = int(disp_max)
     H, W = x0.shape
-    feats = _tower(tower, torch.stack([x0, x1])[:, None])
+    feats = _tower(tower, torch.stack([x0, x1])[:, None], dtype)
     fl = feats[0].permute(1, 2, 0)  # (H, W, C)
     fr = feats[1].permute(1, 2, 0)
     n_fix = (ws - 1) // 2
+    jkw = dict(n_fix=n_fix, d_true=disp_true, out_dtype=vol_dtype)
     if single:
-        cur_lr = join.stereo_join_hwd(fl, fr, D, n_fix=n_fix, sides="left")
+        cur_lr = join.stereo_join_hwd(fl, fr, D, sides="left", **jkw)
         cur_r = None
     else:
-        cur_lr, cur_r = join.stereo_join_hwd(fl, fr, D, n_fix=n_fix)
+        cur_lr, cur_r = join.stereo_join_hwd(fl, fr, D, **jkw)
 
     sgm_ran = _active_after(sm_terminate, "cbca1") and sm_skip != "sgm"
     if sgm_ran:
@@ -294,7 +330,7 @@ def _hwd_eligible(cfg: Config, form: str) -> bool:
 @torch.no_grad()
 def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
                    disp_max: int, return_vols: bool = False, device=None,
-                   sgm_form: str | None = None):
+                   sgm_form: str | None = None, disp_true: int | None = None):
     """Run the full stereo method on one standardized pair.
 
     x0/x1: (H, W) float32 arrays or tensors (already per-image
@@ -306,15 +342,30 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
     that did not run). ``device=None`` runs on CUDA and raises where
     there is none. ``sgm_form``: the SGM form of the generic lane,
     ``"slab"``, ``"stream"`` or ``"grid"``; None reads
-    ``MCCNN_SGM_HSLAB`` (see ``ops.sgm.resolve_form``).
+    ``MCCNN_SGM_HSLAB`` (see ``ops.sgm.resolve_form``). ``disp_true``:
+    the real disparity count when ``disp_max`` was padded to a bucket
+    (``disp_true == disp_max`` means None, as in the JAX package); the
+    maps stay (H, W) and the volumes (disp_max, H, W).
     """
     dev = resolve_device(device)
     if cfg.dataset == "mb":
         directions = (1, -1) if cfg.a == "predict" else (-1,)
     else:
         directions = (1, -1)
-    _check_lane(cfg)
     form = sgm.resolve_form(sgm_form)
+    hwd = _hwd_eligible(cfg, form)
+    _check_lane(cfg, hwd)
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"-dtype must be one of {sorted(DTYPES)}, got "
+                         f"{cfg.dtype!r}")
+    dtype, vol_dtype = DTYPES[cfg.dtype], DTYPES[cfg.vol_dtype]
+    if disp_true is not None:
+        disp_true = int(disp_true)
+        if not 0 < disp_true <= int(disp_max):
+            raise ValueError(f"disp_true must be in (0, disp_max={disp_max}], "
+                             f"got {disp_true}")
+        if disp_true == int(disp_max):
+            disp_true = None
     want = {"fast": FastTower, "slow": SlowNet}.get(cfg.arch)
     if want is None and params is not None:
         raise TypeError(f"arch {cfg.arch!r} uses no network: params must be "
@@ -337,12 +388,13 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
                   sgm_i=int(cfg.sgm_i), blur_t=float(cfg.blur_t),
                   sm_terminate=cfg.sm_terminate, sm_skip=cfg.sm_skip,
                   return_vols=return_vols)
-    if _hwd_eligible(cfg, form):
+    if hwd:
         return _fast_hwd(net, x0, x1, blur_kernel, disp_max=int(disp_max),
                          kitti=kitti, ws=cfg.ws, directions=directions,
-                         **common)
+                         dtype=dtype, vol_dtype=vol_dtype,
+                         disp_true=disp_true, **common)
     vols = _volumes(net, x0, x1, arch=cfg.arch, disp_max=int(disp_max),
-                    ws=cfg.ws)
+                    ws=cfg.ws, dtype=dtype, disp_true=disp_true)
     return _method(vols, x0, x1, blur_kernel, disp_max=int(disp_max),
                    directions=directions, kitti=kitti, L1=int(cfg.L1),
                    tau1=float(cfg.tau1), cbca_i1=int(cfg.cbca_i1),

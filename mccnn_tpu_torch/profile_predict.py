@@ -1,13 +1,17 @@
-"""Where the device time of one KITTI-size prediction goes.
+"""Where the device time of one prediction goes.
 
     python -m mccnn_tpu_torch.profile_predict [--arch fast|slow|census|ad]
-        [--form slab|stream|grid] [--top 15] [--trace out.json]
+        [--dataset kitti|mb] [--form slab|stream|grid]
+        [--vol_dtype float32|bfloat16|float16] [--dtype float32|bfloat16]
+        [--top 15] [--trace out.json]
 
-Runs ``stereo_predict`` (the kitti config of ``--arch``, seeded random
-weights where the arch has a network; ``--form`` is the SGM form of the
-generic lane, by default what ``MCCNN_SGM_HSLAB`` selects) on a seeded
-370x1226 pair at D=228 on the CUDA card, twice to warm up, then once
-under ``torch.profiler``. Prints the device time of
+Runs ``stereo_predict`` (the config of ``--dataset`` and ``--arch``,
+seeded random weights where the arch has a network; ``--form`` is the
+SGM form of the generic lane, by default what ``MCCNN_SGM_HSLAB``
+selects; ``--vol_dtype`` and ``--dtype`` as the CLI's) on a seeded pair
+on the CUDA card: KITTI 370x1226 at D=228, or Middlebury at the ``-a
+time`` shape, 1000x1500 at D=200, the left direction alone. Twice to
+warm up, then once under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
 tower's convolutions and the plain torch operations, the top kernels by
 device time, the device's busy share of the wall time of the run, and
@@ -45,17 +49,24 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=("fast", "slow", "census", "ad"),
                     default="fast")
+    ap.add_argument("--dataset", choices=("kitti", "mb"), default="kitti")
     ap.add_argument("--form", choices=("slab", "stream", "grid"), default=None,
                     help="SGM form of the generic lane")
+    ap.add_argument("--vol_dtype", choices=("float32", "bfloat16", "float16"),
+                    default="float32")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    H, W, D, shift = 370, 1226, 228, 40
+    mb = args.dataset == "mb"
+    H, W, D, shift = (1000, 1500, 200, 40) if mb else (370, 1226, 228, 40)
     base = np.random.RandomState(0).randn(H, W + shift).astype(np.float32)
     x0 = torch.as_tensor(standardize(base[:, :W]), device=dev)
     x1 = torch.as_tensor(standardize(base[:, shift:shift + W]), device=dev)
-    cfg = make_config("kitti", args.arch, a="predict")
+    cfg = make_config(args.dataset, args.arch, a="time" if mb else "predict",
+                      vol_dtype=args.vol_dtype, dtype=args.dtype)
     init = {"fast": towers.init_fast, "slow": towers.init_slow}.get(args.arch)
     tower = init and init(cfg, torch.Generator().manual_seed(cfg.seed))
     for _ in range(2):
@@ -86,8 +97,10 @@ def main(argv=None) -> None:
         g[0] += dev_us(e) / 1e3
         g[1] += e.count
     form = "" if args.form is None else f" (SGM form {args.form})"
-    print(f"{torch.cuda.get_device_name(0)}: one kitti {args.arch} "
-          f"stereo_predict{form} 370x1226 "
+    if args.vol_dtype != "float32" or args.dtype != "float32":
+        form += f" (-vol_dtype {args.vol_dtype}, -dtype {args.dtype})"
+    print(f"{torch.cuda.get_device_name(0)}: one {args.dataset} {args.arch} "
+          f"stereo_predict{form} {H}x{W} "
           f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "
           f"{total_ms:.3f} ms in {sum(e.count for e in kernels)} kernel "
           f"launches, busy {total_ms / wall_ms:.3f}, peak memory "

@@ -65,8 +65,8 @@ VARIANTS = {
          "if constexpr (false) {", 1),
     ],
     "no-store": [
-        ("if (out && live[q])\n          *reinterpret_cast<float4*>(out + cell",
-         "if (false && out && live[q])\n          *reinterpret_cast<float4*>(out + cell", 1),
+        ("if (out && live[q]) store4<S>(out + cell",
+         "if (false && out && live[q]) store4<S>(out + cell", 1),
     ],
 }
 

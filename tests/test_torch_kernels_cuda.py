@@ -65,6 +65,35 @@ def test_join_kernel_matches_plain(dev, H, W, C, D, n_fix):
     assert float((got - want).nan_to_num().abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("H,W,C,D,n_fix,d_true", [(20, 140, 8, 20, 4, None),
+                                                  (70, 300, 64, 228, 4, 200),
+                                                  (66, 97, 33, 228, 3, None),
+                                                  (7, 300, 112, 100, 4, 61),
+                                                  (5, 200, 130, 64, 0, 1)])
+def test_join_kernel_16bit_is_the_f32_kernel_rounded(dev, H, W, C, D, n_fix,
+                                                     d_true, dtype):
+    """The join's 16-bit stores against its float32 kernel on the same
+    operands: one float32 staging tile, one rounding to nearest even, so
+    equal to the float32 volume rounded, bit for bit, NaN masks included;
+    with d_true the lanes d >= d_true NaN and the others unchanged. More
+    than 64 channels sum their slabs in float32 before the last one
+    rounds, as the float32 kernel sums them in place."""
+    f = _feats(np.random.RandomState(H + C), H, W, C, dev)
+    Hp, Wp, Dp = join.pad_dims(H, W, D)
+    a = join._prep(f[0], True, Hp, Wp)
+    b = join._prep(f[1], True, Hp, Wp + Dp)
+    want = join._join_plus(a, b, D, W, H, n_fix)
+    if d_true is not None:
+        want[..., d_true:] = torch.nan
+    got = join._join_plus(a, b, D, W, H, n_fix, d_true=d_true, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    want = want.to(dtype)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
 @pytest.mark.parametrize("xrev", [True, False])
 def test_sgm_kernels_match_plain(dev, xrev):
     rng = np.random.RandomState(7)
@@ -146,6 +175,25 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
     operations in the same order and an exact min: equal bit for bit,
     NaN masks and winner maps included. The volume has NaN tails in d,
     scattered NaN cells, whole NaN steps and one scanline all NaN."""
+    _horizontal_case(dev, Hp, Wp, Dp, D, T, reverse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Hp,Wp,Dp,D,T", [
+    (5, 37, 128, 100, 37), (4, 48, 256, 228, 29), (3, 20, 96, 80, 17),
+    (2, 19, 384, 300, 19)])
+def test_horizontal_sweep_kernel_16bit_is_bit_identical(dev, Hp, Wp, Dp, D, T,
+                                                        reverse, dtype):
+    """The 16-bit instances of ``sgm_sweep_horizontal`` against
+    ``sweep_plain`` on the same 16-bit volume and accumulator, in the
+    four uses of the float32 test: both widen the stored rows, run the
+    same f32 recurrence, take the winner from the f32 sum and round only
+    the stored sum to nearest even, so they are equal bit for bit."""
+    _horizontal_case(dev, Hp, Wp, Dp, D, T, reverse, dtype)
+
+
+def _horizontal_case(dev, Hp, Wp, Dp, D, T, reverse, dtype):
     rng = np.random.RandomState(Wp + Dp + reverse)
     vol = rng.rand(Hp, Wp, Dp).astype(np.float32)
     vol[..., D:] = np.nan
@@ -155,7 +203,7 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
     vol[Hp - 1] = np.nan
     accv = rng.rand(Hp, Wp, Dp).astype(np.float32)
     accv[np.isnan(vol)] = np.nan
-    vol, accv = (torch.as_tensor(a, device=dev) for a in (vol, accv))
+    vol, accv = (torch.as_tensor(a, device=dev).to(dtype) for a in (vol, accv))
     d1 = torch.as_tensor((rng.rand(Hp, Wp) * 0.16).astype(np.float32),
                          device=dev)
     g = (rng.rand(Hp, D + Wp + Dp + 3) * 0.16).astype(np.float32)
@@ -192,22 +240,25 @@ def test_horizontal_sweep_kernel_is_bit_identical(dev, Hp, Wp, Dp, D, T,
     (740, 370, 256, True), (740, 370, 256, False),  # hslab's stacked rows
     (740, 0, 228, True), (2452, 0, 228, True),  # the scan form's families
     (750, 375, 256, True), (37, 13, 96, True),  # classes off a multiple of 4
-    (23, 7, 96, True), (5, 2, 1024, True)])
+    (23, 7, 96, True), (5, 2, 1024, True),
+    (1536, 1536, 256, True), (1536, 0, 256, True)])  # the Middlebury shape
 def test_vertical_plan_mirror_is_the_launched_plan(dev, Ws, n_rev, Dp,
                                                    has_acc):
     """``sgm.vertical_plan`` (the mirror the CPU tests check) against the
     plan ``sgm_sweep_vertical`` launches with, from the C entry
-    ``sgm_vertical_plan``, on this card's SM count and on the H100's."""
+    ``sgm_vertical_plan``, on this card's SM count and on the H100's,
+    for float32 and 16-bit values."""
     fn = _build.library("sgm_sweep").sgm_vertical_plan
     n_sms = {torch.cuda.get_device_properties(dev).multi_processor_count,
              sgm.H100_SMS}
     for n_sm in sorted(n_sms):
-        got = (ctypes.c_int * 5)()
-        fn(Ws, n_rev, Dp, int(has_acc), n_sm, got)
-        p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc, n_sm)
-        want = [sum(x0 < n_rev for x0, _ in p["blocks"]), len(p["blocks"]),
-                p["per_sm"], p["stages"], p["smem"]]
-        assert list(got) == want
+        for elem in (4, 2):
+            got = (ctypes.c_int * 5)()
+            fn(Ws, n_rev, Dp, int(has_acc), elem, n_sm, got)
+            p = sgm.vertical_plan(Ws, n_rev, Dp, has_acc, n_sm, elem)
+            want = [sum(x0 < n_rev for x0, _ in p["blocks"]),
+                    len(p["blocks"]), p["per_sm"], p["stages"], p["smem"]]
+            assert list(got) == want
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -227,6 +278,24 @@ def test_vertical_sweep_kernel_is_bit_identical(dev, Hp, Ws, Dp, D, T, n_rev,
     NaN masks and winner maps included. Scanlines x < n_rev read g_rev,
     the others g_nat; the volume has NaN tails in d, scattered NaN cells,
     whole NaN steps and one scanline all NaN."""
+    _vertical_case(dev, Hp, Ws, Dp, D, T, n_rev, reverse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Hp,Ws,Dp,D,T,n_rev", [
+    (37, 9, 128, 100, 37, 0), (48, 13, 256, 228, 29, 5),
+    (20, 8, 96, 80, 17, 3), (19, 7, 384, 300, 19, 7)])
+def test_vertical_sweep_kernel_16bit_is_bit_identical(dev, Hp, Ws, Dp, D, T,
+                                                      n_rev, reverse, dtype):
+    """The 16-bit instances of ``sgm_sweep_vertical`` (their ring holds
+    twice the chunks of the float32 one) against ``sweep_plain`` on the
+    same 16-bit tensors, in the six uses of the float32 test: equal bit
+    for bit, NaN masks and winner maps included."""
+    _vertical_case(dev, Hp, Ws, Dp, D, T, n_rev, reverse, dtype)
+
+
+def _vertical_case(dev, Hp, Ws, Dp, D, T, n_rev, reverse, dtype):
     rng = np.random.RandomState(Ws + Dp + reverse)
     vol = rng.rand(Hp, Ws, Dp).astype(np.float32)
     vol[..., D:] = np.nan
@@ -236,7 +305,7 @@ def test_vertical_sweep_kernel_is_bit_identical(dev, Hp, Ws, Dp, D, T, n_rev,
     vol[Hp // 2] = np.nan
     accv = rng.rand(Hp, Ws, Dp).astype(np.float32)
     accv[np.isnan(vol)] = np.nan
-    vol, accv = (torch.as_tensor(v, device=dev) for v in (vol, accv))
+    vol, accv = (torch.as_tensor(v, device=dev).to(dtype) for v in (vol, accv))
     d1 = torch.as_tensor((rng.rand(Hp, Ws) * 0.16).astype(np.float32),
                          device=dev)
     tables = []
@@ -533,6 +602,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             z, z, torch.zeros((1, 96, 96), device=dev, dtype=torch.bfloat16),
             torch.zeros((1, 96), device=dev), z[0, 0], 0.0, 3)
     pen = sgm.pen_table(1.0, 2.0, 3.0, 2.0, 1.0, 1.0)
+    # the generic lane's three sweep entries take float32 only, and the
+    # HWD entries one storage dtype for the volume, accumulator and sum
+    for dt in (torch.bfloat16, torch.float16):
+        v16 = torch.zeros((4, 8, 96), device=dev, dtype=dt)
+        with pytest.raises(ValueError, match="float32"):
+            sgm._sweep_hslab(v16, None, v16.clone(), z[:, :, 0].contiguous(),
+                             torch.zeros((8, 4 + 4 + 96), device=dev),
+                             reverse=False, D=4, n_rev=0, rev_base=4, tau=0.1,
+                             pen=pen)
+        for sweep in (sgm.sweep_stream, sgm.sweep_grid):
+            with pytest.raises(ValueError, match="float32"):
+                sweep(v16, z[:, :, 0].contiguous(), z, tau=0.1, pen=pen)
+        with pytest.raises(ValueError, match=str(dt)):
+            sgm._sweep(v16, z, v16.clone(), None, z[:, :, 0].contiguous(),
+                       torch.zeros((4, 4 + 8 + 96), device=dev),
+                       vertical=True, reverse=False, T=4, D=4, tau=0.1,
+                       pen=pen)
+    with pytest.raises(ValueError, match="out_dtype"):
+        join._join_plus(a, torch.zeros((64, 8, 256), device=dev), 20, 100, 60,
+                        0, d_true=21)
     for sweep in (sgm.sweep_stream, sgm.sweep_grid):
         d1 = z[:, :, 0].contiguous()
         with pytest.raises(ValueError, match="bad shapes"):

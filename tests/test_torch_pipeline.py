@@ -124,13 +124,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         cli.device_of(cfg)
 
 
-@pytest.mark.parametrize("overrides", [dict(vol_dtype="bfloat16"),
+@pytest.mark.parametrize("overrides", [dict(vol_dtype="bfloat16", cbca_i1=2),
                                        dict(use_cache=True),
                                        dict(dtype="bfloat16")])
 def test_configs_outside_the_lane_name_the_roadmap(overrides):
+    """The volume cache is not ported: it names its ROADMAP item. A
+    16-bit -vol_dtype on a generic-lane config (here fast with CBCA)
+    raises ValueError naming vol_dtype, as the JAX package's
+    check_vol_dtype does. -dtype bfloat16 is ported: it runs and
+    returns a finite map."""
     cfg = make_config("kitti", "fast", a="predict", **overrides)
     tower = towers.init_fast(make_config("kitti", "fast"),
                              torch.Generator().manual_seed(0))
-    x = np.zeros((8, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.stereo_predict(cfg, tower, x, x, 4, device="cpu")
+    x0, x1 = _pair(3)
+    if cfg.use_cache:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            pipeline.stereo_predict(cfg, tower, x0, x1, 4, device="cpu")
+    elif cfg.vol_dtype != "float32":
+        with pytest.raises(ValueError, match="vol_dtype"):
+            pipeline.stereo_predict(cfg, tower, x0, x1, 4, device="cpu")
+    else:
+        d = pipeline.stereo_predict(cfg, tower, x0, x1, D, device="cpu")
+        assert d.shape == (H, W) and bool(torch.isfinite(d).all())

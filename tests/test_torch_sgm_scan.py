@@ -226,3 +226,15 @@ def test_cpu_sweeps_count_no_launch_and_count_keeps_both_numbers():
     assert _build.kernel_launches()["sgm_step"] == 1
     _build.reset_launches()
     assert not any(_build.kernel_launches().values())
+
+
+@pytest.mark.parametrize("name", ["d2-loads", "no-store"])
+def test_sweep_variants_apply_to_the_shipped_source(name):
+    """Each text edit of ``python -m mccnn_tpu_torch.sweep_variants``
+    finds its text in ``csrc/sgm_sweep.cu`` as often as it expects, so
+    the timing script still builds its variants after the source
+    changes (its kernels run only on the card)."""
+    from mccnn_tpu_torch import sweep_variants
+
+    src = sweep_variants.variant_source(name)
+    assert src != (sweep_variants._build.CSRC / "sgm_sweep.cu").read_text()

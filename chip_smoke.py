@@ -82,7 +82,27 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    generic lane, CBCA x2 and x16, a head set by hand as in phase 5):
    launch counts, accuracy, pairs/s (median of 10, of 3 for mb slow,
    with the spread) and peak memory; both against the all-plain path on
-   the CPU at 96x320, D=48 with mb's own parameters.
+   the CPU at 96x320, D=48 with mb's own parameters;
+8. training on the card (``training_phase``): a synthetic KITTI set at
+   350x1242, D=228 (three images; the third is te); kitti fast (8 steps)
+   and kitti slow (4 steps) at config.py's full widths from one sampled
+   chunk, on the card and on the CPU from the same seeded weights (the
+   per-step losses within 1e-5 relative on step 1 and 1e-4 over the
+   chunk, the weights within 1e-5); ``train()`` over 4 epochs of 256
+   steps for each: the end-to-end steps/s of epochs 2-4 with the rate of
+   each epoch, patch pairs/s, the chunks' steps/s (median and spread
+   after a warm-up chunk), the host's share of the time outside the
+   chunk calls and a chunk build's time, peak memory, no hand kernel
+   launched, and one chunk under the profiler (launches and device time
+   a step; the busy share is that device time over the chunk's wall
+   without the profiler); ``test_te`` of the untrained and the trained
+   fast net on the third image through kernels 1-5 (phase 4's launch
+   counts, an error in [0, 1]); each trained net's checkpoint with its
+   momentum, reloaded bit-equal, two more steps from each copy on a
+   chunk whose positive and negative patches are swapped (losses above
+   0) bit-equal; mb fast for 8 steps on the host
+   gather against the CPU, and its ``test_te`` through the 64-buckets
+   (launch counts, the map against the CPU's).
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
@@ -281,6 +301,328 @@ def head_library(torch, slow_head, A, B, mids_w, mids_b, w_last, b_last, D):
             h = torch.relu(h @ mids_w[m] + bb[m])
         out[d0:d0 + len(ds)] = torch.sigmoid(h.float() @ w_last + b_last)
     return out
+
+
+def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
+                   steps=(8, 4)) -> None:
+    """Phase 8: the training path on the card (see the module docstring).
+    ``shape``: the synthetic KITTI frame (height, width, D); ``steps``:
+    the card-against-CPU steps of kitti fast and kitti slow."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.models import checkpoint, towers
+    from mccnn_tpu_torch.ops import _build
+    from mccnn_tpu_torch.train import augment, evaluate, trainer
+
+    t8 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase8_", dir=os.path.join(ROOT, "build"))
+    try:
+        h, w, d = shape
+        datasets.make_synthetic_kitti(os.path.join(tmp, "data.kitti"),
+                                      n_images=3, height=h, width=w,
+                                      disp_max=d)
+        cfgs = {arch: make_config("kitti", arch, a="train_tr", data_dir=tmp)
+                for arch in ("fast", "slow")}
+        ds = datasets.load_kitti(cfgs["fast"])
+        ds.disp_max = d
+        X0 = np.asarray(ds.X0[:, 0])[:, None]
+        X1 = np.asarray(ds.X1[:, 0])[:, None]
+        print(f"phase 8: synthetic KITTI at {h}x{w}, D={d}: images 1-2 "
+              f"train ({len(ds.nnz_tr)} rows), image 3 is te; written in "
+              f"{time.perf_counter() - t8:.1f} s")
+
+        def on(where, chunk):
+            return {k: torch.as_tensor(v, device=where)
+                    for k, v in chunk.items()}
+
+        # card against CPU at full width: one sampled chunk, the same
+        # seeded weights; TF32 off on the card
+        for arch, n in zip(("fast", "slow"), steps):
+            cfg = cfgs[arch]
+            bs_half = cfg.bs // 2
+            chunk = trainer.stack_chunk(
+                augment.AugmentSampler(cfg, np.random.RandomState(1)), ds,
+                ds.nnz_tr[:n * bs_half], n, bs_half, X0, X1,
+                device_gather=True)
+            runs = {}
+            for where in (torch.device("cpu"), dev):
+                net = towers.init_net(cfg).to(where)
+                mom = [torch.zeros_like(p) for p in net.parameters()]
+                _build.reset_launches()
+                t = time.perf_counter()
+                errs = trainer.train_chunk(cfg, net, mom, cfg.lr,
+                                           on(where, chunk),
+                                           augment.pad_image_stack(X0, X1,
+                                                                   where))
+                errs = errs.cpu()
+                runs[where.type] = (errs, [p.detach().cpu()
+                                           for p in net.parameters()],
+                                    time.perf_counter() - t, _build.launches())
+            (e_c, p_c, s_c, _), (e_k, p_k, s_k, k_k) = runs["cpu"], runs[dev.type]
+            rel = ((e_k - e_c).abs() / e_c.abs().clamp_min(1e-6))
+            w_gap = max(float((a - b).abs().max()) for a, b in zip(p_k, p_c))
+            print(f"phase 8: kitti {arch} (l1={cfg.l1}, fm={cfg.fm}, "
+                  f"bs={cfg.bs}), {n} steps, card against CPU: losses "
+                  f"{[round(float(v), 6) for v in e_k]}, largest relative "
+                  f"gap {float(rel.max()):.2e} (step 1: {float(rel[0]):.2e}), "
+                  f"weights {w_gap:.2e} (card {s_k:.2f} s, CPU {s_c:.2f} s)")
+            check(bool(torch.isfinite(e_k).all()), f"{arch}: loss not finite")
+            check(float(rel[0]) <= 1e-5 and float(rel.max()) <= 1e-4,
+                  f"{arch}: card losses {e_k.tolist()} against CPU "
+                  f"{e_c.tolist()}")
+            check(w_gap <= 1e-5, f"{arch}: weights {w_gap} from the CPU's")
+            check(not any(k_k.values()), f"{arch}: training launched hand "
+                  f"kernels {k_k}")
+
+        # throughput: train() on a table of 8 chunks (256 steps) an epoch,
+        # 4 epochs. The headline is the end-to-end rate of epochs 2-4 on
+        # the epoch lines' own clock (the chunk builds the card waits
+        # for, the copies and the loss readbacks included). Each chunk's
+        # call is also timed to the card's finish, and each chunk build
+        # on the thread, so the host's share of the time is measured.
+        trained = {}
+        n_chunks, n_epochs = 8, 4
+        for arch in ("fast", "slow"):
+            cfg = cfgs[arch]
+            bs_half = cfg.bs // 2
+            tds = dataclasses.replace(
+                ds, nnz_tr=ds.nnz_tr[:n_chunks * trainer.CHUNK_STEPS
+                                     * bs_half + 1])
+            n_steps = trainer.n_epoch_steps(len(tds.nnz_tr), bs_half)
+            check(n_steps == n_chunks * trainer.CHUNK_STEPS,
+                  f"{n_steps} steps")
+            orig, orig_stack = trainer.train_chunk, trainer.stack_chunk
+            secs, builds = [], []
+
+            def timed_chunk(*a, **kw):
+                t = time.perf_counter()
+                errs = orig(*a, **kw)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                return errs
+
+            def timed_stack(*a, **kw):
+                t = time.perf_counter()
+                out = orig_stack(*a, **kw)
+                builds.append(time.perf_counter() - t)
+                return out
+
+            lines = []
+            net = towers.init_net(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            _build.reset_launches()
+            trainer.train_chunk, trainer.stack_chunk = timed_chunk, timed_stack
+            try:
+                net, mom = trainer.train(cfg, tds, net, epochs=n_epochs,
+                                         log=lines.append, device=dev)
+            finally:
+                trainer.train_chunk, trainer.stack_chunk = orig, orig_stack
+            got = _build.launches()
+            check(not any(got.values()), f"{arch}: train() launched hand "
+                  f"kernels {got}")
+            check(len(secs) == n_chunks * n_epochs, f"{arch}: {len(secs)} "
+                  "chunks")
+            epochs = [ln.split("\t") for ln in lines]
+            errs = [float(e[1]) for e in epochs]
+            check(all(np.isfinite(errs)) and not any("WARNING" in ln
+                                                      for ln in lines),
+                  f"{arch}: epoch lines {lines}")
+            clock = [float(e[3]) for e in epochs]
+            span = clock[-1] - clock[0]
+            e2e = (n_epochs - 1) * n_steps / span
+            by_epoch = [n_steps / (b - a) for a, b in zip(clock, clock[1:])]
+            rates = [trainer.CHUNK_STEPS / t for t in secs[1:]]
+            card = sum(secs[n_chunks:])
+            build_ms = 1e3 * statistics.mean(builds[n_chunks:])
+            print(f"phase 8: kitti {arch} train(): epochs 2-{n_epochs} end "
+                  f"to end {e2e:.1f} steps/s ({e2e * cfg.bs:.0f} patch "
+                  f"pairs/s, {cfg.bs} (L, R) pairs a step; by epoch "
+                  f"{[round(r, 1) for r in by_epoch]}); chunks of "
+                  f"{trainer.CHUNK_STEPS} from call to the card's finish "
+                  f"{statistics.median(rates):.1f} steps/s (median of "
+                  f"{len(rates)} after a warm-up chunk, "
+                  f"{min(rates):.1f}-{max(rates):.1f}); host share of "
+                  f"epochs 2-{n_epochs} outside the chunk calls "
+                  f"{(span - card) / span:.3f} ({1e3 * (span - card):.1f} of "
+                  f"{1e3 * span:.1f} ms), a chunk build on the thread "
+                  f"{build_ms:.1f} ms; mean loss by epoch "
+                  f"{[round(v, 5) for v in errs]}; {peak_line(torch, held)}")
+            trained[arch] = (net, mom)
+
+            # where a step's time goes: one chunk under the profiler
+            chunk = on(dev, trainer.stack_chunk(
+                augment.AugmentSampler(cfg, np.random.RandomState(2)), ds,
+                ds.nnz_tr[:trainer.CHUNK_STEPS * bs_half],
+                trainer.CHUNK_STEPS, bs_half, X0, X1, device_gather=True))
+            Xpad = augment.pad_image_stack(X0, X1, dev)
+            pnet = towers.init_net(cfg).to(dev)
+            pmom = [torch.zeros_like(p) for p in pnet.parameters()]
+            trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            wall = statistics.median(walls)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
+                torch.cuda.synchronize()
+                wall_p = (time.perf_counter() - t) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if "CUDA" in str(getattr(e, "device_type", ""))]
+
+            def dev_us(e):
+                return getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+
+            dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+            n_launch = sum(e.count for e in kernels)
+            top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
+                            for e in sorted(kernels, key=dev_us,
+                                            reverse=True)[:4])
+            per = trainer.CHUNK_STEPS
+            check(dev_ms > 0, f"{arch}: the profiler saw no device time")
+            # busy: the profiled device time over the chunk's wall without
+            # the profiler (which slows the host's launches, not the card)
+            print(f"  kitti {arch}, one chunk of {per} steps: wall "
+                  f"{wall:.1f} ms (median of 3; {wall_p:.1f} ms under the "
+                  f"profiler), device {dev_ms:.1f} ms in {n_launch} kernel "
+                  f"launches ({n_launch / per:.0f} a step, "
+                  f"{dev_ms / per:.3f} ms a step), busy "
+                  f"{dev_ms / wall:.3f}; top: {top}")
+            del pnet, pmom, chunk, Xpad
+
+        # the chained evaluation: test_te on image 3 through kernels 1-5
+        ecfg = make_config("kitti", "fast", a="test_te", data_dir=tmp)
+        scores = {}
+        for what, net in (("untrained", towers.init_net(ecfg)),
+                          ("trained", trained["fast"][0])):
+            out = io.StringIO()
+            _build.reset_launches()
+            with contextlib.redirect_stdout(out):
+                evaluate.action_eval(ecfg, [], net=net, ds=ds, device=dev)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == fast_want, f"test_te ({what}): launch counts {got}, "
+                  f"expected {fast_want}")
+            tokens = out.getvalue().split()
+            scores[what] = float(tokens[-1])
+            check(0.0 <= scores[what] <= 1.0, f"test_te ({what}): error "
+                  f"{tokens}")
+            print(f"phase 8: test_te (kitti fast, image 3, {h}x{w}, D={d}), "
+                  f"{what} net: bad-3 error {scores[what]:.4f} in "
+                  f"{float(tokens[0]):.3f} s; launches {got}")
+
+        # checkpoint round trip of each trained net, then two more steps
+        # from each copy. Each example's positive and negative patches
+        # (slots 1 and 3) are swapped, so that the trained nets' losses,
+        # and with them the gradients, are not 0: the fast net's hinge
+        # is 0 on this synthetic set.
+        Xpad = augment.pad_image_stack(X0, X1, dev)
+        for arch, (net, mom) in trained.items():
+            path = os.path.join(tmp, f"net_{arch}.npz")
+            checkpoint.save(path, net, {"epoch": 3}, extra={"momentum": mom})
+            net2, opt, extras = checkpoint.load(path)
+            mom2 = [v.to(dev) for v in extras["momentum"]]
+            net2 = net2.to(dev)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(list(net.parameters()) + mom,
+                           list(net2.parameters()) + mom2))
+            check(same and opt["epoch"] == 3, f"{arch}: checkpoint round trip "
+                  "changed the weights or momentum")
+            cfg = cfgs[arch]
+            chunk = on(dev, trainer.stack_chunk(
+                augment.AugmentSampler(cfg, np.random.RandomState(3)), ds,
+                ds.nnz_tr[:2 * (cfg.bs // 2)], 2, cfg.bs // 2, X0, X1,
+                device_gather=True))
+            n4 = chunk["minv"].shape[1]
+            swap = torch.arange(n4).reshape(-1, 4)[:, [0, 3, 2, 1]].reshape(-1)
+            chunk = {k: v[:, swap.to(v.device)] if v.shape[1] == n4 else v
+                     for k, v in chunk.items()}
+            det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                e1 = trainer.train_chunk(cfg, net, mom, cfg.lr, chunk, Xpad)
+                e2 = trainer.train_chunk(cfg, net2, mom2, cfg.lr, chunk, Xpad)
+            finally:
+                torch.backends.cudnn.deterministic = det
+            same = torch.equal(e1, e2) and all(
+                torch.equal(a, b) for a, b in zip(
+                    list(net.parameters()) + mom,
+                    list(net2.parameters()) + mom2))
+            print(f"phase 8: kitti {arch} checkpoint ({os.path.getsize(path)} "
+                  f"bytes): weights and momentum bit-equal after the round "
+                  f"trip; two more steps from each copy: losses "
+                  f"{[round(float(v), 6) for v in e1]} / "
+                  f"{[round(float(v), 6) for v in e2]}, "
+                  f"{'bit-equal' if same else 'NOT equal'} (cuDNN "
+                  "deterministic)")
+            check(bool((e1 > 0).all()), f"{arch}: losses {e1.tolist()} after "
+                  "the reload leave the backward pass untried")
+            check(same, f"{arch}: steps from the reloaded checkpoint differ")
+        del Xpad, chunk
+
+        # the Middlebury host-gather path: 8 steps of mb fast, then
+        # test_te through bucketed_predict (padded to 64, disp_true lanes)
+        mdir = os.path.join(tmp, "data.mb.imperfect_gray")
+        datasets.make_synthetic_mb(mdir)
+        mcfg = make_config("mb", "fast", a="train_tr", data_dir=tmp)
+        mds = datasets.load_mb(mcfg)
+        mds.nnz_tr = mds.nnz_tr[:8 * (mcfg.bs // 2) + 1]
+        mruns = {}
+        for where in (torch.device("cpu"), dev):
+            lines = []
+            mnet, _ = trainer.train(mcfg, mds, towers.init_net(mcfg),
+                                    epochs=1, log=lines.append, device=where)
+            mruns[where.type] = (float(lines[0].split("\t")[1]), mnet)
+        (l_c, n_c), (l_k, mnet) = mruns["cpu"], mruns[dev.type]
+        w_gap = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(mnet.parameters(), n_c.parameters()))
+        print(f"phase 8: mb fast, 8 steps on the host gather: mean loss card "
+              f"{l_k:.6f}, CPU {l_c:.6f}; weights {w_gap:.2e} apart")
+        check(np.isfinite(l_k) and abs(l_k - l_c) <= 1e-4 * abs(l_c)
+              and w_gap <= 1e-5, "mb fast training differs from the CPU's")
+        mcfg.a = "test_te"
+        out = io.StringIO()
+        _build.reset_launches()
+        with contextlib.redirect_stdout(out):
+            evaluate.action_eval(mcfg, [], net=mnet, ds=mds, device=dev)
+        torch.cuda.synchronize()
+        got = _build.launches()
+        want_mb = dict.fromkeys(_build.KERNELS, 0)
+        want_mb.update(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1)
+        score = float(out.getvalue().split()[-1])
+        x0, x1 = (np.array(mds.X[0][0][k, 0]) for k in (0, 1))
+        dm = int(mds.metadata[0, 2])
+        m_k = evaluate.bucketed_predict(mcfg, mnet, x0, x1, dm,
+                                        device=dev).cpu().numpy()
+        m_c = evaluate.bucketed_predict(mcfg, mnet.cpu(), x0, x1, dm,
+                                        device="cpu").numpy()
+        frac = float((np.abs(m_k - m_c) > 0.51).mean())
+        print(f"phase 8: mb test_te ({x0.shape[0]}x{x0.shape[1]} padded to "
+              f"64s, D={dm} padded to 64): bad-1 error {score:.4f}; launches "
+              f"{got}; {frac:.5f} of pixels off the CPU's by > 0.51")
+        check(got == want_mb, f"mb test_te: launch counts {got}, expected "
+              f"{want_mb}")
+        check(0.0 <= score <= 1.0 and frac < 0.01, f"mb test_te: error "
+              f"{score}, {frac} of pixels off the CPU's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 8 took {time.perf_counter() - t8:.0f} s")
 
 
 def main() -> int:
@@ -1307,6 +1649,10 @@ def main() -> int:
               "path")
     del mtower, mhand, m0_, m1_
     print(f"  phase 7 took {time.perf_counter() - t7:.0f} s")
+
+    # --- phase 8: training on the card -----------------------------------
+    torch.cuda.empty_cache()
+    training_phase(torch, dev, fast_want)
 
     # launches: each kernel's count on the path that runs it (entry
     # calls, and the kernel launches they made); the three shared ones

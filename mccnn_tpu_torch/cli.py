@@ -1,15 +1,22 @@
-"""The command-line driver of the port: ``predict`` and ``time``.
+"""The command line of the port: every action of the reference.
 
     python -m mccnn_tpu_torch kitti fast -a predict -left L.png -right R.png \\
         -disp_max 228 [-net_fname net.npz] [-backend cpu]
     python -m mccnn_tpu_torch kitti slow -a time    # fastest of 3 (fast: 30)
-    python -m mccnn_tpu_torch kitti census -a time
+    python -m mccnn_tpu_torch kitti fast -a train_tr [-data_dir D] [-resume ck.npz]
+    python -m mccnn_tpu_torch kitti fast -a test_te -net_fname net/net_kitti_fast_-a_train_tr.npz
 
 Same flags and outputs as the reference's ``./main.lua`` (main.lua:10-32):
 predict writes ``left.bin``/``right.bin`` ((1, D, H, W) float32 cost
 volumes) and ``disp.bin`` ((1, 1, H, W)) to the working directory; time
-prints the fastest of N runs on a synthetic pair, in seconds. The other
-actions are not ported yet (ROADMAP.md, queue 1).
+prints the fastest of N runs on a synthetic pair, in seconds;
+train_tr / train_all train on the preprocessed set under ``-data_dir``,
+write ``net/net_<cmd_str>.npz`` and chain into test_te / submit;
+test_te / test_all print ``runtime err`` per image and the mean error
+as the last token; submit writes ``out/`` and ``out/submission.zip``.
+Not ported yet (ROADMAP.md, queue 1): the volume cache
+(``-use_cache``/``-make_cache``), ``.t7`` checkpoints, the preprocess
+scripts and several cards.
 """
 
 from __future__ import annotations
@@ -22,43 +29,37 @@ import torch
 
 from mccnn_tpu_torch.config import Config, parse_args, print_args
 from mccnn_tpu_torch.data.bin_io import write_raw_float32
-from mccnn_tpu_torch.models import towers
-from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
+from mccnn_tpu_torch.models import checkpoint, towers
+from mccnn_tpu_torch.pipeline import device_of, stereo_predict
 from mccnn_tpu_torch.utils import images as im
 
-
-def device_of(cfg: Config) -> torch.device:
-    """``-backend cpu`` runs on the host; otherwise CUDA device
-    ``-gpu`` (1-based), which must exist."""
-    if cfg.backend == "cpu":
-        return torch.device("cpu")
-    if cfg.backend not in ("", "cuda", "gpu"):
-        raise SystemExit(f"-backend must be cpu or cuda, got {cfg.backend!r}")
-    dev = resolve_device("cuda")
-    if not 1 <= cfg.gpu <= torch.cuda.device_count():
-        raise SystemExit(f"-gpu {cfg.gpu}: only {torch.cuda.device_count()} "
-                         "CUDA device(s) visible")
-    return torch.device(dev.type, cfg.gpu - 1)
+EVAL_ACTIONS = ("test_te", "test_all", "submit")
 
 
 def load_params(cfg: Config) -> towers.FastTower | towers.SlowNet | None:
-    """The network of ``-net_fname`` (an .npz of the JAX package's
-    checkpoints), or seeded random weights with a warning: a fast tower
-    for the fast arch, a slow net (tower and FC head) for the slow one.
-    None for ad and census, which need no network."""
+    """The network of ``-net_fname`` (an .npz checkpoint of either
+    package), or for ``-a predict`` and ``-a time`` seeded random weights
+    with a warning: a fast tower for the fast arch, a slow net (tower and
+    FC head) for the slow one. The evaluation actions of a learned arch
+    need ``-net_fname`` (main.lua:892-902): a random net would score
+    garbage behind one warning. None for ad and census, which need no
+    network."""
     if cfg.arch in ("ad", "census"):
         return None
+    if cfg.net_fname.endswith(".t7"):
+        raise SystemExit(f"{cfg.net_fname}: .t7 checkpoints are not ported "
+                         "yet (ROADMAP.md queue 1, item 14)")
     if cfg.net_fname:
-        net = towers.load_npz(cfg.net_fname)
+        net = checkpoint.load(cfg.net_fname)[0]
         if isinstance(net, towers.SlowNet) != (cfg.arch == "slow"):
             raise SystemExit(f"{cfg.net_fname}: not a {cfg.arch}-arch "
                              "checkpoint")
         return net
+    if cfg.a in EVAL_ACTIONS:
+        raise SystemExit(f"-a {cfg.a} with arch {cfg.arch} requires "
+                         "-net_fname (main.lua:892-902)")
     print("WARNING: no -net_fname given; using randomly initialized weights")
-    gen = torch.Generator().manual_seed(cfg.seed)
-    if cfg.arch == "slow":
-        return towers.init_slow(cfg, gen)
-    return towers.init_fast(cfg, gen)
+    return towers.init_net(cfg)
 
 
 def _sync(dev: torch.device) -> None:
@@ -119,7 +120,7 @@ def action_time(cfg: Config) -> None:
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     print(" ".join(argv))  # echo argv like main.lua:6-9
-    cfg, _ = parse_args(argv)
+    cfg, tail = parse_args(argv)
     if cfg.print_args:
         print_args(cfg)
         return
@@ -127,9 +128,12 @@ def main(argv: list[str] | None = None) -> None:
         action_predict(cfg)
     elif cfg.a == "time":
         action_time(cfg)
+    elif cfg.a in ("train_tr", "train_all"):
+        from mccnn_tpu_torch.train.trainer import action_train
+        action_train(cfg, tail)
     else:
-        raise SystemExit(f"-a {cfg.a} is not ported yet (ROADMAP.md queue 1, "
-                         "items 13 and 15); the port runs predict and time")
+        from mccnn_tpu_torch.train.evaluate import action_eval
+        action_eval(cfg, tail)
 
 
 if __name__ == "__main__":

@@ -120,7 +120,7 @@ class Config:
     # edge-padded up to multiples of bucket_hw and disp_max up to
     # multiples of bucket_d (padded disparities are NaN-masked, the
     # output is cropped back). -1 = auto (64/64 on mb, off elsewhere);
-    # 0/1 = off. Not ported yet.
+    # 0/1 = off (train/evaluate.py bucketed_predict).
     bucket_hw: int = -1
     bucket_d: int = -1
 
@@ -287,6 +287,11 @@ def parse_args(argv: list[str]) -> tuple[Config, list[str]]:
     ns = parser.parse_args(tail)
     cfg = Config(dataset=dataset, arch=arch, **vars(ns)).validate()
     return cfg, tail
+
+
+def cmd_str(cfg: Config, tail: list[str]) -> str:
+    """Artifact-name string: dataset_arch_<raw flags> (main.lua:344-347)."""
+    return "_".join([cfg.dataset, cfg.arch] + [str(t) for t in tail])
 
 
 def print_args(cfg: Config) -> None:

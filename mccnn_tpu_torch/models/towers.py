@@ -1,13 +1,16 @@
-"""The matching networks, image mode (main.lua:660-749).
+"""The matching networks (main.lua:660-749).
 
-- fast (main.lua:726-748): l1 conv(ks×ks, fm) layers with SAME padding
-  and ReLU between them (none after the last), then per-pixel L2
-  normalization.
+- fast (main.lua:726-748): l1 conv(ks×ks, fm) layers with ReLU between
+  them (none after the last), then per-pixel L2 normalization.
 - slow (main.lua:663-695): l1 conv layers with ReLU after every one and
   no normalization, then the FC head over concatenated descriptors:
   l2 Linear(nh2) + ReLU layers, Linear(nh2 -> 1), sigmoid.
 
-The patch (VALID) mode waits for training (ROADMAP.md, queue 1).
+One set of weights drives both modes of the towers (``apply_tower``'s
+``padding``, mccnn_tpu/models/towers.py:70-93): ``padding="same"``, the
+image mode of prediction (the reference's test net pads by ks // 2,
+main.lua:680-683, 738-746), and ``padding="valid"``, the patch mode of
+training, where a ws×ws patch gives one (fm, 1, 1) descriptor.
 
 Both towers take the compute dtype of ``-dtype`` (``apply_tower``,
 mccnn_tpu/models/towers.py:70-93): in a 16-bit dtype every layer's
@@ -16,22 +19,27 @@ the bias added in float32 and the sum rounded once, and ReLU and the L2
 normalization run on the rounded values; the output is widened to
 float32. The layer is the float32 convolution of the rounded operands
 (:func:`_conv`): a cuDNN bf16 convolution would round its sum before
-the bias add, twice where the JAX package rounds once.
+the bias add, twice where the JAX package rounds once. The casts are
+autograd's, so the backward pass rounds the gradients where the JAX
+package's ``convert_element_type`` transposes round them. The slow
+head's :meth:`SlowNet.score` rounds as ``apply_head`` does
+(mccnn_tpu/models/towers.py:103-120).
 
 Weights are interchangeable with the JAX package's parameter tree
 ``{"tower": [{"w": (ks, ks, cin, cout), "b": (cout,)}], "head":
 [{"w": (n_in, n_out), "b": (n_out,)}]}`` (HWIO convs, (in, out)
-dense layers): :func:`params_from_numpy` converts it, :func:`load_npz`
-reads its ``.npz`` checkpoints.
+dense layers): :func:`params_from_numpy` converts it,
+:func:`params_to_numpy` converts back, and ``models/checkpoint.py``
+reads and writes its ``.npz`` checkpoints.
 """
 
 from __future__ import annotations
 
 import math
-import re
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -42,35 +50,47 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return x / torch.sqrt((x * x).sum(dim=1, keepdim=True) + eps)
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+PADDINGS = ("same", "valid")
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
+          padding: str) -> torch.Tensor:
     """One conv layer in ``dtype``: as it is in float32; otherwise
     ``x`` (already in ``dtype``) and the weights rounded to it, summed
     in float32 (the caller turns TF32 off), the bias added in float32
-    and the result rounded to ``dtype``."""
+    and the result rounded to ``dtype``. ``padding``: "same" pads by
+    ks // 2, "valid" not at all."""
+    pad = conv.kernel_size[0] // 2 if padding == "same" else 0
     if dtype == torch.float32:
-        return conv(x)
-    h = torch.nn.functional.conv2d(x.float(), conv.weight.to(dtype).float(),
-                                   None, padding=conv.padding)
+        return F.conv2d(x, conv.weight, conv.bias, padding=pad)
+    h = F.conv2d(x.float(), conv.weight.to(dtype).float(), None, padding=pad)
     return (h + conv.bias[:, None, None]).to(dtype)
+
+
+def _check_padding(padding: str) -> None:
+    if padding not in PADDINGS:
+        raise ValueError(f"padding must be one of {PADDINGS}, got {padding!r}")
 
 
 class FastTower(nn.Module):
     """Conv tower over (N, n_input_plane, H, W) images; returns
-    L2-normalized (N, fm, H, W) features at full resolution."""
+    L2-normalized (N, fm, H, W) features at full resolution, or
+    (N, fm, H - ws + 1, W - ws + 1) with ``padding="valid"``."""
 
     def __init__(self, l1: int, fm: int, ks: int, n_input_plane: int = 1):
         super().__init__()
         if ks % 2 != 1:
             raise ValueError(f"SAME padding needs an odd kernel size, got {ks}")
         self.convs = nn.ModuleList(
-            nn.Conv2d(n_input_plane if i == 0 else fm, fm, ks, padding=ks // 2)
+            nn.Conv2d(n_input_plane if i == 0 else fm, fm, ks)
             for i in range(l1))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                padding: str = "same") -> torch.Tensor:
+        _check_padding(padding)
         x = x.to(dtype)
         for i, conv in enumerate(self.convs):
-            x = _conv(conv, x, dtype)
+            x = _conv(conv, x, dtype, padding)
             if i < len(self.convs) - 1:
                 x = torch.relu(x)
         return l2_normalize(x).float()
@@ -88,26 +108,40 @@ class SlowNet(nn.Module):
         if ks % 2 != 1:
             raise ValueError(f"SAME padding needs an odd kernel size, got {ks}")
         self.convs = nn.ModuleList(
-            nn.Conv2d(n_input_plane if i == 0 else fm, fm, ks, padding=ks // 2)
+            nn.Conv2d(n_input_plane if i == 0 else fm, fm, ks)
             for i in range(l1))
         self.head = nn.ModuleList(
             [nn.Linear(2 * fm if i == 0 else nh2, nh2) for i in range(l2)]
             + [nn.Linear(nh2, 1)])
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                padding: str = "same") -> torch.Tensor:
+        _check_padding(padding)
         x = x.to(dtype)
         for conv in self.convs:
-            x = torch.relu(_conv(conv, x, dtype))
+            x = torch.relu(_conv(conv, x, dtype, padding))
         return x.float()
 
-    def score(self, pair: torch.Tensor) -> torch.Tensor:
+    def score(self, pair: torch.Tensor, dtype: torch.dtype = torch.float32
+              ) -> torch.Tensor:
         """(..., 2*fm) -> (...,) sigmoid match score, a dissimilarity
-        (main.lua:670-675, 848-849)."""
-        h = pair
+        (main.lua:670-675, 848-849). In a 16-bit ``dtype`` each layer's
+        operands are rounded to it, the product summed in float32 plus
+        the bias, then ReLU and a round to ``dtype``; the last layer's
+        sum stays float32 for the sigmoid (``apply_head``). On CUDA the
+        caller keeps TF32 off (``torch.backends.cuda.matmul``)."""
+        if dtype == torch.float32:
+            h = pair
+            for layer in self.head[:-1]:
+                h = torch.relu(layer(h))
+            return torch.sigmoid(self.head[-1](h))[..., 0]
+        h = pair.to(dtype)
         for layer in self.head[:-1]:
-            h = torch.relu(layer(h))
-        return torch.sigmoid(self.head[-1](h))[..., 0]
+            h = F.linear(h.float(), layer.weight.to(dtype).float(), layer.bias)
+            h = torch.relu(h).to(dtype)
+        last = self.head[-1]
+        h = F.linear(h.float(), last.weight.to(dtype).float(), last.bias)
+        return torch.sigmoid(h)[..., 0]
 
 
 def _torch_init(modules, generator: torch.Generator) -> None:
@@ -138,6 +172,18 @@ def init_slow(cfg, generator: torch.Generator) -> SlowNet:
     return net
 
 
+def init_net(cfg) -> FastTower | SlowNet | None:
+    """The network of ``cfg.arch`` with Torch's default init drawn from
+    a generator seeded with ``cfg.seed``: a fast tower, a slow net, or
+    None for ad and census, which use none."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.arch == "fast":
+        return init_fast(cfg, gen)
+    if cfg.arch == "slow":
+        return init_slow(cfg, gen)
+    return None
+
+
 def params_from_numpy(tree) -> FastTower | SlowNet:
     """The network holding the JAX parameter tree's weights: a
     :class:`FastTower` when the head is empty, else a :class:`SlowNet`.
@@ -165,26 +211,55 @@ def params_from_numpy(tree) -> FastTower | SlowNet:
     return net
 
 
-_KEY = re.compile(r"^params\['(tower|head)'\]\[(\d+)\]\['([wb])'\]$")
+def params_to_numpy(net: FastTower | SlowNet,
+                    tensors: list[torch.Tensor] | None = None) -> dict:
+    """The inverse of :func:`params_from_numpy`: the JAX parameter tree
+    of numpy float32 arrays, conv kernels HWIO, dense weights
+    (n_in, n_out). ``tensors``: one tensor a parameter in
+    ``net.parameters()`` order (such as the trainer's momentum), laid
+    out the same way; default the parameters themselves."""
+    params = list(net.parameters())
+    tensors = params if tensors is None else list(tensors)
+    if len(tensors) != len(params):
+        raise ValueError(f"{len(tensors)} tensors for {len(params)} "
+                         "parameters")
+    it = iter(t.detach().float().cpu().numpy() for t in tensors)
+
+    def layers(mods, perm):
+        return [{"w": np.ascontiguousarray(next(it).transpose(perm)),
+                 "b": next(it)} for _ in mods]
+
+    tree = {"tower": layers(net.convs, (2, 3, 1, 0))}
+    tree["head"] = layers(getattr(net, "head", []), (1, 0))
+    return tree
 
 
-def load_npz(fname: str) -> FastTower | SlowNet:
-    """Read a checkpoint written by the JAX package
-    (``models/checkpoint.py``: keys ``params['tower'][i]['w']`` and, for
-    the slow arch, ``params['head'][i]['w']``)."""
-    parts: dict[str, dict[int, dict]] = {"tower": {}, "head": {}}
-    with np.load(fname, allow_pickle=False) as data:
-        for key in data.files:
-            m = _KEY.match(key)
-            if m:
-                parts[m.group(1)].setdefault(int(m.group(2)), {})[
-                    m.group(3)] = data[key]
-    tree = {}
-    for name, layers in parts.items():
-        if sorted(layers) != list(range(len(layers))) \
-                or any(len(v) != 2 for v in layers.values()):
-            raise ValueError(f"{fname}: incomplete params['{name}'] layers")
-        tree[name] = [layers[i] for i in range(len(layers))]
-    if not tree["tower"]:
-        raise ValueError(f"{fname}: no params['tower'] layers")
-    return params_from_numpy(tree)
+def print_net(cfg) -> None:
+    """Topology printer: one line per layer of the training net, the
+    shape the reference prints at net construction (print_net,
+    main.lua:542-564, called at main.lua:751), line for line as the JAX
+    package prints it."""
+    n_in = cfg.n_input_plane
+    lines = []
+    if cfg.arch == "slow":
+        for i in range(cfg.l1):
+            lines.append(f"conv(in={n_in if i == 0 else cfg.fm}, "
+                         f"out={cfg.fm}, k={cfg.ks})")
+            lines.append("relu")
+        lines.append(f"reshape({cfg.bs}x{2 * cfg.fm})")
+        for i in range(cfg.l2):
+            lines.append(f"linear({2 * cfg.fm if i == 0 else cfg.nh2} "
+                         f"-> {cfg.nh2})")
+            lines.append("relu")
+        lines.append(f"linear({cfg.nh2} -> 1)")
+        lines.append("sigmoid")
+    elif cfg.arch == "fast":
+        # ReLU between convs but not after the last (main.lua:726-735)
+        for i in range(cfg.l1):
+            lines.append(f"conv(in={n_in if i == 0 else cfg.fm}, "
+                         f"out={cfg.fm}, k={cfg.ks})")
+            if i < cfg.l1 - 1:
+                lines.append("relu")
+        lines.append("l2_normalize")
+        lines.append("stereo_join1")
+    print("\n".join(lines))

@@ -63,6 +63,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_of(cfg: Config) -> torch.device:
+    """The device of the command-line actions: ``-backend cpu`` runs on
+    the host; otherwise CUDA device ``-gpu`` (1-based), which must
+    exist."""
+    if cfg.backend == "cpu":
+        return torch.device("cpu")
+    if cfg.backend not in ("", "cuda", "gpu"):
+        raise SystemExit(f"-backend must be cpu or cuda, got {cfg.backend!r}")
+    dev = resolve_device("cuda")
+    if not 1 <= cfg.gpu <= torch.cuda.device_count():
+        raise SystemExit(f"-gpu {cfg.gpu}: only {torch.cuda.device_count()} "
+                         "CUDA device(s) visible")
+    return torch.device(dev.type, cfg.gpu - 1)
+
+
 def _active_after(terminate: str, stage: str) -> bool:
     """Whether the method is still active after `stage`, given
     -sm_terminate. Stage order per main.lua:988-1075."""
@@ -86,7 +101,7 @@ def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
 
 
 def _check_lane(cfg: Config, hwd: bool) -> None:
-    """The volume cache is not ported yet (its ROADMAP item is named).
+    """The volume cache is not ported yet (it names its ROADMAP item).
     The ``-vol_dtype`` contract of ``check_vol_dtype``
     (mccnn_tpu/pipeline.py:445-465): 16-bit volume storage exists only
     on the HWD lane (``hwd``), and a configuration that would run the
@@ -95,8 +110,9 @@ def _check_lane(cfg: Config, hwd: bool) -> None:
     Mosaic dialect has no float16 vectors there; the H100's kernels
     store it as they store bfloat16 (``cvt.rn.f16x2.f32``)."""
     if cfg.use_cache or cfg.make_cache:
-        raise NotImplementedError("the volume cache is not ported yet "
-                                  "(ROADMAP.md queue 1, item 15)")
+        raise NotImplementedError("the volume cache (-use_cache, "
+                                  "-make_cache) is not ported yet (ROADMAP.md "
+                                  "queue 1, item 15, the volume cache)")
     if cfg.vol_dtype != "float32" and not hwd:
         raise ValueError(
             f"-vol_dtype {cfg.vol_dtype} requires the fast HWD lane (fast "

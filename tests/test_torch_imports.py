@@ -34,7 +34,9 @@ def test_guard_sees_every_file():
     assert all(f.exists() for f in FILES)
     names = {str(f.relative_to(ROOT)) for f in FILES}
     for module in ("ops/slow_head.py", "ops/cross.py", "ops/sgm.py",
-                   "ops/costs.py", "ops/join.py", "cli.py", "models/towers.py", "pipeline.py", "profile_predict.py"):
+                   "ops/costs.py", "ops/join.py", "cli.py", "models/towers.py", "pipeline.py", "profile_predict.py",
+                   "data/datasets.py", "train/trainer.py", "train/augment.py",
+                   "train/evaluate.py"):
         assert f"mccnn_tpu_torch/{module}" in names, module
 
 

@@ -630,3 +630,47 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             sweep(z, z[:, :, 0], z, tau=0.1, pen=pen)
         with pytest.raises(ValueError, match="CUDA tensor"):
             sweep(z, d1.cpu(), z, tau=0.1, pen=pen)
+
+
+@pytest.mark.parametrize("arch", ["fast", "slow"])
+def test_train_chunk_on_the_card_matches_the_cpu(dev, tmp_path, arch):
+    """chip_smoke.py phase 8's card-against-CPU check at a small width
+    (l1 = 2, fm = 16, bs = 32 on a 64x128 synthetic KITTI set): four
+    steps of one sampled chunk from the same weights, the window gather
+    on the card and on the CPU; TF32 off, so the per-step losses agree
+    within 1e-5 relative and the weights within 1e-6, and the training
+    launches none of the hand kernels."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.train import augment, trainer
+
+    datasets.make_synthetic_kitti(str(tmp_path / "data.kitti"), n_images=2,
+                                  height=64, width=128, disp_max=16)
+    over = dict(l1=2, fm=16, bs=32, data_dir=str(tmp_path))
+    if arch == "slow":
+        over.update(l2=2, nh2=32)
+    cfg = make_config("kitti", arch, **over)
+    ds = datasets.load_kitti(cfg)
+    X0, X1 = np.asarray(ds.X0), np.asarray(ds.X1)
+    chunk = trainer.stack_chunk(
+        augment.AugmentSampler(cfg, np.random.RandomState(0)), ds,
+        ds.nnz_tr[:64], 4, 16, X0, X1, device_gather=True)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        net = towers.init_net(cfg).to(d)
+        mom = [torch.zeros_like(p) for p in net.parameters()]
+        _build.reset_launches()
+        errs = trainer.train_chunk(
+            cfg, net, mom, cfg.lr,
+            {k: torch.as_tensor(v, device=d) for k, v in chunk.items()},
+            augment.pad_image_stack(X0, X1, d))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert not any(_build.launches().values())
+        runs[where] = errs.cpu(), [p.detach().cpu() for p in net.parameters()]
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-7)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

@@ -12,7 +12,7 @@ import torch
 from mccnn_tpu.config import make_config
 from mccnn_tpu.models import checkpoint, towers as jtowers
 from mccnn_tpu.ops.slow_head_pallas import slow_head_volume_mxu
-from mccnn_tpu_torch.models import towers
+from mccnn_tpu_torch.models import checkpoint as port_checkpoint, towers
 from mccnn_tpu_torch.ops import slow_head
 
 
@@ -106,7 +106,7 @@ def test_load_npz_reads_slow_checkpoint(tmp_path):
     cfg = make_config("kitti", "slow", l1=2, fm=8, l2=3, nh2=16)
     tree = _tree(cfg, seed=5)
     fname = checkpoint.save(str(tmp_path / "net.npz"), tree, {"epoch": 1})
-    loaded = towers.load_npz(fname)
+    loaded = port_checkpoint.load(fname)[0]
     direct = towers.params_from_numpy(_np(tree))
     assert isinstance(loaded, towers.SlowNet)
     assert len(loaded.convs) == 2 and len(loaded.head) == 4
@@ -116,7 +116,7 @@ def test_load_npz_reads_slow_checkpoint(tmp_path):
     assert torch.equal(loaded.head[1].weight, torch.as_tensor(w1).T)
     ftree = jtowers.init_fast(jax.random.PRNGKey(1), l1=2, fm=8, ks=3)
     fname = checkpoint.save(str(tmp_path / "fast.npz"), ftree, {})
-    assert isinstance(towers.load_npz(fname), towers.FastTower)
+    assert isinstance(port_checkpoint.load(fname)[0], towers.FastTower)
 
 
 def test_init_slow_is_seeded_and_bounded():

@@ -6,7 +6,7 @@ import torch
 
 from mccnn_tpu.config import make_config
 from mccnn_tpu.models import checkpoint, towers as jtowers
-from mccnn_tpu_torch.models import towers
+from mccnn_tpu_torch.models import checkpoint as port_checkpoint, towers
 
 
 def _jax_tree(cfg, seed=0):
@@ -36,7 +36,7 @@ def test_load_npz_reads_jax_checkpoint(tmp_path):
     cfg = make_config("kitti", "fast", l1=2, fm=8)
     tree = _jax_tree(cfg, seed=5)
     fname = checkpoint.save(str(tmp_path / "net.npz"), tree, {"epoch": 1})
-    loaded = towers.load_npz(fname)
+    loaded = port_checkpoint.load(fname)[0]
     direct = towers.params_from_numpy(jax.tree_util.tree_map(np.asarray, tree))
     assert len(loaded.convs) == 2
     for a, b in zip(loaded.state_dict().values(), direct.state_dict().values()):

@@ -102,7 +102,26 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    chunk whose positive and negative patches are swapped (losses above
    0) bit-equal; mb fast for 8 steps on the host
    gather against the CPU, and its ``test_te`` through the 64-buckets
-   (launch counts, the map against the CPU's).
+   (launch counts, the map against the CPU's);
+9. the modules that close the reference's working loop
+   (``cache_phase``), on phase 4's pair at 370x1226, D=228: the seeded
+   kitti fast net's first weights, which must be the JAX package's
+   ``init_params`` at seed 42; the seeded kitti fast and kitti slow nets
+   dumped as ``.t7`` and loaded through ``cli.load_params``
+   (``-net_fname x.t7``): file sizes, load seconds, maps bit-identical
+   to the in-memory nets' with phase 4's and phase 5's launch counts;
+   the volume cache on kitti slow (the generic lane), in a directory
+   under ``build/``: seconds a pair uncached, cache-making
+   (``-make_cache``, the head launched once, the ``.npz`` size) and
+   cached (``-use_cache``, the head launched no time), the three maps
+   bit-identical; the host gather on phase 8's synthetic Middlebury set
+   at 240x320: a chunk's windows from the C++ gather bit-identical to
+   the numpy gather's, a chunk build's time with each, and mb fast
+   ``train()`` steps/s with each (native, numpy, numpy, native), with
+   whether the numpy build hides behind a chunk on the card; whether PIL
+   imports, and where it does, ``preprocess_kitti`` on a raw tree of
+   the fixed counts with ``HEIGHT, WIDTH`` cut to 64x128, then one
+   chunk trained on the card from its output through ``load_kitti``.
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
@@ -625,6 +644,279 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
     print(f"  phase 8 took {time.perf_counter() - t8:.0f} s")
 
 
+# the first conv's weight[:3, 0, 0, 0] (OIHW) of the default seeded kitti
+# fast net: the JAX package's init_params at seed 42
+JAX_SEED42_W = (-0.1761167, 0.293127, -0.20261869)
+
+
+def _kitti_raw(root: str, h: int, w: int) -> None:
+    """A raw KITTI 2012 tree of the fixed counts (194 training pairs with
+    ground truth, 195 testing pairs) of h x w textured gray PNGs."""
+    from PIL import Image
+
+    rng = np.random.RandomState(4)
+    for split, n in (("training", 194), ("testing", 195)):
+        base = os.path.join(root, "data.kitti", "unzip", split)
+        for sub in ("image_0", "image_1") + (("disp_noc",)
+                                             if split == "training" else ()):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        for i in range(n):
+            name = f"{i:06d}_10.png"
+            shift = 8 + i % 8
+            img = rng.randint(0, 256, (h, w + shift)).astype(np.uint8)
+            Image.fromarray(img[:, shift:]).save(
+                os.path.join(base, "image_0", name))
+            Image.fromarray(img[:, :-shift]).save(
+                os.path.join(base, "image_1", name))
+            if split == "training":
+                gt = np.full((h, w), shift * 256, np.uint16)
+                Image.fromarray(gt).save(os.path.join(base, "disp_noc", name))
+
+
+def cache_phase(torch, dev, x0, x1, fast_want: dict, slow_want: dict,
+                disp_max: int = D, kitti_cut=(64, 128)) -> None:
+    """Phase 9 (see the module docstring): the seeded init, ``.t7`` nets,
+    the volume cache, the host gather and the preprocess script, on the
+    pair ``x0, x1`` of phase 4 at ``disp_max``."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from mccnn_tpu_torch import cli
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.models.import_t7 import params_to_t7
+    from mccnn_tpu_torch.ops import _build, host_gather
+    from mccnn_tpu_torch.pipeline import stereo_predict
+    from mccnn_tpu_torch.train import augment, trainer
+
+    t9 = time.perf_counter()
+    h, w = x0.shape
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase9_", dir=os.path.join(ROOT, "build"))
+    cwd = os.getcwd()
+    try:
+        # 1. the seeded init is the JAX package's
+        fast_cfg = make_config("kitti", "fast", a="predict")
+        slow_cfg = make_config("kitti", "slow", a="predict")
+        fast = towers.init_net(fast_cfg)
+        w0 = fast.convs[0].weight[:3, 0, 0, 0].detach().numpy()
+        print(f"phase 9: kitti fast, seed {fast_cfg.seed}: first conv "
+              f"weight[:3, 0, 0, 0] = {w0.tolist()} (the JAX package's "
+              f"init_params: {list(JAX_SEED42_W)})")
+        check(np.array_equal(w0, np.array(JAX_SEED42_W, np.float32)),
+              f"seeded init {w0.tolist()} is not the JAX package's")
+
+        # 2. .t7 nets through -net_fname, on the card
+        x0_, x1_ = (torch.as_tensor(v, device=dev) for v in (x0, x1))
+        for arch, cfg, net, want in (("fast", fast_cfg, fast, fast_want),
+                                     ("slow", slow_cfg,
+                                      towers.init_net(slow_cfg), slow_want)):
+            path = os.path.join(tmp, f"{arch}.t7")
+            t = time.perf_counter()
+            params_to_t7(net, path, arch=arch, disp_max=disp_max)
+            dump_s = time.perf_counter() - t
+            cfg = dataclasses.replace(cfg, net_fname=path)
+            t = time.perf_counter()
+            loaded = cli.load_params(cfg)
+            load_s = time.perf_counter() - t
+            ref = stereo_predict(cfg, net, x0_, x1_, disp_max, device=dev)
+            _build.reset_launches()
+            got = stereo_predict(cfg, loaded, x0_, x1_, disp_max, device=dev)
+            torch.cuda.synchronize()
+            counts = _build.launches()
+            same = torch.equal(got, ref)
+            print(f"phase 9: kitti {arch} .t7: {os.path.getsize(path)} bytes, "
+                  f"dumped in {dump_s:.2f} s, loaded through "
+                  f"cli.load_params in {load_s:.2f} s; map "
+                  f"{'bit-identical to' if same else 'DIFFERS from'} the "
+                  f"in-memory net's; launches {counts}")
+            check(same, f"{arch}: the .t7 net's map differs")
+            check(counts == want, f"{arch} .t7: launch counts {counts}, "
+                  f"expected {want}")
+            del loaded, ref, got
+
+        # 3. the volume cache: kitti slow on the generic lane
+        os.chdir(tmp)
+        snet = towers.init_net(slow_cfg).to(dev).eval()
+        runs = {}
+        for what, over, pair_id in (("uncached", {}, None),
+                                    ("cache-making", {"make_cache": True}, 9),
+                                    ("cached", {"use_cache": True}, 9)):
+            cfg = dataclasses.replace(slow_cfg, **over)
+            secs = []
+            for _ in range(1 if what == "cache-making" else 2):
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d = stereo_predict(cfg, snet, x0_, x1_, disp_max,
+                                   device=dev, pair_id=pair_id)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                counts = _build.launches()
+            runs[what] = d, secs, counts
+        size = os.path.getsize(os.path.join("cache", "9.npz"))
+        for what, (d, secs, counts) in runs.items():
+            print(f"phase 9: kitti slow {what}: "
+                  f"{[round(s, 3) for s in secs]} s a pair; slow_head "
+                  f"{counts['slow_head']}, launches {counts}")
+        print(f"  cache/9.npz: {size} bytes ({size / 2**30:.3f} GiB; 2 x "
+              f"{disp_max} x {h} x {w} float32 is "
+              f"{2 * disp_max * h * w * 4} bytes)")
+        base = runs["uncached"][0]
+        for what, want in (("uncached", slow_want),
+                           ("cache-making", slow_want),
+                           ("cached", dict(slow_want, slow_head=0))):
+            check(runs[what][2] == want, f"{what}: launch counts "
+                  f"{runs[what][2]}, expected {want}")
+        check(all(torch.equal(base, r[0]) for r in runs.values()),
+              "the cached maps differ from the uncached one")
+        check(size >= 2 * disp_max * h * w * 4, f"cache file of {size} bytes")
+        os.chdir(cwd)
+        del snet, runs, base
+
+        # 4. the host gather: phase 8's synthetic Middlebury set at
+        # 240x320 (its 48x96 frame holds less than a chunk), its table cut
+        # to 4 chunks an epoch; native and numpy
+        mdir = os.path.join(tmp, "data.mb.imperfect_gray")
+        datasets.make_synthetic_mb(mdir, height=240, width=320)
+        mcfg = make_config("mb", "fast", a="train_tr", data_dir=tmp)
+        mds = datasets.load_mb(mcfg)
+        bs_half = mcfg.bs // 2
+        mds = dataclasses.replace(
+            mds, nnz_tr=mds.nnz_tr[:4 * trainer.CHUNK_STEPS * bs_half + 1])
+        rows = mds.nnz_tr[:trainer.CHUNK_STEPS * bs_half]
+        native = host_gather.gather_windows_from
+
+        def numpy_gather(srcs, oy, ox, win):
+            z = np.zeros(1, np.int64)
+            return np.stack([augment._gather_windows(
+                s[None, None], z, oy[i:i + 1], ox[i:i + 1])[0]
+                for i, s in enumerate(srcs)])
+
+        def build_chunk():
+            t = time.perf_counter()
+            c = trainer.stack_chunk(
+                augment.AugmentSampler(mcfg, np.random.RandomState(6)), mds,
+                rows, trainer.CHUNK_STEPS, bs_half)
+            return c, time.perf_counter() - t
+
+        builds = {"native": [], "numpy": []}
+        chunks = {}
+        for gather in ("native", "numpy", "native", "numpy"):
+            host_gather.gather_windows_from = (native if gather == "native"
+                                               else numpy_gather)
+            try:
+                chunks[gather], secs = build_chunk()
+            finally:
+                host_gather.gather_windows_from = native
+            builds[gather].append(secs * 1e3)
+        a = chunks["native"]["windows"].view(np.uint32)
+        b = chunks["numpy"]["windows"].view(np.uint32)
+        same = a.shape == b.shape and bool((a == b).all())
+        print(f"phase 9: mb chunk of {trainer.CHUNK_STEPS} steps "
+              f"({4 * len(rows)} windows of {augment.WIN}x{augment.WIN}): "
+              f"native windows {'bit-identical to' if same else 'DIFFER from'}"
+              f" the numpy ones; build {[round(v, 1) for v in builds['native']]}"
+              f" ms native, {[round(v, 1) for v in builds['numpy']]} ms numpy")
+        check(same, "the native host gather differs from numpy")
+
+        rates = {"native": [], "numpy": []}
+        chunk_ms = {"native": [], "numpy": []}
+        orig_chunk = trainer.train_chunk
+        for gather in ("native", "numpy", "numpy", "native"):
+            secs = []
+
+            def timed_chunk(*a, **kw):
+                t = time.perf_counter()
+                errs = orig_chunk(*a, **kw)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                return errs
+
+            lines = []
+            host_gather.gather_windows_from = (native if gather == "native"
+                                               else numpy_gather)
+            trainer.train_chunk = timed_chunk
+            try:
+                trainer.train(mcfg, mds, towers.init_net(mcfg), epochs=3,
+                              log=lines.append, device=dev)
+            finally:
+                host_gather.gather_windows_from = native
+                trainer.train_chunk = orig_chunk
+            clock = [float(ln.split("\t")[3]) for ln in lines]
+            n_steps = trainer.n_epoch_steps(len(mds.nnz_tr), bs_half)
+            rates[gather].append(2 * n_steps / (clock[-1] - clock[0]))
+            chunk_ms[gather].append(1e3 * statistics.median(secs[1:]))
+        print(f"phase 9: mb fast train(), {n_steps} steps an epoch, epochs "
+              f"2-3 end to end: native {[round(r, 1) for r in rates['native']]}"
+              f" steps/s, numpy {[round(r, 1) for r in rates['numpy']]} "
+              f"steps/s (order native, numpy, numpy, native); a chunk on the "
+              f"card {[round(v, 1) for v in chunk_ms['native'] + chunk_ms['numpy']]}"
+              f" ms (median)")
+        hidden = max(builds["numpy"]) < min(chunk_ms["native"]
+                                            + chunk_ms["numpy"])
+        print(f"  the numpy gather's chunk build "
+              f"({max(builds['numpy']):.1f} ms) is "
+              f"{'shorter' if hidden else 'longer'} than a chunk on the card "
+              f"({min(chunk_ms['native'] + chunk_ms['numpy']):.1f} ms): "
+              f"{'hidden' if hidden else 'not hidden'} on its thread")
+
+        # 5. the preprocess script, where PIL imports
+        try:
+            import PIL
+        except ImportError as e:
+            print(f"phase 9: PIL does not import on this machine ({e}): "
+                  "the preprocess step did not run (the CPU tests hold both "
+                  "preprocess scripts to the JAX package's, byte for byte)")
+        else:
+            from mccnn_tpu_torch.data import preprocess_kitti
+
+            hk, wk = kitti_cut
+            print(f"phase 9: PIL {PIL.__version__} imports; preprocess_kitti "
+                  f"with HEIGHT, WIDTH cut from "
+                  f"{preprocess_kitti.HEIGHT}x{preprocess_kitti.WIDTH} to "
+                  f"{hk}x{wk}")
+            t = time.perf_counter()
+            _kitti_raw(tmp, hk + 6, wk - 8)
+            cut = preprocess_kitti.HEIGHT, preprocess_kitti.WIDTH
+            preprocess_kitti.HEIGHT, preprocess_kitti.WIDTH = hk, wk
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    preprocess_kitti.preprocess_one(tmp, 2012)
+            finally:
+                preprocess_kitti.HEIGHT, preprocess_kitti.WIDTH = cut
+            kcfg = make_config("kitti", "fast", a="train_tr", data_dir=tmp)
+            kds = datasets.load_kitti(kcfg)
+            X0 = np.asarray(kds.X0[:, 0])[:, None]
+            X1 = np.asarray(kds.X1[:, 0])[:, None]
+            kb = kcfg.bs // 2
+            chunk = trainer.stack_chunk(
+                augment.AugmentSampler(kcfg, np.random.RandomState(7)), kds,
+                kds.nnz_tr[:trainer.CHUNK_STEPS * kb], trainer.CHUNK_STEPS,
+                kb, X0, X1, device_gather=True)
+            net = towers.init_net(kcfg).to(dev)
+            mom = [torch.zeros_like(p) for p in net.parameters()]
+            errs = trainer.train_chunk(
+                kcfg, net, mom, kcfg.lr,
+                {k: torch.as_tensor(v, device=dev) for k, v in chunk.items()},
+                augment.pad_image_stack(X0, X1, dev)).cpu()
+            print(f"  raw tree of 389 pairs and 194 ground truths, "
+                  f"preprocessed and {trainer.CHUNK_STEPS} steps trained on "
+                  f"the card from load_kitti ({len(kds.nnz_tr)} rows) in "
+                  f"{time.perf_counter() - t:.1f} s: losses "
+                  f"{float(errs[0]):.5f} -> {float(errs[-1]):.5f}")
+            check(X0.shape == (389, 1, hk, wk), f"x0 {X0.shape}")
+            check(bool(torch.isfinite(errs).all()), "losses not finite")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 9 took {time.perf_counter() - t9:.0f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -647,7 +939,8 @@ def main() -> int:
     print(card)
 
     secs = _build.build()
-    print(f"phase 2: built {len(_build.SOURCES)} sources in {secs:.1f} s")
+    print(f"phase 2: built {len(_build.SOURCES)} CUDA sources and "
+          f"{len(_build.HOST_SOURCES)} host source in {secs:.1f} s")
     for name in _build.SOURCES:
         log = _build.log_path(name)
         for line in (log.read_text().splitlines() if log.exists() else []):
@@ -655,7 +948,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     cfg = make_config("kitti", "fast", a="predict")
-    tower = towers.init_fast(cfg, torch.Generator().manual_seed(cfg.seed))
+    tower = towers.init_fast(cfg, cfg.seed)
     rng = np.random.RandomState(0)
     x0, x1 = kitti_pair(rng, H, W, SHIFT)
     rows = {}
@@ -951,7 +1244,7 @@ def main() -> int:
 
     # the slow-arch path's two new kernels at kitti slow shapes
     scfg = make_config("kitti", "slow", a="predict")
-    snet = towers.init_slow(scfg, torch.Generator().manual_seed(scfg.seed))
+    snet = towers.init_slow(scfg, scfg.seed)
     snet = snet.to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
@@ -1195,8 +1488,7 @@ def main() -> int:
     m0_, m1_ = (torch.as_tensor(v, device=dev) for v in (m0, m1))
     mimages = torch.stack([m0_, m1_])[:, None]
     mfcfg = make_config("mb", "fast", a="predict")
-    mtower = towers.init_fast(mfcfg, torch.Generator().manual_seed(
-        mfcfg.seed)).to(dev)
+    mtower = towers.init_fast(mfcfg, mfcfg.seed).to(dev)
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
         mfeats = mtower(mimages)
@@ -1312,8 +1604,7 @@ def main() -> int:
     # mb slow: its head over the whole volume, its blur, and the generic
     # lane's two stacked families with the -1 direction alone (-a time)
     mscfg = make_config("mb", "slow", a="time")
-    msnet = towers.init_slow(mscfg, torch.Generator().manual_seed(
-        mscfg.seed)).to(dev).eval()
+    msnet = towers.init_slow(mscfg, mscfg.seed).to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
         msf = msnet(mimages)
@@ -1452,8 +1743,8 @@ def main() -> int:
         check(good >= 0.9, f"{flag}: only {good:.4f} within 1 px")
 
     # --- phase 5: the slow-arch path ----------------------------------
-    hand = matching_head(towers.init_slow(
-        scfg, torch.Generator().manual_seed(scfg.seed)).to(dev), sfeats)
+    hand = matching_head(towers.init_slow(scfg, scfg.seed).to(dev),
+                         sfeats)
     del sfeats
     _build.reset_launches()
     disp = stereo_predict(scfg, hand, x0, x1, D)
@@ -1617,16 +1908,14 @@ def main() -> int:
         check(good >= 0.9, f"{what}: only {good:.4f} within 1 px")
 
     mcfg_t = make_config("mb", "fast", a="time")
-    mtower = towers.init_fast(mcfg_t, torch.Generator().manual_seed(
-        mcfg_t.seed)).to(dev)
+    mtower = towers.init_fast(mcfg_t, mcfg_t.seed).to(dev)
     mb_path("mb fast -a time (left direction)", mcfg_t, mtower,
             dict(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1), 10)
     mb_path("mb fast -a predict (both directions)",
             make_config("mb", "fast", a="predict"), mtower,
             dict(join=2, sgm_vertical=4, sgm_horizontal=4, blur=1), 10)
     mscfg = make_config("mb", "slow", a="time")
-    mhand = towers.init_slow(mscfg, torch.Generator().manual_seed(
-        mscfg.seed)).to(dev).eval()
+    mhand = towers.init_slow(mscfg, mscfg.seed).to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
         mfeats = mhand(torch.stack([m0_, m1_])[:, None])
@@ -1653,6 +1942,11 @@ def main() -> int:
     # --- phase 8: training on the card -----------------------------------
     torch.cuda.empty_cache()
     training_phase(torch, dev, fast_want)
+
+    # --- phase 9: seeded init, .t7 nets, the volume cache, the host gather,
+    # the preprocess script ------------------------------------------------
+    torch.cuda.empty_cache()
+    cache_phase(torch, dev, x0, x1, fast_want, slow_counts)
 
     # launches: each kernel's count on the path that runs it (entry
     # calls, and the kernel launches they made); the three shared ones

@@ -14,9 +14,11 @@ train_tr / train_all train on the preprocessed set under ``-data_dir``,
 write ``net/net_<cmd_str>.npz`` and chain into test_te / submit;
 test_te / test_all print ``runtime err`` per image and the mean error
 as the last token; submit writes ``out/`` and ``out/submission.zip``.
-Not ported yet (ROADMAP.md, queue 1): the volume cache
-(``-use_cache``/``-make_cache``), ``.t7`` checkpoints, the preprocess
-scripts and several cards.
+``-net_fname`` takes an ``.npz`` checkpoint of either package or a
+``.t7`` net in the reference's format; ``-make_cache`` / ``-use_cache``
+write and read the slow net's volumes under ``cache/``
+(``pipeline.compute_volumes``). Not ported yet (ROADMAP.md, queue 1):
+several cards.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from mccnn_tpu_torch.config import Config, parse_args, print_args
 from mccnn_tpu_torch.data.bin_io import write_raw_float32
 from mccnn_tpu_torch.models import checkpoint, towers
+from mccnn_tpu_torch.models.import_t7 import params_from_t7
 from mccnn_tpu_torch.pipeline import device_of, stereo_predict
 from mccnn_tpu_torch.utils import images as im
 
@@ -38,19 +41,21 @@ EVAL_ACTIONS = ("test_te", "test_all", "submit")
 
 def load_params(cfg: Config) -> towers.FastTower | towers.SlowNet | None:
     """The network of ``-net_fname`` (an .npz checkpoint of either
-    package), or for ``-a predict`` and ``-a time`` seeded random weights
-    with a warning: a fast tower for the fast arch, a slow net (tower and
-    FC head) for the slow one. The evaluation actions of a learned arch
+    package, or a ``.t7`` net in the reference's format), or for ``-a
+    predict`` and ``-a time`` seeded random weights with a warning: a
+    fast tower for the fast arch, a slow net (tower and FC head) for the
+    slow one, the JAX package's weights for the same ``-seed``. The
+    evaluation actions of a learned arch
     need ``-net_fname`` (main.lua:892-902): a random net would score
     garbage behind one warning. None for ad and census, which need no
     network."""
     if cfg.arch in ("ad", "census"):
         return None
-    if cfg.net_fname.endswith(".t7"):
-        raise SystemExit(f"{cfg.net_fname}: .t7 checkpoints are not ported "
-                         "yet (ROADMAP.md queue 1, item 14)")
     if cfg.net_fname:
-        net = checkpoint.load(cfg.net_fname)[0]
+        if cfg.net_fname.endswith(".t7"):
+            net = params_from_t7(cfg.net_fname)[0]
+        else:
+            net = checkpoint.load(cfg.net_fname)[0]
         if isinstance(net, towers.SlowNet) != (cfg.arch == "slow"):
             raise SystemExit(f"{cfg.net_fname}: not a {cfg.arch}-arch "
                              "checkpoint")

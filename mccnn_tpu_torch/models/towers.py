@@ -35,12 +35,12 @@ reads and writes its ``.npz`` checkpoints.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mccnn_tpu_torch.models import prng
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -144,43 +144,62 @@ class SlowNet(nn.Module):
         return torch.sigmoid(h)[..., 0]
 
 
-def _torch_init(modules, generator: torch.Generator) -> None:
-    """Torch's default init, uniform(±1/sqrt(fan_in)) for weights and
-    biases (fan_in = kh*kw*cin for a conv, n_in for a Linear), drawn
-    from ``generator`` in module order."""
-    with torch.no_grad():
-        for mod in modules:
-            fan_in = mod.weight[0].numel()
-            stdv = 1.0 / math.sqrt(fan_in)
-            for p in (mod.weight, mod.bias):
-                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * stdv)
+def _stdv(fan_in: int) -> np.float32:
+    """1/sqrt(fan_in) in float32, as ``1.0 / jnp.sqrt(n)`` gives it."""
+    return np.float32(1.0) / np.sqrt(np.float32(fan_in))
 
 
-def init_fast(cfg, generator: torch.Generator) -> FastTower:
-    """A fast tower of the config's widths with Torch's default init
-    drawn from ``generator``."""
-    tower = FastTower(cfg.l1, cfg.fm, cfg.ks, cfg.n_input_plane)
-    _torch_init(tower.convs, generator)
-    return tower
+def _layer(k: np.ndarray, w_shape: tuple, fan_in: int) -> dict:
+    """One layer of the JAX tree, weights and bias uniform in
+    ±1/sqrt(fan_in) (Torch's default init), drawn as
+    ``_conv_init`` / ``_dense_init`` draw them: the layer's key split
+    once into (w, b)."""
+    kw, kb = prng.split(k)
+    s = _stdv(fan_in)
+    return {"w": prng.uniform(kw, w_shape, -s, s),
+            "b": prng.uniform(kb, (w_shape[-1],), -s, s)}
 
 
-def init_slow(cfg, generator: torch.Generator) -> SlowNet:
-    """A slow net of the config's widths (l1, fm, ks, l2, nh2) with
-    Torch's default init drawn from ``generator``."""
-    net = SlowNet(cfg.l1, cfg.fm, cfg.ks, cfg.l2, cfg.nh2, cfg.n_input_plane)
-    _torch_init(list(net.convs) + list(net.head), generator)
-    return net
+def init_tree(cfg, seed: int, slow: bool) -> dict:
+    """The JAX package's seeded init (mccnn_tpu/cli.py ``init_params``,
+    mccnn_tpu/models/towers.py ``init_fast`` / ``init_slow``) as its
+    parameter tree of numpy arrays, bit for bit: the key of ``seed``
+    split into l1 (fast) or l1 + l2 + 1 (``slow``) layer keys."""
+    ks, fm = cfg.ks, cfg.fm
+    n_head = cfg.l2 + 1 if slow else 0
+    keys = prng.split(prng.key(seed), cfg.l1 + n_head)
+    tower = []
+    for i in range(cfg.l1):
+        c_in = cfg.n_input_plane if i == 0 else fm
+        tower.append(_layer(keys[i], (ks, ks, c_in, fm), ks * ks * c_in))
+    head = []
+    for i in range(n_head):
+        n_in = 2 * fm if i == 0 else cfg.nh2
+        n_out = 1 if i == cfg.l2 else cfg.nh2
+        head.append(_layer(keys[cfg.l1 + i], (n_in, n_out), n_in))
+    return {"tower": tower, "head": head}
+
+
+def init_fast(cfg, seed: int) -> FastTower:
+    """A fast tower of the config's widths with the JAX package's init
+    from ``seed`` (:func:`init_tree`)."""
+    return params_from_numpy(init_tree(cfg, seed, slow=False))
+
+
+def init_slow(cfg, seed: int) -> SlowNet:
+    """A slow net of the config's widths (l1, fm, ks, l2, nh2) with the
+    JAX package's init from ``seed`` (:func:`init_tree`)."""
+    return params_from_numpy(init_tree(cfg, seed, slow=True))
 
 
 def init_net(cfg) -> FastTower | SlowNet | None:
-    """The network of ``cfg.arch`` with Torch's default init drawn from
-    a generator seeded with ``cfg.seed``: a fast tower, a slow net, or
-    None for ad and census, which use none."""
-    gen = torch.Generator().manual_seed(cfg.seed)
+    """The network of ``cfg.arch`` with the JAX package's init from
+    ``cfg.seed``: a fast tower, a slow net, or None for ad and census,
+    which use none. One seed gives the same weights in both packages."""
     if cfg.arch == "fast":
-        return init_fast(cfg, gen)
+        return init_fast(cfg, cfg.seed)
     if cfg.arch == "slow":
-        return init_slow(cfg, gen)
+        return init_slow(cfg, cfg.seed)
     return None
 
 

@@ -1,4 +1,4 @@
-"""Build, load and count the port's CUDA kernels.
+"""Build, load and count the port's CUDA kernels and its host code.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for sm_90a into ``build/lib<name>-<hash>.so`` at the root of
@@ -6,7 +6,10 @@ the repository (a git-ignored directory) the first time one of its
 kernels launches, and loaded with ctypes. The hash covers the source
 and the flags, so an edited source rebuilds and an unchanged one is
 reused. No PyTorch header is compiled, so a build takes seconds;
-:func:`build` compiles several sources at once, one ``nvcc`` each.
+:func:`build` compiles several sources at once, one compiler each. The
+host sources, ``csrc/<name>.cpp`` (``HOST_SOURCES``: the training's
+window gather), are built the same way by ``g++``. A failed build
+raises with the compiler's output; nothing falls back.
 
 ``LAUNCHES`` counts the calls of each kernel entry and
 ``KERNEL_LAUNCHES`` the kernel launches they made. Each wrapper calls
@@ -35,8 +38,10 @@ BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head")
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
            "slow_head", "sgm_hslab", "sgm_scan", "sgm_step")
+HOST_SOURCES = ("host_gather",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 # the most shared memory a block can take on the H100, in bytes
 MAX_SMEM = 232448
@@ -79,9 +84,25 @@ def _nvcc() -> str:
     return found
 
 
+def _gxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: building the host sources needs a "
+                           "C++ compiler (set CXX)")
+    return found
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _flags(name: str) -> tuple:
+    return GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = _source(name).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
@@ -91,7 +112,7 @@ def log_path(name: str) -> Path:
     return BUILD / f"{name}.log"
 
 
-def build(names=SOURCES) -> float:
+def build(names=SOURCES + HOST_SOURCES) -> float:
     """Compile the named sources that are not built yet, all at once,
     and wait for every compiler. Returns the seconds taken; raises
     RuntimeError with the compiler's output if a build fails."""
@@ -105,8 +126,9 @@ def build(names=SOURCES) -> float:
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             log = open(log_path(name), "w")
+            cc = _gxx() if name in HOST_SOURCES else _nvcc()
             jobs.append((name, tmp, out, log, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                [cc, *_flags(name), "-o", str(tmp), str(_source(name))],
                 stdout=log, stderr=subprocess.STDOUT)))
     finally:
         failed = []
@@ -116,15 +138,16 @@ def build(names=SOURCES) -> float:
             if rc == 0:
                 os.replace(tmp, out)
             else:
-                failed.append(f"{name}.cu (nvcc exit {rc}):\n"
+                failed.append(f"{_source(name).name} (exit {rc}):\n"
                               + log_path(name).read_text())
     if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))

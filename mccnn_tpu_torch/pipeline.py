@@ -23,7 +23,9 @@ Orchestration contract: ``stereo_predict`` (main.lua:929-1082).
   ``sgm_form``, in one of the two scan forms
   (:func:`mccnn_tpu_torch.ops.sgm.resolve_form`); the scan forms also
   send the fast arch without CBCA to this lane, as the JAX package does
-  (pipeline.py:399-414).
+  (pipeline.py:399-414). So does the volume cache (``-use_cache`` /
+  ``-make_cache``, :func:`compute_volumes`): a cached pair reads its
+  volumes from ``cache/<pair_id>.npz`` and runs no network.
 
 ``sm_terminate`` stops after a named stage and ``sm_skip`` skips one,
 with the gate placement of main.lua:988-1080 (the mismatch stage is
@@ -41,6 +43,9 @@ the join on the HWD lane, 1e9 planes on the generic lane.
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from mccnn_tpu_torch.config import Config
@@ -101,18 +106,13 @@ def _hwd_unpack_vol(vol, *, D, H, W, xrev, scale4):
 
 
 def _check_lane(cfg: Config, hwd: bool) -> None:
-    """The volume cache is not ported yet (it names its ROADMAP item).
-    The ``-vol_dtype`` contract of ``check_vol_dtype``
+    """The ``-vol_dtype`` contract of ``check_vol_dtype``
     (mccnn_tpu/pipeline.py:445-465): 16-bit volume storage exists only
     on the HWD lane (``hwd``), and a configuration that would run the
     float32 generic lane instead raises rather than misreport. float16
     is allowed: the JAX package bans it on the TPU only because the
     Mosaic dialect has no float16 vectors there; the H100's kernels
     store it as they store bfloat16 (``cvt.rn.f16x2.f32``)."""
-    if cfg.use_cache or cfg.make_cache:
-        raise NotImplementedError("the volume cache (-use_cache, "
-                                  "-make_cache) is not ported yet (ROADMAP.md "
-                                  "queue 1, item 15, the volume cache)")
     if cfg.vol_dtype != "float32" and not hwd:
         raise ValueError(
             f"-vol_dtype {cfg.vol_dtype} requires the fast HWD lane (fast "
@@ -174,6 +174,45 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
         real = torch.arange(disp_max, device=x0.device)[:, None, None] \
             < disp_true
         vols = {k: torch.where(real, v, 1e9) for k, v in vols.items()}
+    return vols
+
+
+@torch.no_grad()
+def compute_volumes(cfg: Config, net, x0, x1, disp_max: int, pair_id=None,
+                    disp_true: int | None = None, device=None) -> dict:
+    """The generic lane's cost volumes {-1: vol_l, +1: vol_r}, (D, H, W)
+    float32 each, through the volume cache (``compute_volumes``,
+    mccnn_tpu/pipeline.py:417-444; main.lua:959-982): with
+    ``-use_cache`` the volumes of ``pair_id`` are read from
+    ``cache/<pair_id>.npz`` under the working directory when the file
+    exists, and the network does not run; with ``-make_cache`` they are written there after computing
+    (``vol_m1``, ``vol_p1``). Without a ``pair_id`` the cache is not
+    used. Files written by either package are read by the other. The
+    cache lets the stereo method's parameter search skip the slow net
+    (tools/hs.py)."""
+    dev = resolve_device(device)
+    cache_f = None
+    if pair_id is not None and (cfg.use_cache or cfg.make_cache):
+        cache_f = os.path.join("cache", f"{pair_id}.npz")
+    if cache_f and cfg.use_cache and os.path.exists(cache_f):
+        with np.load(cache_f) as z:
+            vols = {-1: z["vol_m1"], 1: z["vol_p1"]}
+        want = (int(disp_max), *np.shape(x0))
+        for v in vols.values():
+            if v.shape != want:
+                raise ValueError(f"{cache_f}: volumes {v.shape}, this pair "
+                                 f"needs {want}")
+        return {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+                for k, v in vols.items()}
+    net = None if net is None else net.to(dev).eval()
+    x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
+    x1 = torch.as_tensor(x1, dtype=torch.float32).to(dev)
+    vols = _volumes(net, x0, x1, arch=cfg.arch, disp_max=int(disp_max),
+                    ws=cfg.ws, dtype=DTYPES[cfg.dtype], disp_true=disp_true)
+    if cache_f and cfg.make_cache:
+        os.makedirs("cache", exist_ok=True)
+        np.savez(cache_f, vol_m1=vols[-1].float().cpu().numpy(),
+                 vol_p1=vols[1].float().cpu().numpy())
     return vols
 
 
@@ -336,17 +375,20 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
 
 
 def _hwd_eligible(cfg: Config, form: str) -> bool:
-    """The HWD lane takes the fast arch with no CBCA while the SGM is in
-    its slab form (``_hwd_eligible``, mccnn_tpu/pipeline.py:399-414);
-    everything else goes to the generic lane."""
+    """The HWD lane takes the fast arch with no CBCA and no volume cache
+    while the SGM is in its slab form (``_hwd_eligible``,
+    mccnn_tpu/pipeline.py:399-414); everything else goes to the generic
+    lane."""
     return (cfg.arch == "fast" and int(cfg.cbca_i1) == 0
-            and int(cfg.cbca_i2) == 0 and form == "slab")
+            and int(cfg.cbca_i2) == 0 and not cfg.use_cache
+            and not cfg.make_cache and form == "slab")
 
 
 @torch.no_grad()
 def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
                    disp_max: int, return_vols: bool = False, device=None,
-                   sgm_form: str | None = None, disp_true: int | None = None):
+                   sgm_form: str | None = None, disp_true: int | None = None,
+                   pair_id=None):
     """Run the full stereo method on one standardized pair.
 
     x0/x1: (H, W) float32 arrays or tensors (already per-image
@@ -361,7 +403,9 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
     ``MCCNN_SGM_HSLAB`` (see ``ops.sgm.resolve_form``). ``disp_true``:
     the real disparity count when ``disp_max`` was padded to a bucket
     (``disp_true == disp_max`` means None, as in the JAX package); the
-    maps stay (H, W) and the volumes (disp_max, H, W).
+    maps stay (H, W) and the volumes (disp_max, H, W). ``pair_id``: the
+    pair's name in the volume cache (:func:`compute_volumes`), which
+    ``-use_cache`` and ``-make_cache`` use on the generic lane.
     """
     dev = resolve_device(device)
     if cfg.dataset == "mb":
@@ -409,8 +453,8 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
                          kitti=kitti, ws=cfg.ws, directions=directions,
                          dtype=dtype, vol_dtype=vol_dtype,
                          disp_true=disp_true, **common)
-    vols = _volumes(net, x0, x1, arch=cfg.arch, disp_max=int(disp_max),
-                    ws=cfg.ws, dtype=dtype, disp_true=disp_true)
+    vols = compute_volumes(cfg, net, x0, x1, disp_max, pair_id=pair_id,
+                           disp_true=disp_true, device=dev)
     return _method(vols, x0, x1, blur_kernel, disp_max=int(disp_max),
                    directions=directions, kitti=kitti, L1=int(cfg.L1),
                    tau1=float(cfg.tau1), cbca_i1=int(cfg.cbca_i1),

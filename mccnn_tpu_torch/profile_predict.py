@@ -68,7 +68,7 @@ def main(argv=None) -> None:
     cfg = make_config(args.dataset, args.arch, a="time" if mb else "predict",
                       vol_dtype=args.vol_dtype, dtype=args.dtype)
     init = {"fast": towers.init_fast, "slow": towers.init_slow}.get(args.arch)
-    tower = init and init(cfg, torch.Generator().manual_seed(cfg.seed))
+    tower = init and init(cfg, cfg.seed)
     for _ in range(2):
         stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
     torch.cuda.synchronize()

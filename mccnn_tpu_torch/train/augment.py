@@ -8,11 +8,13 @@ with 0, then ``patch = patch * contrast + brightness``.
 
 Two halves, as in mccnn_tpu/train/augment.py. The host half is numpy
 and a copy of the JAX package's (``patch_matrix``, ``invert_2x3``,
-:class:`AugmentSampler`, the host window gather): one
-``np.random.RandomState`` draws the same stream in both packages, bit
-for bit. The device half is torch: :func:`warp_patches`, one batched
-bicubic gather over all 4·bs/2 patches of a step, and the window gather
-from the padded image stack on the device (:func:`pad_image_stack`,
+:class:`AugmentSampler`): one ``np.random.RandomState`` draws the same
+stream in both packages, bit for bit. Its window gather runs on the
+host C++ of ``ops/host_gather.py``, equal bit for bit to the numpy
+gather it replaces (:func:`_gather_windows`). The device half is
+torch: :func:`warp_patches`, one batched bicubic gather over all
+4·bs/2 patches of a step, and the window gather from the padded image
+stack on the device (:func:`pad_image_stack`,
 :func:`gather_windows_device`), which ships origins instead of windows
 to the card.
 """
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from mccnn_tpu_torch.config import Config
+from mccnn_tpu_torch.ops import host_gather
 
 # Window gathered around each sample point. Must cover the patch's
 # source footprint: (ws-1)/2 * sqrt(2) / min_scale + max_trans + 2
@@ -165,8 +168,9 @@ def _gather_windows(X: np.ndarray, img: np.ndarray, oy: np.ndarray,
                     ox: np.ndarray) -> np.ndarray:
     """Gather (n, WIN, WIN) windows X[img, 0, oy:oy+WIN, ox:ox+WIN] with
     zero fill outside the frame: the numpy gather of the JAX package's
-    ``_gather_windows``, to which its native kernel is equal
-    (tests/test_train.py)."""
+    ``_gather_windows``. The plain version of the host gather
+    (``ops/host_gather.py``), which the sampler runs and the tests hold
+    to this bit for bit."""
     H, W = X.shape[-2], X.shape[-1]
     yy = oy[:, None] + np.arange(WIN)[None, :]  # (n, WIN)
     xx = ox[:, None] + np.arange(WIN)[None, :]
@@ -304,7 +308,7 @@ class AugmentSampler:
                 oxs[sl] = np.clip(ox, -WIN, W)
             else:
                 src = X0 if which == 0 else X1
-                windows[sl] = _gather_windows(src, img, oy, ox)
+                windows[sl] = host_gather.gather_windows(src, img, oy, ox, WIN)
             minv[sl] = mi
             bri[sl] = b
             con[sl] = c
@@ -341,19 +345,12 @@ class AugmentSampler:
         ws = self.ws
         half = WIN // 2
         n4 = 4 * n
-        windows = np.zeros((n4, WIN, WIN), np.float32)
+        srcs = [None] * n4  # each window's source image, gathered at the end
+        oys = np.zeros((n4,), np.int64)
+        oxs = np.zeros((n4,), np.int64)
         minv = np.zeros((n4, 6), np.float32)
         bri = np.zeros((n4,), np.float32)
         con = np.zeros((n4,), np.float32)
-
-        def gather_one(src2d, oy, ox):
-            H, W = src2d.shape
-            yy = np.arange(oy, oy + WIN)
-            xx = np.arange(ox, ox + WIN)
-            oky = (yy >= 0) & (yy < H)
-            okx = (xx >= 0) & (xx < W)
-            w = src2d[np.clip(yy, 0, H - 1)[:, None], np.clip(xx, 0, W - 1)[None, :]]
-            return w * (oky[:, None] & okx[None, :])
 
         slots = [
             (0, cx, (p["sx"], p["sy"]), p["phi"], (p["tx"], p["ty"]),
@@ -377,7 +374,7 @@ class AugmentSampler:
             if rng.rand() < cfg.d_light:
                 light_r = max(1, light - 1)  # floor at light 2 (index 1)
             exp_r = min(exp_r, lights[light_r].shape[0] - 1)
-            srcs = (lights[light][exp, 0, 0], lights[light_r][exp_r, 1, 0])
+            pair = (lights[light][exp, 0, 0], lights[light_r][exp_r, 1, 0])
             for k, (which, ctr_x, scale, phi, trans, hshear, b, c) in enumerate(slots):
                 m = patch_matrix(ws, ctr_x[i], cy[i],
                                  (scale[0][i], scale[1][i]), phi[i],
@@ -388,10 +385,11 @@ class AugmentSampler:
                 mi[2] -= ox
                 mi[5] -= oy
                 j = i * 4 + k
-                windows[j] = gather_one(srcs[which], oy, ox)
+                srcs[j], oys[j], oxs[j] = pair[which], oy, ox
                 minv[j] = mi
                 bri[j] = b[i]
                 con[j] = c[i]
+        windows = host_gather.gather_windows_from(srcs, oys, oxs, WIN)
         labels = np.zeros((2 * n,), np.float32)
         labels[1::2] = 1.0
         return dict(windows=windows, minv=minv, brightness=bri, contrast=con,

@@ -78,21 +78,24 @@ def _round_up(n: int, m: int) -> int:
 
 
 def bucketed_predict(cfg: Config, net, x0, x1, disp_max: int,
-                     device=None) -> torch.Tensor:
+                     device=None, pair_id=None) -> torch.Tensor:
     """stereo_predict with shape bucketing: edge-pad the pair up to
     (bucket_hw, bucket_hw) multiples and disp_max up to a bucket_d
     multiple, mask the padded disparities (``disp_true``), run, crop to
     (H, W). Results can deviate from exact-shape runs only where the SGM
-    sweeps/CBCA/blur touch the padded border band."""
+    sweeps/CBCA/blur touch the padded border band. ``pair_id`` names
+    the pair in the volume cache (``-use_cache`` / ``-make_cache``)."""
     bh, bd = _bucket_sizes(cfg)
     H, W = x0.shape
     Hp, Wp, Dp = _round_up(H, bh), _round_up(W, bh), _round_up(disp_max, bd)
     if (Hp, Wp, Dp) == (H, W, disp_max):
-        return stereo_predict(cfg, net, x0, x1, disp_max, device=device)
+        return stereo_predict(cfg, net, x0, x1, disp_max, device=device,
+                              pair_id=pair_id)
     x0p = np.pad(x0, ((0, Hp - H), (0, Wp - W)), mode="edge")
     x1p = np.pad(x1, ((0, Hp - H), (0, Wp - W)), mode="edge")
     pred = stereo_predict(cfg, net, x0p, x1p, Dp, device=device,
-                          disp_true=disp_max if Dp > disp_max else None)
+                          disp_true=disp_max if Dp > disp_max else None,
+                          pair_id=pair_id)
     return pred[:H, :W]
 
 
@@ -139,7 +142,8 @@ def action_eval(cfg: Config, tail: list[str], net=None,
             x1 = np.array(ds.X[i - 1][0][right - 1, 0])
 
         t0 = _time.perf_counter()
-        pred = bucketed_predict(cfg, net, x0, x1, disp_max, device=dev)
+        pred = bucketed_predict(cfg, net, x0, x1, disp_max, device=dev,
+                                pair_id=img_id)
         pred = pred.cpu().numpy()
         runtime = _time.perf_counter() - t0
 

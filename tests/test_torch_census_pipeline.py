@@ -148,8 +148,7 @@ def test_configs_once_outside_the_lane_now_run(overrides):
     fast arch with CBCA) give finite maps of the frame's shape."""
     arch = overrides.pop("arch", "fast")
     cfg = make_config("kitti", arch, a="predict", **overrides)
-    net = None if arch == "census" else towers.init_fast(
-        cfg, torch.Generator().manual_seed(0))
+    net = None if arch == "census" else towers.init_fast(cfg, 0)
     x0, x1 = _pair(29)
     d = pipeline.stereo_predict(cfg, net, x0, x1, D, device="cpu").numpy()
     assert d.shape == (H, W) and np.isfinite(d).all()
@@ -159,8 +158,7 @@ def test_configs_once_outside_the_lane_now_run(overrides):
 @pytest.mark.parametrize("arch", ["census", "ad"])
 def test_ad_and_census_take_no_network(arch):
     cfg = make_config("kitti", arch, a="predict")
-    tower = towers.init_fast(make_config("kitti", "fast", **NARROW),
-                             torch.Generator().manual_seed(0))
+    tower = towers.init_fast(make_config("kitti", "fast", **NARROW), 0)
     x = np.zeros((8, 16), np.float32)
     with pytest.raises(TypeError, match="no network"):
         pipeline.stereo_predict(cfg, tower, x, x, 4, device="cpu")
@@ -184,7 +182,7 @@ def test_plain_fast_arch_leaves_the_hwd_lane_with_the_scan_form(monkeypatch,
     explicit form overrides the environment."""
     monkeypatch.setenv("MCCNN_SGM_HSLAB", env)
     cfg = make_config("kitti", "fast", a="predict", **NARROW)
-    tower = towers.init_fast(cfg, torch.Generator().manual_seed(0))
+    tower = towers.init_fast(cfg, 0)
     lanes = []
     monkeypatch.setattr(pipeline, "_fast_hwd",
                         lambda *a, **kw: lanes.append("hwd"))

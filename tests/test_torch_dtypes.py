@@ -261,7 +261,7 @@ def test_disp_true_on_the_hwd_lane_is_the_exact_run():
     x0, x1 = _pair(13, H, W, D)
     for vol_dtype in ("float32", "bfloat16"):
         cfg = make_config("mb", "fast", a="predict", vol_dtype=vol_dtype)
-        tower = towers.init_fast(cfg, torch.Generator().manual_seed(2))
+        tower = towers.init_fast(cfg, 2)
         exact = pipeline.stereo_predict(cfg, tower, x0, x1, D, device="cpu")
         padded = pipeline.stereo_predict(cfg, tower, x0, x1, 64,
                                          device="cpu", disp_true=D)
@@ -319,7 +319,7 @@ def test_16bit_vol_dtype_in_a_scan_form_raises():
     """The scan forms send the fast arch to the generic lane, so a
     16-bit volume there raises too."""
     cfg = make_config("kitti", "fast", a="predict", vol_dtype="bfloat16")
-    tower = towers.init_fast(cfg, torch.Generator().manual_seed(0))
+    tower = towers.init_fast(cfg, 0)
     x = np.zeros((8, 16), np.float32)
     for form in ("stream", "grid"):
         with pytest.raises(ValueError, match="vol_dtype"):

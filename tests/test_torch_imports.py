@@ -36,7 +36,9 @@ def test_guard_sees_every_file():
     for module in ("ops/slow_head.py", "ops/cross.py", "ops/sgm.py",
                    "ops/costs.py", "ops/join.py", "cli.py", "models/towers.py", "pipeline.py", "profile_predict.py",
                    "data/datasets.py", "train/trainer.py", "train/augment.py",
-                   "train/evaluate.py"):
+                   "train/evaluate.py", "models/prng.py", "data/t7.py",
+                   "models/import_t7.py", "data/preprocess_kitti.py",
+                   "data/preprocess_mb.py", "ops/host_gather.py"):
         assert f"mccnn_tpu_torch/{module}" in names, module
 
 

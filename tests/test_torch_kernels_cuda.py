@@ -674,3 +674,66 @@ def test_train_chunk_on_the_card_matches_the_cpu(dev, tmp_path, arch):
                                atol=1e-7)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
+                                                                 tmp_path):
+    """A kitti fast net (l1 = 2, fm = 16) dumped with ``params_to_t7``
+    and loaded through ``cli.load_params`` (``-net_fname x.t7``): on the
+    card its map is the in-memory net's bit for bit, through the join (2
+    launches), the vertical and horizontal sweeps (4 each), the outlier
+    labels and the blur (1 each)."""
+    from mccnn_tpu_torch import cli
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.models.import_t7 import params_to_t7
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    H, W, D = 48, 200, 40
+    base = np.random.RandomState(9).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    cfg = make_config("kitti", "fast", a="predict", l1=2, fm=16)
+    net = towers.init_net(cfg)
+    path = str(tmp_path / "net.t7")
+    params_to_t7(net, path, arch="fast", disp_max=D)
+    cfg.net_fname = path
+    loaded = cli.load_params(cfg)
+    want = stereo_predict(cfg, net, x0, x1, D)
+    _build.reset_launches()
+    got = stereo_predict(cfg, loaded, x0, x1, D)
+    torch.cuda.synchronize()
+    counts = _build.launches()
+    assert counts == dict(dict.fromkeys(_build.KERNELS, 0), join=2,
+                          sgm_vertical=4, sgm_horizontal=4, outlier=1,
+                          blur=1)
+    assert torch.equal(got, want)
+
+
+def test_cached_slow_run_launches_no_head(dev, tmp_path, monkeypatch):
+    """kitti slow at narrow widths: ``-make_cache`` runs the head kernel
+    once and writes ``cache/<id>.npz``; ``-use_cache`` reads it, launches
+    the head no time, and gives the uncached map bit for bit."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    monkeypatch.chdir(tmp_path)
+    H, W, D = 40, 160, 24
+    base = np.random.RandomState(10).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    over = dict(a="test_te", l1=2, fm=8, l2=3, nh2=16)
+    net = towers.init_net(make_config("kitti", "slow", **over))
+    plain = stereo_predict(make_config("kitti", "slow", **over), net, x0, x1,
+                           D)
+    maps = {}
+    for flag in ("make_cache", "use_cache"):
+        _build.reset_launches()
+        maps[flag] = stereo_predict(
+            make_config("kitti", "slow", **over, **{flag: True}), net, x0,
+            x1, D, pair_id="p")
+        torch.cuda.synchronize()
+        assert _build.launches()["slow_head"] == (flag == "make_cache"), flag
+        assert _build.launches()["sgm_hslab"] == 2, flag
+    assert (tmp_path / "cache" / "p.npz").exists()
+    assert torch.equal(maps["make_cache"], plain)
+    assert torch.equal(maps["use_cache"], plain)

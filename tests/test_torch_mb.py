@@ -137,7 +137,7 @@ def test_mb_directions_follow_the_action():
     for arch in ("fast", "census"):
         for action, both in (("predict", True), ("time", False)):
             cfg = make_config("mb", arch, a=action)
-            net = (towers.init_fast(cfg, torch.Generator().manual_seed(0))
+            net = (towers.init_fast(cfg, 0)
                    if arch == "fast" else None)
             _, vl, vr = pipeline.stereo_predict(cfg, net, x0, x1, D,
                                                 return_vols=True, device="cpu")

@@ -116,7 +116,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """device=None means CUDA, and no CUDA means an error, never the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = make_config("kitti", "fast", a="predict")
-    tower = towers.init_fast(cfg, torch.Generator().manual_seed(0))
+    tower = towers.init_fast(cfg, 0)
     x = np.zeros((8, 16), np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline.stereo_predict(cfg, tower, x, x, 4)
@@ -128,19 +128,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                        dict(use_cache=True),
                                        dict(dtype="bfloat16")])
 def test_configs_outside_the_lane_name_the_roadmap(overrides):
-    """The volume cache is not ported: it names its ROADMAP item. A
-    16-bit -vol_dtype on a generic-lane config (here fast with CBCA)
-    raises ValueError naming vol_dtype, as the JAX package's
-    check_vol_dtype does. -dtype bfloat16 is ported: it runs and
-    returns a finite map."""
+    """A 16-bit -vol_dtype on a generic-lane config (here fast with
+    CBCA) raises ValueError naming vol_dtype, as the JAX package's
+    check_vol_dtype does. The volume cache and -dtype bfloat16 are
+    ported: they run and return a finite map (the cache, on the generic
+    lane, reads and writes nothing without a pair id)."""
     cfg = make_config("kitti", "fast", a="predict", **overrides)
-    tower = towers.init_fast(make_config("kitti", "fast"),
-                             torch.Generator().manual_seed(0))
+    tower = towers.init_fast(make_config("kitti", "fast"), 0)
     x0, x1 = _pair(3)
-    if cfg.use_cache:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.stereo_predict(cfg, tower, x0, x1, 4, device="cpu")
-    elif cfg.vol_dtype != "float32":
+    if cfg.vol_dtype != "float32":
         with pytest.raises(ValueError, match="vol_dtype"):
             pipeline.stereo_predict(cfg, tower, x0, x1, 4, device="cpu")
     else:

@@ -121,7 +121,20 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    whether the numpy build hides behind a chunk on the card; whether PIL
    imports, and where it does, ``preprocess_kitti`` on a raw tree of
    the fixed counts with ``HEIGHT, WIDTH`` cut to 64x128, then one
-   chunk trained on the card from its output through ``load_kitti``.
+   chunk trained on the card from its output through ``load_kitti``;
+10. the mesh (``parallel_phase``, ``mccnn_tpu_torch.parallel``) with the
+   card listed 1, 2 and 4 times, on phase 4's pair: the serving lane
+   (``make_batch_predict_sharded``, kitti fast, B=8) with every map
+   bit-identical to phase 4's, 8x its launches, and pairs/s beside
+   phase 4's; ``make_batch_predict`` on kitti slow, B=2, bit-identical
+   to phase 5's maps; kitti fast and kitti slow row-sharded
+   (``make_sharded_predict``; 370 rows as 93/93/92/92, 1226 columns as
+   307/307/306/306 on 4 entries): launches, the share of pixels more
+   than 0.51 from the single-device map (< 0.01), the largest slab each
+   volume stage received against its share plus halo, s a pair; the
+   data-parallel step (kitti fast and slow, bs=128, on 1 and 2 entries)
+   against one ``train_chunk`` step (parameters within 1e-5, replicas
+   equal), ms a step.
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
@@ -915,6 +928,199 @@ def cache_phase(torch, dev, x0, x1, fast_want: dict, slow_want: dict,
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase 9 took {time.perf_counter() - t9:.0f} s")
+
+
+def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
+    """Phase 10: ``mccnn_tpu_torch.parallel`` on the card listed once,
+    twice and four times in a mesh (see the module docstring), on phase
+    4's pair. ``fast``: (cfg, tower, map, launches, pairs/s, runs in ms)
+    of phase 4; ``slow``: (cfg, the net with the hand-set head, map,
+    launches) of phase 5."""
+    import copy
+
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.ops import _build, cross, join, sgm, slow_head
+    from mccnn_tpu_torch.parallel import data_parallel as dp
+    from mccnn_tpu_torch.parallel import inference
+    from mccnn_tpu_torch.parallel.mesh import Mesh, replicated
+    from mccnn_tpu_torch.pipeline import stereo_predict
+    from mccnn_tpu_torch.train import augment, trainer
+
+    t10 = time.perf_counter()
+    fcfg, tower, fast_map, fast_counts, fast_pps, fast_times = fast
+    scfg, hand, slow_map, slow_counts = slow
+
+    def mesh(n):
+        return Mesh([dev] * n, ("data",))
+
+    t0_, t1_ = (torch.as_tensor(v, device=dev) for v in (x0, x1))
+
+    # 1. the serving lane: B pairs split over the mesh, each through the
+    # single-device body (kitti fast: the HWD lane, kernels 1-5); timed in
+    # turns with B single-pair stereo_predict calls, so that the two are
+    # compared at one point of the script (phase 4 ran minutes earlier)
+    B = 8
+    x0b, x1b = t0_.expand(B, H, W), t1_.expand(B, H, W)
+    runs = {}
+    for n in (1, 2):
+        run = inference.make_batch_predict_sharded(fcfg, mesh(n), D)
+        _build.reset_launches()
+        maps = run(tower, x0b, x1b).cpu().numpy()
+        torch.cuda.synchronize()
+        got = _build.launches()
+        want = {k: B * v for k, v in fast_counts.items()}
+        check(got == want, f"batch lane on {n}: launches {got}, expected "
+              f"{want}")
+        check(all(np.array_equal(m, fast_map) for m in maps),
+              f"batch lane on {n}: a map differs from phase 4's")
+        print(f"phase 10: make_batch_predict_sharded, kitti fast, B={B} on "
+              f"{n} entr{'y' if n == 1 else 'ies'} of the card: launches "
+              f"{got} ({B}x phase 4's); every map bit-identical to phase 4's")
+        runs[f"mesh of {n}"] = (lambda r=run: r(tower, x0b, x1b))
+
+    def singles():
+        for b in range(B):
+            stereo_predict(fcfg, tower, x0b[b], x1b[b], D, device=dev)
+
+    for what in ("single", "mesh of 1", "mesh of 2", "single"):
+        pps, times = timed(torch, runs.get(what, singles), 5, warm=1)
+        how = "by stereo_predict" if what == "single" else f"on the {what}"
+        print(f"  {B} pairs {how}: {B * pps:.3f} pairs/s (median of 5; "
+              f"{spread(times)})")
+    print(f"  phase 4: {fast_pps:.3f} pairs/s ({spread(fast_times)})")
+
+    # 2. the generic batch lane (kitti slow, phase 5's hand-set head)
+    run = inference.make_batch_predict(scfg, mesh(2), D)
+    _build.reset_launches()
+    maps = run(hand, x0b[:2], x1b[:2]).cpu().numpy()
+    torch.cuda.synchronize()
+    got = _build.launches()
+    want = {k: 2 * v for k, v in slow_counts.items()}
+    check(got == want, f"make_batch_predict: launches {got}, expected {want}")
+    check(all(np.array_equal(m, slow_map) for m in maps),
+          "make_batch_predict: a kitti slow map differs from phase 5's")
+    print(f"phase 10: make_batch_predict, kitti slow, B=2 on 2 entries: "
+          f"launches {got}; both maps bit-identical to phase 5's")
+
+    # 3. one pair row-sharded: every volume stage records the extent of
+    # the slab it was given (rows, or the vertical family's columns)
+    seen = {}
+    wrapped = []
+
+    def record(mod, name, what, size_of):
+        orig = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            seen[what] = max(seen.get(what, 0), size_of(a))
+            return orig(*a, **kw)
+
+        setattr(mod, name, wrapper)
+        wrapped.append((mod, name, orig))
+
+    record(join, "stereo_join_dhw", "join rows", lambda a: a[0].shape[0])
+    record(slow_head, "slow_volumes", "head rows", lambda a: a[1].shape[0])
+    record(cross, "cbca", "cbca rows", lambda a: a[2].shape[1])
+    record(sgm, "_sweep_hslab", "hslab scanlines", lambda a: a[0].shape[1])
+    record(sgm, "_sweep", "vertical scanlines", lambda a: a[0].shape[1])
+    try:
+        for arch, cfg, net, ref, phase in (
+                ("fast", fcfg, tower, fast_map, 4),
+                ("slow", scfg, hand, slow_map, 5)):
+            one = None
+            for n in (1, 2, 4):
+                rows, cols = -(-H // n), -(-W // n)
+                halo = max(2, int(cfg.L1)) - 1
+                limit = {"join rows": rows, "head rows": rows,
+                         "cbca rows": rows + 2 * halo,
+                         "hslab scanlines": 2 * rows,
+                         "vertical scanlines": 2 * cols}
+                run = inference.make_sharded_predict(cfg, mesh(n), D)
+                seen.clear()
+                _build.reset_launches()
+                m = run(net, t0_, t1_).cpu().numpy()
+                torch.cuda.synchronize()
+                got = _build.launches()
+                want = dict.fromkeys(_build.KERNELS, 0)
+                want.update(sgm_hslab=2 * n, sgm_vertical=2 * n, outlier=n,
+                            blur=1, **({"join": 2 * n} if arch == "fast"
+                                       else {"slow_head": n}))
+                check(got == want, f"row-sharded kitti {arch} on {n}: "
+                      f"launches {got}, expected {want}")
+                check(m.shape == (H, W) and bool(np.isfinite(m).all()),
+                      f"row-sharded kitti {arch} on {n}: map not finite")
+                off = float((np.abs(m - ref) > 0.51).mean())
+                gap = 0.0 if one is None else float(np.abs(m - one).max())
+                one = m if one is None else one
+                over = {k: (v, limit[k]) for k, v in seen.items()
+                        if v > limit[k]}
+                slabs = {k: f"{v} (limit {limit[k]})" for k, v in seen.items()}
+                pps, times = timed(torch, lambda: run(net, t0_, t1_), 3,
+                                   warm=1)
+                print(f"phase 10: make_sharded_predict, kitti {arch} on {n} "
+                      f"entr{'y' if n == 1 else 'ies'} (rows "
+                      f"{[b - a for a, b in inference.splits(H, n)]}, columns "
+                      f"{[b - a for a, b in inference.splits(W, n)]}): "
+                      f"launches {got}; {off:.5f} of pixels more than 0.51 "
+                      f"from the single-device map (phase {phase}), max |d| "
+                      f"to 1 entry {gap:.3g}; largest slabs {slabs}; "
+                      f"{1.0 / pps:.4f} s a pair (median of 3; "
+                      f"{spread(times)})")
+                check(off < 0.01, f"row-sharded kitti {arch} on {n}: {off} of "
+                      "pixels off the single-device map")
+                check(not over, f"row-sharded kitti {arch} on {n}: slabs "
+                      f"over their share and halo: {over}")
+    finally:
+        for mod, name, orig in wrapped:
+            setattr(mod, name, orig)
+
+    # 4. the data-parallel step against one train_chunk step, bs=128, on
+    # a sampled batch of seeded random images at 350x1242
+    rng = np.random.RandomState(3)
+    X0, X1 = (rng.randn(2, 1, 350, 1242).astype(np.float32) for _ in range(2))
+    for arch in ("fast", "slow"):
+        cfg = make_config("kitti", arch, a="train_tr")
+        n_ex = cfg.bs // 2
+        nnz = np.stack([rng.randint(1, 3, n_ex), rng.randint(20, 330, n_ex),
+                        rng.randint(300, 1200, n_ex),
+                        rng.randint(0, 228, n_ex)], 1).astype(np.float32)
+        b = augment.AugmentSampler(cfg, np.random.RandomState(1)) \
+            .build_batches(X0, X1, nnz)
+        net = towers.init_net(cfg).to(dev)
+        ref = copy.deepcopy(net)
+        mom = [torch.zeros_like(p) for p in ref.parameters()]
+        err_ref = trainer.train_chunk(cfg, ref, mom, cfg.lr, {
+            k: torch.as_tensor(v, device=dev)[None] for k, v in b.items()})[0]
+        for n in (1, 2):
+            m = mesh(n)
+            nets = replicated(net, m)
+            mom = [torch.zeros_like(p) for p in nets[0].parameters()]
+            step = dp.make_dp_train_step(cfg, m)
+            shards = dp.shard_batch(b, m)
+            err = step(nets, mom, cfg.lr, shards)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                rel = max(float((p - q).abs().max() / q.abs().max()) for p, q
+                          in zip(nets[0].parameters(), ref.parameters()))
+            err_rel = abs(float(err) - float(err_ref)) / abs(float(err_ref))
+            same = all(torch.equal(p, q) for net_k in nets[1:]
+                       for p, q in zip(net_k.parameters(),
+                                       nets[0].parameters()))
+            t = time.perf_counter()
+            for _ in range(10):
+                step(nets, mom, cfg.lr, shards)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 100
+            print(f"phase 10: make_dp_train_step, kitti {arch}, bs={cfg.bs} "
+                  f"on {n} entr{'y' if n == 1 else 'ies'}: loss "
+                  f"{float(err):.6f} (train_chunk {float(err_ref):.6f}, "
+                  f"relative {err_rel:.2e}), largest relative parameter "
+                  f"difference {rel:.2e}, replicas equal {same}; "
+                  f"{ms:.2f} ms a step (mean of 10)")
+            check(rel < 1e-5 and err_rel < 1e-5, f"dp step kitti {arch} on "
+                  f"{n}: parameters {rel}, loss {err_rel} from train_chunk")
+            check(same, f"dp step kitti {arch} on {n}: replicas differ")
+    print(f"  phase 10 took {time.perf_counter() - t10:.0f} s")
 
 
 def main() -> int:
@@ -1754,7 +1960,7 @@ def main() -> int:
     want = dict.fromkeys(_build.KERNELS, 0)
     want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2)
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
-    d = disp.cpu().numpy()
+    d = slow_map = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
           "slow disparity map not finite or misshaped")
     good = float((np.abs(d[:, SHIFT + 8:] - SHIFT) <= 1.0).mean())
@@ -1789,7 +1995,7 @@ def main() -> int:
     check(frac < 0.01, f"slow path: {frac} of pixels differ from the plain path")
 
     # --- phase 6: the census and ad paths, and fast with CBCA -----------
-    del hand, snet
+    del snet
     torch.cuda.empty_cache()
     ccfg = make_config("kitti", "census", a="predict")
     sweeps_of = {"slab": dict(sgm_hslab=2, sgm_vertical=2),
@@ -1947,6 +2153,12 @@ def main() -> int:
     # the preprocess script ------------------------------------------------
     torch.cuda.empty_cache()
     cache_phase(torch, dev, x0, x1, fast_want, slow_counts)
+
+    # --- phase 10: the mesh: batch lanes, row-sharded pairs, the DP step --
+    torch.cuda.empty_cache()
+    parallel_phase(torch, dev, x0, x1,
+                   (cfg, tower, d32, fast_want, pps_a, times_a),
+                   (scfg, hand, slow_map, slow_counts))
 
     # launches: each kernel's count on the path that runs it (entry
     # calls, and the kernel launches they made); the three shared ones

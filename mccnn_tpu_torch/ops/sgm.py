@@ -573,34 +573,40 @@ def sgm_slab_horiz(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
 
 
 def vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
-              alpha1, q1, q2):
+              alpha1, q1, q2, cols=None):
     """The generic lane's vertical family as inputs of :func:`_sweep`:
-    the (H, n*W, Dp) volume (the -1 direction's columns first and
+    the (H, n*w, Dp) volume (the -1 direction's columns first and
     x-reversed) and the keyword arguments of the down and the up sweep,
     the -1 direction's D2 rows lane-reversed in ``g`` and the natural
-    ones in ``g_nat`` (sgm.py:1174-1217)."""
+    ones in ``g_nat`` (sgm.py:1174-1217). ``cols``: (c0, c1) when the
+    volumes hold only the columns c0:c1 of the (H, W) images x0, x1 (a
+    column shard of the row-sharded inference), w = c1 - c0: the tables
+    are built from the whole images and sliced, since D2 reads x1 at
+    x -/+ d, outside the shard's columns."""
+    c0, c1 = (0, W) if cols is None else cols
+    w = c1 - c0
     Dp = -(-D // 32) * 32
     gw = D + W + Dp
     parts = []
     for d in dirs:
-        v = vols[d].permute(1, 2, 0)  # (H, W, D)
+        v = vols[d].permute(1, 2, 0)  # (H, w, D)
         parts.append(_pad_d(v.flip(1) if d == -1 else v, Dp))
-    vol_y = torch.cat(parts, dim=1).contiguous()  # (H, n*W, Dp)
+    vol_y = torch.cat(parts, dim=1).contiguous()  # (H, n*w, Dp)
 
-    def table(c):  # (H, W + 2D) -> (H, gw), padded with 10
-        return torch.nn.functional.pad(c, (0, gw - c.shape[1]),
-                                       value=10.0).contiguous()
+    def table(c, x):  # (H, W + 2D) padded with 10 to (H, gw), from column x
+        c = torch.nn.functional.pad(c, (0, gw - c.shape[1]), value=10.0)
+        return c[:, x:x + D + w + Dp].contiguous()
 
     plan = []
     for sgm_dir, dy in ((2, 1), (3, -1)):
-        d1 = grad_with_sentinel(x0, axis=0, step=dy)  # (H, W)
+        d1 = grad_with_sentinel(x0, axis=0, step=dy)[:, c0:c1]  # (H, w)
         core = torch.nn.functional.pad((x1 - torch.roll(x1, dy, 0)).abs(),
                                        (D, D), value=10.0)  # (H, W + 2D)
         plan.append(dict(
             d1=torch.cat([d1.flip(1) if d == -1 else d1 for d in dirs],
                          dim=1).contiguous(),
-            g=table(core.flip(1)), g_nat=table(core),
-            n_rev=W if -1 in dirs else 0, vertical=True, reverse=dy == -1,
+            g=table(core.flip(1), W - c1), g_nat=table(core, c0),
+            n_rev=w if -1 in dirs else 0, vertical=True, reverse=dy == -1,
             T=H, D=D, tau=tau_so,
             pen=pen_table(pi1, pi2, q1, q2, alpha1 if sgm_dir == 2 else 1.0,
                           alpha1 if sgm_dir == 3 else 1.0)))
@@ -608,12 +614,15 @@ def vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
 
 
 def sgm_slab_vert(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
-                  alpha1, q1, q2) -> dict:
+                  alpha1, q1, q2, cols=None) -> dict:
     """Vertical family (sgm_dir 2: down, 3: up) of the generic lane on
-    the plan of :func:`vert_plan`; the up sweep adds into the down one's
-    result in place. Returns {direction: (D, H, W) sum of both sweeps}."""
+    the plan of :func:`vert_plan` (``cols``: see there); the up sweep
+    adds into the down one's result in place. Returns {direction:
+    (D, H, w) sum of both sweeps}."""
     vol_y, plan = vert_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1, pi2=pi2,
-                            tau_so=tau_so, alpha1=alpha1, q1=q1, q2=q2)
+                            tau_so=tau_so, alpha1=alpha1, q1=q1, q2=q2,
+                            cols=cols)
+    w = vol_y.shape[1] // len(dirs)
     acc = None
     for p in plan:
         p = dict(p)
@@ -623,7 +632,7 @@ def sgm_slab_vert(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
         acc = out
     outs = {}
     for i, d in enumerate(dirs):
-        v = acc[:, i * W:(i + 1) * W, :D]
+        v = acc[:, i * w:(i + 1) * w, :D]
         outs[d] = (v.flip(1) if d == -1 else v).permute(2, 0, 1)
     return outs
 
@@ -665,20 +674,23 @@ def scan_horiz_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
 
 
 def scan_vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
-                   alpha1, q1, q2):
+                   alpha1, q1, q2, cols=None):
     """The scan form's vertical family (``_sgm_scan_vert``,
-    sgm.py:1397-1422): the (H, n*W, D) volume slices (steps the H rows,
+    sgm.py:1397-1422): the (H, n*w, D) volume slices (steps the H rows,
     scanlines the columns of the stacked directions) and the down and
-    the up sweep's inputs, as :func:`scan_horiz_plan` gives them."""
+    the up sweep's inputs, as :func:`scan_horiz_plan` gives them;
+    ``cols`` as in :func:`vert_plan`."""
+    c0, c1 = (0, W) if cols is None else cols
     vol_y = torch.cat([vols[d].permute(1, 2, 0) for d in dirs],
                       dim=1).contiguous()
     plan = []
     for sgm_dir, dy in ((2, 1), (3, -1)):
-        d1 = grad_with_sentinel(x0, axis=0, step=dy)  # (H, W)
+        d1 = grad_with_sentinel(x0, axis=0, step=dy)[:, c0:c1]  # (H, w)
         d2col = d2_columns(x1, 0, dy, D)  # (H, W + 2D)
         plan.append(dict(
             d1=torch.cat([d1] * len(dirs), dim=1),
-            d2=torch.cat([_d2_table(d2col, d, D, W) for d in dirs], dim=1),
+            d2=torch.cat([_d2_table(d2col, d, D, W)[:, c0:c1] for d in dirs],
+                         dim=1),
             reverse=dy == -1, tau=tau_so,
             pen=pen_table(pi1, pi2, q1, q2, alpha1 if sgm_dir == 2 else 1.0,
                           alpha1 if sgm_dir == 3 else 1.0)))
@@ -712,14 +724,15 @@ def sgm_scan_horiz(sweep, x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2,
 
 
 def sgm_scan_vert(sweep, x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2,
-                  tau_so, alpha1, q1, q2) -> dict:
+                  tau_so, alpha1, q1, q2, cols=None) -> dict:
     """Vertical family (sgm_dir 2: down, 3: up) in the scan form on the
-    sweep implementation ``sweep``. Returns {direction: (D, H, W) sum of
-    both sweeps}."""
+    sweep implementation ``sweep`` (``cols``: see :func:`vert_plan`).
+    Returns {direction: (D, H, w) sum of both sweeps}."""
     vol_y, plan = scan_vert_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1,
                                  pi2=pi2, tau_so=tau_so, alpha1=alpha1, q1=q1,
-                                 q2=q2)
-    return _scan_sum(sweep, vol_y, plan, vols, dirs, W, (2, 0, 1))
+                                 q2=q2, cols=cols)
+    return _scan_sum(sweep, vol_y, plan, vols, dirs, vol_y.shape[1] //
+                     len(dirs), (2, 0, 1))
 
 
 FORMS = ("slab", "stream", "grid")
@@ -738,6 +751,24 @@ def resolve_form(form=None) -> str:
     return form
 
 
+def horizontal_family(form, x0, x1, vols: dict, dirs, D, H, W, **kw) -> dict:
+    """The horizontal family in the SGM form ``form`` (a name of
+    ``FORMS``): :func:`sgm_slab_horiz` or :func:`sgm_scan_horiz`."""
+    if form == "slab":
+        return sgm_slab_horiz(x0, x1, vols, dirs, D, H, W, **kw)
+    sweep = sweep_stream if form == "stream" else sweep_grid
+    return sgm_scan_horiz(sweep, x0, x1, vols, dirs, D, H, W, **kw)
+
+
+def vertical_family(form, x0, x1, vols: dict, dirs, D, H, W, **kw) -> dict:
+    """The vertical family in the SGM form ``form``: :func:`sgm_slab_vert`
+    or :func:`sgm_scan_vert` (both take ``cols``)."""
+    if form == "slab":
+        return sgm_slab_vert(x0, x1, vols, dirs, D, H, W, **kw)
+    sweep = sweep_stream if form == "stream" else sweep_grid
+    return sgm_scan_vert(sweep, x0, x1, vols, dirs, D, H, W, **kw)
+
+
 def sgm_multi(x0, x1, vols: dict, *, pi1, pi2, tau_so, alpha1, sgm_q1,
               sgm_q2, form=None) -> dict:
     """Four sweeps, summed (h + v, not divided by 4), for one or both
@@ -749,14 +780,8 @@ def sgm_multi(x0, x1, vols: dict, *, pi1, pi2, tau_so, alpha1, sgm_q1,
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=vols[dirs[0]].device)
     x1 = torch.as_tensor(x1, dtype=torch.float32, device=vols[dirs[0]].device)
     kw = dict(pi1=pi1, pi2=pi2, tau_so=tau_so, q1=sgm_q1, q2=sgm_q2)
-    if form == "slab":
-        h = sgm_slab_horiz(x0, x1, vols, dirs, D, H, W, **kw)
-        v = sgm_slab_vert(x0, x1, vols, dirs, D, H, W, alpha1=alpha1, **kw)
-    else:
-        sweep = sweep_stream if form == "stream" else sweep_grid
-        h = sgm_scan_horiz(sweep, x0, x1, vols, dirs, D, H, W, **kw)
-        v = sgm_scan_vert(sweep, x0, x1, vols, dirs, D, H, W, alpha1=alpha1,
-                          **kw)
+    h = horizontal_family(form, x0, x1, vols, dirs, D, H, W, **kw)
+    v = vertical_family(form, x0, x1, vols, dirs, D, H, W, alpha1=alpha1, **kw)
     # the slab families return views with d fastest; the sum is laid out
     # (D, H, W) contiguous, which the stages after the SGM read far faster
     return {d: torch.add(h[d], v[d], out=torch.empty_like(

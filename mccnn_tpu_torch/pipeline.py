@@ -143,33 +143,36 @@ def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int,
 
 @torch.no_grad()
 def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
-             disp_true=None) -> dict:
+             disp_true=None, rows=None) -> dict:
     """Cost volumes of both reference directions, (D, H, W) each
     (mccnn_tpu/pipeline.py:97-149): {-1: vol_l, +1: vol_r}. The fast
     and slow arches get the CNN border fixed; ad and census use no
     network (``net`` is None). ``disp_true`` < disp_max: the planes
     d >= disp_true hold 1e9 (``mask_pad``, mccnn_tpu/pipeline.py:
     120-125), a large finite cost that CBCA averages to itself and the
-    SGM and WTA never select."""
-    if arch == "ad":
-        vols = {-1: costs.ad_volume(x0, x1, disp_max, -1),
-                1: costs.ad_volume(x1, x0, disp_max, 1)}
-    elif arch == "census":
-        vols = {-1: costs.census_volume(x0, x1, disp_max, -1),
-                1: costs.census_volume(x1, x0, disp_max, 1)}
-    else:
+    SGM and WTA never select. ``rows``: a slice of the image rows whose
+    volumes to return (a row shard of
+    :mod:`mccnn_tpu_torch.parallel.inference`); the other rows of x0, x1
+    are a halo that the tower or the cost windows read, their features
+    and costs computed and dropped."""
+    own = slice(None) if rows is None else rows
+    if arch in ("ad", "census"):
+        cost = costs.ad_volume if arch == "ad" else costs.census_volume
+        vols = {-1: cost(x0, x1, disp_max, -1)[:, own].contiguous(),
+                1: cost(x1, x0, disp_max, 1)[:, own].contiguous()}
+    elif arch in ("fast", "slow"):
+        feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)[:, :, own]
+        fl = feats[0].permute(1, 2, 0)  # (H, W, C)
+        fr = feats[1].permute(1, 2, 0)
         if arch == "fast":
-            feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)
-            vol_l, vol_r = join.stereo_join_dhw(feats[0].permute(1, 2, 0),
-                                                feats[1].permute(1, 2, 0),
-                                                disp_max)
-        elif arch == "slow":
-            vol_l, vol_r = slow_cost_volumes(net, x0, x1, disp_max, dtype)
+            vol_l, vol_r = join.stereo_join_dhw(fl, fr, disp_max)
         else:
-            raise ValueError(arch)
+            vol_l, vol_r = slow_head.slow_volumes(net, fl, fr, disp_max, dtype)
         n = (ws - 1) // 2
         vols = {-1: costs.fix_border(vol_l, -1, n),
                 1: costs.fix_border(vol_r, 1, n)}
+    else:
+        raise ValueError(arch)
     if disp_true is not None and disp_true < disp_max:
         real = torch.arange(disp_max, device=x0.device)[:, None, None] \
             < disp_true
@@ -216,13 +219,48 @@ def compute_volumes(cfg: Config, net, x0, x1, disp_max: int, pair_id=None,
     return vols
 
 
+class Stages:
+    """The stages of :func:`_method` that read a cost volume, run on the
+    volume's own device. :mod:`mccnn_tpu_torch.parallel.inference` runs
+    them over row and column shards of the volumes instead (the
+    counterpart of ``_method_jit``'s ``sgm_fn``,
+    mccnn_tpu/pipeline.py:182-186): there a volume and a map that
+    :meth:`wta` or :meth:`outlier` returns are lists of shards, and
+    :meth:`whole` gathers a map before the stages that read all of it."""
+
+    def cbca(self, x0c, x1c, vol, direction, L1):
+        return cross.cbca(x0c, x1c, vol, direction, L1)
+
+    def sgm(self, x0, x1, vols: dict, form, **kw) -> dict:
+        """One SGM iteration: the four-sweep sums (h + v), divided by 4."""
+        outs = sgm.sgm_multi(x0, x1, vols, form=form, **kw)
+        return {d: v / 4.0 for d, v in outs.items()}
+
+    def wta(self, vol):
+        return costs.wta(vol)
+
+    def outlier(self, d_l, d_r, disp_max):
+        return outlier.outlier_detection(d_l, d_r, disp_max)
+
+    def whole(self, m):
+        return m
+
+    def subpixel(self, d, vol, disp_max):
+        return post.subpixel_enhancement(d, vol, disp_max)
+
+
+ONE_DEVICE = Stages()
+
+
 def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
             L1, tau1, cbca_i1, cbca_i2, pi1, pi2, tau_so, alpha1, sgm_q1,
             sgm_q2, sgm_i, blur_t, sm_terminate, sm_skip, return_vols,
-            sgm_form=None):
+            sgm_form=None, stages: Stages = ONE_DEVICE):
     """The stereo method on (D, H, W) volumes (mccnn_tpu/pipeline.py:
     152-229), with every gate of main.lua:988-1080; ``sgm_form`` is the
-    ``form`` of :func:`mccnn_tpu_torch.ops.sgm.sgm_multi`."""
+    ``form`` of :func:`mccnn_tpu_torch.ops.sgm.sgm_multi`; ``stages``
+    the implementation of the stages that read a volume (see
+    :class:`Stages`)."""
     D = int(disp_max)
     sm_active = _active_after(sm_terminate, "cnn")
     do_cbca = sm_active and sm_skip != "cbca"
@@ -235,15 +273,14 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
         vol = vols[direction]
         if do_cbca:
             for _ in range(cbca_i1):
-                vol = cross.cbca(x0c, x1c, vol, direction, L1)
+                vol = stages.cbca(x0c, x1c, vol, direction, L1)
         cur[direction] = vol
 
     if _active_after(sm_terminate, "cbca1") and sm_skip != "sgm":
         for _ in range(sgm_i):
-            outs = sgm.sgm_multi(x0, x1, cur, pi1=pi1, pi2=pi2, tau_so=tau_so,
-                                 alpha1=alpha1, sgm_q1=sgm_q1, sgm_q2=sgm_q2,
-                                 form=sgm_form)
-            cur = {d: v / 4.0 for d, v in outs.items()}
+            cur = stages.sgm(x0, x1, cur, sgm_form, pi1=pi1, pi2=pi2,
+                             tau_so=tau_so, alpha1=alpha1, sgm_q1=sgm_q1,
+                             sgm_q2=sgm_q2)
 
     disp = {}
     final_vols = {}
@@ -251,16 +288,17 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
         vol = cur[direction]
         if _active_after(sm_terminate, "sgm") and do_cbca:
             for _ in range(cbca_i2):
-                vol = cross.cbca(x0c, x1c, vol, direction, L1)
-        disp[direction] = costs.wta(vol)
+                vol = stages.cbca(x0c, x1c, vol, direction, L1)
+        disp[direction] = stages.wta(vol)
         final_vols[direction] = vol
 
-    d_final = disp[directions[-1]]  # the -1 (left-reference) map
+    # the -1 (left-reference) map
+    d_final = stages.whole(disp[directions[-1]])
     vol_final = final_vols[directions[-1]]
     sm_active = _active_after(sm_terminate, "cbca2")
 
     if kitti and len(directions) == 2:
-        labels = outlier.outlier_detection(disp[-1], disp[1], D)
+        labels = stages.whole(stages.outlier(disp[-1], disp[1], D))
         if sm_active and sm_skip != "occlusion":
             d_final = post.interpolate_occlusion(d_final, labels)
         if _active_after(sm_terminate, "occlusion") and sm_skip != "occlusion":
@@ -268,7 +306,7 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
         sm_active = _active_after(sm_terminate, "mismatch")
 
     if sm_active and sm_skip != "subpixel_enchancement":
-        d_final = post.subpixel_enhancement(d_final, vol_final, D)
+        d_final = stages.subpixel(d_final, vol_final, D)
     sm_active = sm_active and _active_after(sm_terminate,
                                             "subpixel_enchancement")
 

@@ -38,7 +38,9 @@ def test_guard_sees_every_file():
                    "data/datasets.py", "train/trainer.py", "train/augment.py",
                    "train/evaluate.py", "models/prng.py", "data/t7.py",
                    "models/import_t7.py", "data/preprocess_kitti.py",
-                   "data/preprocess_mb.py", "ops/host_gather.py"):
+                   "data/preprocess_mb.py", "ops/host_gather.py",
+                   "parallel/mesh.py", "parallel/inference.py",
+                   "parallel/data_parallel.py"):
         assert f"mccnn_tpu_torch/{module}" in names, module
 
 

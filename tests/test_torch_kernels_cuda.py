@@ -737,3 +737,77 @@ def test_cached_slow_run_launches_no_head(dev, tmp_path, monkeypatch):
     assert (tmp_path / "cache" / "p.npz").exists()
     assert torch.equal(maps["make_cache"], plain)
     assert torch.equal(maps["use_cache"], plain)
+
+
+def _card_mesh(n):
+    from mccnn_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([torch.device("cuda")] * n, ("data",))
+
+
+@pytest.mark.parametrize("arch", ["fast", "slow"])
+def test_batch_lanes_on_a_repeated_card(dev, arch):
+    """kitti fast on the serving lane (the HWD lane, kernels 1-5) and
+    kitti slow on the generic batch lane (narrow widths), B=2 on
+    [cuda:0, cuda:0] at 37x160, D=24: each map the card's own
+    ``stereo_predict`` bit for bit, each kernel launched twice its
+    single-pair count."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.parallel import inference
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    H, W, D = 37, 160, 24
+    rng = np.random.RandomState(21)
+    x0b, x1b = (rng.randn(2, H, W).astype(np.float32) for _ in range(2))
+    over = dict(l1=2, fm=8, l2=3, nh2=16) if arch == "slow" else {}
+    cfg = make_config("kitti", arch, a="predict", **over)
+    net = towers.init_net(cfg).to(dev)
+    make = (inference.make_batch_predict_sharded if arch == "fast"
+            else inference.make_batch_predict)
+    want = [stereo_predict(cfg, net, x0b[b], x1b[b], D) for b in range(2)]
+    _build.reset_launches()
+    stereo_predict(cfg, net, x0b[0], x1b[0], D)
+    torch.cuda.synchronize()
+    one = _build.launches()
+    _build.reset_launches()
+    got = make(cfg, _card_mesh(2), D)(net, x0b, x1b)
+    torch.cuda.synchronize()
+    assert _build.launches() == {k: 2 * v for k, v in one.items()}
+    for b in range(2):
+        assert torch.equal(got[b], want[b])
+
+
+@pytest.mark.parametrize("arch", ["census", "fast", "slow"])
+def test_row_sharded_on_a_repeated_card(dev, arch):
+    """One pair row-sharded over [cuda:0] * 4 at 37x160, D=24 (rows 10,
+    9, 9, 9; columns 40 each): census (with its CBCA) equal to the card's
+    single-device map bit for bit; fast and slow (narrow widths; the
+    tower's convolutions on other heights) within 1% of pixels off by
+    > 0.51; the join, head, hslab and vertical kernels launched once a
+    shard and direction, the outlier once a shard, the blur once."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.parallel import inference
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    H, W, D, n = 37, 160, 24, 4
+    base = np.random.RandomState(22).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    over = dict(l1=2, fm=8, l2=3, nh2=16) if arch == "slow" else {}
+    cfg = make_config("kitti", arch, a="predict", **over)
+    net = towers.init_net(cfg)
+    net = None if net is None else net.to(dev)
+    want = stereo_predict(cfg, net, x0, x1, D, sgm_form="slab")
+    _build.reset_launches()
+    got = inference.make_sharded_predict(cfg, _card_mesh(n), D)(net, x0, x1)
+    torch.cuda.synchronize()
+    counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
+                  sgm_vertical=2 * n, outlier=n, blur=1)
+    counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
+                   "census": {}}[arch])
+    assert _build.launches() == counts
+    if arch == "census":
+        assert torch.equal(got, want)
+    else:
+        assert float(((got - want).abs() > 0.51).float().mean()) < 0.01

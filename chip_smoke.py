@@ -40,7 +40,15 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    the vertical and horizontal sweeps on the volume stored as bf16 and
    f16, chained as on the path, forward and reverse, with and without
    the volume write, equal to the plain loop bit for bit; bounds count
-   the real cells, not the padding; then (phase 3b) every kernel that
+   the real cells, not the padding; the refinement chain's four kernels
+   (occlusion fill, mismatch fill, subpixel, the 5x5 median) on phase
+   4's own maps and volume (its stages' inputs captured in one
+   ``stereo_predict``), each bit-identical to its plain version
+   (``.view(torch.int32)``) and timed in a CUDA graph and by events: the
+   mismatch fill also on an all-MISMATCH map and on mismatch against row
+   0 and column 0, its bound counting this map's probes; subpixel on the
+   x-reversed volume in f32, bf16 and f16 and relaid as the generic
+   lane's (D, H, W); then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
    pair), against its plain version with its KITTI tolerance: the join
@@ -49,8 +57,10 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    and horizontal sweeps chained as on the path in f32, bf16 and f16,
    both directions, bit for bit at every sweep; both blurs; the slow
    head over the whole volume (two mid layers, 384 wide); the stacked
-   hslab and vertical sweeps of the -1 direction bit for bit; each with
-   kernel, plain and bound times;
+   hslab and vertical sweeps of the -1 direction bit for bit; subpixel
+   (its three storage types and the (D, H, W) layout) and the median on
+   mb fast's own map and volume, bit for bit; each with kernel, plain
+   and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -171,6 +181,11 @@ H, W, D, SHIFT = 370, 1226, 228, 40
 # the true disparity of the Middlebury phase's pair
 MB_SHIFT = 60
 
+# the refinement kernels a pair: KITTI runs the fills, subpixel and the
+# median; Middlebury (no outlier stage) subpixel and the median
+REFINE_KITTI = dict(occlusion_fill=1, mismatch_fill=1, subpixel=1, median5=1)
+REFINE_MB = dict(subpixel=1, median5=1)
+
 # the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
 # shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
 OLD_HEAD_MS = 319.10
@@ -287,6 +302,158 @@ def peak_line(torch, held: float) -> str:
     pair's own peak)."""
     peak = torch.cuda.max_memory_allocated() / 2**30
     return f"peak {peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} held)"
+
+
+REFINE_STAGES = ("interpolate_occlusion", "interpolate_mismatch",
+                 "subpixel_enhancement", "subpixel_enhancement_hwd",
+                 "median2d")
+
+
+def capture_refine(torch, run) -> dict:
+    """The arguments the refinement stages of ``ops/post.py`` receive in
+    ``run()`` (one ``stereo_predict``): {stage: (args, kwargs)} of each
+    stage's last call, so that phase 3 holds those kernels on the path's
+    own maps and volume."""
+    from mccnn_tpu_torch.ops import post
+
+    seen = {}
+    orig = {name: getattr(post, name) for name in REFINE_STAGES}
+
+    def hook(name):
+        def stage(*a, **kw):
+            seen[name] = (a, kw)
+            return orig[name](*a, **kw)
+        return stage
+
+    try:
+        for name in REFINE_STAGES:
+            setattr(post, name, hook(name))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(post, name, fn)
+    return seen
+
+
+def ray_probes(torch, labels) -> int:
+    """The probes the mismatch fill's walk makes on ``labels``: each
+    MISMATCH pixel's 16 rays, a probe a step until one is out of frame,
+    on row (column) 0 at an odd step of a -0.5 component, or not
+    MISMATCH (csrc/refine.cu). The data-dependent work of its bound."""
+    from mccnn_tpu_torch.ops.post import _RAY_DIRS
+
+    h, w = labels.shape
+    mm = labels == 2
+    ys = torch.arange(h, device=labels.device)[:, None].expand(h, w)
+    xs = torch.arange(w, device=labels.device)[None, :].expand(h, w)
+    n = torch.zeros((), dtype=torch.int64, device=labels.device)
+    for fdx, fdy in _RAY_DIRS.tolist():
+        live = mm.clone()
+        for t in range(1, max(h, w) + 2):
+            py = ys + int(np.floor(t * fdy + 0.5))
+            px = xs + int(np.floor(t * fdx + 0.5))
+            live &= (py >= 0) & (py < h) & (px >= 0) & (px < w)
+            if t % 2 and fdy == -0.5:
+                live &= py != 0
+            if t % 2 and fdx == -0.5:
+                live &= px != 0
+            if t % 64 == 0 and not bool(live.any()):
+                break
+            n += live.sum()
+            live &= labels[py.clamp(0, h - 1), px.clamp(0, w - 1)] == 2
+    return int(n)
+
+
+def refine_row(torch, what, kernel, plain, nbytes, ops=0.0) -> dict:
+    """A refinement kernel against its plain version on the same inputs,
+    bit for bit (``.view(torch.int32)``: NaN payloads and signed zeros
+    included); kernel ms in a CUDA graph (each takes microseconds, less
+    than its wrapper's host time) and by events around eager calls, plain
+    ms; the bound from ``nbytes`` and ``ops`` f32 instructions at the
+    instruction rate."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                  want.view(torch.int32)),
+          f"{what}: not bit-identical to its plain version")
+    row = dict(err=0.0, ms=graph_ms(torch, kernel, 20),
+               events_ms=cuda_ms(torch, kernel, 20),
+               plain_ms=cuda_ms(torch, plain, 2),
+               bound=bound_ms(nbytes, ops, F32_INSTR))
+    print(f"  {what}: bit-identical to the plain version; kernel "
+          f"{row['ms']:.4f} ms a call in a CUDA graph, {row['events_ms']:.4f} "
+          f"ms by events around eager calls, plain {row['plain_ms']:.3f} ms, "
+          f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+    return row
+
+
+def refine_rows(torch, seen, where) -> dict:
+    """Rows for the refinement kernels on the inputs ``capture_refine``
+    saw: each stage present, and the subpixel kernel also on its volume
+    stored as bf16 and f16 and relaid as the generic lane's (D, H, W)
+    (threshold 1e-5). Bounds: the maps read and written (4 bytes a
+    pixel each; three samples of the volume a pixel for the parabola);
+    the mismatch fill three instructions a probe (address, load,
+    compare) of this map's walk; the median 226 min/max a pixel."""
+    from mccnn_tpu_torch.ops import post
+
+    rows = {}
+    if "interpolate_occlusion" in seen:
+        (d0, lab), _ = seen["interpolate_occlusion"]
+        h, w = d0.shape
+        rows["occlusion_fill"] = refine_row(
+            torch, f"occlusion_fill {where}",
+            lambda: post.interpolate_occlusion(d0, lab),
+            lambda: post.interpolate_occlusion_plain(d0, lab), 12 * h * w)
+    if "interpolate_mismatch" in seen:
+        (d0, lab), _ = seen["interpolate_mismatch"]
+        h, w = d0.shape
+        # the path's labels; every pixel MISMATCH (every ray walks to the
+        # frame's edge); mismatch against row 0 and column 0, landings on
+        # both at every third pixel (the -0.5 rule of the half directions)
+        edges = lab.clone()
+        edges[:8], edges[:, :8] = 2.0, 2.0
+        edges[0, ::3], edges[::3, 0] = 0.0, 1.0
+        for name, lb in (("mismatch_fill", lab),
+                         ("mismatch_fill (all MISMATCH)",
+                          torch.full_like(lab, 2.0)),
+                         ("mismatch_fill (edges)", edges)):
+            n = ray_probes(torch, lb)
+            share = float((lb == 2).float().mean())
+            rows[name] = refine_row(
+                torch, f"{name} {where} ({share:.4f} of pixels MISMATCH, "
+                f"{n} probes)",
+                lambda lb=lb: post.interpolate_mismatch(d0, lb),
+                lambda lb=lb: post.interpolate_mismatch_plain(d0, lb),
+                12 * h * w, 3.0 * n)
+    if "subpixel_enhancement_hwd" in seen:
+        (d0, vol, dd), kw = seen["subpixel_enhancement_hwd"]
+        h, w = d0.shape
+        dhw = vol[:, :w, :dd].flip(1).permute(2, 0, 1).contiguous()
+        for name, v in (("subpixel", vol),
+                        ("subpixel (bf16 storage)", vol.to(torch.bfloat16)),
+                        ("subpixel (f16 storage)", vol.to(torch.float16))):
+            rows[name] = refine_row(
+                torch, f"{name} {where}, x-reversed {tuple(v.shape)}",
+                lambda v=v: post.subpixel_enhancement_hwd(d0, v, dd, **kw),
+                lambda v=v: post.subpixel_enhancement_hwd_plain(d0, v, dd,
+                                                                **kw),
+                (8 + 3 * v.element_size()) * h * w)
+            del v
+        rows["subpixel (generic (D, H, W))"] = refine_row(
+            torch, f"subpixel {where}, (D, H, W) {tuple(dhw.shape)}",
+            lambda: post.subpixel_enhancement(d0, dhw, dd),
+            lambda: post.subpixel_enhancement_plain(d0, dhw, dd), 20 * h * w)
+        del dhw, vol
+    if "median2d" in seen:
+        (img, k), _ = seen["median2d"]
+        h, w = img.shape
+        rows["median5"] = refine_row(
+            torch, f"median5 {where}", lambda: post.median2d(img, k),
+            lambda: post.median2d_plain(img, k), 8 * h * w, 226.0 * h * w)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def matching_head(net, feats):
@@ -636,7 +803,8 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
         torch.cuda.synchronize()
         got = _build.launches()
         want_mb = dict.fromkeys(_build.KERNELS, 0)
-        want_mb.update(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1)
+        want_mb.update(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1,
+                       **REFINE_MB)
         score = float(out.getvalue().split()[-1])
         x0, x1 = (np.array(mds.X[0][0][k, 0]) for k in (0, 1))
         dm = int(mds.metadata[0, 2])
@@ -1042,9 +1210,12 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
                 torch.cuda.synchronize()
                 got = _build.launches()
                 want = dict.fromkeys(_build.KERNELS, 0)
+                # subpixel runs a shard; the fills and the median on the
+                # whole map on the first device
                 want.update(sgm_hslab=2 * n, sgm_vertical=2 * n, outlier=n,
-                            blur=1, **({"join": 2 * n} if arch == "fast"
-                                       else {"slow_head": n}))
+                            blur=1, **dict(REFINE_KITTI, subpixel=n),
+                            **({"join": 2 * n} if arch == "fast"
+                               else {"slow_head": n}))
                 check(got == want, f"row-sharded kitti {arch} on {n}: "
                       f"launches {got}, expected {want}")
                 check(m.shape == (H, W) and bool(np.isfinite(m).all()),
@@ -1445,6 +1616,12 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: blur.mean2d_plain(img, kern, t), 1),
             bound=bound_ms((2 * h * w + k * k) * 4, 4.0 * ny * nx, F32_INSTR))
 
+    # the refinement chain's four kernels on phase 4's own maps and volume:
+    # the same pair through the same path, its stages' inputs captured
+    seen = capture_refine(torch, lambda: stereo_predict(cfg, tower, x0, x1, D))
+    rows.update(refine_rows(torch, seen, f"at {H}x{W}, D={D}"))
+    del seen
+
     rows["blur"] = blur_row(d_l.clone(), cfg.blur_sigma, cfg.blur_t)
     del vol_l, vol_r
 
@@ -1699,6 +1876,12 @@ def main() -> int:
                                                      allow_tf32=False):
         mfeats = mtower(mimages)
     mfl, mfr = mfeats[0].permute(1, 2, 0), mfeats[1].permute(1, 2, 0)
+    # the subpixel and median kernels (mb has no outlier stage) on the mb
+    # fast path's own map and volume
+    print(f"phase 3b: the refinement kernels at {hm}x{wm}, D={dm}")
+    rows_mb.update(refine_rows(torch, capture_refine(
+        torch, lambda: stereo_predict(mfcfg, mtower, m0_, m1_, dm)),
+        f"at {hm}x{wm}, D={dm}"))
     del mtower, mfeats
     Cm = mfl.shape[-1]
     Hq, Wq, Dq = join.pad_dims(hm, wm, dm)
@@ -1881,7 +2064,8 @@ def main() -> int:
     counts, kcounts = _build.launches(), _build.kernel_launches()
     print(f"phase 4: launches in one stereo_predict: {counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
-    want.update(join=2, sgm_vertical=4, sgm_horizontal=4, outlier=1, blur=1)
+    want.update(join=2, sgm_vertical=4, sgm_horizontal=4, outlier=1, blur=1,
+                **REFINE_KITTI)
     check(counts == want, f"launch counts {counts}, expected {want}")
     d = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -1958,7 +2142,8 @@ def main() -> int:
     slow_counts, slow_kcounts = _build.launches(), _build.kernel_launches()
     print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
-    want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2)
+    want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2,
+                **REFINE_KITTI)
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
     d = slow_map = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -2013,7 +2198,7 @@ def main() -> int:
         got, got_k = _build.launches(), _build.kernel_launches()
         want = dict.fromkeys(_build.KERNELS, 0)
         want.update(outlier=1, blur=1, join=0 if net is None else 2,
-                    **sweeps_of[form])
+                    **sweeps_of[form], **REFINE_KITTI)
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
@@ -2116,10 +2301,12 @@ def main() -> int:
     mcfg_t = make_config("mb", "fast", a="time")
     mtower = towers.init_fast(mcfg_t, mcfg_t.seed).to(dev)
     mb_path("mb fast -a time (left direction)", mcfg_t, mtower,
-            dict(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1), 10)
+            dict(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1,
+                 **REFINE_MB), 10)
     mb_path("mb fast -a predict (both directions)",
             make_config("mb", "fast", a="predict"), mtower,
-            dict(join=2, sgm_vertical=4, sgm_horizontal=4, blur=1), 10)
+            dict(join=2, sgm_vertical=4, sgm_horizontal=4, blur=1,
+                 **REFINE_MB), 10)
     mscfg = make_config("mb", "slow", a="time")
     mhand = towers.init_slow(mscfg, mscfg.seed).to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
@@ -2128,7 +2315,8 @@ def main() -> int:
     matching_head(mhand, mfeats)
     del mfeats
     mb_path("mb slow -a time (left direction, head set by hand)", mscfg, mhand,
-            dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1), 3)
+            dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1,
+                 **REFINE_MB), 3)
 
     # the all-plain comparison at 96x320, D=48 with mb's own parameters
     for what, mcfg, net in (("mb fast", mcfg_t, mtower),
@@ -2178,7 +2366,12 @@ def main() -> int:
                              "mccnn_tpu/ops/slow_head_pallas.py:62"),
                "sgm_hslab": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:267"),
                "sgm_scan": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:157"),
-               "sgm_step": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:1005")}
+               "sgm_step": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:1005"),
+               # stages the JAX package leaves to XLA: the functions
+               "occlusion_fill": ("refine.cu", "mccnn_tpu/ops/post.py:68"),
+               "mismatch_fill": ("refine.cu", "mccnn_tpu/ops/post.py:122"),
+               "subpixel": ("refine.cu", "mccnn_tpu/ops/post.py:378"),
+               "median5": ("refine.cu", "mccnn_tpu/ops/post.py:270")}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s, the build included")
     print(json.dumps({"kernels": [

@@ -387,12 +387,10 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
         sm_active = _active_after(sm_terminate, "mismatch")
 
     if sm_active and sm_skip != "subpixel_enchancement":
-        Wp = cur_lr.shape[1]
-        d_rev = torch.nn.functional.pad(d_final.flip(1), (0, Wp - W))
+        # the left volume is x-reversed: the map reads its columns W-1-x
         thresh = 4e-5 if sgm_ran else 1e-5
-        s = post.subpixel_enhancement_hwd(d_rev, cur_lr[:H], D,
-                                          denom_thresh=thresh)
-        d_final = s[:, :W].flip(1)
+        d_final = post.subpixel_enhancement_hwd(d_final, cur_lr[:H], D,
+                                                denom_thresh=thresh, xrev=True)
     sm_active = sm_active and _active_after(sm_terminate,
                                             "subpixel_enchancement")
 

@@ -15,13 +15,25 @@ warm up, then once under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
 tower's convolutions and the plain torch operations, the top kernels by
 device time, the device's busy share of the wall time of the run, and
-the peak device memory of that run.
+the peak device memory of that run; the plain torch launches of a
+second run, in which each function of the port's pipeline, tower and
+ops modules runs in a profiler range, by the innermost such function
+that issued them; the SHA-256 of the map's float32
+bytes, so that two versions' maps can be compared across processes;
+then pairs/s of 10 runs without the profiler, the median and the spread
+of their wall times (host clock around a synchronized call).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
+import hashlib
+import importlib
+import inspect
+import statistics
 import time
 
 import numpy as np
@@ -33,7 +45,52 @@ from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
 HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
-        "blur_kernel", "head_chain_kernel")
+        "blur_kernel", "head_chain_kernel", "occlusion_fill_kernel",
+        "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel")
+
+
+PLAIN = "plain torch operations"
+# the port's modules whose functions the second run labels, and the prefix
+# of those labels among the profiler's ranges
+LABELLED = ("pipeline", "models.towers", "ops.costs", "ops.cross", "ops.join",
+            "ops.sgm", "ops.outlier", "ops.blur", "ops.post", "ops.slow_head")
+LABEL = "port: "
+
+
+def _ranged(label: str, fn):
+    @functools.wraps(fn)
+    def call(*a, **kw):
+        with torch.profiler.record_function(LABEL + label):
+            return fn(*a, **kw)
+    return call
+
+
+@contextlib.contextmanager
+def _labelled():
+    """Every function of the ``LABELLED`` modules wrapped in a profiler
+    range named after it, for the span of the block (calls through the
+    module, as the port makes them, go through the wrapper)."""
+    saved = []
+    for short in LABELLED:
+        mod = importlib.import_module(f"mccnn_tpu_torch.{short}")
+        for name, fn in list(vars(mod).items()):
+            if inspect.isfunction(fn) and fn.__module__ == mod.__name__:
+                saved.append((mod, name, fn))
+                setattr(mod, name, _ranged(f"{short}.{name}", fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _source(event) -> str:
+    """The innermost labelled function around a profiled operation."""
+    while event is not None:
+        if event.name.startswith(LABEL):
+            return event.name[len(LABEL):]
+        event = event.cpu_parent
+    return "outside the labelled modules"
 
 
 def _group(name: str) -> str:
@@ -42,7 +99,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "conv" in low or "cudnn" in low or "xmma" in low or "implicit" in low:
         return "tower convolutions (cuDNN)"
-    return "plain torch operations"
+    return PLAIN
 
 
 def main(argv=None) -> None:
@@ -77,7 +134,7 @@ def main(argv=None) -> None:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
+        disp = stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
@@ -110,6 +167,30 @@ def main(argv=None) -> None:
     print(f"top {args.top} kernels by device time:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:args.top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
+    with _labelled(), torch.profiler.profile(activities=acts) as prof:
+        stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
+        torch.cuda.synchronize()
+    by_source = collections.Counter()
+    for e in prof.events():
+        n = sum(_group(k.name) == PLAIN for k in e.kernels)
+        if n:
+            by_source[_source(e)] += n
+    print(f"plain torch launches by the port's function that issued them (a "
+          f"second run, each function in a profiler range; "
+          f"{sum(by_source.values())} in all):")
+    for src, n in by_source.most_common():
+        print(f"  {n:6d}  {src}")
+    digest = hashlib.sha256(disp.cpu().numpy().astype(np.float32).tobytes())
+    print(f"map sha256 {digest.hexdigest()}")
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"{1e3 / statistics.median(times):.3f} pairs/s (median of 10 runs "
+          f"without the profiler; {min(times):.2f}-{max(times):.2f} ms a "
+          f"pair)")
 
 
 if __name__ == "__main__":

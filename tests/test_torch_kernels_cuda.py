@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from mccnn_tpu_torch.ops import _build, blur, join, outlier, sgm, slow_head
+from mccnn_tpu_torch.ops import (_build, blur, join, outlier, post, sgm,
+                                 slow_head)
 
 pytestmark = pytest.mark.cuda
 
@@ -582,6 +583,172 @@ def test_blur_kernel_matches_plain(dev, H, W, sigma):
         blur.mean2d(img, torch.ones((big, big), device=dev), 5.0)
 
 
+def _bits(a):
+    return a.contiguous().view(torch.int32)
+
+
+def _labels(rng, H, W, p=(.5, .2, .3)):
+    return rng.choice([0.0, 1.0, 2.0], (H, W), p=p).astype(np.float32)
+
+
+@pytest.mark.parametrize("H,W", [(37, 300), (9, 600), (5, 3), (2, 1226),
+                                 (3, 46080)])
+def test_occlusion_fill_kernel_is_bit_identical(dev, H, W):
+    """``occlusion_fill`` against ``interpolate_occlusion_plain``, bit for
+    bit, one launch a call: rows with no match, rows whose matches lie
+    right of the occlusions only, random rows; up to the widest row a
+    block's shared memory holds (one column more is refused); its
+    footprint as ``post.occlusion_smem_bytes`` reckons it."""
+    rng = np.random.RandomState(H + W)
+    d0 = torch.as_tensor((rng.rand(H, W) * 100).astype(np.float32),
+                         device=dev)
+    lab = _labels(rng, H, W, (.3, .5, .2))
+    lab[0] = np.where(lab[0] == 0.0, 1.0, lab[0])
+    if H > 2:
+        lab[1, :W // 2] = 1.0
+        lab[1, -1] = 0.0
+    lab = torch.as_tensor(lab, device=dev)
+    before = _build.launches()["occlusion_fill"]
+    got = post.interpolate_occlusion(d0, lab)
+    torch.cuda.synchronize()
+    assert _build.launches()["occlusion_fill"] == before + 1
+    assert torch.equal(_bits(got), _bits(post.interpolate_occlusion_plain(
+        d0, lab)))
+    assert post._lib().occlusion_fill_smem_bytes(W) == \
+        post.occlusion_smem_bytes(W)
+    if W == 46080:
+        z = torch.zeros((2, W + 1), device=dev)
+        with pytest.raises(ValueError, match="bad shapes"):
+            post.interpolate_occlusion(z, z)
+
+
+@pytest.mark.parametrize("case", ["random", "all mismatch", "edges", "cnt 0",
+                                  "nan"])
+@pytest.mark.parametrize("H,W", [(37, 150), (70, 33)])
+def test_mismatch_fill_kernel_is_bit_identical(dev, case, H, W):
+    """``mismatch_fill`` (a walk of each ray) against the plain version's
+    pointer doubling, bit for bit, one launch a call: random labels, an
+    all-mismatch map, mismatch against row 0 and column 0 (the half
+    directions' -0.5 rule), a map where most pixels land nothing, and
+    NaN among the values that land."""
+    rng = np.random.RandomState(H * W)
+    d0 = (rng.rand(H, W) * 100).astype(np.float32)
+    lab = _labels(rng, H, W)
+    if case == "all mismatch":
+        lab[:] = 2.0
+    elif case == "edges":
+        lab[:8], lab[:, :8] = 2.0, 2.0
+        lab[0, ::3], lab[::3, 0] = 0.0, 1.0
+    elif case == "cnt 0":
+        lab[:] = 2.0
+        lab[H // 3, W // 4] = 0.0
+    elif case == "nan":
+        d0[rng.rand(H, W) < 0.05] = np.nan
+    d0, lab = (torch.as_tensor(a, device=dev) for a in (d0, lab))
+    before = _build.launches()["mismatch_fill"]
+    got = post.interpolate_mismatch(d0, lab)
+    torch.cuda.synchronize()
+    assert _build.launches()["mismatch_fill"] == before + 1
+    assert torch.equal(_bits(got), _bits(post.interpolate_mismatch_plain(
+        d0, lab)))
+
+
+@pytest.mark.parametrize("H,W,nan", [(37, 150, False), (5, 5, False),
+                                     (3, 2, False), (1, 40, False),
+                                     (67, 141, True)])
+def test_median5_kernel_is_bit_identical(dev, H, W, nan):
+    """``median5`` against ``median2d_plain(·, 5)``, bit for bit, one
+    launch a call: maps smaller than the window, a width off a multiple
+    of the block's 32 columns, repeated values, and NaN of two payloads
+    and infinities among them (torch.minimum / torch.maximum semantics).
+    Another kernel size raises on the card."""
+    rng = np.random.RandomState(H * W)
+    img = (rng.randint(0, 20, (H, W)) + rng.choice([0, .5], (H, W))
+           ).astype(np.float32)
+    if nan:
+        img[rng.rand(H, W) < 0.03] = np.nan
+        bits = img.view(np.int32)
+        bits[rng.rand(H, W) < 0.02] = 0x7fc00123  # a NaN of another payload
+        img[rng.rand(H, W) < 0.02] = np.inf
+        img[rng.rand(H, W) < 0.02] = -np.inf
+    t = torch.as_tensor(img, device=dev)
+    before = _build.launches()["median5"]
+    got = post.median2d(t, 5)
+    torch.cuda.synchronize()
+    assert _build.launches()["median5"] == before + 1
+    assert torch.equal(_bits(got), _bits(post.median2d_plain(t, 5)))
+    with pytest.raises(ValueError, match="kernel_size 5"):
+        post.median2d(t, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", ["hwd", "hwd xrev", "dhw", "dhw sliced"])
+def test_subpixel_kernel_is_bit_identical(dev, dtype, layout):
+    """``subpixel`` against the plain parabola, bit for bit, one launch a
+    call, reading each layout in place through its strides: the HWD
+    lane's (H, Wp, Dp) in storage order, its x-reversed volume with
+    pad columns read from the natural map, the generic lane's (D, H, W),
+    and a (D, H, W) slice of a larger volume (strides that are not its
+    shape's); f32, bf16 and f16 storage; NaN samples, flat triples at the
+    threshold, d outside [1, D - 1) and past the volume."""
+    rng = np.random.RandomState(5)
+    D, H, W, Wp, Dp = 40, 23, 77, 96, 64
+    d0 = (rng.randint(-1, D + 2, (H, W))
+          + rng.choice([0, .5, .99], (H, W))).astype(np.float32)
+    d0 = torch.as_tensor(d0, device=dev)
+    vol = rng.rand(D + 3, H + 2, W + 4).astype(np.float32)
+    vol[rng.rand(*vol.shape) < 0.05] = np.nan
+    vol[:, :, ::5] = 0.5
+    vol = torch.as_tensor(vol, device=dev).to(dtype)
+    dhw = vol[:D, :H, :W].contiguous()
+    thresh = 4e-5 if layout.startswith("hwd") else 1e-5
+    before = _build.launches()["subpixel"]
+    if layout == "dhw":
+        got = post.subpixel_enhancement(d0, dhw, D)
+        want = post.subpixel_enhancement_plain(d0, dhw, D)
+    elif layout == "dhw sliced":
+        got = post.subpixel_enhancement(d0, vol[1:D + 1, 2:, 3:W + 3], D)
+        want = post.subpixel_enhancement_plain(d0, vol[1:D + 1, 2:, 3:W + 3],
+                                               D)
+    else:
+        hwd = torch.full((H, Wp, Dp), float("nan"), device=dev, dtype=dtype)
+        xrev = layout == "hwd xrev"
+        hwd[:, :W, :D] = dhw.permute(1, 2, 0).flip(1) if xrev \
+            else dhw.permute(1, 2, 0)
+        if xrev:
+            got = post.subpixel_enhancement_hwd(d0, hwd, D, thresh, xrev=True)
+        else:
+            hwd = hwd[:, :W]
+            got = post.subpixel_enhancement_hwd(d0, hwd, D, thresh)
+        want = post.subpixel_enhancement_hwd_plain(d0, hwd, D, thresh,
+                                                   xrev=xrev)
+    torch.cuda.synchronize()
+    assert _build.launches()["subpixel"] == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_refine_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    z = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        post.interpolate_mismatch(z.double(), z)
+    with pytest.raises(ValueError, match="bad shapes"):
+        post.interpolate_occlusion(z, z[:3])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        post.interpolate_mismatch(z, z.cpu())
+    with pytest.raises(ValueError, match="bad shapes"):
+        post.median2d(torch.zeros(8, device=dev), 5)
+    vol = torch.zeros((4, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        post.subpixel_enhancement_hwd(z, vol.double(), 10)
+    with pytest.raises(ValueError, match="bad shapes"):
+        post.subpixel_enhancement_hwd(z, vol[:, :7], 10, xrev=True)
+    with pytest.raises(ValueError, match="bad shapes"):
+        post.subpixel_enhancement_hwd(z, torch.zeros((4, 9, 16), device=dev),
+                                      10)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     a = torch.zeros((64, 8, 128), device=dev)
     with pytest.raises(ValueError, match="n_fix"):
@@ -682,7 +849,7 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
     and loaded through ``cli.load_params`` (``-net_fname x.t7``): on the
     card its map is the in-memory net's bit for bit, through the join (2
     launches), the vertical and horizontal sweeps (4 each), the outlier
-    labels and the blur (1 each)."""
+    labels, the blur and the four refinement kernels (1 each)."""
     from mccnn_tpu_torch import cli
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
@@ -705,7 +872,8 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
     counts = _build.launches()
     assert counts == dict(dict.fromkeys(_build.KERNELS, 0), join=2,
                           sgm_vertical=4, sgm_horizontal=4, outlier=1,
-                          blur=1)
+                          blur=1, occlusion_fill=1, mismatch_fill=1,
+                          subpixel=1, median5=1)
     assert torch.equal(got, want)
 
 
@@ -785,7 +953,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     single-device map bit for bit; fast and slow (narrow widths; the
     tower's convolutions on other heights) within 1% of pixels off by
     > 0.51; the join, head, hslab and vertical kernels launched once a
-    shard and direction, the outlier once a shard, the blur once."""
+    shard and direction, the outlier and the subpixel kernel once a
+    shard, the fills, the median and the blur once."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.parallel import inference
@@ -803,7 +972,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     got = inference.make_sharded_predict(cfg, _card_mesh(n), D)(net, x0, x1)
     torch.cuda.synchronize()
     counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
-                  sgm_vertical=2 * n, outlier=n, blur=1)
+                  sgm_vertical=2 * n, outlier=n, blur=1, occlusion_fill=1,
+                  mismatch_fill=1, subpixel=n, median5=1)
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
                    "census": {}}[arch])
     assert _build.launches() == counts

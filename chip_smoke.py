@@ -48,7 +48,13 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    mismatch fill also on an all-MISMATCH map and on mismatch against row
    0 and column 0, its bound counting this map's probes; subpixel on the
    x-reversed volume in f32, bf16 and f16 and relaid as the generic
-   lane's (D, H, W); then (phase 3b) every kernel that
+   lane's (D, H, W); the CBCA kernel on kitti slow's own volumes and arms
+   (one slow ``stereo_predict`` with random weights, the last CBCA input
+   of each direction captured) and on kitti census's at K = 2, both
+   directions, each bit-identical to its plain version, timed by events,
+   its bound counting the adds these arms need; the arms kernel at K = 2,
+   3, 5 and 14 on the pair's left image, bit-identical, timed in a CUDA
+   graph; then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
    pair), against its plain version with its KITTI tolerance: the join
@@ -57,7 +63,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    and horizontal sweeps chained as on the path in f32, bf16 and f16,
    both directions, bit for bit at every sweep; both blurs; the slow
    head over the whole volume (two mid layers, 384 wide); the stacked
-   hslab and vertical sweeps of the -1 direction bit for bit; subpixel
+   hslab and vertical sweeps of the -1 direction bit for bit; CBCA at mb
+   slow's K = 14 on that head's volume, the -1 direction, and the arms
+   kernel at K = 14, bit for bit; subpixel
    (its three storage types and the (D, H, W) layout) and the median on
    mb fast's own map and volume, bit for bit; each with kernel, plain
    and bound times;
@@ -71,7 +79,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    share of pixels moved by more than 1 px against the float32 map, the
    accuracy, pairs/s (median of 10, with the spread) and peak memory;
 5. the slow-arch ``stereo_predict`` on the same pair: the launch count
-   of every kernel in one run and the accuracy, with a head set by hand
+   of every kernel in one run (CBCA twice a direction, the arms once an
+   image) and the accuracy, with a head set by hand
    to score the L1 distance of the descriptors (a random head does not
    score identical patches as a match); pairs/s (median of 5 after a
    warm-up) and peak memory with seeded random weights; the share of
@@ -89,7 +98,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
 7. Middlebury at the ``-a time`` shape, 1000x1500, D=200, on a seeded
    textured pair of true disparity 60: mb fast with the left direction
    alone (``-a time``) and with both (``-a predict``), and mb slow (the
-   generic lane, CBCA x2 and x16, a head set by hand as in phase 5):
+   generic lane, CBCA x2 and x16 on the CBCA kernel, a head set by hand as
+   in phase 5):
    launch counts, accuracy, pairs/s (median of 10, of 3 for mb slow,
    with the spread) and peak memory; both against the all-plain path on
    the CPU at 96x320, D=48 with mb's own parameters;
@@ -185,6 +195,15 @@ MB_SHIFT = 60
 # median; Middlebury (no outlier stage) subpixel and the median
 REFINE_KITTI = dict(occlusion_fill=1, mismatch_fill=1, subpixel=1, median5=1)
 REFINE_MB = dict(subpixel=1, median5=1)
+
+
+def cbca_counts(cfg, slabs: int) -> dict:
+    """The CBCA and arms launches of one pair on the generic lane: CBCA
+    once an iteration (``cbca_i1`` + ``cbca_i2``) for each of ``slabs``
+    volumes (the directions, times the row shards), the arms once an
+    image."""
+    return dict(cbca=slabs * (int(cfg.cbca_i1) + int(cfg.cbca_i2)),
+                cross_arms=2)
 
 # the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
 # shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
@@ -309,31 +328,48 @@ REFINE_STAGES = ("interpolate_occlusion", "interpolate_mismatch",
                  "median2d")
 
 
-def capture_refine(torch, run) -> dict:
-    """The arguments the refinement stages of ``ops/post.py`` receive in
-    ``run()`` (one ``stereo_predict``): {stage: (args, kwargs)} of each
-    stage's last call, so that phase 3 holds those kernels on the path's
-    own maps and volume."""
-    from mccnn_tpu_torch.ops import post
-
+def capture_calls(torch, mod, names, run, key=lambda name, a: name) -> dict:
+    """The arguments the functions ``names`` of ``mod`` receive in
+    ``run()`` (one ``stereo_predict``): {key(name, args): (args, kwargs)}
+    of the last such call, so that phase 3 holds their kernels on the
+    path's own inputs."""
     seen = {}
-    orig = {name: getattr(post, name) for name in REFINE_STAGES}
+    orig = {name: getattr(mod, name) for name in names}
 
     def hook(name):
         def stage(*a, **kw):
-            seen[name] = (a, kw)
+            seen[key(name, a)] = (a, kw)
             return orig[name](*a, **kw)
         return stage
 
     try:
-        for name in REFINE_STAGES:
-            setattr(post, name, hook(name))
+        for name in names:
+            setattr(mod, name, hook(name))
         run()
         torch.cuda.synchronize()
     finally:
         for name, fn in orig.items():
-            setattr(post, name, fn)
+            setattr(mod, name, fn)
     return seen
+
+
+def capture_refine(torch, run) -> dict:
+    """{stage: (args, kwargs)} of the last call of each refinement stage
+    of ``ops/post.py`` in ``run()``."""
+    from mccnn_tpu_torch.ops import post
+
+    return capture_calls(torch, post, REFINE_STAGES, run)
+
+
+def capture_cbca(torch, run) -> dict:
+    """The arguments of the last ``cbca`` call of each direction in
+    ``run()``, keyed ("cbca", direction), and of the last ``cross_arms``
+    call, keyed ("cross_arms",)."""
+    from mccnn_tpu_torch.ops import cross
+
+    return capture_calls(
+        torch, cross, ("cbca", "cross_arms"), run,
+        key=lambda name, a: (name, a[3]) if name == "cbca" else (name,))
 
 
 def ray_probes(torch, labels) -> int:
@@ -365,26 +401,30 @@ def ray_probes(torch, labels) -> int:
     return int(n)
 
 
-def refine_row(torch, what, kernel, plain, nbytes, ops=0.0) -> dict:
-    """A refinement kernel against its plain version on the same inputs,
-    bit for bit (``.view(torch.int32)``: NaN payloads and signed zeros
-    included); kernel ms in a CUDA graph (each takes microseconds, less
-    than its wrapper's host time) and by events around eager calls, plain
-    ms; the bound from ``nbytes`` and ``ops`` f32 instructions at the
-    instruction rate."""
+def exact_row(torch, what, kernel, plain, nbytes, ops=0.0, graph=True,
+              reps=20) -> dict:
+    """A kernel against its plain version on the same inputs, bit for bit
+    (``.view(torch.int32)``: NaN payloads and signed zeros included);
+    kernel ms in a CUDA graph (for a kernel of microseconds, less than its
+    wrapper's host time; unless ``graph`` is false) and by events around
+    ``reps`` eager calls, plain ms; the bound from ``nbytes`` and ``ops``
+    f32 instructions at the instruction rate."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     check(got.shape == want.shape and torch.equal(got.view(torch.int32),
                                                   want.view(torch.int32)),
           f"{what}: not bit-identical to its plain version")
-    row = dict(err=0.0, ms=graph_ms(torch, kernel, 20),
-               events_ms=cuda_ms(torch, kernel, 20),
-               plain_ms=cuda_ms(torch, plain, 2),
+    del got, want
+    events = cuda_ms(torch, kernel, reps)
+    row = dict(err=0.0, ms=graph_ms(torch, kernel, reps) if graph else events,
+               events_ms=events, plain_ms=cuda_ms(torch, plain, 2 if graph
+                                                  else 1),
                bound=bound_ms(nbytes, ops, F32_INSTR))
-    print(f"  {what}: bit-identical to the plain version; kernel "
-          f"{row['ms']:.4f} ms a call in a CUDA graph, {row['events_ms']:.4f} "
-          f"ms by events around eager calls, plain {row['plain_ms']:.3f} ms, "
-          f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+    how = (f"{row['ms']:.4f} ms a call in a CUDA graph, " if graph else "")
+    print(f"  {what}: bit-identical to the plain version; kernel {how}"
+          f"{events:.4f} ms by events around eager calls, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.5f} ms "
+          f"({row['bound'][1]})")
     return row
 
 
@@ -402,7 +442,7 @@ def refine_rows(torch, seen, where) -> dict:
     if "interpolate_occlusion" in seen:
         (d0, lab), _ = seen["interpolate_occlusion"]
         h, w = d0.shape
-        rows["occlusion_fill"] = refine_row(
+        rows["occlusion_fill"] = exact_row(
             torch, f"occlusion_fill {where}",
             lambda: post.interpolate_occlusion(d0, lab),
             lambda: post.interpolate_occlusion_plain(d0, lab), 12 * h * w)
@@ -421,7 +461,7 @@ def refine_rows(torch, seen, where) -> dict:
                          ("mismatch_fill (edges)", edges)):
             n = ray_probes(torch, lb)
             share = float((lb == 2).float().mean())
-            rows[name] = refine_row(
+            rows[name] = exact_row(
                 torch, f"{name} {where} ({share:.4f} of pixels MISMATCH, "
                 f"{n} probes)",
                 lambda lb=lb: post.interpolate_mismatch(d0, lb),
@@ -434,14 +474,14 @@ def refine_rows(torch, seen, where) -> dict:
         for name, v in (("subpixel", vol),
                         ("subpixel (bf16 storage)", vol.to(torch.bfloat16)),
                         ("subpixel (f16 storage)", vol.to(torch.float16))):
-            rows[name] = refine_row(
+            rows[name] = exact_row(
                 torch, f"{name} {where}, x-reversed {tuple(v.shape)}",
                 lambda v=v: post.subpixel_enhancement_hwd(d0, v, dd, **kw),
                 lambda v=v: post.subpixel_enhancement_hwd_plain(d0, v, dd,
                                                                 **kw),
                 (8 + 3 * v.element_size()) * h * w)
             del v
-        rows["subpixel (generic (D, H, W))"] = refine_row(
+        rows["subpixel (generic (D, H, W))"] = exact_row(
             torch, f"subpixel {where}, (D, H, W) {tuple(dhw.shape)}",
             lambda: post.subpixel_enhancement(d0, dhw, dd),
             lambda: post.subpixel_enhancement_plain(d0, dhw, dd), 20 * h * w)
@@ -449,11 +489,82 @@ def refine_rows(torch, seen, where) -> dict:
     if "median2d" in seen:
         (img, k), _ = seen["median2d"]
         h, w = img.shape
-        rows["median5"] = refine_row(
+        rows["median5"] = exact_row(
             torch, f"median5 {where}", lambda: post.median2d(img, k),
             lambda: post.median2d_plain(img, k), 8 * h * w, 226.0 * h * w)
     torch.cuda.empty_cache()
     return rows
+
+
+def cbca_adds(torch, x0c, x1c, d, direction, L1) -> int:
+    """The adds one CBCA iteration needs on these arms (csrc/cross.cu's
+    intervals): for each cell whose x + d * direction lies in frame, its
+    row sum's columns and its column sum's rows. The data-dependent work
+    of the kernel's bound."""
+    _, h, w = x0c.shape
+    r = max(2, int(L1)) - 1
+    xs = torch.arange(w, device=x0c.device)
+    ys = torch.arange(h, device=x0c.device)[:, None]
+    a0 = x0c.long()
+    n = torch.zeros((), dtype=torch.int64, device=x0c.device)
+    for dd in range(d):
+        delta = dd * direction
+        a1 = x1c[:, :, (xs + delta).clamp(0, w - 1)].long()
+        lo = torch.maximum(torch.maximum(a0[0], a1[0] - delta) + 1,
+                           xs - r).clamp(min=0)
+        hi = torch.minimum(torch.minimum(a0[1], a1[1] - delta) - 1,
+                           xs + r).clamp(max=w - 1)
+        cols = (hi - lo + 1).clamp(min=0)
+        lo = torch.maximum(torch.maximum(a0[2], a1[2]) + 1,
+                           ys - r).clamp(min=0)
+        hi = torch.minimum(torch.minimum(a0[3], a1[3]) - 1,
+                           ys + r).clamp(max=h - 1)
+        rows = (hi - lo + 1).clamp(min=0)
+        valid = (xs + delta >= 0) & (xs + delta < w)
+        n += ((cols + rows) * valid).sum()
+    return int(n)
+
+
+def cbca_rows(torch, seen, where) -> dict:
+    """Rows for the CBCA kernel on the inputs ``capture_cbca`` saw, one a
+    direction, keyed "cbca (direction -1)" and "(+1)": each bit for bit
+    against its plain version, timed by events (milliseconds a call).
+    Bound: the volume read and written and both arm stacks read, or its
+    adds (``cbca_adds``) at the instruction rate."""
+    from mccnn_tpu_torch.ops import cross
+
+    rows = {}
+    for key in sorted(k for k in seen if k[0] == "cbca"):
+        (x0c, x1c, vol, direction, L1), _ = seen[key]
+        d, h, w = vol.shape
+        rows[f"cbca (direction {direction:+d})"] = exact_row(
+            torch, f"cbca {where}, direction {direction:+d}, K = "
+            f"{max(2, L1)}, {float(vol.isnan().float().mean()):.4f} of cells "
+            f"NaN", lambda: cross.cbca(x0c, x1c, vol, direction, L1),
+            lambda: cross.cbca_plain(x0c, x1c, vol, direction, L1),
+            4 * (2 * d * h * w + 8 * h * w),
+            float(cbca_adds(torch, x0c, x1c, d, direction, L1)),
+            graph=False, reps=5)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def arms_rows(torch, img, where, ks=(0, 3, 5, 14)) -> dict:
+    """Rows for the arms kernel on ``img`` at each L1 in ``ks`` (K = 2,
+    3, 5, 14: census, ad, slow, mb slow) with that config's tau1, keyed
+    "cross_arms (K = k)": bit for bit against its plain version, timed in
+    a CUDA graph. Bound: the image read and four planes written."""
+    from mccnn_tpu_torch.ops import cross
+
+    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}
+    h, w = img.shape
+    return {f"cross_arms (K = {max(2, L1)})": exact_row(
+                torch, f"cross_arms {where}, K = {max(2, L1)}, tau1 "
+                f"{tau1[L1]}", lambda L1=L1: cross.cross_arms(img, L1,
+                                                              tau1[L1]),
+                lambda L1=L1: cross.cross_arms_plain(img, L1, tau1[L1]),
+                20 * h * w)
+            for L1 in ks}
 
 
 def matching_head(net, feats):
@@ -1214,6 +1325,7 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
                 # whole map on the first device
                 want.update(sgm_hslab=2 * n, sgm_vertical=2 * n, outlier=n,
                             blur=1, **dict(REFINE_KITTI, subpixel=n),
+                            **cbca_counts(cfg, 2 * n),
                             **({"join": 2 * n} if arch == "fast"
                                else {"slow_head": n}))
                 check(got == want, f"row-sharded kitti {arch} on {n}: "
@@ -1304,8 +1416,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
-    from mccnn_tpu_torch.ops import (_build, blur, costs, join, outlier, sgm,
-                                     slow_head)
+    from mccnn_tpu_torch.ops import (_build, blur, costs, cross, join, outlier,
+                                     sgm, slow_head)
     from mccnn_tpu_torch.pipeline import stereo_predict
 
     dev = torch.device("cuda")
@@ -1695,6 +1807,26 @@ def main() -> int:
           f"small slow_head max |d| {err2} > 1e-3 or mean |d| {mean2} > 1e-5")
     del small, diff
 
+    # the CBCA kernel on phase 5's own kitti slow volumes and arms (one
+    # slow stereo_predict; the last CBCA input of each direction captured)
+    # and on kitti census's at K = 2; the arms kernel at every config's K
+    ccfg = make_config("kitti", "census", a="predict")
+    for what, run in (("kitti slow", lambda: stereo_predict(scfg, snet, x0, x1,
+                                                            D)),
+                      ("kitti census", lambda: stereo_predict(ccfg, None, x0,
+                                                              x1, D))):
+        seen = capture_cbca(torch, run)
+        for key, row in cbca_rows(torch, seen,
+                                  f"{what} at {H}x{W}, D={D}").items():
+            if what == "kitti slow" and key == "cbca (direction -1)":
+                key = "cbca"
+            rows[key if key == "cbca" else f"{key[:-1]}, {what})"] = row
+        del seen
+    arms = arms_rows(torch, torch.as_tensor(x0, device=dev),
+                     f"at {H}x{W}")
+    rows["cross_arms"] = arms.pop("cross_arms (K = 5)")
+    rows.update(arms)
+
     # blur with kitti slow's own Gaussian and threshold, on the WTA map of
     # the slow head's left volume
     rows["blur (kitti slow)"] = blur_row(costs.wta(vols[-1]), scfg.blur_sigma,
@@ -2029,6 +2161,13 @@ def main() -> int:
     del A_, B_, mw_, mops
     mvols = {-1: slow_head.masked_volumes(s_k)[0]}
     del s_k
+    # CBCA at mb slow's K = 14 on that volume, the -1 direction (-a time),
+    # with the pair's arms; the arms kernel at K = 14
+    m0c, m1c = (cross.cross_arms(m, mscfg.L1, mscfg.tau1) for m in (m0_, m1_))
+    rows_mb.update(cbca_rows(torch, {("cbca", -1): (
+        (m0c, m1c, mvols[-1], -1, mscfg.L1), {})}, f"at {hm}x{wm}, D={dm}"))
+    rows_mb.update(arms_rows(torch, m0_, f"at {hm}x{wm}", ks=(14,)))
+    del m0c, m1c
     rows_mb["blur (mb slow)"] = blur_row(costs.wta(mvols[-1]),
                                          mscfg.blur_sigma, mscfg.blur_t)
     mskw = dict(pi1=mscfg.pi1, pi2=mscfg.pi2, tau_so=mscfg.tau_so,
@@ -2143,7 +2282,7 @@ def main() -> int:
     print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
     want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2,
-                **REFINE_KITTI)
+                **cbca_counts(scfg, 2), **REFINE_KITTI)
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
     d = slow_map = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
@@ -2182,7 +2321,6 @@ def main() -> int:
     # --- phase 6: the census and ad paths, and fast with CBCA -----------
     del snet
     torch.cuda.empty_cache()
-    ccfg = make_config("kitti", "census", a="predict")
     sweeps_of = {"slab": dict(sgm_hslab=2, sgm_vertical=2),
                  "stream": dict(sgm_scan=4), "grid": dict(sgm_step=4)}
 
@@ -2198,7 +2336,8 @@ def main() -> int:
         got, got_k = _build.launches(), _build.kernel_launches()
         want = dict.fromkeys(_build.KERNELS, 0)
         want.update(outlier=1, blur=1, join=0 if net is None else 2,
-                    **sweeps_of[form], **REFINE_KITTI)
+                    **sweeps_of[form], **cbca_counts(gcfg, 2),
+                    **REFINE_KITTI)
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
@@ -2316,7 +2455,7 @@ def main() -> int:
     del mfeats
     mb_path("mb slow -a time (left direction, head set by hand)", mscfg, mhand,
             dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1,
-                 **REFINE_MB), 3)
+                 **cbca_counts(mscfg, 1), **REFINE_MB), 3)
 
     # the all-plain comparison at 96x320, D=48 with mb's own parameters
     for what, mcfg, net in (("mb fast", mcfg_t, mtower),
@@ -2353,7 +2492,8 @@ def main() -> int:
     # (vertical sweep, outlier, blur) are the fast path's
     path_counts, path_kcounts = (
         dict(fast, slow_head=slow["slow_head"], sgm_hslab=slow["sgm_hslab"],
-             sgm_scan=stream["sgm_scan"], sgm_step=grid["sgm_step"])
+             sgm_scan=stream["sgm_scan"], sgm_step=grid["sgm_step"],
+             cbca=slow["cbca"], cross_arms=slow["cross_arms"])
         for fast, slow, stream, grid in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
             scan_counts["stream"], scan_counts["grid"]))
@@ -2371,7 +2511,9 @@ def main() -> int:
                "occlusion_fill": ("refine.cu", "mccnn_tpu/ops/post.py:68"),
                "mismatch_fill": ("refine.cu", "mccnn_tpu/ops/post.py:122"),
                "subpixel": ("refine.cu", "mccnn_tpu/ops/post.py:378"),
-               "median5": ("refine.cu", "mccnn_tpu/ops/post.py:270")}
+               "median5": ("refine.cu", "mccnn_tpu/ops/post.py:270"),
+               "cbca": ("cross.cu", "mccnn_tpu/ops/cross.py:67"),
+               "cross_arms": ("cross.cu", "mccnn_tpu/ops/cross.py:20")}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s, the build included")
     print(json.dumps({"kernels": [

@@ -1,23 +1,87 @@
-"""Cross-based cost aggregation (CBCA) in plain torch.
+"""Cross-based cost aggregation (CBCA): the support arms and one
+aggregation iteration.
 
 Reference: ``cross`` adcensus.cu:280-341 (support arms) and ``cbca``
 adcensus.cu:343-400 (the average over the intersection of the left and
-right pixels' support regions), in the formulation of the JAX package
-(mccnn_tpu/ops/cross.py), which runs it in XLA with no Pallas kernel:
-arms from a short static unroll over arm length, the aggregation as
-2K-1 shifted masked adds per axis (K = max(2, L1)), in the same order,
-so the sums round the same way. The JAX package maps over disparity;
-here the disparities go in chunks that bound the temporaries.
+right pixels' support regions).
+
+On CUDA tensors :func:`cross_arms` and :func:`cbca` launch their kernels
+of ``csrc/cross.cu`` (one launch a call); on CPU tensors they run their
+plain versions, the ``*_plain`` functions beside them. The plain versions
+follow the formulation of the JAX package (mccnn_tpu/ops/cross.py), which
+runs it in XLA with no Pallas kernel: arms from a short static unroll
+over arm length, the aggregation as 2K-1 shifted masked adds per axis
+(K = max(2, L1)), in the same order, so the sums round the same way. The
+JAX package maps over disparity; here the disparities go in chunks that
+bound the temporaries. The kernels give the plain versions' bits: the
+CBCA kernel adds the same values in the same order, over just the
+interval of the window that the masks keep.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from mccnn_tpu_torch.ops import _build
+
+# a CBCA block's outputs: TX columns x TY rows (csrc/cross.cu)
+TX, TY = 128, 32
+
+
+def cbca_smem_bytes(K: int) -> int:
+    """The dynamic shared memory a CBCA block takes for a window of
+    2K - 1 (``cbca_smem`` in csrc/cross.cu, which the C entry
+    ``cbca_smem_bytes`` returns): the volume staged for its rows and
+    columns and K - 1 more on each side, and each staged row's
+    horizontal sums and counts at its TX columns. The same at every
+    width: the tile is fixed."""
+    rows = TY + 2 * (K - 1)
+    return 4 * (rows * (TX + 2 * (K - 1)) + 2 * rows * TX)
+
+
+def _lib():
+    lib = _build.library("cross")
+    if lib.cbca_launch.argtypes is None:
+        lib.cbca_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.cross_arms_launch.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
+            + [ctypes.c_void_p])
+        lib.cbca_smem_bytes.argtypes = [ctypes.c_int]
+        for fn in (lib.cbca_launch, lib.cross_arms_launch,
+                   lib.cbca_smem_bytes):
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def cross_arms(x0: torch.Tensor, L1: int, tau1: float) -> torch.Tensor:
     """(4, H, W) float32 exclusive arm ends of a grayscale image (H, W):
-    [0] -x arm (x coord), [1] +x, [2] -y (y coord), [3] +y.
+    [0] -x arm (x coord), [1] +x, [2] -y (y coord), [3] +y. The kernel on
+    a CUDA image, the plain version on a CPU one."""
+    if not x0.is_cuda:
+        return cross_arms_plain(x0, L1, tau1)
+    return _arms_launch(x0.contiguous(), L1, tau1)
+
+
+def _arms_launch(x0: torch.Tensor, L1: int, tau1: float) -> torch.Tensor:
+    _build.check_cuda_f32(x0, "cross_arms")
+    if x0.dim() != 2:
+        raise ValueError(f"cross_arms: bad shapes {tuple(x0.shape)}")
+    H, W = x0.shape
+    out = torch.empty((4, H, W), dtype=torch.float32, device=x0.device)
+    rc = _lib().cross_arms_launch(x0.data_ptr(), out.data_ptr(), H, W,
+                                  max(2, int(L1)), float(tau1),
+                                  _build.stream(x0))
+    _build.check_launch(rc, "cross_arms")
+    _build.count("cross_arms")
+    return out
+
+
+def cross_arms_plain(x0: torch.Tensor, L1: int, tau1: float
+                     ) -> torch.Tensor:
+    """:func:`cross_arms` by a masked unroll over arm length.
 
     Distance-1 neighbours are always inside; from distance 2 on, the
     walk breaks at the first probe with |x0[c] - x0[probe]| >= tau1, at
@@ -46,8 +110,9 @@ def cross_arms(x0: torch.Tensor, L1: int, tau1: float) -> torch.Tensor:
 
 def _span(n: int, k: int) -> tuple[slice, slice]:
     """(dst, src) index ranges of out[i] += x[i + k] over the i whose
-    i + k lies in [0, n)."""
-    return slice(max(0, -k), n - max(0, k)), slice(max(0, k), n + min(0, k))
+    i + k lies in [0, n); both empty when |k| >= n."""
+    return (slice(max(0, -k), max(0, n - max(0, k))),
+            slice(max(0, k), max(0, n + min(0, k))))
 
 
 def _arms_at(x1c: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -62,8 +127,46 @@ def _arms_at(x1c: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 
 def cbca(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
-         direction: int, L1: int, chunk_cells: int = 1 << 25) -> torch.Tensor:
-    """One CBCA iteration over vol (D, H, W).
+         direction: int, L1: int) -> torch.Tensor:
+    """One CBCA iteration over vol (D, H, W) float32 with the arms x0c,
+    x1c (4, H, W) of the left and right images (see :func:`cbca_plain`).
+    The kernel on a CUDA volume, the plain version on a CPU one."""
+    if not vol.is_cuda:
+        return cbca_plain(x0c, x1c, vol, direction, L1)
+    return _cbca_launch(x0c, x1c, vol, direction, L1)
+
+
+def _cbca_launch(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
+                 direction: int, L1: int) -> torch.Tensor:
+    """Launch the CBCA kernel: float32 operands, contiguous, on the card,
+    or ValueError (a volume of another dtype is never cast here)."""
+    for t, what in ((vol, "cbca: vol"), (x0c, "cbca: x0c"),
+                    (x1c, "cbca: x1c")):
+        _build.check_cuda_f32(t, what)
+    if vol.dim() != 3 or x0c.shape != (4, *vol.shape[1:]) \
+            or x1c.shape != x0c.shape:
+        raise ValueError(f"cbca: bad shapes vol {tuple(vol.shape)}, arms "
+                         f"{tuple(x0c.shape)} and {tuple(x1c.shape)}")
+    if direction not in (-1, 1):
+        raise ValueError(f"cbca: direction must be -1 or 1, got {direction}")
+    K = max(2, int(L1))
+    if cbca_smem_bytes(K) > _build.MAX_SMEM:
+        raise ValueError(f"cbca: L1 = {L1} needs {cbca_smem_bytes(K)} bytes "
+                         "of shared memory a block")
+    D, H, W = vol.shape
+    out = torch.empty_like(vol)
+    rc = _lib().cbca_launch(vol.data_ptr(), x0c.data_ptr(), x1c.data_ptr(),
+                            out.data_ptr(), D, H, W, K, direction,
+                            _build.stream(vol))
+    _build.check_launch(rc, "cbca")
+    _build.count("cbca")
+    return out
+
+
+def cbca_plain(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
+               direction: int, L1: int, chunk_cells: int = 1 << 25
+               ) -> torch.Tensor:
+    """One CBCA iteration over vol (D, H, W) by masked shifted adds.
 
     For each (d, y, x) with x + d*direction in frame, the mean of vol[d]
     over the rows strictly between the tighter of the two pixels'

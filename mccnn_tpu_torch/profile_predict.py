@@ -3,12 +3,14 @@
     python -m mccnn_tpu_torch.profile_predict [--arch fast|slow|census|ad]
         [--dataset kitti|mb] [--form slab|stream|grid]
         [--vol_dtype float32|bfloat16|float16] [--dtype float32|bfloat16]
-        [--top 15] [--trace out.json]
+        [--set KEY=VALUE ...] [--top 15] [--trace out.json]
 
 Runs ``stereo_predict`` (the config of ``--dataset`` and ``--arch``,
 seeded random weights where the arch has a network; ``--form`` is the
 SGM form of the generic lane, by default what ``MCCNN_SGM_HSLAB``
-selects; ``--vol_dtype`` and ``--dtype`` as the CLI's) on a seeded pair
+selects; ``--vol_dtype`` and ``--dtype`` as the CLI's; ``--set`` overrides
+config fields, as ``--set cbca_i1=2 --set L1=5 --set tau1=0.13`` runs
+kitti fast with CBCA on the generic lane) on a seeded pair
 on the CUDA card: KITTI 370x1226 at D=228, or Middlebury at the ``-a
 time`` shape, 1000x1500 at D=200, the left direction alone. Twice to
 warm up, then once under ``torch.profiler``. Prints the device time of
@@ -27,6 +29,7 @@ of their wall times (host clock around a synchronized call).
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
 import contextlib
 import functools
@@ -46,7 +49,8 @@ from mccnn_tpu_torch.utils.images import standardize
 
 HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "blur_kernel", "head_chain_kernel", "occlusion_fill_kernel",
-        "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel")
+        "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel",
+        "cbca_kernel", "cross_arms_kernel")
 
 
 PLAIN = "plain torch operations"
@@ -113,6 +117,9 @@ def main(argv=None) -> None:
                     default="float32")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override a config field (a Python literal or a "
+                    "string)")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args(argv)
@@ -122,8 +129,14 @@ def main(argv=None) -> None:
     base = np.random.RandomState(0).randn(H, W + shift).astype(np.float32)
     x0 = torch.as_tensor(standardize(base[:, :W]), device=dev)
     x1 = torch.as_tensor(standardize(base[:, shift:shift + W]), device=dev)
+    over = dict(kv.split("=", 1) for kv in args.set)
+    for k, v in over.items():
+        try:
+            over[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass
     cfg = make_config(args.dataset, args.arch, a="time" if mb else "predict",
-                      vol_dtype=args.vol_dtype, dtype=args.dtype)
+                      vol_dtype=args.vol_dtype, dtype=args.dtype, **over)
     init = {"fast": towers.init_fast, "slow": towers.init_slow}.get(args.arch)
     tower = init and init(cfg, cfg.seed)
     for _ in range(2):
@@ -156,6 +169,8 @@ def main(argv=None) -> None:
     form = "" if args.form is None else f" (SGM form {args.form})"
     if args.vol_dtype != "float32" or args.dtype != "float32":
         form += f" (-vol_dtype {args.vol_dtype}, -dtype {args.dtype})"
+    if over:
+        form += f" (config {over})"
     print(f"{torch.cuda.get_device_name(0)}: one {args.dataset} {args.arch} "
           f"stereo_predict{form} {H}x{W} "
           f"D={D}: wall {wall_ms:.3f} ms (under the profiler), device "

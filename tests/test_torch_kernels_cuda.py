@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from mccnn_tpu_torch.ops import (_build, blur, join, outlier, post, sgm,
-                                 slow_head)
+from mccnn_tpu_torch.ops import (_build, blur, cross, join, outlier, post,
+                                 sgm, slow_head)
 
 pytestmark = pytest.mark.cuda
 
@@ -954,7 +954,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     tower's convolutions on other heights) within 1% of pixels off by
     > 0.51; the join, head, hslab and vertical kernels launched once a
     shard and direction, the outlier and the subpixel kernel once a
-    shard, the fills, the median and the blur once."""
+    shard, the fills, the median and the blur once, CBCA once a shard,
+    direction and iteration, the arms once an image."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.parallel import inference
@@ -971,9 +972,12 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     _build.reset_launches()
     got = inference.make_sharded_predict(cfg, _card_mesh(n), D)(net, x0, x1)
     torch.cuda.synchronize()
+    # CBCA a shard, direction and iteration (kitti census 4 + 8, slow 2,
+    # fast none); the arms once an image
     counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
                   sgm_vertical=2 * n, outlier=n, blur=1, occlusion_fill=1,
-                  mismatch_fill=1, subpixel=n, median5=1)
+                  mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
+                  cbca=2 * n * (cfg.cbca_i1 + cfg.cbca_i2))
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
                    "census": {}}[arch])
     assert _build.launches() == counts
@@ -981,3 +985,112 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
         assert torch.equal(got, want)
     else:
         assert float(((got - want).abs() > 0.51).float().mean()) < 0.01
+
+
+def _cross_case(dev, rng, D, H, W, L1, direction, d_true=None):
+    """Arms of a textured pair (flat patches, so arms of every length) and
+    a volume with NaN out of frame and scattered, and 1e9 planes
+    d >= ``d_true``, on the card."""
+    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}[L1]
+    imgs = rng.randn(2, H, W).astype(np.float32) * 0.1
+    imgs[:, H // 5:H // 2, W // 6:W // 2] = 0.3
+    arms = [cross.cross_arms_plain(torch.as_tensor(x, device=dev), L1, tau1)
+            for x in imgs]
+    vol = rng.rand(D, H, W).astype(np.float32)
+    xs, ds = np.arange(W)[None, None, :], np.arange(D)[:, None, None]
+    vol[np.broadcast_to((xs + ds * direction < 0)
+                        | (xs + ds * direction >= W), vol.shape)] = np.nan
+    vol[rng.rand(D, H, W) < 0.05] = np.nan
+    if d_true is not None:
+        vol[d_true:] = 1e9
+    return arms, torch.as_tensor(vol, device=dev)
+
+
+@pytest.mark.parametrize("L1", [0, 3, 5, 14])
+@pytest.mark.parametrize("H,W", [(37, 150), (5, 3), (67, 301)])
+def test_cross_arms_kernel_is_bit_identical(dev, L1, H, W):
+    """``cross_arms`` against ``cross_arms_plain`` on the card, bit for
+    bit, one launch a call, at the K of census, ad, slow and mb slow,
+    odd shapes, one smaller than the window."""
+    rng = np.random.RandomState(H + L1)
+    x = rng.randn(H, W).astype(np.float32) * 0.1
+    x[H // 5:H // 2, W // 6:W // 2] = 0.3
+    x = torch.as_tensor(x, device=dev)
+    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}[L1]
+    before = _build.launches()["cross_arms"]
+    got = cross.cross_arms(x, L1, tau1)
+    torch.cuda.synchronize()
+    assert _build.launches()["cross_arms"] == before + 1
+    assert torch.equal(_bits(got), _bits(cross.cross_arms_plain(x, L1, tau1)))
+
+
+@pytest.mark.parametrize("L1", [0, 3, 5, 14])
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("D,H,W", [(20, 37, 150), (7, 5, 3), (30, 67, 301)])
+def test_cbca_kernel_is_bit_identical(dev, L1, direction, D, H, W):
+    """``cbca`` against ``cbca_plain`` on the card, bit for bit
+    (``.view(torch.int32)``: NaN payloads and signed zeros included), one
+    launch a call: K = 2, 3, 5, 14, both directions, NaN cells, 1e9
+    planes (``disp_true``), odd H and W off the block's 32 x 128 tile,
+    a frame smaller than the window, disparities past the width."""
+    arms, vol = _cross_case(dev, np.random.RandomState(D + H + L1), D, H, W,
+                            L1, direction, d_true=D - 3)
+    before = _build.launches()["cbca"]
+    got = cross.cbca(*arms, vol, direction, L1)
+    torch.cuda.synchronize()
+    assert _build.launches()["cbca"] == before + 1
+    assert torch.equal(_bits(got), _bits(cross.cbca_plain(*arms, vol,
+                                                          direction, L1)))
+
+
+@pytest.mark.parametrize("L1", [0, 5, 14])
+def test_cbca_kernel_on_a_row_slab(dev, L1):
+    """Row slabs with the arms' rows relative to the slab, as
+    ``RowShards.cbca`` builds them (the halo rows' arms point outside the
+    slab): the kernel equals the plain version on each slab bit for bit,
+    and the slab's own rows the whole frame's."""
+    D, H, W = 24, 70, 200
+    arms, vol = _cross_case(dev, np.random.RandomState(L1), D, H, W, L1, -1,
+                            20)
+    whole = cross.cbca(*arms, vol, -1, L1)
+    halo = max(2, L1) - 1
+    for lo, hi in ((0, 18), (18, 36), (36, 53), (53, 70)):
+        a, b = max(0, lo - halo), min(H, hi + halo)
+        slab_arms = [torch.cat([c[:2, a:b], c[2:, a:b] - a]) for c in arms]
+        slab = vol[:, a:b].contiguous()
+        got = cross.cbca(*slab_arms, slab, -1, L1)
+        assert torch.equal(_bits(got), _bits(cross.cbca_plain(
+            *slab_arms, slab, -1, L1)))
+        assert torch.equal(_bits(got[:, lo - a:hi - a]),
+                           _bits(whole[:, lo:hi]))
+
+
+def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """The launchers take float32, contiguous operands on the card and
+    cast or copy nothing: a 16-bit volume, a strided volume or arm stack,
+    an operand on the CPU and an L1 whose block exceeds the shared memory
+    raise ValueError; ``cbca`` on a CUDA volume launches (no fallback)."""
+    arms, vol = _cross_case(dev, np.random.RandomState(1), 6, 9, 40, 5, 1)
+    with pytest.raises(ValueError, match="float32"):
+        cross.cbca(*arms, vol.to(torch.bfloat16), 1, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        cross.cbca(*arms, vol.transpose(1, 2).contiguous().transpose(1, 2), 1,
+                   5)
+    with pytest.raises(ValueError, match="contiguous"):
+        cross.cbca(arms[0].transpose(1, 2).contiguous().transpose(1, 2),
+                   arms[1], vol, 1, 5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cross.cbca(arms[0].cpu(), arms[1], vol, 1, 5)
+    with pytest.raises(ValueError, match="bad shapes"):
+        cross.cbca(arms[0][:, :8].contiguous(), arms[1], vol, 1, 5)
+    big = next(L1 for L1 in range(2, 200)
+               if cross.cbca_smem_bytes(L1) > _build.MAX_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        cross.cbca(*arms, vol, 1, big)
+    with pytest.raises(ValueError, match="float32"):
+        cross._arms_launch(vol[0].double(), 5, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cross._arms_launch(vol[0].t(), 5, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cross._arms_launch(vol[0].cpu(), 5, 0.1)
+    assert cross._lib().cbca_smem_bytes(14) == cross.cbca_smem_bytes(14)

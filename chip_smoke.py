@@ -200,10 +200,10 @@ REFINE_MB = dict(subpixel=1, median5=1)
 def cbca_counts(cfg, slabs: int) -> dict:
     """The CBCA and arms launches of one pair on the generic lane: CBCA
     once an iteration (``cbca_i1`` + ``cbca_i2``) for each of ``slabs``
-    volumes (the directions, times the row shards), the arms once an
-    image."""
-    return dict(cbca=slabs * (int(cfg.cbca_i1) + int(cfg.cbca_i2)),
-                cross_arms=2)
+    volumes (the directions, times the row shards), each packing its
+    arms once; the arms once an image."""
+    n = slabs * (int(cfg.cbca_i1) + int(cfg.cbca_i2))
+    return dict(cbca=n, cbca_pack=n, cross_arms=2)
 
 # the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
 # shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
@@ -1808,19 +1808,32 @@ def main() -> int:
     del small, diff
 
     # the CBCA kernel on phase 5's own kitti slow volumes and arms (one
-    # slow stereo_predict; the last CBCA input of each direction captured)
-    # and on kitti census's at K = 2; the arms kernel at every config's K
+    # slow stereo_predict; the last CBCA input of each direction captured),
+    # on kitti census's at K = 2 and kitti ad's at K = 3; the packing of
+    # kitti slow's arms; the arms kernel at every config's K
     ccfg = make_config("kitti", "census", a="predict")
+    acfg = make_config("kitti", "ad", a="predict")
     for what, run in (("kitti slow", lambda: stereo_predict(scfg, snet, x0, x1,
                                                             D)),
                       ("kitti census", lambda: stereo_predict(ccfg, None, x0,
-                                                              x1, D))):
+                                                              x1, D)),
+                      ("kitti ad", lambda: stereo_predict(acfg, None, x0, x1,
+                                                          D))):
         seen = capture_cbca(torch, run)
         for key, row in cbca_rows(torch, seen,
                                   f"{what} at {H}x{W}, D={D}").items():
             if what == "kitti slow" and key == "cbca (direction -1)":
                 key = "cbca"
             rows[key if key == "cbca" else f"{key[:-1]}, {what})"] = row
+        if what == "kitti slow":
+            (p0c, p1c, _, _, pL1), _ = seen[("cbca", -1)]
+            # both arm stacks read, the packed offsets written
+            rows["cbca_pack"] = exact_row(
+                torch, f"cbca_pack {what} at {H}x{W}, K = {max(2, pL1)}",
+                lambda: cross.cbca_pack(p0c, p1c, pL1),
+                lambda: cross.cbca_pack_plain(p0c, p1c, pL1),
+                32 * H * W + 2 * (9 * H * cross.pack_pitch(W) + 2 * H * W))
+            del p0c, p1c
         del seen
     arms = arms_rows(torch, torch.as_tensor(x0, device=dev),
                      f"at {H}x{W}")
@@ -2493,7 +2506,8 @@ def main() -> int:
     path_counts, path_kcounts = (
         dict(fast, slow_head=slow["slow_head"], sgm_hslab=slow["sgm_hslab"],
              sgm_scan=stream["sgm_scan"], sgm_step=grid["sgm_step"],
-             cbca=slow["cbca"], cross_arms=slow["cross_arms"])
+             cbca=slow["cbca"], cross_arms=slow["cross_arms"],
+             cbca_pack=slow["cbca_pack"])
         for fast, slow, stream, grid in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
             scan_counts["stream"], scan_counts["grid"]))
@@ -2512,8 +2526,9 @@ def main() -> int:
                "mismatch_fill": ("refine.cu", "mccnn_tpu/ops/post.py:122"),
                "subpixel": ("refine.cu", "mccnn_tpu/ops/post.py:378"),
                "median5": ("refine.cu", "mccnn_tpu/ops/post.py:270"),
-               "cbca": ("cross.cu", "mccnn_tpu/ops/cross.py:67"),
-               "cross_arms": ("cross.cu", "mccnn_tpu/ops/cross.py:20")}
+               "cbca": ("cross.cu", "mccnn_tpu/ops/cross.py:69"),
+               "cross_arms": ("cross.cu", "mccnn_tpu/ops/cross.py:20"),
+               "cbca_pack": ("cross.cu", "mccnn_tpu/ops/cross.py:69")}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s, the build included")
     print(json.dumps({"kernels": [

@@ -40,7 +40,7 @@ SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head", "refine",
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
            "slow_head", "sgm_hslab", "sgm_scan", "sgm_step",
            "occlusion_fill", "mismatch_fill", "subpixel", "median5", "cbca",
-           "cross_arms")
+           "cross_arms", "cbca_pack")
 HOST_SOURCES = ("host_gather",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -5,17 +5,20 @@ Reference: ``cross`` adcensus.cu:280-341 (support arms) and ``cbca``
 adcensus.cu:343-400 (the average over the intersection of the left and
 right pixels' support regions).
 
-On CUDA tensors :func:`cross_arms` and :func:`cbca` launch their kernels
-of ``csrc/cross.cu`` (one launch a call); on CPU tensors they run their
-plain versions, the ``*_plain`` functions beside them. The plain versions
-follow the formulation of the JAX package (mccnn_tpu/ops/cross.py), which
-runs it in XLA with no Pallas kernel: arms from a short static unroll
-over arm length, the aggregation as 2K-1 shifted masked adds per axis
-(K = max(2, L1)), in the same order, so the sums round the same way. The
-JAX package maps over disparity; here the disparities go in chunks that
-bound the temporaries. The kernels give the plain versions' bits: the
-CBCA kernel adds the same values in the same order, over just the
-interval of the window that the masks keep.
+On CUDA tensors :func:`cross_arms`, :func:`cbca_pack` and :func:`cbca`
+launch their kernels of ``csrc/cross.cu`` (one launch a call; ``cbca``
+packs the arms first, so it makes two); on CPU tensors they run their
+plain versions, the ``*_plain`` functions beside them. The plain
+versions follow the formulation of the JAX package
+(mccnn_tpu/ops/cross.py), which runs it in XLA with no Pallas kernel:
+arms from a short static unroll over arm length, the aggregation as
+2K-1 shifted masked adds per axis (K = max(2, L1)), in the same order,
+so the sums round the same way. The JAX package maps over disparity;
+here the disparities go in chunks that bound the temporaries. The
+kernels give the plain versions' bits: the CBCA kernel adds the same
+values in the same order, each sum over the whole window of 2K - 1 taps
+with the adds outside its interval skipped, from the arms packed as
+byte offsets clamped to [-K, K] (exact: see csrc/cross.cu).
 """
 
 from __future__ import annotations
@@ -26,32 +29,48 @@ import torch
 
 from mccnn_tpu_torch.ops import _build
 
-# a CBCA block's outputs: TX columns x TY rows (csrc/cross.cu)
-TX, TY = 128, 32
+# a CBCA block's outputs: TX columns x TS rows; CH volume rows staged at a
+# time (csrc/cross.cu)
+TX, TS, CH = 64, 64, 16
+# the largest K: the widest window the kernel is built for
+KMAX = 64
+
+
+def window_of(K: int) -> int:
+    """The compile-time window of the CBCA kernel instance that serves K
+    (``window_of`` in csrc/cross.cu): K itself for the K of config.py
+    (2, 3, 5, 14), else the next of 8, 16, 32, 64; past KMAX, K (no
+    instance serves it)."""
+    if K in (2, 3, 5, 14) or K > KMAX:
+        return K
+    return next(b for b in (8, 16, 32, 64) if K <= b)
 
 
 def cbca_smem_bytes(K: int) -> int:
     """The dynamic shared memory a CBCA block takes for a window of
     2K - 1 (``cbca_smem`` in csrc/cross.cu, which the C entry
-    ``cbca_smem_bytes`` returns): the volume staged for its rows and
-    columns and K - 1 more on each side, and each staged row's
-    horizontal sums and counts at its TX columns. The same at every
-    width: the tile is fixed."""
-    rows = TY + 2 * (K - 1)
-    return 4 * (rows * (TX + 2 * (K - 1)) + 2 * rows * TX)
+    ``cbca_smem_bytes`` returns): with R = window_of(K) - 1, the
+    horizontal sums (float) and counts (a byte) of the TS + 2R rows its
+    outputs read, at its TX columns, and CH staged volume rows with R
+    columns rounded up to a multiple of 4 on each side. The same at
+    every width: the tile is fixed."""
+    R = window_of(K) - 1
+    return (TS + 2 * R) * TX * 5 + CH * (TX + 2 * ((R + 3) & ~3)) * 4
 
 
 def _lib():
     lib = _build.library("cross")
     if lib.cbca_launch.argtypes is None:
         lib.cbca_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.cbca_pack_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.cross_arms_launch.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
             + [ctypes.c_void_p])
         lib.cbca_smem_bytes.argtypes = [ctypes.c_int]
-        for fn in (lib.cbca_launch, lib.cross_arms_launch,
-                   lib.cbca_smem_bytes):
+        for fn in (lib.cbca_launch, lib.cbca_pack_launch,
+                   lib.cross_arms_launch, lib.cbca_smem_bytes):
             fn.restype = ctypes.c_int
     return lib
 
@@ -138,8 +157,9 @@ def cbca(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
 
 def _cbca_launch(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
                  direction: int, L1: int) -> torch.Tensor:
-    """Launch the CBCA kernel: float32 operands, contiguous, on the card,
-    or ValueError (a volume of another dtype is never cast here)."""
+    """Pack the arms (:func:`cbca_pack`) and launch the CBCA kernel:
+    float32 operands, contiguous, on the card, or ValueError (a volume
+    of another dtype is never cast here)."""
     for t, what in ((vol, "cbca: vol"), (x0c, "cbca: x0c"),
                     (x1c, "cbca: x1c")):
         _build.check_cuda_f32(t, what)
@@ -150,17 +170,84 @@ def _cbca_launch(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
     if direction not in (-1, 1):
         raise ValueError(f"cbca: direction must be -1 or 1, got {direction}")
     K = max(2, int(L1))
+    if K > KMAX:
+        raise ValueError(f"cbca: L1 = {L1} exceeds {KMAX}, the widest "
+                         "window the kernel is built for")
     if cbca_smem_bytes(K) > _build.MAX_SMEM:
         raise ValueError(f"cbca: L1 = {L1} needs {cbca_smem_bytes(K)} bytes "
                          "of shared memory a block")
     D, H, W = vol.shape
+    packed = cbca_pack(x0c, x1c, L1)
     out = torch.empty_like(vol)
-    rc = _lib().cbca_launch(vol.data_ptr(), x0c.data_ptr(), x1c.data_ptr(),
-                            out.data_ptr(), D, H, W, K, direction,
-                            _build.stream(vol))
+    rc = _lib().cbca_launch(vol.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                            D, H, W, K, direction, _build.stream(vol))
     _build.check_launch(rc, "cbca")
     _build.count("cbca")
     return out
+
+
+def pack_pitch(W: int) -> int:
+    """The row pitch of :func:`cbca_pack`'s column planes (``pack_pitch``
+    in csrc/cross.cu): W rounded up to 8 and 8 columns of padding on
+    each side."""
+    return ((W + 7) & ~7) + 16
+
+
+def cbca_pack(x0c: torch.Tensor, x1c: torch.Tensor, L1: int
+              ) -> torch.Tensor:
+    """The arms x0c, x1c (4, H, W) float32 of the left and right images
+    as int16 pairs of signed byte offsets from each pixel's own column
+    (the -x end in the low byte, the +x end in the high one) or row
+    (-y, +y), clamped to [-K, K] (K = max(2, L1) <= KMAX), flat, in turn:
+    the left image's column pairs (H, P) with column c at c + 8
+    (P = :func:`pack_pitch`), the right image's eight times (8, H, P),
+    copy s with column c at c - s + 8, then the row pairs (H, W) of the
+    left and of the right image; 0 where no column is. The copies put
+    any eight columns from a match column on an aligned 16-byte load.
+    The kernel on CUDA arms, the plain version on CPU ones."""
+    if not x0c.is_cuda:
+        return cbca_pack_plain(x0c, x1c, L1)
+    for t, what in ((x0c, "cbca_pack: x0c"), (x1c, "cbca_pack: x1c")):
+        _build.check_cuda_f32(t, what)
+    if x0c.dim() != 3 or x0c.shape[0] != 4 or x1c.shape != x0c.shape:
+        raise ValueError(f"cbca_pack: bad shapes {tuple(x0c.shape)} and "
+                         f"{tuple(x1c.shape)}")
+    K = max(2, int(L1))
+    if K > KMAX:
+        raise ValueError(f"cbca_pack: L1 = {L1} exceeds {KMAX}")
+    _, H, W = x0c.shape
+    packed = torch.empty(9 * H * pack_pitch(W) + 2 * H * W,
+                         dtype=torch.int16, device=x0c.device)
+    rc = _lib().cbca_pack_launch(x0c.data_ptr(), x1c.data_ptr(),
+                                 packed.data_ptr(), H, W, K,
+                                 _build.stream(x0c))
+    _build.check_launch(rc, "cbca_pack")
+    _build.count("cbca_pack")
+    return packed
+
+
+def cbca_pack_plain(x0c: torch.Tensor, x1c: torch.Tensor, L1: int
+                    ) -> torch.Tensor:
+    """:func:`cbca_pack` in torch: the offsets clamped in float32 (exact
+    for the integral arm ends), as bytes, two to an int16 (little
+    endian: the first end in the low byte), laid out as the kernel
+    writes them."""
+    K = max(2, int(L1))
+    _, H, W = x0c.shape
+    dev = x0c.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    coord = torch.stack([xs, xs, ys, ys])
+    off = (torch.stack([x0c, x1c]) - coord).clamp(-K, K).to(torch.int8)
+    pairs = (off.view(2, 2, 2, H, W).permute(0, 1, 3, 4, 2).contiguous()
+             .view(torch.int16)[..., 0])  # (image, columns | rows, H, W)
+    P = pack_pitch(W)
+    # index i of ``full`` holds column i - 8; copy s starts at index s
+    full = torch.zeros((2, H, P + 8), dtype=torch.int16, device=dev)
+    full[:, :, 8:8 + W] = pairs[:, 0]
+    right = torch.stack([full[1, :, s:s + P] for s in range(8)])
+    return torch.cat([full[0, :, :P].flatten(), right.flatten(),
+                      pairs[0, 1].flatten(), pairs[1, 1].flatten()])
 
 
 def cbca_plain(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,

@@ -50,7 +50,7 @@ from mccnn_tpu_torch.utils.images import standardize
 HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "blur_kernel", "head_chain_kernel", "occlusion_fill_kernel",
         "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel",
-        "cbca_kernel", "cross_arms_kernel")
+        "cbca_kernel", "cross_arms_kernel", "cbca_pack_kernel")
 
 
 PLAIN = "plain torch operations"

@@ -1,8 +1,9 @@
 """The port's CBCA (plain torch, on the CPU) against the JAX package's
-``ops/cross.py``; a numpy model of the CBCA kernel's index plan
-(csrc/cross.cu) against the plain version bit for bit; the wrappers'
-CPU dispatch; the kernel's shared-memory footprint at every config's K;
-and the operands the generic lane hands to CBCA."""
+``ops/cross.py``; numpy models of the CBCA kernel's plans (csrc/cross.cu:
+the clipped intervals, and the packed offsets with fixed-window sums)
+against the plain version bit for bit; the packed offsets against numpy;
+the wrappers' CPU dispatch; the kernel's shared-memory footprint at
+every config's K; and the operands the generic lane hands to CBCA."""
 
 import re
 from pathlib import Path
@@ -20,8 +21,9 @@ from mccnn_tpu_torch.ops import _build, cross
 SRC = (Path(cross.__file__).resolve().parent.parent / "csrc" / "cross.cu"
        ).read_text()
 
-# L1 -> tau1: kitti census (K = 2), kitti ad, kitti slow, mb slow
-TAU1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}
+# L1 -> tau1: kitti census (K = 2), kitti ad, kitti slow, mb slow, and a K
+# that no config sets (the kernel's run-time instance)
+TAU1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02, 7: 0.05}
 
 
 def _img(seed, H=23, W=57):
@@ -133,15 +135,82 @@ def _kernel_plan(x0c, x1c, vol, direction, L1):
     return out
 
 
-def _case(L1, direction, seed=0, D=11, H=29, W=61, d_true=8):
-    """Arms of a textured pair and a volume with NaN cells (out of frame
-    and scattered) and 1e9 planes d >= d_true (``disp_true``)."""
-    tau1 = TAU1[L1]
+def _case(L1, direction, seed=0, D=11, H=29, W=61, d_true=8, arms_L1=None):
+    """Arms of a textured pair (of ``arms_L1``, by default L1) and a
+    volume with NaN cells (out of frame and scattered), -0.0 cells and
+    1e9 planes d >= d_true (``disp_true``)."""
+    a = L1 if arms_L1 is None else arms_L1
     x0c, x1c = (cross.cross_arms_plain(torch.as_tensor(_img(seed + s, H, W)),
-                                       L1, tau1) for s in (1, 2))
-    vol, _ = _volume(np.random.RandomState(seed + 7), D, H, W, direction)
+                                       a, TAU1[a]) for s in (1, 2))
+    rng = np.random.RandomState(seed + 7)
+    vol, _ = _volume(rng, D, H, W, direction)
+    vol[(rng.rand(D, H, W) < 0.05) & ~np.isnan(vol)] = -0.0
     vol[d_true:] = 1e9
     return x0c, x1c, vol
+
+
+def _pack_np(arms, K):
+    """The packed offsets as int8 (4, H, W): each arm end less the
+    pixel's own column (ends 0, 1) or row (2, 3), clamped to [-K, K]."""
+    _, H, W = arms.shape
+    xs, ys = np.arange(W)[None, :], np.arange(H)[:, None]
+    return np.stack([np.clip(arms[i] - c, -K, K) for i, c in
+                     enumerate((xs, xs, ys, ys))]).astype(np.int8)
+
+
+def _window_plan(x0c, x1c, vol, direction, L1):
+    """A numpy model of the CBCA kernel's plan (csrc/cross.cu): the arms
+    as offsets clamped to [-K, K] (``_pack_np``), the tighter of each
+    pair the max or min of two bytes; each horizontal sum runs over the
+    fixed 2K - 1 taps t = -(K-1) .. K-1 in ascending order from +0 over
+    the staged row (NaN and out of frame read as 0) and adds a tap only
+    where t lies in its interval (the kernel's predicated add), its count
+    the interval's length clipped to the frame; each output's vertical
+    sum likewise over the row sums of its column (rows out of frame 0),
+    the counts added as integers; the float32 quotient. The taps run
+    over the kernel instance's window (``cross.window_of``: wider than
+    2K - 1 for a K that no config sets), and the intervals are clipped
+    to the frame alone: the offsets clamped to [-K, K] keep them inside
+    [-(K-1), K-1]. The kernel takes the taps of HP (VP) adjacent outputs
+    from one shared window, which changes no output's order. Out-of-frame
+    cells pass the volume through."""
+    D, H, W = vol.shape
+    K = max(2, int(L1))
+    Rw = cross.window_of(K) - 1
+    o0, o1 = (_pack_np(a, K).astype(np.int64) for a in (x0c, x1c))
+    vol_z = np.where(np.isnan(vol), np.float32(0), vol)
+    ys = np.arange(H)[:, None].repeat(W, 1)
+    xs = np.arange(W)[None, :].repeat(H, 0)
+    out = vol.copy()
+    for d in range(D):
+        delta = d * direction
+        valid = (xs + delta >= 0) & (xs + delta < W)
+        b = o1[:, ys, np.clip(xs + delta, 0, W - 1)]
+        lo = np.maximum(np.maximum(o0[0], b[0]) + 1, -xs)
+        hi = np.minimum(np.minimum(o0[1], b[1]) - 1, W - 1 - xs)
+        lo, hi = np.where(valid, lo, 1), np.where(valid, hi, 0)
+        row = np.zeros((H, W + 2 * Rw), np.float32)
+        row[:, Rw:Rw + W] = vol_z[d]
+        hsum = np.zeros((H, W), np.float32)
+        for t in range(-Rw, Rw + 1):
+            on = (t >= lo) & (t <= hi)
+            hsum = np.where(on, hsum + row[:, Rw + t:Rw + t + W], hsum)
+        hcnt = np.maximum(hi - lo + 1, 0)
+        lo = np.maximum(np.maximum(o0[2], b[2]) + 1, -ys)
+        hi = np.minimum(np.minimum(o0[3], b[3]) - 1, H - 1 - ys)
+        col = np.zeros((H + 2 * Rw, W), np.float32)
+        col[Rw:Rw + H] = hsum
+        cnt = np.zeros((H + 2 * Rw, W), np.int64)
+        cnt[Rw:Rw + H] = hcnt
+        vsum = np.zeros((H, W), np.float32)
+        vcnt = np.zeros((H, W), np.int64)
+        for t in range(-Rw, Rw + 1):
+            on = (t >= lo) & (t <= hi)
+            vsum = np.where(on, vsum + col[Rw + t:Rw + t + H], vsum)
+            vcnt += np.where(on, cnt[Rw + t:Rw + t + H], 0)
+        agg = vsum / np.maximum(vcnt, 1).astype(np.float32)
+        out[d] = np.where(valid, agg, vol[d])
+    return out
 
 
 @pytest.mark.parametrize("shape", [(11, 29, 61), (11, 5, 3)])
@@ -183,14 +252,94 @@ def test_kernel_plan_on_a_row_slab(L1):
         assert _bits_equal(want[:, lo - a:hi - a], whole[:, lo:hi]), (lo, hi)
 
 
+@pytest.mark.parametrize("shape", [(11, 29, 61), (11, 5, 3)])
+@pytest.mark.parametrize("L1", [0, 3, 5, 14, 7])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_window_plan_is_the_plain_version_bit_for_bit(direction, L1, shape):
+    """The kernel's window plan (packed, clamped offsets; fixed-window
+    predicated adds from +0; the vertical sums in the same order) equals
+    ``cbca_plain`` bit for bit at the K of census, ad, slow, mb slow and
+    the run-time instance (L1 = 7): NaN, -0.0 and 1e9 cells, both
+    directions, a whole frame and one smaller than the window."""
+    x0c, x1c, vol = _case(L1, direction, **dict(zip("DHW", shape)))
+    want = cross.cbca_plain(x0c, x1c, torch.as_tensor(vol), direction,
+                            L1).numpy()
+    got = _window_plan(x0c.numpy(), x1c.numpy(), vol, direction, L1)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("L1", [0, 3, 5, 14, 7])
+def test_window_plan_on_a_row_slab(L1):
+    """Row slabs with relative arms, as ``RowShards.cbca`` builds them
+    (the halo rows' arms point outside the slab): the window plan equals
+    ``cbca_plain`` on each slab bit for bit."""
+    direction = 1
+    x0c, x1c, vol = _case(L1, direction, seed=5, H=41)
+    H, halo = vol.shape[1], max(2, L1) - 1
+    for lo, hi in ((0, 11), (11, 21), (21, 31), (31, 41)):
+        a, b = max(0, lo - halo), min(H, hi + halo)
+        arms = [torch.cat([c[:2, a:b], c[2:, a:b] - a]) for c in (x0c, x1c)]
+        slab = np.ascontiguousarray(vol[:, a:b])
+        want = cross.cbca_plain(*arms, torch.as_tensor(slab), direction,
+                                L1).numpy()
+        got = _window_plan(*(c.numpy() for c in arms), slab, direction, L1)
+        assert _bits_equal(got, want), (lo, hi)
+
+
+@pytest.mark.parametrize("L1", [0, 3, 5])
+def test_window_plan_clamp_is_exact(L1):
+    """Arms longer than K (those of L1 = 14 under a smaller K) are
+    clamped to [-K, K] in the packed offsets, and the plan still equals
+    ``cbca_plain`` bit for bit: an end beyond K gives the same interval
+    as the clamped one."""
+    x0c, x1c, vol = _case(L1, -1, seed=9, arms_L1=14)
+    assert (x0c[1] - torch.arange(61) > max(2, L1)).any()
+    want = cross.cbca_plain(x0c, x1c, torch.as_tensor(vol), -1, L1).numpy()
+    got = _window_plan(x0c.numpy(), x1c.numpy(), vol, -1, L1)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("L1", [0, 5, 14, 7])
+def test_packed_offsets(L1):
+    """``cbca_pack_plain`` lays out the numpy offsets as the kernel reads
+    them: the left image's column pairs (H, P) with column c at c + 8,
+    the right image's in eight copies, copy s with column c at c - s + 8,
+    then the row pairs of both images, 0 where no column is; the first
+    end of each pair in the low byte. On arms longer than K (L1 = 14's,
+    clamped) and on a row slab's relative arms, at an odd width too."""
+    K = max(2, L1)
+    for W in (61, 58):
+        x0c, x1c, _ = _case(L1, 1, W=W, arms_L1=14)
+        for arms in ((x0c, x1c), [torch.cat([c[:2, 3:20], c[2:, 3:20] - 3])
+                                  for c in (x0c, x1c)]):
+            got = cross.cbca_pack_plain(*arms, L1).numpy()
+            H = arms[0].shape[1]
+            P = cross.pack_pitch(W)
+            assert P % 8 == 0 and P >= W + 16
+            assert got.dtype == np.int16 and got.shape == (9 * H * P
+                                                           + 2 * H * W,)
+            off = [_pack_np(a.numpy(), K) for a in arms]  # int8 (4, H, W)
+            pair = [(o[0::2].astype(np.int16) & 0xff)
+                    | (o[1::2].astype(np.int16) << 8) for o in off]
+            want_h = np.zeros((9, H, P), np.int16)
+            want_h[0, :, 8:8 + W] = pair[0][0]
+            for s in range(8):
+                want_h[1 + s, :, 8 - s:8 - s + W] = pair[1][0]
+            assert np.array_equal(got[:9 * H * P].reshape(9, H, P), want_h)
+            assert np.array_equal(got[9 * H * P:].reshape(2, H, W),
+                                  np.stack([pair[0][1], pair[1][1]]))
+
+
 def test_wrappers_on_cpu_tensors_run_the_plain_versions():
-    """``cross_arms`` and ``cbca`` on CPU tensors return their plain
-    versions' bits and launch no kernel."""
+    """``cross_arms``, ``cbca_pack`` and ``cbca`` on CPU tensors return
+    their plain versions' bits and launch no kernel."""
     x0c, x1c, vol = _case(5, 1)
     img = torch.as_tensor(_img(4))
     before = _build.launches()
     assert torch.equal(cross.cross_arms(img, 5, 0.13),
                        cross.cross_arms_plain(img, 5, 0.13))
+    assert torch.equal(cross.cbca_pack(x0c, x1c, 5),
+                       cross.cbca_pack_plain(x0c, x1c, 5))
     got = cross.cbca(x0c, x1c, torch.as_tensor(vol), 1, 5).numpy()
     want = cross.cbca_plain(x0c, x1c, torch.as_tensor(vol), 1, 5).numpy()
     assert _bits_equal(got, want)
@@ -198,24 +347,36 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
 
 
 def test_the_kernels_are_registered_and_exported():
-    """Both entries are counted kernels of the ``cross`` source, and the C
-    entries the wrappers bind are the ones cross.cu exports."""
+    """The three entries are counted kernels of the ``cross`` source, and
+    the C entries the wrappers bind are the ones cross.cu exports."""
     assert "cross" in _build.SOURCES
-    assert {"cbca", "cross_arms"} <= set(_build.KERNELS)
+    assert {"cbca", "cross_arms", "cbca_pack"} <= set(_build.KERNELS)
     assert set(re.findall(r'extern "C" int (\w+)\(', SRC)) == {
-        "cbca_smem_bytes", "cbca_launch", "cross_arms_launch"}
+        "cbca_smem_bytes", "cbca_launch", "cbca_pack_launch",
+        "cross_arms_launch"}
 
 
 def test_cbca_footprint_keeps_every_config_under_the_limit():
     """The mirror of the kernel's shared-memory plan uses cross.cu's tile
-    (TX columns, TY rows), and every config's K fits a block of the H100
-    (the tile is fixed, so the footprint is the same at W = 1226 and
-    1500); K = 14, mb slow's, takes 95,120 bytes."""
-    tile = re.search(r"constexpr int TX = (\d+), TY = (\d+);", SRC)
-    assert (int(tile[1]), int(tile[2])) == (cross.TX, cross.TY)
-    assert cross.cbca_smem_bytes(14) == 95120
+    (TX columns, TS rows, CH staged rows = NT * HP / TX), its largest K
+    and its windows, and every config's K fits a block of the H100 (the
+    tile is fixed, so the footprint is the same at W = 1226 and 1500);
+    K = 14, mb slow's, takes 34,944 bytes (six blocks an SM), K = 5
+    27,648 and K = 2 25,728 (eight); K = 7 runs in the window of 8."""
+    tile = re.search(r"constexpr int TX = (\d+), TS = (\d+);", SRC)
+    nt = int(re.search(r"constexpr int NT = (\d+);", SRC)[1])
+    hp = int(re.search(r"constexpr int HP = (\d+);", SRC)[1])
+    assert (int(tile[1]), int(tile[2])) == (cross.TX, cross.TS)
+    assert nt * hp // int(tile[1]) == cross.CH
+    assert int(re.search(r"constexpr int KMAX = (\d+);", SRC)[1]) == cross.KMAX
+    assert [cross.cbca_smem_bytes(k) for k in (14, 5, 2)] == [34944, 27648,
+                                                              25728]
     for key, sm in config._SM.items():
         assert cross.cbca_smem_bytes(max(2, sm["L1"])) <= _build.MAX_SMEM, key
+    assert cross.cbca_smem_bytes(cross.KMAX) <= _build.MAX_SMEM
+    assert [cross.window_of(k) for k in (2, 3, 4, 5, 7, 14, 15, 17, 64)] == [
+        2, 3, 8, 5, 8, 14, 16, 32, 64]
+    assert cross.cbca_smem_bytes(7) == cross.cbca_smem_bytes(8)
 
 
 NARROW = dict(l1=2, fm=8, l2=3, nh2=16)

@@ -973,11 +973,12 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     got = inference.make_sharded_predict(cfg, _card_mesh(n), D)(net, x0, x1)
     torch.cuda.synchronize()
     # CBCA a shard, direction and iteration (kitti census 4 + 8, slow 2,
-    # fast none); the arms once an image
+    # fast none), each packing its arms once; the arms once an image
     counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
                   sgm_vertical=2 * n, outlier=n, blur=1, occlusion_fill=1,
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
-                  cbca=2 * n * (cfg.cbca_i1 + cfg.cbca_i2))
+                  cbca=2 * n * (cfg.cbca_i1 + cfg.cbca_i2),
+                  cbca_pack=2 * n * (cfg.cbca_i1 + cfg.cbca_i2))
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
                    "census": {}}[arch])
     assert _build.launches() == counts
@@ -989,9 +990,9 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
 
 def _cross_case(dev, rng, D, H, W, L1, direction, d_true=None):
     """Arms of a textured pair (flat patches, so arms of every length) and
-    a volume with NaN out of frame and scattered, and 1e9 planes
-    d >= ``d_true``, on the card."""
-    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}[L1]
+    a volume with NaN out of frame and scattered, -0.0 cells, and 1e9
+    planes d >= ``d_true``, on the card."""
+    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02, 7: 0.05}[L1]
     imgs = rng.randn(2, H, W).astype(np.float32) * 0.1
     imgs[:, H // 5:H // 2, W // 6:W // 2] = 0.3
     arms = [cross.cross_arms_plain(torch.as_tensor(x, device=dev), L1, tau1)
@@ -1001,6 +1002,7 @@ def _cross_case(dev, rng, D, H, W, L1, direction, d_true=None):
     vol[np.broadcast_to((xs + ds * direction < 0)
                         | (xs + ds * direction >= W), vol.shape)] = np.nan
     vol[rng.rand(D, H, W) < 0.05] = np.nan
+    vol[(rng.rand(D, H, W) < 0.05) & ~np.isnan(vol)] = -0.0
     if d_true is not None:
         vol[d_true:] = 1e9
     return arms, torch.as_tensor(vol, device=dev)
@@ -1024,21 +1026,24 @@ def test_cross_arms_kernel_is_bit_identical(dev, L1, H, W):
     assert torch.equal(_bits(got), _bits(cross.cross_arms_plain(x, L1, tau1)))
 
 
-@pytest.mark.parametrize("L1", [0, 3, 5, 14])
+@pytest.mark.parametrize("L1", [0, 3, 5, 14, 7])
 @pytest.mark.parametrize("direction", [-1, 1])
 @pytest.mark.parametrize("D,H,W", [(20, 37, 150), (7, 5, 3), (30, 67, 301)])
 def test_cbca_kernel_is_bit_identical(dev, L1, direction, D, H, W):
     """``cbca`` against ``cbca_plain`` on the card, bit for bit
     (``.view(torch.int32)``: NaN payloads and signed zeros included), one
-    launch a call: K = 2, 3, 5, 14, both directions, NaN cells, 1e9
-    planes (``disp_true``), odd H and W off the block's 32 x 128 tile,
-    a frame smaller than the window, disparities past the width."""
+    launch a call and one of ``cbca_pack``: K = 2, 3, 5, 14 and the
+    run-time instance (L1 = 7), both directions, NaN and -0.0 cells, 1e9
+    planes (``disp_true``), odd H and W off the block's 64 x 64 tile, a
+    frame smaller than the window, disparities past the width."""
     arms, vol = _cross_case(dev, np.random.RandomState(D + H + L1), D, H, W,
                             L1, direction, d_true=D - 3)
-    before = _build.launches()["cbca"]
+    before = _build.launches()
     got = cross.cbca(*arms, vol, direction, L1)
     torch.cuda.synchronize()
-    assert _build.launches()["cbca"] == before + 1
+    after = _build.launches()
+    assert (after["cbca"], after["cbca_pack"]) == (before["cbca"] + 1,
+                                                   before["cbca_pack"] + 1)
     assert torch.equal(_bits(got), _bits(cross.cbca_plain(*arms, vol,
                                                           direction, L1)))
 
@@ -1065,11 +1070,30 @@ def test_cbca_kernel_on_a_row_slab(dev, L1):
                            _bits(whole[:, lo:hi]))
 
 
+@pytest.mark.parametrize("L1", [0, 3, 5, 14, 7])
+@pytest.mark.parametrize("H,W", [(37, 150), (5, 3), (70, 200)])
+def test_cbca_pack_kernel_is_bit_identical(dev, L1, H, W):
+    """``cbca_pack`` against ``cbca_pack_plain`` on the card, bit for
+    bit, one launch a call: every K of the configs and a run-time one,
+    on arms longer than K (L1 = 14's, clamped) and a row slab's
+    relative arms."""
+    rng = np.random.RandomState(H + L1)
+    arms, _ = _cross_case(dev, rng, 2, H, W, 14, 1)
+    for a in (arms, [torch.cat([c[:2, 1:H - 1], c[2:, 1:H - 1] - 1])
+                     for c in arms]):
+        before = _build.launches()["cbca_pack"]
+        got = cross.cbca_pack(*a, L1)
+        torch.cuda.synchronize()
+        assert _build.launches()["cbca_pack"] == before + 1
+        assert torch.equal(got, cross.cbca_pack_plain(*a, L1))
+
+
 def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """The launchers take float32, contiguous operands on the card and
     cast or copy nothing: a 16-bit volume, a strided volume or arm stack,
-    an operand on the CPU and an L1 whose block exceeds the shared memory
-    raise ValueError; ``cbca`` on a CUDA volume launches (no fallback)."""
+    an operand on the CPU, an L1 past the widest window built (64) and
+    one whose block exceeds the shared memory raise ValueError; ``cbca``
+    on a CUDA volume launches (no fallback)."""
     arms, vol = _cross_case(dev, np.random.RandomState(1), 6, 9, 40, 5, 1)
     with pytest.raises(ValueError, match="float32"):
         cross.cbca(*arms, vol.to(torch.bfloat16), 1, 5)
@@ -1083,9 +1107,13 @@ def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cross.cbca(arms[0].cpu(), arms[1], vol, 1, 5)
     with pytest.raises(ValueError, match="bad shapes"):
         cross.cbca(arms[0][:, :8].contiguous(), arms[1], vol, 1, 5)
-    big = next(L1 for L1 in range(2, 200)
+    with pytest.raises(ValueError, match="widest window"):
+        cross.cbca(*arms, vol, 1, cross.KMAX + 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        cross.cbca_pack(*arms, cross.KMAX + 1)
+    big = next(L1 for L1 in range(2, 1000)
                if cross.cbca_smem_bytes(L1) > _build.MAX_SMEM)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="widest window|shared memory"):
         cross.cbca(*arms, vol, 1, big)
     with pytest.raises(ValueError, match="float32"):
         cross._arms_launch(vol[0].double(), 5, 0.1)

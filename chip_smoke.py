@@ -45,8 +45,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    4's own maps and volume (its stages' inputs captured in one
    ``stereo_predict``), each bit-identical to its plain version
    (``.view(torch.int32)``) and timed in a CUDA graph and by events: the
-   mismatch fill also on an all-MISMATCH map and on mismatch against row
-   0 and column 0, its bound counting this map's probes; subpixel on the
+   mismatch fill also on an all-MISMATCH map, on mismatch against row
+   0 and column 0 and on a 48x160 MISMATCH block mid-frame (clustered),
+   its bound counting each map's probes; subpixel on the
    x-reversed volume in f32, bf16 and f16 and relaid as the generic
    lane's (D, H, W); the CBCA kernel on kitti slow's own volumes and arms
    (one slow ``stereo_predict`` with random weights, the last CBCA input
@@ -401,6 +402,23 @@ def ray_probes(torch, labels) -> int:
     return int(n)
 
 
+def mismatch_maps(lab) -> dict:
+    """{name: labels} the mismatch fill is held on, from the path's own
+    labels: the path's; every pixel MISMATCH (every ray walks to the
+    frame's edge); mismatch against row 0 and column 0, landings on both
+    at every third pixel (the -0.5 rule of the half directions); a
+    48 x 160 MISMATCH block mid-frame, as a textureless wall or the sky
+    gives (tiles inside it dense, those on its rim sparse)."""
+    h, w = lab.shape
+    edges = lab.clone()
+    edges[:8], edges[:, :8] = 2.0, 2.0
+    edges[0, ::3], edges[::3, 0] = 0.0, 1.0
+    clustered = lab.clone()
+    clustered[h // 2 - 24:h // 2 + 24, w // 2 - 80:w // 2 + 80] = 2.0
+    return {"path": lab, "all MISMATCH": lab.new_full(lab.shape, 2.0),
+            "edges": edges, "clustered": clustered}
+
+
 def exact_row(torch, what, kernel, plain, nbytes, ops=0.0, graph=True,
               reps=20) -> dict:
     """A kernel against its plain version on the same inputs, bit for bit
@@ -449,16 +467,8 @@ def refine_rows(torch, seen, where) -> dict:
     if "interpolate_mismatch" in seen:
         (d0, lab), _ = seen["interpolate_mismatch"]
         h, w = d0.shape
-        # the path's labels; every pixel MISMATCH (every ray walks to the
-        # frame's edge); mismatch against row 0 and column 0, landings on
-        # both at every third pixel (the -0.5 rule of the half directions)
-        edges = lab.clone()
-        edges[:8], edges[:, :8] = 2.0, 2.0
-        edges[0, ::3], edges[::3, 0] = 0.0, 1.0
-        for name, lb in (("mismatch_fill", lab),
-                         ("mismatch_fill (all MISMATCH)",
-                          torch.full_like(lab, 2.0)),
-                         ("mismatch_fill (edges)", edges)):
+        for key, lb in mismatch_maps(lab).items():
+            name = "mismatch_fill" + ("" if key == "path" else f" ({key})")
             n = ray_probes(torch, lb)
             share = float((lb == 2).float().mean())
             rows[name] = exact_row(

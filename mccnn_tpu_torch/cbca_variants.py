@@ -133,6 +133,18 @@ def plan_of(src: str) -> str:
     return "window" if "cbca_pack_launch" in src else "interval"
 
 
+def apply_edits(src: str, name: str, edits) -> str:
+    """``src`` with the edits ``[(old, new, occurrences)]`` of the variant
+    ``name`` that match it (an edit matches where ``old`` occurs that many
+    times); at least one must."""
+    hits = [e for e in edits if src.count(e[0]) == e[2]]
+    if not hits:
+        raise SystemExit(f"variant {name}: no edit of it matches the source")
+    for old, new, _ in hits:
+        src = src.replace(old, new)
+    return src
+
+
 def variant_source(src: str, names: str) -> str:
     plan = plan_of(src)
     for name in names.split("+"):
@@ -140,17 +152,17 @@ def variant_source(src: str, names: str) -> str:
         if want not in (None, plan):
             raise SystemExit(f"variant {name} edits the {want} plan; the "
                              f"source has the {plan} plan")
-        hits = [e for e in edits if src.count(e[0]) == e[2]]
-        if not hits:
-            raise SystemExit(f"variant {name}: no edit of it matches the source")
-        for old, new, _ in hits:
-            src = src.replace(old, new)
+        src = apply_edits(src, name, edits)
     return src
 
 
-def build(tag: str, src: str) -> tuple[ctypes.CDLL, str]:
+def build(tag: str, src: str, prefix: str = "cbca_v",
+          kernels=("cbca_kernel",)) -> tuple[ctypes.CDLL, str]:
+    """Compile ``src`` as ``build/lib<prefix>_<tag>.so`` with the package's
+    flags; the library and ptxas's stack, spills and registers of each
+    entry whose name holds one of ``kernels``."""
     _build.BUILD.mkdir(parents=True, exist_ok=True)
-    stem = "cbca_v_" + re.sub(r"[^a-z0-9]+", "_", tag)
+    stem = f"{prefix}_" + re.sub(r"[^a-z0-9]+", "_", tag)
     cu, lib = _build.BUILD / f"{stem}.cu", _build.BUILD / f"lib{stem}.so"
     cu.write_text(src)
     out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
@@ -158,11 +170,15 @@ def build(tag: str, src: str) -> tuple[ctypes.CDLL, str]:
     log = out.stdout + out.stderr
     if out.returncode:
         raise SystemExit(f"{tag}: nvcc exit {out.returncode}:\n{log}")
-    lines = log.splitlines()
-    used = [f"{lines[i - 1].split('for')[-1].strip()} {lines[i].strip()}"
-            for i, line in enumerate(lines)
-            if "Used" in line and "cbca_kernel" in lines[i - 1]]
-    return ctypes.CDLL(str(lib)), "; ".join(used)
+    used, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the kernel's name and its template arguments, if any
+            entry = re.search(rf"({'|'.join(kernels)})(I\w+?E)?", m.group(1))
+        elif entry and ("Used" in line or "spill" in line):
+            used.append(f"{entry.group(0)}: {line.split(':', 1)[-1].strip()}")
+    return ctypes.CDLL(str(lib)), "\n  ".join(used)
 
 
 def inputs(case: str, dev):
@@ -227,7 +243,7 @@ def main(argv=None) -> None:
     for tag, src in [("source", base)] + [
             (v, variant_source(base, v)) for v in args.variant]:
         libs[tag], used = build(tag, src)
-        print(f"{tag}: {used}")
+        print(f"{tag}:\n  {used}")
     print(f"{torch.cuda.get_device_name(0)}; {args.source} ({plan} plan); "
           f"cbca_launch ms a call (mean of {args.reps} after a warm-up)")
     for case in args.case:

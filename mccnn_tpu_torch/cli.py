@@ -17,8 +17,10 @@ as the last token; submit writes ``out/`` and ``out/submission.zip``.
 ``-net_fname`` takes an ``.npz`` checkpoint of either package or a
 ``.t7`` net in the reference's format; ``-make_cache`` / ``-use_cache``
 write and read the slow net's volumes under ``cache/``
-(``pipeline.compute_volumes``). Not ported yet (ROADMAP.md, queue 1):
-several cards.
+(``pipeline.compute_volumes``). The command line drives one card
+(``-gpu``); the mesh over several cards (batch and row-sharded
+inference, data-parallel training) is the library's
+``mccnn_tpu_torch.parallel``.
 """
 
 from __future__ import annotations

@@ -19,8 +19,8 @@
 //   is OCCLUSION and are read only where it is MATCH, so the row is filled in
 //   place. Bound: 12 bytes a pixel (both maps read, one written).
 //
-// mismatch_fill: a thread a pixel; a MISMATCH pixel walks each of the 16 rays
-//   (dx, dy) of _RAY_DIRS: probe t = 1, 2, ... at (y + floor(t dy + 0.5),
+// mismatch_fill: a MISMATCH pixel walks each of the 16 rays (dx, dy) of
+//   _RAY_DIRS: probe t = 1, 2, ... at (y + floor(t dy + 0.5),
 //   x + floor(t dx + 0.5)). A probe out of frame lands empty, and so does one
 //   of an odd t on row (column) 0 of a ray whose dy (dx) is -0.5: its true
 //   coordinate is -0.5. A probe that is not MISMATCH lands with d0 there;
@@ -29,8 +29,23 @@
 //   rounds cover more, so both land on the same probes. The cnt landed values
 //   give sorted[cnt / 2] through the plain version's selection network
 //   (_median_network(16, 8): the invalid rays +-inf by rank), d0 if cnt is 0.
-//   The work depends on the data: a ray costs a load a probe. Bound: 12 bytes
-//   a pixel, or the probes of the run's map at the instruction rate.
+//   A probe's address does not depend on what an earlier probe loaded: only
+//   where the walk stops does. So the probes of a ray go out together and
+//   the first stop event among them decides. The first empty step t0 of a
+//   ray is closed-form (first_out), so a probe is in frame iff t < t0.
+//   A block takes a 32 x 8 tile: its pixels that are not MISMATCH copy d0,
+//   its MISMATCH pixels are counted by ballots. A sparse tile (at most DENSE
+//   of them) lists them in shared memory and its warps take one pixel each
+//   in turn: in a round the rays still open share the 32 lanes (L = 32 / m
+//   lanes for each of m rays), lane h of a ray probes t = base + h + L i for
+//   i < P, all P loads issued before any compare; a ray's earliest event over
+//   its lanes (a shared-memory atomicMin) closes it, the open ones go on at
+//   base + L P. The landed d0 values load together and reach every lane by
+//   shuffles. A dense tile walks a thread a pixel (neighbouring lanes probe
+//   neighbouring addresses): each ray in chunks of Q probes in flight, the
+//   16 landed values loaded together at the end. The work depends on the
+//   data: a ray costs a load a probe. Bound: 12 bytes a pixel, or the probes
+//   of the run's map at the instruction rate.
 //
 // subpixel: a thread a pixel; the three samples at d - 1, d, d + 1 read
 //   through the volume's strides (the HWD lane's x-reversed (H, Wp, Dp), the
@@ -38,7 +53,12 @@
 //   to f32; the parabola with round-to-nearest intrinsics, so that no
 //   contraction into an FMA moves a rounding (2 * (cp + cn - 2 * cz) as torch
 //   computes it, an IEEE division, a clamp that keeps NaN). Bound: the map
-//   read and written and three samples a pixel (20 bytes in f32).
+//   read and written and three samples a pixel (20 bytes in f32). What holds
+//   it on the HWD lane is the gather's fetches: each pixel's samples lie in a
+//   column of their own (1 KB apart in f32), so each pixel costs a random
+//   DRAM access whatever the kernel issues. One sample a pixel takes as long
+//   as three, and a 16-byte vector read of the samples, with one to four
+//   pixels a thread, was no faster (PERF.md).
 //
 // median5: blocks of 32 x 8 outputs from a shared-memory tile with a 2-pixel
 //   halo; each output's 25 taps in dx-outer order, the out-of-frame ones
@@ -53,6 +73,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <climits>
 
 namespace {
 
@@ -138,59 +160,198 @@ __device__ __forceinline__ int ray_step(int t) {
          : C2 == -1 ? -(t >> 1) : 0;
 }
 
-// The walk of one ray from (y, x): true with the value it lands on, false if
-// it lands empty.
+// The first step t >= 1 at which a ray component C2 / 2 of a walk from pos
+// leaves [0, N), or is the -0.5 rule's odd step on 0 (C2 = -1: t = 2 pos + 1,
+// whose coordinate floor(-t / 2 + 0.5) + pos is 0); no limit for 0.
+__device__ __forceinline__ int first_out(int c2, int pos, int N) {
+  return c2 == 2 ? N - pos : c2 == -2 ? pos + 1
+         : c2 == 1 ? 2 * (N - 1 - pos) + 1 : c2 == -1 ? 2 * pos + 1
+         : INT_MAX;
+}
+
+// The rays' components packed 3 bits a ray, C2 + 2, for a run-time ray index.
+#define RAY_DX2(k, dx2, dy2) | (unsigned long long)((dx2) + 2) << (3 * (k))
+#define RAY_DY2(k, dx2, dy2) | (unsigned long long)((dy2) + 2) << (3 * (k))
+constexpr unsigned long long RAYS_DX2 = 0ull RAYS(RAY_DX2);
+constexpr unsigned long long RAYS_DY2 = 0ull RAYS(RAY_DY2);
+#undef RAY_DX2
+#undef RAY_DY2
+
+__device__ __forceinline__ int ray_c2(unsigned long long packed, int r) {
+  return (int)((packed >> (3 * r)) & 7) - 2;
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NW = NT / 32;   // warps a block
+constexpr int DENSE = 64;     // a tile with more MISMATCH pixels walks a
+                              // thread a pixel
+constexpr int P = 8;          // a sparse walk's probes a lane a round
+constexpr int Q = 8;          // a dense walk's probes of a ray in flight
+
+// sorted(landed)[cnt / 2] of the 16 rays, v[k] the value ray k landed on
+// where bit k of `has` is set; v0 if none landed.
+__device__ __forceinline__ float median_of_rays(float (&v)[16], unsigned has,
+                                                float v0) {
+  const int cnt = __popc(has);
+  if (cnt == 0) return v0;
+  const int a = 8 - cnt / 2;  // the rays that land empty filled -inf first
+  int rank = 0;
+  bool nans = false;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if (!((has >> k) & 1)) v[k] = rank++ < a ? -CUDART_INF_F : CUDART_INF_F;
+    nans |= v[k] != v[k];
+  }
+  return nans ? select_mid16<true>(v) : select_mid16<false>(v);
+}
+
+// A dense tile's walk of one ray from (y, x): the index of the probe it
+// lands on, -1 if it lands empty. Chunks of Q probes start at odd t (Q is
+// even), so a probe's offset from its chunk's first is a constant.
 template <int DX2, int DY2>
-__device__ __forceinline__ bool walk(const float* __restrict__ d0,
-                                     const float* __restrict__ lab, int y,
-                                     int x, int H, int W, float& val) {
-  for (int t = 1;; ++t) {
-    const int py = y + ray_step<DY2>(t), px = x + ray_step<DX2>(t);
-    if (py < 0 || py >= H || px < 0 || px >= W) return false;
-    if ((t & 1) && ((DY2 == -1 && py == 0) || (DX2 == -1 && px == 0)))
-      return false;
-    const size_t j = (size_t)py * W + px;
-    if (lab[j] != MISMATCH) {
-      val = d0[j];
-      return true;
+__device__ __forceinline__ int walk_chunks(const float* __restrict__ lab,
+                                           int y, int x, int H, int W) {
+  static_assert(Q % 2 == 0, "chunks start at odd t");
+  const int t0 = min(first_out(DX2, x, W), first_out(DY2, y, H));
+  const int dj = (ray_step<DY2>(1 + Q) - ray_step<DY2>(1)) * W
+                 + ray_step<DX2>(1 + Q) - ray_step<DX2>(1);
+  int j = (y + ray_step<DY2>(1)) * W + x + ray_step<DX2>(1);
+  for (int t = 1; t < t0; t += Q, j += dj) {
+    float l[Q];
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int o = (ray_step<DY2>(1 + i) - ray_step<DY2>(1)) * W
+                    + ray_step<DX2>(1 + i) - ray_step<DX2>(1);
+      l[i] = t + i < t0 ? lab[j + o] : MISMATCH;
+    }
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int o = (ray_step<DY2>(1 + i) - ray_step<DY2>(1)) * W
+                    + ray_step<DX2>(1 + i) - ray_step<DX2>(1);
+      if (l[i] != MISMATCH) return j + o;
     }
   }
+  return -1;
+}
+
+// A sparse tile's walk of the MISMATCH pixel (y, x) by one warp (every lane
+// calls it); stop, next and land: the warp's 16 ints each in shared memory.
+__device__ __forceinline__ void walk_warp(const float* __restrict__ d0,
+                                          const float* __restrict__ lab,
+                                          float* __restrict__ out, int y,
+                                          int x, int H, int W, int* stop,
+                                          int* next, int* land) {
+  const int lane = threadIdx.x & 31;
+  if (lane < 16) {
+    stop[lane] = INT_MAX;
+    next[lane] = 1;
+    land[lane] = -1;
+  }
+  __syncwarp();
+  unsigned open = 0xffffu;  // the rays with no event yet
+  while (open) {
+    const int m = __popc(open), L = 32 / m;
+    int r = 0, ev = INT_MAX, jv = -1;
+    if (lane < m * L) {
+      r = __fns(open, 0, lane % m + 1);
+      const int cx = ray_c2(RAYS_DX2, r), cy = ray_c2(RAYS_DY2, r);
+      const int t0 = min(first_out(cx, x, W), first_out(cy, y, H));
+      const int tb = next[r] + lane / m;
+      float l[P];
+      int j[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int t = tb + L * i;
+        j[i] = (y + ((t * cy + 1) >> 1)) * W + x + ((t * cx + 1) >> 1);
+        l[i] = t < t0 ? lab[j[i]] : MISMATCH;
+      }
+      // the lane's earliest event: out of frame or excluded (empty), or a
+      // probe that is not MISMATCH (landed)
+#pragma unroll
+      for (int i = P - 1; i >= 0; --i) {
+        const int t = tb + L * i;
+        if (t >= t0 || l[i] != MISMATCH) {
+          ev = t;
+          jv = t < t0 ? j[i] : -1;
+        }
+      }
+      if (ev != INT_MAX) atomicMin(&stop[r], ev);
+    }
+    __syncwarp();
+    if (ev != INT_MAX && stop[r] == ev) land[r] = jv;  // the ray's owner
+    __syncwarp();
+    const bool still = lane < 16 && stop[lane] == INT_MAX;
+    if (still) next[lane] += L * P;
+    open = __ballot_sync(FULL, still);
+    __syncwarp();
+  }
+  float v = 0.f;
+  bool has = false;
+  if (lane < 16) {
+    const int j = land[lane];
+    has = j >= 0;
+    if (has) v = d0[j];
+  }
+  const unsigned hm = __ballot_sync(FULL, has);
+  float vals[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) vals[k] = __shfl_sync(FULL, v, k);
+  const size_t i = (size_t)y * W + x;
+  if (lane == 0) out[i] = median_of_rays(vals, hm, d0[i]);
+  __syncwarp();
 }
 
 __global__ void __launch_bounds__(NT)
 mismatch_fill_kernel(const float* __restrict__ d0,
                      const float* __restrict__ lab, float* __restrict__ out,
                      int H, int W) {
+  __shared__ int count[NW];
+  __shared__ short list[NT];
+  __shared__ int stop[NW][16], next[NW][16], land[NW][16];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x = blockIdx.x * TX + threadIdx.x % TX;
   const int y = blockIdx.y * TY + threadIdx.x / TX;
-  if (x >= W || y >= H) return;
   const size_t i = (size_t)y * W + x;
-  const float v0 = d0[i];
-  if (lab[i] != MISMATCH) {
-    out[i] = v0;
-    return;
+  bool mm = false;
+  float v0 = 0.f;
+  if (x < W && y < H) {
+    v0 = d0[i];
+    mm = lab[i] == MISMATCH;
+    if (!mm) out[i] = v0;
   }
-  float v[16];
-  bool has[16];
-  int cnt = 0;
-#define RAY(k, dx2, dy2)                                  \
-  has[k] = walk<dx2, dy2>(d0, lab, y, x, H, W, v[k]);     \
-  cnt += has[k];
-  RAYS(RAY)
-#undef RAY
-  if (cnt == 0) {
-    out[i] = v0;
-    return;
-  }
-  const int a = 8 - cnt / 2;  // the rays that land empty filled -inf first
-  int rank = 0;
-  bool nans = false;
+  const unsigned b = __ballot_sync(FULL, mm);
+  if (lane == 0) count[warp] = __popc(b);
+  __syncthreads();
+  int n = 0, at = 0;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    if (!has[k]) v[k] = rank++ < a ? -CUDART_INF_F : CUDART_INF_F;
-    nans |= v[k] != v[k];
+  for (int w = 0; w < NW; ++w) {
+    at += w < warp ? count[w] : 0;
+    n += count[w];
   }
-  out[i] = nans ? select_mid16<true>(v) : select_mid16<false>(v);
+  if (n == 0) return;
+  if (n > DENSE) {
+    if (!mm) return;
+    int js[16];
+#define RAY(k, dx2, dy2) js[k] = walk_chunks<dx2, dy2>(lab, y, x, H, W);
+    RAYS(RAY)
+#undef RAY
+    float v[16];
+    unsigned has = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      v[k] = js[k] >= 0 ? d0[js[k]] : 0.f;
+      has |= (unsigned)(js[k] >= 0) << k;
+    }
+    out[i] = median_of_rays(v, has, v0);
+    return;
+  }
+  if (mm) list[at + __popc(b & ((1u << lane) - 1))] = (short)threadIdx.x;
+  __syncthreads();
+  for (int k = warp; k < n; k += NW) {
+    const int t = list[k];
+    walk_warp(d0, lab, out, blockIdx.y * TY + t / TX, blockIdx.x * TX + t % TX,
+              H, W, stop[warp], next[warp], land[warp]);
+  }
 }
 
 __global__ void __launch_bounds__(NT)

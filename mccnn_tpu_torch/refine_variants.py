@@ -1,0 +1,272 @@
+"""Time variants of the mismatch fill and subpixel kernels against a build
+of their source.
+
+    python -m mccnn_tpu_torch.refine_variants [--source PATH]
+        [--variant NAME[+NAME] ...] [--case mm-kitti sp-kitti ...]
+        [--reps 20]
+
+Run from the repository's root on one CUDA card (it takes its inputs and
+its timer from ``chip_smoke.py`` there, its build from
+``cbca_variants``): builds a ``refine.cu`` (by default the shipped
+``csrc/refine.cu``; ``--source`` names another, such as an earlier
+commit's unpacked under ``build/``) and each named variant of it (text
+edits of that source, ``a+b`` for several), then times the C entries
+``mismatch_fill_launch`` and ``subpixel_launch`` alone in a CUDA graph
+(``chip_smoke.graph_ms``, ``--reps`` calls), in turns: source, variant,
+variant, source. The inputs are those ``chip_smoke.py`` phases 3 and 3b
+hold the kernels on: the arguments of one seeded kitti fast
+``stereo_predict`` at 370x1226, D = 228 (``capture_refine``); for the
+``sp-mb*`` cases mb fast's at 1000x1500, D = 200. The mismatch fill runs
+on the maps of ``chip_smoke.mismatch_maps`` (``mm-kitti`` the path's
+labels, ``mm-all``, ``mm-edges``, ``mm-clustered``); subpixel on the
+x-reversed HWD volume in f32, bf16 and f16 storage and relaid as the
+generic lane's (D, H, W) (``-dhw``). The source's build is held bit for
+bit against the plain version, and a variant that keeps the function
+against the source's build. Prints each build's registers and spills
+(ptxas) for both kernels.
+
+Variants of the mismatch fill (the same bits):
+
+- ``dense-0``, ``dense-16``, ``dense-128``, ``dense-256``: a tile walks a
+  thread a pixel above that many MISMATCH pixels (0: every tile with one;
+  256: none) instead of the source's ``DENSE``;
+- ``p4``, ``p16``: a sparse walk's probes a lane a round;
+- ``q4``, ``q16``: a dense walk's probes of a ray in flight.
+
+Variants of subpixel, the split of the gather's time (they change what
+the kernel computes):
+
+- ``no-vol``: no volume reads (each sample its index: the map reads,
+  the arithmetic and the stores stay);
+- ``one-sample``: the centre sample read alone (the others their index).
+
+``file:PATH`` as a variant is another whole source (the parent's
+``refine.cu``, say), timed in turns against ``--source`` and held bit for
+bit against it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mccnn_tpu_torch.cbca_variants import apply_edits, build
+from mccnn_tpu_torch.ops import _build, post
+
+_SAMPLE = "c[k] = j >= 0 && j < Dp ? widen<S>(base[j * sd]) : 0.f;"
+
+# name -> [(old, new, occurrences)] text edits of a refine.cu; the edits
+# that match are applied, and at least one must
+VARIANTS = {
+    **{f"dense-{n}": [("constexpr int DENSE = 64;",
+                       f"constexpr int DENSE = {n};", 1)]
+       for n in (0, 16, 128, 256)},
+    **{f"p{n}": [("constexpr int P = 8;", f"constexpr int P = {n};", 1)]
+       for n in (4, 16)},
+    **{f"q{n}": [("constexpr int Q = 8;", f"constexpr int Q = {n};", 1)]
+       for n in (4, 16)},
+    "no-vol": [(_SAMPLE, "c[k] = j >= 0 && j < Dp ? (float)j : 0.f;", 1)],
+    "one-sample": [(_SAMPLE,
+                    "c[k] = j >= 0 && j < Dp\n"
+                    "               ? (k == 1 ? widen<S>(base[j * sd]) "
+                    ": (float)j) : 0.f;", 1)],
+}
+# the variants that change what the kernels compute
+NOT_SAME = ("no-vol", "one-sample")
+
+# case -> the key of chip_smoke.mismatch_maps
+MM_CASES = {"mm-kitti": "path", "mm-all": "all MISMATCH",
+            "mm-edges": "edges", "mm-clustered": "clustered"}
+SP_CASES = tuple(f"sp-{size}{kind}" for size in ("kitti", "mb")
+                 for kind in ("", "-bf16", "-f16", "-dhw"))
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def variant_source(src: str, names: str) -> str:
+    if names.startswith("file:"):
+        return Path(names[5:]).read_text()
+    for name in names.split("+"):
+        src = apply_edits(src, name, VARIANTS[name])
+    return src
+
+
+def load(tag: str, src: str) -> tuple[ctypes.CDLL, str]:
+    """``src`` built with the package's flags, its two C entries typed."""
+    lib, used = build(tag, src, "refine_v",
+                      ("mismatch_fill_kernel", "subpixel_kernel"))
+    lib.mismatch_fill_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.subpixel_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p])
+    for fn in (lib.mismatch_fill_launch, lib.subpixel_launch):
+        fn.restype = ctypes.c_int
+    return lib, used
+
+
+def capture(cs, size: str, dev) -> dict:
+    """The refinement stages' arguments in one fast ``stereo_predict``,
+    seeded as chip_smoke.py's phase 4 (``kitti``) and phase 3b (``mb``)
+    seed theirs."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    if size == "kitti":
+        dataset, h, w, d, shift, seed = "kitti", cs.H, cs.W, cs.D, cs.SHIFT, 0
+    else:
+        dataset, h, w, d, shift, seed = "mb", 1000, 1500, 200, cs.MB_SHIFT, 3
+    cfg = make_config(dataset, "fast", a="predict")
+    tower = towers.init_fast(cfg, cfg.seed).to(dev)
+    x0, x1 = cs.kitti_pair(np.random.RandomState(seed), h, w, shift)
+
+    def run():
+        with torch.no_grad():
+            stereo_predict(cfg, tower, x0, x1, d)
+    return cs.capture_refine(torch, run)
+
+
+def mismatch_call(lib, d0, lab):
+    out = torch.empty_like(d0)
+    h, w = d0.shape
+
+    def run():
+        rc = lib.mismatch_fill_launch(d0.data_ptr(), lab.data_ptr(),
+                                      out.data_ptr(), h, w,
+                                      _build.stream(d0))
+        _build.check_launch(rc, "mismatch_fill variant")
+        return out
+    return run
+
+
+def subpixel_call(lib, d0, vol, disp_max, thresh, xrev):
+    """A call of the build's subpixel_launch: ``vol`` (H, W', D') read
+    through its strides, as ``ops/post.py _subpixel`` passes it."""
+    out = torch.empty_like(d0)
+    h, w = d0.shape
+    code = post.STORAGE[vol.dtype]
+
+    def run():
+        rc = lib.subpixel_launch(d0.data_ptr(), vol.data_ptr(),
+                                 out.data_ptr(), h, w, *vol.stride(),
+                                 vol.shape[2], code, int(xrev),
+                                 int(disp_max), thresh, _build.stream(d0))
+        _build.check_launch(rc, "subpixel variant")
+        return out
+    return run
+
+
+def subpixel_cases(seen, size: str) -> dict:
+    """{case: (d0, volume, disp_max, thresh, xrev, plain)} of the subpixel
+    cases at ``size``: the captured x-reversed volume in its three storage
+    types and relaid as (D, H, W) (read as its (H, W, D) view)."""
+    (d0, vol, dd), kw = seen["subpixel_enhancement_hwd"]
+    thresh, xrev = kw.get("denom_thresh", 1e-5), kw.get("xrev", False)
+    h, w = d0.shape
+    cases = {}
+    for kind, dt in (("", torch.float32), ("-bf16", torch.bfloat16),
+                     ("-f16", torch.float16)):
+        v = vol.to(dt)
+        cases[f"sp-{size}{kind}"] = (
+            d0, v, dd, thresh, xrev,
+            lambda v=v: post.subpixel_enhancement_hwd_plain(
+                d0, v, dd, thresh, xrev))
+    dhw = vol[:, :w, :dd].flip(1).permute(2, 0, 1).contiguous()
+    cases[f"sp-{size}-dhw"] = (d0, dhw.permute(1, 2, 0), dd, 1e-5, False,
+                               lambda: post.subpixel_enhancement_plain(
+                                   d0, dhw, dd))
+    return cases
+
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def compare(cs, case: str, runs: dict, plain, variants, reps: int) -> None:
+    """Hold the source's build against ``plain`` and each variant that
+    keeps the function against the source's build; print the times."""
+    want = runs["source"]().clone()
+    torch.cuda.synchronize()
+    if not bits_equal(want, plain()):
+        raise SystemExit(f"{case}: the source's build differs from the "
+                         f"plain version")
+    print(f"  {case}: source {cs.graph_ms(torch, runs['source'], reps):.5f}, "
+          f"bit-identical to the plain version")
+    for v in variants:
+        same = ""
+        if v.startswith("file:") or not any(n in v.split("+")
+                                            for n in NOT_SAME):
+            got = runs[v]()
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                raise SystemExit(f"variant {v} differs from the source's "
+                                 f"build: {case}")
+            same = ", bit-identical"
+        times = [cs.graph_ms(torch, runs[n], reps)
+                 for n in ("source", v, v, "source")]
+        print(f"    source / {v} / {v} / source: "
+              f"{' / '.join(f'{t:.5f}' for t in times)}{same}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", type=Path, default=_build.CSRC / "refine.cu")
+    ap.add_argument("--variant", nargs="*", default=[])
+    ap.add_argument("--case", nargs="+", choices=(*MM_CASES, *SP_CASES),
+                    default=[*MM_CASES, *SP_CASES])
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    base = args.source.read_text()
+    libs = {}
+    for tag, src in [("source", base)] + [
+            (v, variant_source(base, v)) for v in args.variant]:
+        libs[tag], used = load(tag, src)
+        print(f"{tag}:\n  {used}")
+    print(f"{torch.cuda.get_device_name(0)}; {args.source}; ms a call in a "
+          f"CUDA graph of {args.reps} calls")
+    _build.build()  # the package's own kernels, for the captured runs
+    for size in ("kitti", "mb"):
+        want = [c for c in args.case if c.startswith(f"sp-{size}")
+                or (size == "kitti" and c in MM_CASES)]
+        if not want:
+            continue
+        seen = capture(cs, size, dev)
+        if size == "kitti":
+            (d0, lab), _ = seen["interpolate_mismatch"]
+            maps = cs.mismatch_maps(lab)
+            for case in (c for c in MM_CASES if c in want):
+                lb = maps[MM_CASES[case]]
+                share = float((lb == 2).float().mean())
+                print(f"  {case}: {share:.5f} of {tuple(lb.shape)} MISMATCH")
+                compare(cs, case, {t: mismatch_call(lib, d0, lb)
+                                   for t, lib in libs.items()},
+                        lambda lb=lb: post.interpolate_mismatch_plain(d0, lb),
+                        args.variant, args.reps)
+        for case, (d0, v, dd, thresh, xrev, plain) in subpixel_cases(
+                seen, size).items():
+            if case in want:
+                compare(cs, case, {t: subpixel_call(lib, d0, v, dd, thresh,
+                                                    xrev)
+                                   for t, lib in libs.items()},
+                        plain, args.variant, args.reps)
+        del seen
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

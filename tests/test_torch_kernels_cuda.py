@@ -623,18 +623,34 @@ def test_occlusion_fill_kernel_is_bit_identical(dev, H, W):
 
 
 @pytest.mark.parametrize("case", ["random", "all mismatch", "edges", "cnt 0",
-                                  "nan"])
+                                  "nan", "clustered", "crowded"])
 @pytest.mark.parametrize("H,W", [(37, 150), (70, 33)])
 def test_mismatch_fill_kernel_is_bit_identical(dev, case, H, W):
     """``mismatch_fill`` (a walk of each ray) against the plain version's
     pointer doubling, bit for bit, one launch a call: random labels, an
     all-mismatch map, mismatch against row 0 and column 0 (the half
-    directions' -0.5 rule), a map where most pixels land nothing, and
-    NaN among the values that land."""
+    directions' -0.5 rule), a map where most pixels land nothing, NaN
+    among the values that land, a MISMATCH block larger than one 32 x 8
+    tile among sparse MISMATCH pixels (dense tiles walk a thread a pixel,
+    sparse ones a warp a pixel), and tiles with more MISMATCH pixels than
+    the block has warps: 9, 40, 64 (the most a sparse tile holds) and 65
+    (the fewest a dense one does)."""
     rng = np.random.RandomState(H * W)
     d0 = (rng.rand(H, W) * 100).astype(np.float32)
     lab = _labels(rng, H, W)
-    if case == "all mismatch":
+    if case == "clustered":
+        lab = np.where(rng.rand(H, W) < 0.01, 2.0, lab % 2).astype(np.float32)
+        lab[4:H - 3, 3:W - 5] = 2.0
+        lab[H // 2, W // 2] = 0.0
+    elif case == "crowded":
+        lab = lab % 2
+        for ty, n in enumerate((9, 40, 64, 65)):
+            rows = slice(8 * ty, min(8 * ty + 8, H))
+            tile = lab[rows, :32]
+            k = rng.permutation(tile.size)[:min(n, tile.size)]
+            tile.flat[k] = 2.0
+            lab[rows, :32] = tile
+    elif case == "all mismatch":
         lab[:] = 2.0
     elif case == "edges":
         lab[:8], lab[:, :8] = 2.0, 2.0
@@ -683,19 +699,25 @@ def test_median5_kernel_is_bit_identical(dev, H, W, nan):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("layout", ["hwd", "hwd xrev", "dhw", "dhw sliced"])
-def test_subpixel_kernel_is_bit_identical(dev, dtype, layout):
+@pytest.mark.parametrize("layout", ["hwd", "hwd xrev", "dhw", "dhw sliced",
+                                    "hwd xrev pitch"])
+@pytest.mark.parametrize("H,W", [(23, 77), (9, 130)])
+def test_subpixel_kernel_is_bit_identical(dev, dtype, layout, H, W):
     """``subpixel`` against the plain parabola, bit for bit, one launch a
     call, reading each layout in place through its strides: the HWD
     lane's (H, Wp, Dp) in storage order, its x-reversed volume with
     pad columns read from the natural map, the generic lane's (D, H, W),
     and a (D, H, W) slice of a larger volume (strides that are not its
-    shape's); f32, bf16 and f16 storage; NaN samples, flat triples at the
-    threshold, d outside [1, D - 1) and past the volume."""
+    shape's); the x-reversed volume as a view whose disparity rows are off
+    16 bytes (pitch Dp + 2, first lane 1); widths that are not a multiple
+    of the block's 32 columns; f32, bf16 and f16 storage; NaN samples,
+    flat triples at the threshold, d outside [1, D - 1) and past the
+    volume, a NaN d0 and huge ones."""
     rng = np.random.RandomState(5)
-    D, H, W, Wp, Dp = 40, 23, 77, 96, 64
+    D, Wp, Dp = 40, 96 if W < 96 else 160, 64
     d0 = (rng.randint(-1, D + 2, (H, W))
           + rng.choice([0, .5, .99], (H, W))).astype(np.float32)
+    d0[0, :5] = [np.nan, 3e9, -3e9, Dp, Dp - 1]
     d0 = torch.as_tensor(d0, device=dev)
     vol = rng.rand(D + 3, H + 2, W + 4).astype(np.float32)
     vol[rng.rand(*vol.shape) < 0.05] = np.nan
@@ -712,8 +734,12 @@ def test_subpixel_kernel_is_bit_identical(dev, dtype, layout):
         want = post.subpixel_enhancement_plain(d0, vol[1:D + 1, 2:, 3:W + 3],
                                                D)
     else:
-        hwd = torch.full((H, Wp, Dp), float("nan"), device=dev, dtype=dtype)
-        xrev = layout == "hwd xrev"
+        pitch = layout == "hwd xrev pitch"
+        hwd = torch.full((H, Wp, Dp + 2 * pitch), float("nan"), device=dev,
+                         dtype=dtype)
+        if pitch:
+            hwd = hwd[:, :, 1:Dp + 1]
+        xrev = layout.startswith("hwd xrev")
         hwd[:, :W, :D] = dhw.permute(1, 2, 0).flip(1) if xrev \
             else dhw.permute(1, 2, 0)
         if xrev:

@@ -3,13 +3,16 @@ the JAX package, on the CPU.
 
 The kernels run only on the card (tests/test_torch_kernels_cuda.py holds
 them against their plain versions there). Here numpy mirrors of what each
-kernel computes (the mismatch fill's walk of every ray, the occlusion
-fill's row scan, the subpixel kernel's strided read) are held against
+kernel computes (the mismatch fill's walk of every ray, in the order
+its probes go out: a warp's rounds for a sparse tile, a thread's chunks
+for a dense one; the occlusion fill's row scan, the subpixel kernel's
+strided read) are held against
 ``mccnn_tpu/ops/post.py`` bit for bit; the comparator tables and rays in
 the ``.cu`` against the plain versions' own; and the wrappers' CPU
 dispatch against the ``*_plain`` functions.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -99,19 +102,46 @@ def _mismatch_case(name):
         lab[:] = MISMATCH
         lab[4, 9] = MATCH
         lab[15, 30] = OCCLUSION
+    elif name == "clustered":
+        # a MISMATCH block larger than one 32 x 8 tile, so that its tiles
+        # walk a thread a pixel, beside sparse tiles
+        lab = np.where(rng.rand(H, W) < 0.03, MISMATCH, MATCH).astype(
+            np.float32)
+        lab[3:17, 2:35] = MISMATCH
+        lab[9, 20] = OCCLUSION
+    elif name == "rounds":
+        # dense runs of every length: events fall on every probe of a
+        # round, first and last, landings, frame edges and the -0.5 rule
+        lab = np.where(rng.rand(H, W) < 0.93, MISMATCH,
+                       rng.choice([MATCH, OCCLUSION], (H, W))).astype(
+            np.float32)
+    elif name == "column":
+        # one MISMATCH column (as the KITTI path's map has at x = 39):
+        # the two vertical rays walk the frame, the others land at once
+        lab = np.where(lab == MISMATCH, OCCLUSION, lab)
+        lab[:, 11] = MISMATCH
     return d0, lab
 
 
-@pytest.mark.parametrize("name", ["random", "all mismatch", "long runs",
-                                  "edges", "cnt 0"])
+MISMATCH_MAPS = ["random", "all mismatch", "long runs", "edges", "cnt 0",
+                 "clustered", "rounds", "column"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mismatch(name):
+    d0, lab = _mismatch_case(name)
+    return np.asarray(jpost.interpolate_mismatch(jnp.asarray(d0),
+                                                 jnp.asarray(lab)))
+
+
+@pytest.mark.parametrize("name", MISMATCH_MAPS)
 def test_ray_walk_is_the_jax_mismatch_fill(name):
     """The kernel's walk equals the JAX package's pointer doubling (and
     the port's plain version) bit for bit; on the edge map the -0.5 rule
     decides pixels, and on the cnt 0 map some pixels land nothing."""
     d0, lab = _mismatch_case(name)
     got = _ray_walk(d0, lab)
-    want = np.asarray(jpost.interpolate_mismatch(jnp.asarray(d0),
-                                                 jnp.asarray(lab)))
+    want = _jax_mismatch(name)
     plain = post.interpolate_mismatch_plain(torch.as_tensor(d0),
                                             torch.as_tensor(lab)).numpy()
     assert _bits_equal(got, want)
@@ -123,6 +153,146 @@ def test_ray_walk_is_the_jax_mismatch_fill(name):
         assert 0 < kept.sum() < (lab == MISMATCH).sum()
     if name == "all mismatch":
         assert _bits_equal(got, d0)
+
+
+def _const(name: str) -> int:
+    """``constexpr int name = value;`` in refine.cu."""
+    m = re.search(rf"constexpr int {name} = (-?\d+);", SRC)
+    assert m, name
+    return int(m.group(1))
+
+
+RAYS2 = [(int(2 * dx), int(2 * dy)) for dx, dy in post._RAY_DIRS.tolist()]
+
+
+def _first_out(c2, pos, n):
+    """The kernel's ``first_out``: the first step of a ray component c2 / 2
+    from ``pos`` that is out of [0, n) or the -0.5 rule's odd step on 0."""
+    return {2: n - pos, -2: pos + 1, 1: 2 * (n - 1 - pos) + 1,
+            -1: 2 * pos + 1}.get(c2, 1 << 40)
+
+
+def _probe(y, x, ray, t):
+    """Probe t of ray (cx, cy) from (y, x): floor(t c / 2 + 0.5) as the
+    kernel's ``(t * c + 1) >> 1``."""
+    cx, cy = RAYS2[ray]
+    return y + ((t * cy + 1) >> 1), x + ((t * cx + 1) >> 1)
+
+
+def _round_walk(mm, y, x, P, trace=None):
+    """A sparse tile's warp walk of pixel (y, x) (``walk_warp``) on the
+    MISMATCH mask ``mm`` (nested lists): in each round the m open rays, in
+    ascending order, share the 32 lanes (L = 32 // m each; lane l serves
+    ray open[l % m] as its h = l // m), lane h probes t = next + h + L i
+    for i < P; the lane's earliest event (t at or past the ray's
+    first_out: empty; a probe not MISMATCH: landed), a ray's earliest over
+    its lanes closes it, the open rays go on at next + L P. Returns each
+    ray's landing (py, px) or None. ``trace`` (a set) collects (kind,
+    i == 0, i == P - 1) of each event that closed a ray."""
+    H, W = len(mm), len(mm[0])
+    t0 = [min(_first_out(cx, x, W), _first_out(cy, y, H)) for cx, cy in RAYS2]
+    nxt, land = [1] * 16, [None] * 16
+    open_ = list(range(16))
+    while open_:
+        m = len(open_)
+        L = 32 // m
+        events = {r: [] for r in open_}
+        for lane in range(m * L):
+            r, h = open_[lane % m], lane // m
+            for i in range(P):
+                t = nxt[r] + h + L * i
+                py, px = _probe(y, x, r, t)
+                if t >= t0[r]:
+                    kind = "out" if not (0 <= py < H and 0 <= px < W) \
+                        else "-0.5"
+                    events[r].append((t, None, kind, i))
+                    break
+                if not mm[py][px]:
+                    events[r].append((t, (py, px), "landed", i))
+                    break
+        still = []
+        for r in open_:
+            if events[r]:
+                _, land[r], kind, i = min(events[r])
+                if trace is not None:
+                    trace.add((kind, i == 0, i == P - 1))
+            else:
+                nxt[r] += L * P
+                still.append(r)
+        open_ = still
+    return land
+
+
+def _chunk_walk(mm, y, x, Q):
+    """A dense tile's thread walk of pixel (y, x) (``walk_chunks``): each
+    ray in chunks of Q probes from t = 1, the probes below its first_out
+    loaded, the first not MISMATCH landed."""
+    H, W = len(mm), len(mm[0])
+    land = [None] * 16
+    for r, (cx, cy) in enumerate(RAYS2):
+        t0 = min(_first_out(cx, x, W), _first_out(cy, y, H))
+        t = 1
+        while t < t0 and land[r] is None:
+            for tt in range(t, min(t + Q, t0)):
+                py, px = _probe(y, x, r, tt)
+                if not mm[py][px]:
+                    land[r] = (py, px)
+                    break
+            t += Q
+    return land
+
+
+def _tiled_fill(d0, lab, P, Q, dense, paths=None, trace=None):
+    """What mismatch_fill_kernel computes: 32 x 8 tiles; a tile with more
+    than ``dense`` MISMATCH pixels walks them by ``_chunk_walk``, another
+    by ``_round_walk``; sorted(landed)[cnt // 2], d0 if nothing landed.
+    ``paths`` (a set) collects the walks taken."""
+    H, W = d0.shape
+    out = d0.copy()
+    mm = (lab == MISMATCH).tolist()
+    for ty in range(0, H, 8):
+        for tx in range(0, W, 32):
+            pix = [(ty + a, tx + b) for a, b in
+                   zip(*np.nonzero(lab[ty:ty + 8, tx:tx + 32] == MISMATCH))]
+            walk = "dense" if len(pix) > dense else "sparse"
+            if pix and paths is not None:
+                paths.add(walk)
+            for y, x in pix:
+                land = (_chunk_walk(mm, y, x, Q) if walk == "dense"
+                        else _round_walk(mm, y, x, P, trace))
+                vals = [d0[w] for w in land if w is not None]
+                if vals:
+                    out[y, x] = sorted(vals)[len(vals) // 2]
+    return out
+
+
+@pytest.mark.parametrize("P", [1, 4, 8])
+def test_round_walk_is_the_jax_mismatch_fill(P):
+    """The redesigned walk's order of probes (a warp's rounds of L P probes
+    a ray for a sparse tile, P of them a lane; a thread's chunks of Q for a
+    dense one) equals the JAX package's pointer doubling bit for bit on
+    every map: every tile sparse, every tile dense, and the kernel's own
+    split at its DENSE; P = 1, 4, 8 (the kernel's is 8). Across the maps
+    the events that close a ray fall on a lane's first and last probe of a
+    round as landings, frame edges and the -0.5 rule, and both walks are
+    taken."""
+    Q, dense = _const("Q"), _const("DENSE")
+    assert _const("P") == 8 and Q % 2 == 0 and 0 < dense < 256
+    trace, paths = set(), set()
+    for name in MISMATCH_MAPS:
+        d0, lab = _mismatch_case(name)
+        want = _jax_mismatch(name)
+        assert _bits_equal(_tiled_fill(d0, lab, P, Q, 256, trace=trace),
+                           want), name
+        assert _bits_equal(_tiled_fill(d0, lab, P, Q, dense, paths), want), \
+            name
+        if P == 8:
+            assert _bits_equal(_tiled_fill(d0, lab, P, Q, -1), want), name
+    assert paths == {"dense", "sparse"}
+    for kind in ("landed", "out", "-0.5"):
+        assert (kind, True, P == 1) in trace
+        if P > 1:
+            assert (kind, False, True) in trace
 
 
 def test_rays_and_networks_in_the_source_are_the_plain_versions():
@@ -208,19 +378,22 @@ def test_row_scan_is_the_jax_occlusion_fill(H, W, nt):
 # --- (d) subpixel: the strided read ------------------------------------
 
 def _strided_subpixel(d0, flat, strides, Dp, xrev, disp_max, thresh):
-    """What subpixel_kernel computes: d = int(d0[y, x]); the samples at
-    flat[y*sy + c*sx + j*sd], c = W-1-x if ``xrev`` else x, j = d-1, d,
-    d+1 inside [0, Dp), else 0; the parabola in float32."""
+    """What subpixel_kernel computes: d = int(d0[y, x]) (the plain
+    version's own conversion); the samples at flat[y*sy + c*sx + j*sd],
+    c = W-1-x if ``xrev`` else x, j = d-1, d, d+1 (int32 wrap) inside
+    [0, Dp), else 0; the parabola in float32."""
     f32 = np.float32
     H, W = d0.shape
     sy, sx, sd = strides
+    ds = torch.as_tensor(d0).to(torch.int32).numpy()
     out = np.empty((H, W), f32)
     for y in range(H):
         for x in range(W):
-            d = int(d0[y, x])
+            d = int(ds[y, x])
             base = y * sy + (W - 1 - x if xrev else x) * sx
             cn, cz, cp = (f32(flat[base + j * sd]) if 0 <= j < Dp else f32(0)
-                          for j in (d - 1, d, d + 1))
+                          for j in ((d + k + 2**31) % 2**32 - 2**31
+                                    for k in (-1, 0, 1)))
             with np.errstate(invalid="ignore", divide="ignore",
                              over="ignore"):
                 denom = f32(2) * ((cp + cn) - f32(2) * cz)
@@ -274,6 +447,32 @@ def test_strided_read_is_the_plain_subpixel(dtype):
         want = np.asarray(jpost.subpixel_enhancement(jnp.asarray(d0),
                                                      jnp.asarray(wide), D))
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_strided_read_wraps_as_the_plain_subpixel(dtype):
+    """The kernel's read of an x-reversed HWD volume with NaN pad lanes
+    and pad columns at the edges of the disparity axis, against
+    ``subpixel_enhancement_hwd_plain`` bit for bit: d in {-1, 0, 1,
+    Dp - 2, Dp - 1, Dp}, a NaN d0 and huge ones of both signs (the int32
+    wrap of d - 1 and d + 1), f32, bf16 and f16 storage."""
+    rng = np.random.RandomState(17)
+    H, W, Wp, Dp, D = 6, 41, 48, 32, 27
+    vol = rng.rand(H, Wp, Dp).astype(np.float32)
+    vol[..., D:] = np.nan
+    vol[:, ::7, :] = 0.5  # flat triples: denominators at the threshold
+    hwd = torch.as_tensor(vol).to(dtype)
+    d0 = (rng.randint(-2, Dp + 2, (H, W))
+          + rng.choice([0, .5, .99], (H, W))).astype(np.float32)
+    d0[0, :6] = [-1, 0, 1, Dp - 2, Dp - 1, Dp]
+    d0[1, :5] = [np.nan, 3e9, -3e9, 2.0**31, -2.0**31]
+    flat = hwd.float().numpy().ravel()
+    got = _strided_subpixel(d0, flat, (Wp * Dp, Dp, 1), Dp, True, D, 4e-5)
+    want = post.subpixel_enhancement_hwd_plain(torch.as_tensor(d0), hwd, D,
+                                               4e-5, xrev=True).numpy()
+    assert _bits_equal(got, want)
+    assert not np.isnan(want[2:]).all()
 
 
 def test_xrev_subpixel_is_the_padded_flip_of_the_hwd_lane():

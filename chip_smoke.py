@@ -49,7 +49,10 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    0 and column 0 and on a 48x160 MISMATCH block mid-frame (clustered),
    its bound counting each map's probes; subpixel on the
    x-reversed volume in f32, bf16 and f16 and relaid as the generic
-   lane's (D, H, W); the CBCA kernel on kitti slow's own volumes and arms
+   lane's (D, H, W); the occlusion fill also on rows with no match and
+   rows whose one match is the last column; the median also on the map
+   with NaN of two payloads, -0.0 and +-inf in interior tiles, with the
+   share of tiles and outputs on each of its paths; the CBCA kernel on kitti slow's own volumes and arms
    (one slow ``stereo_predict`` with random weights, the last CBCA input
    of each direction captured) and on kitti census's at K = 2, both
    directions, each bit-identical to its plain version, timed by events,
@@ -68,8 +71,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    slow's K = 14 on that head's volume, the -1 direction, and the arms
    kernel at K = 14, bit for bit; subpixel
    (its three storage types and the (D, H, W) layout) and the median on
-   mb fast's own map and volume, bit for bit; each with kernel, plain
-   and bound times;
+   mb fast's own map and volume (and its adversarial copy), bit for bit;
+   each with kernel, plain and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -419,6 +422,60 @@ def mismatch_maps(lab) -> dict:
             "edges": edges, "clustered": clustered}
 
 
+def no_match_rows(lab):
+    """The path's labels with its first 10 rows holding no MATCH and the
+    next 10 one MATCH alone, in the last column (the fill then copies it
+    along the row)."""
+    lab = lab.clone()
+    lab[:10] += (lab[:10] == 0).to(lab.dtype)  # MATCH (0) to OCCLUSION (1)
+    lab[10:20] = 1.0
+    lab[10:20, -1] = 0.0
+    return lab
+
+
+def adversarial_median(torch, img):
+    """The path's map with NaN (two payloads), -0.0, +inf and -inf in
+    interior tiles: every 40th row from 12, every 96th column from 40."""
+    img = img.clone()
+    h, w = img.shape
+    for y in range(12, h - 16, 40):
+        for x in range(40, w - 48, 96):
+            img[y, x] = float("nan")
+            img.view(torch.int32)[y + 1, x + 3] = 0x7fc00123
+            img[y + 2, x + 5] = -0.0
+            img[y + 3, x + 7] = float("inf")
+            img[y + 3, x + 9] = float("-inf")
+    return img
+
+
+def median_paths(torch, img) -> str:
+    """Which of median5's paths (csrc/refine.cu) the map takes: a lane's
+    2 x 4 outputs run the fast network where its 6 x 8 window union lies
+    in frame and holds no NaN and no -0.0, else the plain one; by 32 x 8
+    tile (a warp's) and by output."""
+    import torch.nn.functional as F
+
+    h, w = img.shape
+    ny, nx = -(-h // 8), -(-w // 32)
+    bad = (img.isnan() | ((img == 0) & img.signbit())).float()[None, None]
+    bad = F.pad(bad, (2, nx * 32 + 2 - w, 2, ny * 8 + 2 - h))
+    lane_bad = F.max_pool2d(bad, (6, 8), (2, 4))[0, 0] > 0
+    ys = torch.arange(0, ny * 8, 2, device=img.device)[:, None]
+    xs = torch.arange(0, nx * 32, 4, device=img.device)[None, :]
+    real = (ys < h) & (xs < w)
+    frame = (xs >= 2) & (xs + 5 < w) & (ys >= 2) & (ys + 3 < h)
+    fast = frame & ~lane_bad
+    per = lambda m: m.reshape(ny, 4, nx, 8).sum((1, 3))  # noqa: E731
+    n_fast, n_real = per(fast), per(real)
+    all_fast = int((n_fast == n_real).sum())
+    none = int((n_fast == 0).sum())
+    return (f"{all_fast} of {ny * nx} tiles all on the fast network, "
+            f"{ny * nx - all_fast - none} mixed, {none} all plain; "
+            f"{int((frame & lane_bad).sum())} lanes in frame plain for a NaN "
+            f"or -0.0; {8 * int(fast.sum()) / (h * w):.4f} of the outputs "
+            f"fast")
+
+
 def exact_row(torch, what, kernel, plain, nbytes, ops=0.0, graph=True,
               reps=20) -> dict:
     """A kernel against its plain version on the same inputs, bit for bit
@@ -450,20 +507,28 @@ def refine_rows(torch, seen, where) -> dict:
     """Rows for the refinement kernels on the inputs ``capture_refine``
     saw: each stage present, and the subpixel kernel also on its volume
     stored as bf16 and f16 and relaid as the generic lane's (D, H, W)
-    (threshold 1e-5). Bounds: the maps read and written (4 bytes a
-    pixel each; three samples of the volume a pixel for the parabola);
-    the mismatch fill three instructions a probe (address, load,
-    compare) of this map's walk; the median 226 min/max a pixel."""
-    from mccnn_tpu_torch.ops import post
+    (threshold 1e-5); the occlusion fill also on rows with no match
+    (``no_match_rows``), the median also on an adversarial map
+    (``adversarial_median``), with the share of its tiles on each path.
+    Bounds: the maps read and written (4 bytes a pixel each; three
+    samples of the volume a pixel for the parabola); the mismatch fill
+    three instructions a probe (address, load, compare) of this map's
+    walk; the median the fast network's min/max a pixel (73.5, the fewest
+    the kernel's networks need; the plain network's 226 are printed
+    beside it)."""
+    from mccnn_tpu_torch.ops import median_net, post
 
     rows = {}
     if "interpolate_occlusion" in seen:
         (d0, lab), _ = seen["interpolate_occlusion"]
         h, w = d0.shape
-        rows["occlusion_fill"] = exact_row(
-            torch, f"occlusion_fill {where}",
-            lambda: post.interpolate_occlusion(d0, lab),
-            lambda: post.interpolate_occlusion_plain(d0, lab), 12 * h * w)
+        for name, lb in (("occlusion_fill", lab),
+                         ("occlusion_fill (no match)", no_match_rows(lab))):
+            rows[name] = exact_row(
+                torch, f"{name} {where}",
+                lambda lb=lb: post.interpolate_occlusion(d0, lb),
+                lambda lb=lb: post.interpolate_occlusion_plain(d0, lb),
+                12 * h * w)
     if "interpolate_mismatch" in seen:
         (d0, lab), _ = seen["interpolate_mismatch"]
         h, w = d0.shape
@@ -499,9 +564,22 @@ def refine_rows(torch, seen, where) -> dict:
     if "median2d" in seen:
         (img, k), _ = seen["median2d"]
         h, w = img.shape
-        rows["median5"] = exact_row(
-            torch, f"median5 {where}", lambda: post.median2d(img, k),
-            lambda: post.median2d_plain(img, k), 8 * h * w, 226.0 * h * w)
+        fast_ops = (len(median_net.program()[0])
+                    / (median_net.R * median_net.C))
+        print(f"  median5 bound: bytes floor "
+              f"{bound_ms(8 * h * w, 0)[0]:.5f} ms; the fast network's "
+              f"{fast_ops} min/max a pixel "
+              f"{bound_ms(0, fast_ops * h * w, F32_INSTR)[0]:.5f} ms (the "
+              f"row's bound is the larger); the plain network's 226 "
+              f"{bound_ms(0, 226.0 * h * w, F32_INSTR)[0]:.5f} ms")
+        for name, m in (("median5", img),
+                        ("median5 (adversarial)",
+                         adversarial_median(torch, img))):
+            print(f"  {name} {where}: {median_paths(torch, m)}")
+            rows[name] = exact_row(
+                torch, f"{name} {where}", lambda m=m: post.median2d(m, k),
+                lambda m=m: post.median2d_plain(m, k), 8 * h * w,
+                fast_ops * h * w)
     torch.cuda.empty_cache()
     return rows
 

@@ -12,7 +12,12 @@ version, the ``*_plain`` function beside it. The plain versions follow
 the JAX package (mccnn_tpu/ops/post.py): bounded, data-independent work
 (pointer doubling for the ray walk, a selection network for the
 medians). The kernels compute the same values bit for bit: the mismatch
-fill walks each ray until it lands, the median runs the same network.
+fill walks each ray until it lands; the median takes 2 x 4 outputs a
+thread and runs the plain network where their 6 x 8 window union leaves
+the frame or holds a NaN or a -0.0, and elsewhere a cheaper network over
+shared sorted columns (``ops/median_net.py``), which selects the same
+bits where the values are totally ordered and equal values have equal
+bits.
 """
 
 from __future__ import annotations
@@ -30,15 +35,6 @@ from mccnn_tpu_torch.ops.outlier import MATCH, MISMATCH, OCCLUSION
 STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def occlusion_smem_bytes(W: int) -> int:
-    """The dynamic shared memory the occlusion kernel takes for rows of W
-    columns (``occlusion_smem_bytes`` in csrc/refine.cu, which the C
-    entry ``occlusion_fill_smem_bytes`` returns): the scans' two ints for
-    each of the 256 threads, the row's values and a byte of label kind a
-    column."""
-    return 2 * 256 * 4 + 5 * W
-
-
 def _lib():
     lib = _build.library("refine")
     if lib.subpixel_launch.argtypes is None:
@@ -51,10 +47,8 @@ def _lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
             + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_void_p])
-        lib.occlusion_fill_smem_bytes.argtypes = [ctypes.c_int]
         for fn in (lib.occlusion_fill_launch, lib.mismatch_fill_launch,
-                   lib.median5_launch, lib.subpixel_launch,
-                   lib.occlusion_fill_smem_bytes):
+                   lib.median5_launch, lib.subpixel_launch):
             fn.restype = ctypes.c_int
     return lib
 
@@ -76,8 +70,6 @@ def _fill(entry: str, d0: torch.Tensor, outlier: torch.Tensor
     """Launch the occlusion or the mismatch fill on (H, W) maps."""
     d0, outlier = _maps(entry, d0, outlier)
     H, W = d0.shape
-    if entry == "occlusion_fill" and occlusion_smem_bytes(W) > _build.MAX_SMEM:
-        raise ValueError(f"{entry}: bad shapes: rows of {W} columns")
     out = torch.empty_like(d0)
     rc = getattr(_lib(), f"{entry}_launch")(
         d0.data_ptr(), outlier.data_ptr(), out.data_ptr(), H, W,
@@ -348,7 +340,8 @@ def _subpixel(d0: torch.Tensor, vol: torch.Tensor, disp_max: int,
 def median2d(img: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """k×k median with boundary-clipped windows: sorted(in-frame
     values)[count/2]. The 5×5 kernel on CUDA tensors (another
-    ``kernel_size`` there raises ValueError), the plain version on CPU
+    ``kernel_size`` there raises ValueError; see the module docstring for
+    which outputs run which network), the plain version on CPU
     tensors."""
     if not img.is_cuda:
         return median2d_plain(img, kernel_size)

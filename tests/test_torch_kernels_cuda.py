@@ -592,34 +592,35 @@ def _labels(rng, H, W, p=(.5, .2, .3)):
 
 
 @pytest.mark.parametrize("H,W", [(37, 300), (9, 600), (5, 3), (2, 1226),
-                                 (3, 46080)])
+                                 (3, 46080), (4, 8193), (3, 46081), (7, 1501)])
 def test_occlusion_fill_kernel_is_bit_identical(dev, H, W):
     """``occlusion_fill`` against ``interpolate_occlusion_plain``, bit for
     bit, one launch a call: rows with no match, rows whose matches lie
-    right of the occlusions only, random rows; up to the widest row a
-    block's shared memory holds (one column more is refused); its
-    footprint as ``post.occlusion_smem_bytes`` reckons it."""
+    right of the occlusions only, a row whose only match is its last
+    column, random rows, values with NaN of two payloads and -0.0; rows of
+    one segment (up to 4096 columns), of three and of twelve (46080, the
+    widest row a block took when the row was staged in shared memory,
+    and one more), and an odd width (scalar loads)."""
     rng = np.random.RandomState(H + W)
-    d0 = torch.as_tensor((rng.rand(H, W) * 100).astype(np.float32),
-                         device=dev)
+    d0 = (rng.rand(H, W) * 100).astype(np.float32)
+    d0[rng.rand(H, W) < 0.05] = np.nan
+    d0.view(np.int32)[rng.rand(H, W) < 0.05] = 0x7fc00123
+    d0[rng.rand(H, W) < 0.05] = -0.0
     lab = _labels(rng, H, W, (.3, .5, .2))
     lab[0] = np.where(lab[0] == 0.0, 1.0, lab[0])
     if H > 2:
         lab[1, :W // 2] = 1.0
         lab[1, -1] = 0.0
-    lab = torch.as_tensor(lab, device=dev)
+    if H > 3:
+        lab[2] = 1.0
+        lab[2, -1] = 0.0
+    d0, lab = (torch.as_tensor(a, device=dev) for a in (d0, lab))
     before = _build.launches()["occlusion_fill"]
     got = post.interpolate_occlusion(d0, lab)
     torch.cuda.synchronize()
     assert _build.launches()["occlusion_fill"] == before + 1
     assert torch.equal(_bits(got), _bits(post.interpolate_occlusion_plain(
         d0, lab)))
-    assert post._lib().occlusion_fill_smem_bytes(W) == \
-        post.occlusion_smem_bytes(W)
-    if W == 46080:
-        z = torch.zeros((2, W + 1), device=dev)
-        with pytest.raises(ValueError, match="bad shapes"):
-            post.interpolate_occlusion(z, z)
 
 
 @pytest.mark.parametrize("case", ["random", "all mismatch", "edges", "cnt 0",
@@ -669,25 +670,50 @@ def test_mismatch_fill_kernel_is_bit_identical(dev, case, H, W):
         d0, lab)))
 
 
-@pytest.mark.parametrize("H,W,nan", [(37, 150, False), (5, 5, False),
-                                     (3, 2, False), (1, 40, False),
-                                     (67, 141, True)])
-def test_median5_kernel_is_bit_identical(dev, H, W, nan):
-    """``median5`` against ``median2d_plain(·, 5)``, bit for bit, one
-    launch a call: maps smaller than the window, a width off a multiple
-    of the block's 32 columns, repeated values, and NaN of two payloads
-    and infinities among them (torch.minimum / torch.maximum semantics).
-    Another kernel size raises on the card."""
-    rng = np.random.RandomState(H * W)
+def _median_input(rng, H, W, case):
     img = (rng.randint(0, 20, (H, W)) + rng.choice([0, .5], (H, W))
            ).astype(np.float32)
-    if nan:
+    bits = img.view(np.int32)
+    if case == "nan":
         img[rng.rand(H, W) < 0.03] = np.nan
-        bits = img.view(np.int32)
         bits[rng.rand(H, W) < 0.02] = 0x7fc00123  # a NaN of another payload
         img[rng.rand(H, W) < 0.02] = np.inf
         img[rng.rand(H, W) < 0.02] = -np.inf
-    t = torch.as_tensor(img, device=dev)
+    elif case == "interior nan":
+        # NaN of two payloads, -0.0 and inf in interior tiles only
+        for y, x in ((12, 40), (20, 75), (27, 100)):
+            img[y, x] = np.nan
+        bits[13, 45] = 0x7fc00123
+        img[21, 70], img[28, 110] = -0.0, np.inf
+    elif case == "signed zeros":
+        img[:] = rng.choice([0.0, -0.0, 1.0, -1.0], (H, W), p=[.3, .3, .2, .2])
+    elif case in ("kitti", "mb"):
+        img = (rng.rand(H, W) * 228).astype(np.float32)
+    return img
+
+
+@pytest.mark.parametrize("H,W,case", [
+    (37, 150, "ties"), (5, 5, "ties"), (3, 2, "ties"), (1, 40, "ties"),
+    (67, 141, "nan"), (37, 150, "signed zeros"), (40, 150, "interior nan"),
+    (40, 151, "ties"), (37, 150, "misaligned"), (370, 1226, "kitti"),
+    (1000, 1500, "mb")])
+def test_median5_kernel_is_bit_identical(dev, H, W, case):
+    """``median5`` against ``median2d_plain(·, 5)``, bit for bit, one
+    launch a call: maps smaller than the window or a lane's 6 x 8 union, a
+    width off a multiple of the block's 32 columns and an odd one (scalar
+    staging), repeated values, NaN of two payloads and infinities among
+    them (torch.minimum / torch.maximum semantics), -0.0 next to +0.0
+    (windows whose median is zero), NaN, -0.0 and inf in interior tiles
+    only (those tiles plain, the rest fast), a map 4 bytes off 8-byte
+    alignment, and random KITTI- and mb-sized maps (every interior lane
+    fast). Another kernel size raises on the card."""
+    rng = np.random.RandomState(H * W)
+    img = torch.as_tensor(_median_input(rng, H, W, case), device=dev)
+    t = img
+    if case == "misaligned":
+        flat = torch.empty(H * W + 1, device=dev)
+        t = flat[1:].view(H, W)
+        t.copy_(img)
     before = _build.launches()["median5"]
     got = post.median2d(t, 5)
     torch.cuda.synchronize()

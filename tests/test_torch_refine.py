@@ -5,11 +5,13 @@ The kernels run only on the card (tests/test_torch_kernels_cuda.py holds
 them against their plain versions there). Here numpy mirrors of what each
 kernel computes (the mismatch fill's walk of every ray, in the order
 its probes go out: a warp's rounds for a sparse tile, a thread's chunks
-for a dense one; the occlusion fill's row scan, the subpixel kernel's
+for a dense one; the occlusion fill's runs, warp scans and segments; the
+median's two paths with its tile and lane choice; the subpixel kernel's
 strided read) are held against
 ``mccnn_tpu/ops/post.py`` bit for bit; the comparator tables and rays in
-the ``.cu`` against the plain versions' own; and the wrappers' CPU
-dispatch against the ``*_plain`` functions.
+the ``.cu`` against the plain versions' own, and the median's fast
+network against the 0-1 principle; and the wrappers' CPU dispatch
+against the ``*_plain`` functions.
 """
 
 import functools
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from mccnn_tpu.ops import post as jpost
-from mccnn_tpu_torch.ops import _build, post
+from mccnn_tpu_torch.ops import _build, median_net, post
 
 SRC = (Path(post.__file__).resolve().parent.parent / "csrc"
        / "refine.cu").read_text()
@@ -39,7 +41,7 @@ def _bits_equal(a, b) -> bool:
 def _macro(name: str) -> str:
     """The body of ``#define name(...)`` in refine.cu, continuation lines
     joined."""
-    m = re.search(rf"#define {name}\([A-Z]\) \\\n((?:.*\\\n)*.*)\n", SRC)
+    m = re.search(rf"#define {name}\([A-Z, ]+\) \\\n((?:.*\\\n)*.*)\n", SRC)
     assert m, name
     return m.group(1).replace("\\\n", " ")
 
@@ -313,50 +315,69 @@ def test_rays_and_networks_in_the_source_are_the_plain_versions():
     assert np.array_equal(post._RAY_DIRS, jpost._RAY_DIRS)
 
 
-# --- (c) the occlusion fill: a scan of each row --------------------------
+# --- (c) the occlusion fill: runs, warp scans and segments -------------
+
+def _occlusion_threads(W, nt):
+    """``occlusion_threads`` of refine.cu with ``nt`` the most threads a
+    row (OCC_MAX_NT there): runs of OCC_V columns in whole warps
+    (fewer than 32 threads: one partial warp, for small segments)."""
+    v = _const("OCC_V")
+    return min(nt, -(-W // (32 * v)) * 32)
+
 
 def _row_scan(d0, lab, nt):
-    """What occlusion_fill_kernel computes for each row with ``nt``
-    threads: the row in chunks of ceil(W / nt) columns, each chunk's last
-    and first match, an inclusive max-scan of the last and min-scan of
-    the first over the chunks, then a pass over each chunk carrying the
-    last match from the left; an OCCLUSION pixel takes the value of the
-    last match at or left of it, else of the row's first match, else
-    keeps its own; in place, as the kernel fills its shared row."""
+    """What occlusion_fill_kernel computes for each row with at most ``nt``
+    threads: the row in segments of threads x OCC_V columns, thread t a run
+    of OCC_V from t OCC_V, warps of 32 threads; each run's last and first
+    match; the last match left of a run: that of the nearest run before it
+    in its warp with one (the warp's ballot), else the last of the nearest
+    warp before with one, else the segments' before; the row's first match:
+    the first of the first warp with one. An OCCLUSION pixel takes the
+    value of the last match at or left of it, else of the row's first
+    match, else keeps its own; when the row's first match turns up in a
+    later segment, the earlier segments' occlusions take it then."""
     out = d0.copy()
-    W = d0.shape[1]
-    chunk = -(-W // nt)
-    for y in range(d0.shape[0]):
-        row, kind = out[y], lab[y]
-        bounds = [(min(W, t * chunk), min(W, t * chunk + chunk))
-                  for t in range(nt)]
-        last = [max([x for x in range(a, b) if kind[x] == MATCH],
-                    default=-1) for a, b in bounds]
-        first = [min([x for x in range(a, b) if kind[x] == MATCH],
-                     default=W) for a, b in bounds]
-        last = np.maximum.accumulate(last)
-        first = np.minimum.accumulate(first[::-1])[::-1]
-        for t, (a, b) in enumerate(bounds):
-            left = last[t - 1] if t > 0 else -1
-            for x in range(a, b):
-                if kind[x] == MATCH:
-                    left = x
-                elif kind[x] == OCCLUSION:
-                    src = left if left >= 0 else (first[0] if first[0] < W
-                                                  else x)
-                    row[x] = row[src]
+    H, W = d0.shape
+    V = _const("OCC_V")
+    T = _occlusion_threads(W, nt)
+    for y in range(H):
+        kind, vals = lab[y], d0[y]
+        carry, first = None, None
+        for s0 in range(0, W, T * V):
+            runs = [range(s0 + t * V, min(W, s0 + t * V + V))
+                    for t in range(T)]
+            mine = [[x for x in r if kind[x] == MATCH] for r in runs]
+            warps = [[t for t in range(w, min(T, w + 32)) if mine[t]]
+                     for w in range(0, T, 32)]
+            wlast = [vals[mine[h[-1]][-1]] if h else None for h in warps]
+            wfirst = [vals[mine[h[0]][0]] if h else None for h in warps]
+            with_match = [w for w, h in enumerate(warps) if h]
+            found = first is None and bool(with_match)
+            if found:
+                first = wfirst[with_match[0]]
+            for t, r in enumerate(runs):
+                w = t // 32
+                before = [u for u in warps[w] if u < t]
+                prev = [k for k in with_match if k < w]
+                left = (vals[mine[before[-1]][-1]] if before
+                        else wlast[prev[-1]] if prev else carry)
+                for x in r:
+                    if kind[x] == MATCH:
+                        left = vals[x]
+                    elif kind[x] == OCCLUSION:
+                        out[y, x] = (left if left is not None else
+                                     first if first is not None else vals[x])
+            if found:
+                for x in range(s0):
+                    if kind[x] == OCCLUSION:
+                        out[y, x] = first
+            if with_match:
+                carry = wlast[with_match[-1]]
     return out
 
 
-@pytest.mark.parametrize("H,W,nt", [(13, 300, 256), (9, 37, 4), (7, 600, 256),
-                                    (5, 3, 8)])
-def test_row_scan_is_the_jax_occlusion_fill(H, W, nt):
-    """The kernel's row scan equals the JAX package's two associative
-    scans (and the port's plain version) bit for bit, on rows with no
-    match (kept), rows whose only matches lie right of the occlusions,
-    and random rows; with 256 threads (W = 300: two columns a chunk; 600:
-    three) and with fewer threads than columns in small rows."""
-    rng = np.random.RandomState(H * W + nt)
+def _occlusion_case(H, W, seed):
+    rng = np.random.RandomState(seed)
     d0 = (rng.rand(H, W) * 100).astype(np.float32)
     lab = rng.choice([MATCH, OCCLUSION, MISMATCH], (H, W),
                      p=[.3, .5, .2]).astype(np.float32)
@@ -365,9 +386,31 @@ def test_row_scan_is_the_jax_occlusion_fill(H, W, nt):
     if W > 2:
         lab[2, :W // 2] = OCCLUSION                          # matches right
         lab[2, -1] = MATCH
-    got = _row_scan(d0, lab, nt)
-    want = np.asarray(jpost.interpolate_occlusion(jnp.asarray(d0),
+    if H > 3:
+        lab[3] = OCCLUSION                                   # one match, last
+        lab[3, -1] = MATCH
+    return d0, lab
+
+
+def _jax_occlusion(d0, lab):
+    return np.asarray(jpost.interpolate_occlusion(jnp.asarray(d0),
                                                   jnp.asarray(lab)))
+
+
+@pytest.mark.parametrize("H,W,nt", [(13, 300, 256), (9, 37, 4), (7, 600, 256),
+                                    (5, 3, 8), (7, 600, 64)])
+def test_row_scan_is_the_jax_occlusion_fill(H, W, nt):
+    """The kernel's runs, warp scans and segments equal the JAX package's
+    two associative scans (and the port's plain version) bit for bit, on
+    rows with no match (kept), rows whose only matches lie right of the
+    occlusions (one of them in the last column), and random rows; one
+    segment of two and three warps (W = 300, 600 with 256 threads), two
+    segments of a partial warp (W = 37 with 4 threads: the row whose only
+    match is in the last column revisits the first), a row narrower than
+    a run, and two segments of two warps."""
+    d0, lab = _occlusion_case(H, W, H * W + nt)
+    got = _row_scan(d0, lab, nt)
+    want = _jax_occlusion(d0, lab)
     plain = post.interpolate_occlusion_plain(torch.as_tensor(d0),
                                              torch.as_tensor(lab)).numpy()
     assert _bits_equal(got, want)
@@ -375,7 +418,272 @@ def test_row_scan_is_the_jax_occlusion_fill(H, W, nt):
     assert _bits_equal(got[:2], d0[:2])
 
 
-# --- (d) subpixel: the strided read ------------------------------------
+@pytest.mark.parametrize("W,threads,segments", [
+    (1226, 320, 1), (1500, 384, 1), (4096, 1024, 1), (4097, 1024, 2),
+    (46081, 1024, 12)])
+def test_occlusion_width_rule(W, threads, segments):
+    """Any row width fills: a row takes runs of OCC_V = 4 columns in whole
+    warps, up to OCC_MAX_NT = 1024 threads, and a wider row segments of
+    4096 columns (KITTI's 1226 columns 320 threads, mb's 1500 384, one
+    segment; 46081, one past the widest row a block held when the row was
+    staged in shared memory, twelve). The model at the kernel's own threads
+    equals the plain version (held to the JAX package above) bit for bit,
+    the row whose only match is its last column revisiting every earlier
+    segment."""
+    nt = _const("OCC_MAX_NT")
+    assert (_const("OCC_V"), nt) == (4, 1024)
+    T = _occlusion_threads(W, nt)
+    assert (T, -(-W // (T * 4))) == (threads, segments)
+    assert T % 32 == 0 and (T < nt or T * 4 >= W or segments > 1)
+    d0, lab = _occlusion_case(4, W, W)
+    plain = post.interpolate_occlusion_plain(torch.as_tensor(d0),
+                                             torch.as_tensor(lab)).numpy()
+    assert _bits_equal(_row_scan(d0, lab, nt), plain)
+
+
+# --- (d) the median: two paths -----------------------------------------
+
+def _net(name):
+    """The comparator table ``name`` of refine.cu."""
+    return [(int(a), int(b))
+            for a, b in re.findall(r"C\((\d+), (\d+)\)", _macro(name))]
+
+
+def _fast_net():
+    """(inputs [(n, r, c)], ops [(N or X, d, a, b)], outputs [(k, s)]) of
+    MEDIAN5_FAST_IN and MEDIAN5_FAST_NET in refine.cu."""
+    ins = [tuple(map(int, t)) for t in re.findall(
+        r"I\((\d+), (\d+), (\d+)\)", _macro("MEDIAN5_FAST_IN"))]
+    net = _macro("MEDIAN5_FAST_NET")
+    ops = [(op, int(d), int(a), int(b)) for op, d, a, b in re.findall(
+        r"([NX])\((\d+), (\d+), (\d+)\)", net)]
+    outs = [(int(k), int(v)) for k, v in re.findall(r"O\((\d+), (\d+)\)",
+                                                     net)]
+    return ins, ops, outs
+
+
+def _vmin(a, b, rule="jax"):
+    """A minimum with torch.minimum's NaN rule (a NaN operand, the first if
+    both are); of equal values, -0.0 below +0.0 (``rule`` "jax": the JAX
+    package's on the CPU) or the first operand ("first")."""
+    tie = np.signbit(a) if rule == "jax" else True
+    m = np.where(a < b, a, np.where(b < a, b, np.where(tie, a, b)))
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, m))
+
+
+def _vmax(a, b, rule="jax"):
+    """A maximum: the JAX package's on the CPU (a NaN operand, the second
+    if both are; +0.0 above -0.0), or ("first") torch.maximum's NaN rule
+    and the first of equal operands."""
+    if rule == "jax":
+        m = np.where(a > b, a, np.where(b > a, b, np.where(np.signbit(a),
+                                                           b, a)))
+        return np.where(np.isnan(b), b, np.where(np.isnan(a), a, m))
+    m = np.where(a > b, a, np.where(b > a, b, a))
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, m))
+
+
+def _unordered(v):
+    return np.isnan(v) | ((v == 0) & np.signbit(v))
+
+
+def _median_kernel(img, paths=None, fast="routed", rule="jax"):
+    """What median5_kernel computes, with the minimum and maximum of
+    ``rule``: 32 x 8 tiles, a lane MY x MX adjacent outputs. A lane whose
+    (MY + 4) x (MX + 4) window union lies in frame and holds no NaN and no
+    -0.0 runs MEDIAN5_FAST_NET (``fast`` "always": whatever it holds;
+    "never": no lane); every other output the plain way: the out-of-frame
+    taps filled -inf for the first 12 - cnt // 2, +inf for the rest, then
+    MEDIAN25_NET. ``paths`` (a set) collects the paths taken."""
+    H, W = img.shape
+    MX, MY = _const("MX"), _const("MY")
+    lanes, plain = [], []
+    for gy in range(0, H, MY):
+        for gx in range(0, W, MX):
+            union = img[max(0, gy - 2):gy + MY + 2, max(0, gx - 2):gx + MX + 2]
+            if (fast != "never" and gx >= 2 and gx + MX + 1 < W and gy >= 2
+                    and gy + MY + 1 < H
+                    and (fast == "always" or not _unordered(union).any())):
+                lanes.append((gy, gx))
+            else:
+                plain += [(y, x) for y in range(gy, min(H, gy + MY))
+                          for x in range(gx, min(W, gx + MX))]
+    out = np.zeros((H, W), np.float32)
+    done = np.zeros((H, W), int)
+    if lanes:
+        gy, gx = np.array(lanes).T
+        ins, ops, outs = _fast_net()
+        v = {n: img[gy - 2 + r, gx - 2 + c] for n, r, c in ins}
+        for op, d, a, b in ops:
+            v[d] = (_vmin if op == "N" else _vmax)(v[a], v[b], rule)
+        for k, src in outs:
+            out[gy + k // MX, gx + k % MX] = v[src]
+            np.add.at(done, (gy + k // MX, gx + k % MX), 1)
+    if plain:
+        ys, xs = np.array(plain).T
+        inf = np.float32(np.inf)
+        taps = [((ys + dy >= 0) & (ys + dy < H) & (xs + dx >= 0)
+                 & (xs + dx < W),
+                 img[np.clip(ys + dy, 0, H - 1), np.clip(xs + dx, 0, W - 1)])
+                for dx in range(-2, 3) for dy in range(-2, 3)]
+        a = 12 - sum(ok.astype(int) for ok, _ in taps) // 2
+        rank = np.zeros_like(a)
+        vals = []
+        for ok, v in taps:
+            vals.append(np.where(ok, v, np.where(rank < a, -inf, inf)))
+            rank = rank + ~ok
+        for i, j in _net("MEDIAN25_NET"):
+            vals[i], vals[j] = (_vmin(vals[i], vals[j], rule),
+                                _vmax(vals[i], vals[j], rule))
+        out[ys, xs] = vals[12]
+        np.add.at(done, (ys, xs), 1)
+    assert (done == 1).all()
+    if paths is not None:
+        paths |= {p for p, n in (("fast", lanes), ("plain", plain)) if n}
+    return out
+
+
+def _median_map(name):
+    """A small map with ties: 21 x 70 holds an interior tile (rows 8-15,
+    columns 32-63) whose halo lies in frame; the small maps are smaller
+    than the window or than a lane's union."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    shape = {"3x2": (3, 2), "5x5": (5, 5), "1x40": (1, 40),
+             "7x9": (7, 9)}.get(name, (21, 70))
+    img = (rng.randint(0, 20, shape) + rng.choice([0, .5], shape)
+           ).astype(np.float32)
+    bits = img.view(np.int32)
+    if name == "inf":
+        img[rng.rand(*shape) < 0.05] = np.inf
+        img[rng.rand(*shape) < 0.05] = -np.inf
+    elif name == "nan":
+        img[rng.rand(*shape) < 0.03] = np.nan
+        bits[rng.rand(*shape) < 0.02] = 0x7fc00123  # another payload
+        img[rng.rand(*shape) < 0.02] = np.inf
+        img[rng.rand(*shape) < 0.02] = -np.inf
+    elif name == "interior nan":
+        img[11, 40], img[12, 50] = np.nan, np.nan
+        bits[13, 45] = 0x7fc00123
+        img[10, 60], img[14, 36] = np.inf, -np.inf
+    elif name == "signed zeros":
+        # windows whose median is zero: -0.0 next to +0.0 in the left
+        # tiles, +0.0 alone in the right ones
+        img[:] = rng.choice([0.0, 1.0, -1.0], shape, p=[.6, .2, .2])
+        img[:, :40] = np.where(rng.rand(21, 40) < 0.5, -img[:, :40],
+                               img[:, :40])
+    return img
+
+
+MEDIAN_MAPS = ["ties", "inf", "nan", "interior nan", "signed zeros", "3x2",
+               "5x5", "1x40", "7x9"]
+
+
+@pytest.mark.parametrize("name", MEDIAN_MAPS)
+def test_median_kernel_model_is_the_jax_median(name):
+    """The kernel's two paths (the fast network on lanes whose union lies
+    in frame and holds no NaN and no -0.0, the plain network elsewhere)
+    equal the JAX
+    package's ``median2d`` bit for bit: ties, +-inf, NaN of two payloads
+    (everywhere, or in the interior tile alone), -0.0 next to +0.0 where
+    the median is zero, maps smaller than the window or a lane's union.
+    The port's plain version on the CPU agrees in values and NaN masks,
+    and in bits where the map holds no NaN and no -0.0: torch's CPU
+    minimum picks either zero and either NaN by its vector width, so
+    there the bits are the JAX package's and the card's plain version's
+    (tests/test_torch_kernels_cuda.py). Under a minimum and maximum that
+    keep the first of equal operands, too, the two paths give the plain
+    network's bits everywhere; there the fast network taken whatever the
+    union holds changes the bits on the NaN and the signed-zero maps."""
+    img = _median_map(name)
+    paths = set()
+    got = _median_kernel(img, paths)
+    want = np.asarray(jpost.median2d(jnp.asarray(img), 5))
+    plain = post.median2d_plain(torch.as_tensor(img), 5).numpy()
+    assert _bits_equal(got, want)
+    np.testing.assert_array_equal(got, plain)
+    if not _unordered(img).any():
+        assert _bits_equal(got, plain)
+    assert paths == ({"plain"} if img.shape != (21, 70)
+                     else {"fast", "plain"})
+    for rule in ("jax", "first"):
+        ref = _median_kernel(img, fast="never", rule=rule)
+        assert _bits_equal(_median_kernel(img, rule=rule), ref)
+    if name in ("nan", "signed zeros"):
+        assert not _bits_equal(_median_kernel(img, fast="always",
+                                              rule="first"), ref)
+    if name == "signed zeros":
+        zero = want == 0
+        assert (zero & np.signbit(want)).any() and (zero[:, 44:]).any()
+
+
+def _cone(ops, src):
+    """The values that value ``src`` of the fast network depends on."""
+    deps = {d: (a, b) for _, d, a, b in ops}
+    seen, todo = set(), [src]
+    while todo:
+        v = todo.pop()
+        if v not in seen:
+            seen.add(v)
+            todo += deps.get(v, ())
+    return seen
+
+
+def test_fast_network_selects_rank_12():
+    """The fast network is the one ops/median_net.py generates (588
+    min/max for 2 x 4 outputs: 73.5 a pixel, against 206 of the plain
+    network after dead-code elimination), each output reads exactly its
+    window's 25 inputs, and selects rank 12 of them on every 0-1 window
+    (2^25 windows bit-sliced, AND for min and OR for max: the 0-1
+    principle), and on seeded windows of tied values and infinities
+    against a sort."""
+    assert _macro("MEDIAN5_FAST_IN") + " " + _macro("MEDIAN5_FAST_NET") == \
+        " ".join(m.split("\\\n", 1)[1].replace("\\\n", " ")
+                 for m in median_net.macros().split("\n#define"))
+    ins, ops, outs = _fast_net()
+    MX, MY = _const("MX"), _const("MY")
+    assert (median_net.R, median_net.C) == (MY, MX)
+    assert [n for n, _, _ in ins] == list(range((MY + 4) * (MX + 4)))
+    assert all(n == r * (MX + 4) + c for n, r, c in ins)
+    assert [d for _, d, _, _ in ops] == list(range(len(ins),
+                                                   len(ins) + len(ops)))
+    assert len(ops) == 588 and len(median_net.program(1, 1)[0]) == 206
+    idx = np.arange(1 << 20, dtype=np.uint32)
+    low = [np.packbits((idx >> k & 1).astype(np.uint8), bitorder="little")
+           .view(np.uint64) for k in range(20)]
+    ones = np.full_like(low[0], np.uint64(2**64 - 1))
+    count = np.bitwise_count(idx)
+    for k, src in outs:
+        i, j = divmod(k, MX)
+        win = [r * (MX + 4) + c for c in range(j, j + 5)
+               for r in range(i, i + 5)]
+        cone = _cone(ops, src)
+        assert cone & set(range(len(ins))) == set(win)
+        mine = [op for op in ops if op[1] in cone]
+        for high in range(32):  # the window's last 5 inputs, the rest sliced
+            v = {w: low[n] if n < 20 else
+                 (ones if high >> (n - 20) & 1 else ~ones)
+                 for n, w in enumerate(win)}
+            for op, d, a, b in mine:
+                v[d] = v[a] & v[b] if op == "N" else v[a] | v[b]
+            want = np.packbits(count + bin(high).count("1") >= 13,
+                               bitorder="little").view(np.uint64)
+            assert np.array_equal(v[src], want), (k, high)
+    rng = np.random.RandomState(25)
+    n = 20000
+    v = {i: rng.choice(np.array([-np.inf, 0, 1, 2, np.inf], np.float32), n)
+         for i in range(len(ins))}
+    v.update({i: rng.randint(0, 3, n).astype(np.float32)
+              for i in range(0, len(ins), 3)})
+    for op, d, a, b in ops:
+        v[d] = np.minimum(v[a], v[b]) if op == "N" else np.maximum(v[a], v[b])
+    for k, src in outs:
+        i, j = divmod(k, MX)
+        win = np.stack([v[r * (MX + 4) + c] for c in range(j, j + 5)
+                        for r in range(i, i + 5)])
+        assert _bits_equal(v[src], np.sort(win, axis=0)[12])
+
+
+# --- (e) subpixel: the strided read ------------------------------------
 
 def _strided_subpixel(d0, flat, strides, Dp, xrev, disp_max, thresh):
     """What subpixel_kernel computes: d = int(d0[y, x]) (the plain
@@ -494,7 +802,7 @@ def test_xrev_subpixel_is_the_padded_flip_of_the_hwd_lane():
     assert _bits_equal(got, want[:, :W][:, ::-1])
 
 
-# --- (e) the wrappers on CPU tensors -----------------------------------
+# --- (f) the wrappers on CPU tensors -----------------------------------
 
 def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     """Every public function of ops/post.py on CPU tensors returns its
@@ -547,18 +855,6 @@ def test_the_kernels_are_registered_and_exported():
         assert k in _build.KERNELS
     exported = set(re.findall(r'extern "C" int (\w+)\(', SRC))
     assert exported == {"occlusion_fill_launch", "mismatch_fill_launch",
-                        "median5_launch", "subpixel_launch",
-                        "occlusion_fill_smem_bytes"}
+                        "median5_launch", "subpixel_launch"}
     assert post.STORAGE == {torch.float32: 0, torch.bfloat16: 1,
                             torch.float16: 2}
-
-
-@pytest.mark.parametrize("W,nbytes", [(1226, 8178), (1500, 9548),
-                                      (46080, 232448)])
-def test_occlusion_kernel_footprint(W, nbytes):
-    """The shared memory the occlusion kernel stages for rows of W
-    columns (2 KB of scan state, then the row's values and a byte of
-    kind, five bytes a column): 46080 is the widest row a block of the
-    H100 takes, which the wrapper refuses beyond."""
-    assert post.occlusion_smem_bytes(W) == nbytes <= _build.MAX_SMEM
-    assert W < 46080 or post.occlusion_smem_bytes(W + 1) > _build.MAX_SMEM

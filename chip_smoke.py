@@ -201,13 +201,15 @@ REFINE_KITTI = dict(occlusion_fill=1, mismatch_fill=1, subpixel=1, median5=1)
 REFINE_MB = dict(subpixel=1, median5=1)
 
 
-def cbca_counts(cfg, slabs: int) -> dict:
+def cbca_counts(cfg, directions: int, shards: int = 1) -> dict:
     """The CBCA and arms launches of one pair on the generic lane: CBCA
-    once an iteration (``cbca_i1`` + ``cbca_i2``) for each of ``slabs``
-    volumes (the directions, times the row shards), each packing its
-    arms once; the arms once an image."""
-    n = slabs * (int(cfg.cbca_i1) + int(cfg.cbca_i2))
-    return dict(cbca=n, cbca_pack=n, cross_arms=2)
+    once an iteration (``cbca_i1`` + ``cbca_i2``) for each direction and
+    row shard; the arms packed once a pair for each shard where an
+    iteration runs (every iteration of the pair reads that pack); the
+    arms once an image."""
+    n = int(cfg.cbca_i1) + int(cfg.cbca_i2)
+    return dict(cbca=directions * shards * n, cbca_pack=shards if n else 0,
+                cross_arms=2)
 
 # the first slow_head kernel (mma.sync, cp.async weight slabs) at the same
 # shapes on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table row 6)
@@ -637,22 +639,40 @@ def cbca_rows(torch, seen, where) -> dict:
     return rows
 
 
-def arms_rows(torch, img, where, ks=(0, 3, 5, 14)) -> dict:
+def nan_image(torch, img):
+    """``img`` with NaN at a seeded 2% of its pixels and in one block of
+    9 x 40 (a NaN centre or probe never breaks an arm: the block's arms
+    run to K or the frame)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    out = img.clone()
+    out[(torch.rand(img.shape, generator=g) < 0.02).to(img.device)] = \
+        float("nan")
+    out[100:109, 300:340] = float("nan")
+    return out
+
+
+def arms_rows(torch, img, where, ks=(0, 3, 5, 14), nan=False) -> dict:
     """Rows for the arms kernel on ``img`` at each L1 in ``ks`` (K = 2,
     3, 5, 14: census, ad, slow, mb slow) with that config's tau1, keyed
-    "cross_arms (K = k)": bit for bit against its plain version, timed in
-    a CUDA graph. Bound: the image read and four planes written."""
+    "cross_arms (K = k)", and with ``nan`` at K = 5 on ``nan_image`` of
+    it, keyed "cross_arms (K = 5, NaN)": bit for bit against its plain
+    version, timed in a CUDA graph. Bound: the image read and four
+    planes written."""
     from mccnn_tpu_torch.ops import cross
 
     tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}
     h, w = img.shape
-    return {f"cross_arms (K = {max(2, L1)})": exact_row(
-                torch, f"cross_arms {where}, K = {max(2, L1)}, tau1 "
-                f"{tau1[L1]}", lambda L1=L1: cross.cross_arms(img, L1,
-                                                              tau1[L1]),
-                lambda L1=L1: cross.cross_arms_plain(img, L1, tau1[L1]),
+    cases = [(f"cross_arms (K = {max(2, L1)})", img, L1, "") for L1 in ks]
+    if nan:
+        cases.append(("cross_arms (K = 5, NaN)", nan_image(torch, img), 5,
+                      ", NaN pixels"))
+    return {key: exact_row(
+                torch, f"cross_arms {where}{what}, K = {max(2, L1)}, tau1 "
+                f"{tau1[L1]}", lambda m=m, L1=L1: cross.cross_arms(m, L1,
+                                                                   tau1[L1]),
+                lambda m=m, L1=L1: cross.cross_arms_plain(m, L1, tau1[L1]),
                 20 * h * w)
-            for L1 in ks}
+            for key, m, L1, what in cases}
 
 
 def matching_head(net, feats):
@@ -1413,7 +1433,7 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
                 # whole map on the first device
                 want.update(sgm_hslab=2 * n, sgm_vertical=2 * n, outlier=n,
                             blur=1, **dict(REFINE_KITTI, subpixel=n),
-                            **cbca_counts(cfg, 2 * n),
+                            **cbca_counts(cfg, 2, n),
                             **({"join": 2 * n} if arch == "fast"
                                else {"slow_head": n}))
                 check(got == want, f"row-sharded kitti {arch} on {n}: "
@@ -1924,7 +1944,7 @@ def main() -> int:
             del p0c, p1c
         del seen
     arms = arms_rows(torch, torch.as_tensor(x0, device=dev),
-                     f"at {H}x{W}")
+                     f"at {H}x{W}", nan=True)
     rows["cross_arms"] = arms.pop("cross_arms (K = 5)")
     rows.update(arms)
 

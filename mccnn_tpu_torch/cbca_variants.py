@@ -1,15 +1,27 @@
-"""Time variants of the CBCA kernel against a build of its source.
+"""Time variants of the CBCA and arms kernels against a build of their
+source.
 
     python -m mccnn_tpu_torch.cbca_variants [--source PATH]
-        [--variant NAME[+NAME] ...] [--case mb14 kitti5 ...] [--reps 5]
+        [--variant NAME[+NAME] ...] [--case mb14 kitti5 arms-k5 ...]
+        [--reps 5]
 
-On one CUDA card: builds a CBCA source (by default the shipped
-``csrc/cross.cu``; ``--source`` names another, such as an earlier
-commit's unpacked under ``build/``) and each named variant of it (text
-edits of that source, ``a+b`` for several, written and compiled under
-``build/`` with the package's nvcc flags), then times the C entry
-``cbca_launch`` alone (CUDA events over ``--reps`` calls after a
-warm-up, in turns: source, variant, variant, source) on seeded inputs:
+On one CUDA card, from the repository's root: builds a ``cross.cu`` (by
+default the shipped ``csrc/cross.cu``; ``--source`` names another, such
+as an earlier commit's unpacked under ``build/``) and each named variant
+of it (text edits of that source, ``a+b`` for several, or ``file:PATH``,
+another whole source such as the parent's; written and compiled under
+``build/`` with the package's nvcc flags). The ``arms-*`` cases time the
+C entry ``cross_arms_launch`` alone in a CUDA graph of 20 calls
+(``chip_smoke.graph_ms``; in turns: source, variant, variant, source) on
+the path's own images, those ``chip_smoke.py`` holds the arms kernel on:
+phase 3's KITTI image (370x1226) at K = 2, 3, 5, 14 with each config's
+tau1 (``arms-k2`` .. ``arms-k14``) and its ``nan_image`` at K = 5
+(``arms-nan5``), phase 3b's Middlebury image (1000x1500) at K = 14
+(``arms-mb14``); and, where most arms are long, slow gradients with a
+faint copy of the KITTI texture at K = 14 (``arms-smooth14``: the
+kernel's walk past its windows); the source's build bit for bit against
+``cross_arms_plain``. The other cases time ``cbca_launch`` alone (CUDA
+events over ``--reps`` calls after a warm-up, in turns) on seeded inputs:
 the arms of a standardized random-texture image at the config's tau1
 and a random volume with NaN where the match leaves the frame, at
 Middlebury's ``-a time`` shape (1000x1500, D = 200, K = 14: ``mb14``)
@@ -30,6 +42,20 @@ takes the float arm stacks):
 - ``no-store``: the output stores kept only for a NaN payload that never
   occurs (the work stays, the stores go);
 - ``stage-only``: the block stages its volume tile and stops.
+
+Variants of the arms kernel (the register windows; ``arms-ay*``, ``arms-np*``
+and ``arms-scalar`` keep the function):
+
+- ``arms-no-probes``: K taken as 2 inside the kernel (the centres
+  loaded and the four planes stored, no probe: the floor of the design);
+- ``arms-empty``: the blocks return at once (the launch);
+- ``arms-ay1``, ``arms-ay4``, ``arms-ay8``: rows a thread (2 in the
+  source);
+- ``arms-np1``, ``arms-np2``, ``arms-np4``, ``arms-np6``: the most
+  probes an arm from the first register windows (3 in the source);
+- ``arms-kwin5``: no second windows (the arms that run past the first
+  walk from k = 5, a call a lane);
+- ``arms-scalar``: 4-byte loads and stores only.
 
 Variants of the window plan (``cbca_launch`` takes the offsets packed
 by ``cbca_pack``):
@@ -56,8 +82,10 @@ import argparse
 import ctypes
 import re
 import subprocess
+import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mccnn_tpu_torch.ops import _build, cross
@@ -69,7 +97,16 @@ CASES = {"mb14": (200, 1000, 1500, 14, 0.02),
          "kitti3": (228, 370, 1226, 3, 0.03),
          "kitti2": (228, 370, 1226, 0, 0.01)}
 
+# name -> (image, L1, tau1) of the arms cases
+ARMS_CASES = {"arms-k2": ("kitti", 0, 0.01), "arms-k3": ("kitti", 3, 0.03),
+              "arms-k5": ("kitti", 5, 0.13), "arms-k14": ("kitti", 14, 0.02),
+              "arms-nan5": ("kitti NaN", 5, 0.13),
+              "arms-mb14": ("mb", 14, 0.02),
+              "arms-smooth14": ("kitti smooth", 14, 0.02)}
+
 _GUARD = "if (hs[threadIdx.x] == 12345.f) o[0] = 1.f;\n  return;\n"
+_ARMS_FIRST = ("  const int x0 = (blockIdx.x * ANX + threadIdx.x % ANX) * AX;"
+               "\n")
 
 # (plan, [(old, new, occurrences)]) text edits of a cross.cu
 VARIANTS = {
@@ -123,10 +160,39 @@ VARIANTS = {
     "min-blocks-6": ("window", [("__launch_bounds__(NT)\ncbca_kernel(",
                                   "__launch_bounds__(NT, 6)\ncbca_kernel(", 1)]),
     "no-count": ("window", [("          n[j] += cn;\n", "", 1)]),
+    "arms-no-probes": (None, [("  const int np = min(K - 2, NPMAX);",
+                               "  K = 2;\n  const int np = min(K - 2, NPMAX);",
+                               1)]),
+    "arms-empty": (None, [(_ARMS_FIRST, "  if (W > 0) return;\n" + _ARMS_FIRST,
+                           1)]),
+    **{f"arms-ay{n}": (None, [("constexpr int AY = 2;",
+                               f"constexpr int AY = {n};", 1)])
+       for n in (1, 4, 8)},
+    **{f"arms-np{n}": (None, [("constexpr int NPMAX = 3;",
+                               f"constexpr int NPMAX = {n};", 1)])
+       for n in (1, 2, 4, 6)},
+    "arms-kwin5": (None, [("constexpr int KWIN = 14;",
+                           "constexpr int KWIN = 5;", 1)]),
+    "arms-scalar": (None, [(
+        "if (W % 2 == 0 && aligned8(img) && aligned8(arms))", "if (false)",
+        1)]),
     "no-vertical": ("window", [
         ("  // --- vertical pass: VP rows of one column a task",
          "  " + _GUARD + "  // --- vertical pass: VP rows of one column a task", 1)]),
 }
+
+
+# the variants that change what a kernel computes
+NOT_SAME = ("arms-once", "no-store", "stage-only", "no-vertical", "no-count",
+            "arms-near", "arms-no-probes", "arms-empty")
+
+
+def chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    return cs
 
 
 def plan_of(src: str) -> str:
@@ -146,6 +212,8 @@ def apply_edits(src: str, name: str, edits) -> str:
 
 
 def variant_source(src: str, names: str) -> str:
+    if names.startswith("file:"):
+        return Path(names[5:]).read_text()
     plan = plan_of(src)
     for name in names.split("+"):
         want, edits = VARIANTS[name]
@@ -215,6 +283,77 @@ def launcher(lib: ctypes.CDLL, plan: str, arms, vol, L1):
     return run
 
 
+def arms_image(cs, which: str, dev):
+    """The path's image of an arms case (``ARMS_CASES``): chip_smoke.py's
+    KITTI pair (phase 3), its NaN image, or its Middlebury pair (phase
+    3b)."""
+    if which == "mb":
+        img = cs.kitti_pair(np.random.RandomState(3), 1000, 1500,
+                            cs.MB_SHIFT)[0]
+    else:
+        img = cs.kitti_pair(np.random.RandomState(0), cs.H, cs.W, cs.SHIFT)[0]
+    img = torch.as_tensor(img, device=dev)
+    if which.endswith("smooth"):
+        # slow gradients and faint texture: neighbours 0.002-0.004 apart,
+        # so at tau1 0.02 most arms run past the register windows
+        ys = torch.arange(img.shape[0], device=dev)[:, None]
+        xs = torch.arange(img.shape[1], device=dev)[None, :]
+        return torch.sin(xs / 400.0) + torch.cos(ys / 300.0) + 1e-3 * img
+    return cs.nan_image(torch, img) if which.endswith("NaN") else img
+
+
+def arms_launcher(lib: ctypes.CDLL, img, L1, tau1):
+    """A call of the build's cross_arms_launch on ``img``."""
+    lib.cross_arms_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        + [ctypes.c_void_p])
+    lib.cross_arms_launch.restype = ctypes.c_int
+    H, W = img.shape
+    out = torch.empty((4, H, W), dtype=torch.float32, device=img.device)
+
+    def run():
+        rc = lib.cross_arms_launch(img.data_ptr(), out.data_ptr(), H, W,
+                                   max(2, int(L1)), float(tau1),
+                                   _build.stream(img))
+        _build.check_launch(rc, "cross_arms variant")
+        return out
+    return run
+
+
+def time_arms(cs, case: str, libs: dict, variants, dev) -> None:
+    """The arms case ``case``: the source's build against the plain
+    version bit for bit, each variant that keeps the function against
+    the source's build, and the times in a CUDA graph in turns."""
+    which, L1, tau1 = ARMS_CASES[case]
+    img = arms_image(cs, which, dev)
+    runs = {tag: arms_launcher(lib, img, L1, tau1) for tag, lib in libs.items()}
+    want = runs["source"]().clone()
+    torch.cuda.synchronize()
+    plain = cross.cross_arms_plain(img, L1, tau1)
+    if not torch.equal(want.view(torch.int32), plain.view(torch.int32)):
+        raise SystemExit(f"{case}: the source's build differs from the plain "
+                         "version")
+    h, w = img.shape
+    print(f"  {case} ({which} {h}x{w}, K = {max(2, L1)}, tau1 {tau1}): "
+          f"source {cs.graph_ms(torch, runs['source'], 20):.5f}, "
+          f"bit-identical to the plain version; bound "
+          f"{cs.bound_ms(20 * h * w, 0)[0]:.5f} (bytes)")
+    for v in variants:
+        same = ""
+        if v.startswith("file:") or not any(n in v.split("+")
+                                            for n in NOT_SAME):
+            got = runs[v]()
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise SystemExit(f"variant {v} differs from the source's "
+                                 f"build: {case}")
+            same = ", bit-identical"
+        times = [cs.graph_ms(torch, runs[n], 20)
+                 for n in ("source", v, v, "source")]
+        print(f"    source / {v} / {v} / source: "
+              f"{' / '.join(f'{t:.5f}' for t in times)}{same}")
+
+
 def ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -232,7 +371,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", type=Path, default=_build.CSRC / "cross.cu")
     ap.add_argument("--variant", nargs="*", default=[])
-    ap.add_argument("--case", nargs="+", choices=sorted(CASES),
+    ap.add_argument("--case", nargs="+",
+                    choices=sorted(CASES) + list(ARMS_CASES),
                     default=["mb14", "kitti5", "kitti2"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -242,11 +382,17 @@ def main(argv=None) -> None:
     libs = {}
     for tag, src in [("source", base)] + [
             (v, variant_source(base, v)) for v in args.variant]:
-        libs[tag], used = build(tag, src)
+        libs[tag], used = build(tag, src,
+                                kernels=("cbca_kernel", "cross_arms_kernel"))
         print(f"{tag}:\n  {used}")
     print(f"{torch.cuda.get_device_name(0)}; {args.source} ({plan} plan); "
-          f"cbca_launch ms a call (mean of {args.reps} after a warm-up)")
+          f"cbca_launch ms a call (mean of {args.reps} after a warm-up), "
+          f"cross_arms_launch ms a call in a CUDA graph of 20")
+    cs = chip_smoke() if any(c in ARMS_CASES for c in args.case) else None
     for case in args.case:
+        if case in ARMS_CASES:
+            time_arms(cs, case, libs, args.variant, dev)
+            continue
         arms, vol, L1 = inputs(case, dev)
         runs = {tag: launcher(lib, plan, arms, vol, L1)
                 for tag, lib in libs.items()}
@@ -255,8 +401,8 @@ def main(argv=None) -> None:
               f"source {ms(runs['source'], args.reps):.4f}")
         for v in args.variant:
             same = ""
-            if not any(n in v for n in ("arms-once", "no-store", "stage-only",
-                                        "no-vertical", "no-count", "arms-near")):
+            if v.startswith("file:") or not any(n in v.split("+")
+                                                for n in NOT_SAME):
                 got = runs[v]()
                 torch.cuda.synchronize()
                 if not torch.equal(got.view(torch.int32), want.view(torch.int32)):

@@ -68,12 +68,40 @@
 //   TS + 2R rows of sums (float) and counts (byte) and CH staged rows:
 //   34,944 bytes at K = 14, six blocks of 128 threads an SM.
 //
-// cross_arms: a thread a pixel walks each of its four arms, k = 2 .. K - 1,
-//   to the first in-frame probe with |c - p| >= tau1 (the subtraction in
-//   round-to-nearest, the compare against tau1 as the f32 torch compares
-//   with), caps the break at the frame and stores the exclusive end as a
-//   float: exact. Bound: bytes, the image read and four planes written
-//   (20 H W bytes).
+// cross_arms: each arm's walk, k = 2 .. K - 1, to the first in-frame probe
+//   with |c - p| >= tau1 (the subtraction in round-to-nearest, the compare
+//   against tau1 as the f32 torch compares with), the break capped at the
+//   frame, the exclusive end stored as a float: exact. A NaN pixel or probe
+//   never breaks (the compare is false). A probe past the frame may read
+//   any value: it lies at or past the cap, and an in-frame break before it,
+//   so the capped end is the same whether it breaks or not. Probes read
+//   clamped addresses, and no compare tests the frame. A thread takes
+//   AX = 2 adjacent columns (from an even one) of AY rows; a block 32 x 4
+//   threads, 64 columns x 4 AY rows. The probes come from register
+//   windows loaded before any compare (window_breaks): the rows the -y and
+//   +y probes read of the thread's two columns, and for each of its rows
+//   the columns its -x and +x probes read, one 8-byte load a pair where W
+//   is even. A probe's compare sets its bit of the arm's mask (subtract,
+//   compare, a predicated OR); the break is the lowest bit (__ffs). The
+//   first windows hold k = 2 .. NP + 1, NP = min(K - 2, NPMAX): the whole
+//   arm where K <= NPMAX + 2. A warp with an arm that runs on past them
+//   (rare on a textured image, where most arms break at their first
+//   probe) takes k up to KWIN - 1 (every K of config.py) from second
+//   windows, and walk_from goes past those, AP probes loaded before their
+//   compares, to the cap. NP, and whether the second windows exist, are
+//   template arguments: windows sized at run time issued their unused
+//   loads and compares all the same (predicated off), and arms that
+//   walked past the first windows one call a lane left the loads of a
+//   thread's arms in turn (on an H100 80GB HBM3 at 700 W a smooth image
+//   took 1.7x the thread-a-pixel kernel's time). Each direction's ends
+//   are stored as soon as they are known, 8 bytes a plane a row where W
+//   is even, 4 elsewhere (held to one store pass at the end, K = 5 took
+//   1.2x as long). This replaces a thread a pixel that walked each arm a
+//   probe at a time, each load waiting on the compare before it. Bound:
+//   bytes, the image read and four planes written (20 H W bytes). What
+//   holds it: the launch and the planes' stores (K = 2 runs no probe);
+//   above that three instructions a probe of the windows, for all 4 AX AY
+//   arms of a thread at each of their steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -395,33 +423,242 @@ cbca_kernel(const float* __restrict__ vol,
   }
 }
 
-// img: (H, W); arms: (4, H, W): [0] -x, [1] +x (column ends), [2] -y,
-// [3] +y (row ends)
-__global__ void __launch_bounds__(256)
-cross_arms_kernel(const float* __restrict__ img, float* __restrict__ arms,
-                  int H, int W, int K, float tau1) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x, y = blockIdx.y;
-  if (x >= W) return;
-  const size_t p = (size_t)y * W + x;
-  const float c = img[p];
-  for (int a = 0; a < 4; ++a) {
-    const bool horiz = a < 2;
-    const int sign = (a & 1) ? 1 : -1;
-    const int coord = horiz ? x : y, n = horiz ? W : H;
-    int kb = K;
-    for (int k = 2; k < K; ++k) {
-      const int q = coord + sign * k;
-      if (q < 0 || q >= n) break;  // every later probe is out of frame too
-      const float t = horiz ? img[(size_t)y * W + q] : img[(size_t)q * W + x];
-      if (fabsf(__fsub_rn(c, t)) >= tau1) {
-        kb = k;
-        break;
-      }
-    }
-    kb = min(kb, sign < 0 ? coord + 1 : n - coord);
-    arms[a * (size_t)H * W + p] = (float)(coord + sign * kb);
+constexpr int AX = 2;              // cross_arms: columns a thread
+constexpr int AY = 2;              // rows a thread
+constexpr int ANX = 32, ANY = 4;   // threads a block: across, down
+constexpr int NPMAX = 3;           // probes an arm from the first windows
+constexpr int KWIN = 14;           // the second windows' probes end at KWIN - 1
+constexpr int AP = 8;              // probes a chunk of the walk past them
+
+// columns x, x + 1 (x even) of a row, each clamped into [0, W): one 8-byte
+// load where W is even (the pair then lies in the frame or past it whole)
+template <bool VEC>
+__device__ __forceinline__ float2 pair_at(const float* __restrict__ row,
+                                          int x, int W) {
+  if (VEC)
+    return __ldg(reinterpret_cast<const float2*>(row + min(max(x, 0), W - 2)));
+  return make_float2(__ldg(row + min(max(x, 0), W - 1)),
+                     __ldg(row + min(max(x + 1, 0), W - 1)));
+}
+
+template <bool VEC>
+__device__ __forceinline__ void pair_store(float* __restrict__ row, int x,
+                                           int W, float a, float b) {
+  if (VEC) {
+    *reinterpret_cast<float2*>(row + x) = make_float2(a, b);
+  } else {
+    row[x] = a;
+    if (x + 1 < W) row[x + 1] = b;
   }
 }
+
+// the first probe k0 <= k < kend of an arm with |c - p| >= tau1, or kend
+// where none is: p = base[q * step] at q = coord + sign * k clamped into
+// [0, n); AP probes loaded before their compares
+__device__ __noinline__ int walk_from(const float* __restrict__ base,
+                                      int step, int coord, int sign, int n,
+                                      int k0, int kend, float c, float tau1) {
+  for (; k0 < kend; k0 += AP) {
+    float t[AP];
+#pragma unroll
+    for (int i = 0; i < AP; ++i)
+      t[i] = __ldg(base + (size_t)min(max(coord + sign * (k0 + i), 0), n - 1)
+                              * step);
+    unsigned m = 0;
+#pragma unroll
+    for (int i = 0; i < AP; ++i)
+      if (k0 + i < kend && fabsf(__fsub_rn(c, t[i])) >= tau1) m |= 1u << i;
+    if (m) return k0 + __ffs(m) - 1;
+  }
+  return kend;
+}
+
+// The arms of direction D (-x, +x, -y, +y) of a thread's pixels: kb[r][j]
+// of the pixel at row y0 + r, column x0 + j, the first probe that breaks,
+// 0 while none has. The breaks among the probes k = K0 .. K0 + N - 1
+// (k < K) of the arms without one yet, from a register window loaded
+// before any compare: the rows of the thread's two columns that the -y
+// (+y) probes read, or for each row the columns that its -x (+x) probes
+// read, in pairs.
+template <bool VEC, int D, int K0, int N>
+__device__ __forceinline__ void window_breaks(
+    const float* __restrict__ img, int H, int W, int x0, int y0, int K,
+    float tau1, const float (&c)[AY][AX], int (&kb)[AY][AX]) {
+  constexpr int F = K0 + N - 1;          // the farthest probe
+  constexpr int S = D % 2 ? 1 : -1;      // the probes' side
+  // the bits of the probes k < K
+  const unsigned lim = K - K0 >= N ? ~0u : (1u << max(K - K0, 0)) - 1u;
+  unsigned m[AY][AX];
+  if constexpr (D >= 2) {
+    // rows y0 + V0 + v, v < NV: -y probes read offsets -F .. AY - 1 - K0,
+    // +y probes K0 .. AY - 1 + F
+    constexpr int NV = AY + N - 1;
+    constexpr int V0 = S < 0 ? -F : K0;  // the window's first row offset
+    float2 vw[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      vw[v] = pair_at<VEC>(
+          img + (size_t)min(max(y0 + V0 + v, 0), H - 1) * W, x0, W);
+#pragma unroll
+    for (int r = 0; r < AY; ++r)
+#pragma unroll
+      for (int j = 0; j < AX; ++j) {
+        m[r][j] = 0;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float2 q = vw[r + S * (K0 + i) - V0];
+          if (fabsf(__fsub_rn(c[r][j], j ? q.y : q.x)) >= tau1)
+            m[r][j] |= 1u << i;
+        }
+      }
+  } else {
+    // pairs at column offsets P0 + 2 q: -x probes read -F .. 1 - K0, +x
+    // probes K0 .. 1 + F
+    constexpr int P0 = S < 0 ? -((F + 1) & ~1) : K0 & ~1;
+    constexpr int NQ = (S < 0 ? 1 - K0 - P0 : 1 + F - P0) / 2 + 1;
+#pragma unroll
+    for (int r = 0; r < AY; ++r) {
+      const float* row = img + (size_t)min(y0 + r, H - 1) * W;
+      float2 hw[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        hw[q] = pair_at<VEC>(row, x0 + P0 + 2 * q, W);
+#pragma unroll
+      for (int j = 0; j < AX; ++j) {
+        m[r][j] = 0;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int o = j + S * (K0 + i) - P0;  // its column in the window
+          const float t = o & 1 ? hw[o >> 1].y : hw[o >> 1].x;
+          if (fabsf(__fsub_rn(c[r][j], t)) >= tau1) m[r][j] |= 1u << i;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < AY; ++r)
+#pragma unroll
+    for (int j = 0; j < AX; ++j) {
+      const unsigned b = m[r][j] & lim;
+      if (!kb[r][j] && b) kb[r][j] = K0 - 1 + __ffs(b);
+    }
+}
+
+// The ends of direction D of a thread's arms, stored: the first windows'
+// probes; where K runs past them (MORE) and a lane of the warp has an arm
+// without a break whose cap lies past them, the second windows' up to
+// KWIN - 1; walk_from past those; the break (K where none is) capped at
+// the frame.
+template <bool VEC, int NP, bool MORE, int D>
+__device__ __forceinline__ void arms_of(
+    const float* __restrict__ img, float* __restrict__ arms, int H, int W,
+    int x0, int y0, int K, float tau1, const float (&c)[AY][AX]) {
+  int kb[AY][AX];
+  auto cap = [&](int r, int j) {
+    const int x = x0 + j, y = y0 + r;
+    return D == 0 ? x + 1 : D == 1 ? W - x : D == 2 ? y + 1 : H - y;
+  };
+  auto inside = [&](int r, int j) {
+    return y0 + r < H && (VEC || x0 + j < W);
+  };
+#pragma unroll
+  for (int r = 0; r < AY; ++r)
+#pragma unroll
+    for (int j = 0; j < AX; ++j) kb[r][j] = 0;
+  if constexpr (NP > 0)
+    window_breaks<VEC, D, 2, NP>(img, H, W, x0, y0, K, tau1, c, kb);
+  if constexpr (MORE) {
+    constexpr int K1 = NP + 2, K2 = KWIN > K1 ? KWIN : K1;
+    if constexpr (KWIN > K1) {
+      bool more = false;
+#pragma unroll
+      for (int r = 0; r < AY; ++r)
+#pragma unroll
+        for (int j = 0; j < AX; ++j)
+          more |= inside(r, j) && !kb[r][j] && min(K, cap(r, j)) > K1;
+      if (__any_sync(__activemask(), more))
+        window_breaks<VEC, D, K1, KWIN - K1>(img, H, W, x0, y0, K, tau1, c,
+                                             kb);
+    }
+    if (K > K2) {
+#pragma unroll
+      for (int r = 0; r < AY; ++r)
+#pragma unroll
+        for (int j = 0; j < AX; ++j) {
+          const int kend = min(K, cap(r, j)), x = x0 + j, y = y0 + r;
+          if (inside(r, j) && !kb[r][j] && kend > K2)
+            kb[r][j] = D < 2 ? walk_from(img + (size_t)y * W, 1, x,
+                                         D ? 1 : -1, W, K2, kend, c[r][j],
+                                         tau1)
+                             : walk_from(img + x, W, y, D == 3 ? 1 : -1, H,
+                                         K2, kend, c[r][j], tau1);
+        }
+    }
+  }
+  float* plane = arms + D * (size_t)H * W;
+#pragma unroll
+  for (int r = 0; r < AY; ++r) {
+    const int y = y0 + r;
+    if (y >= H) break;
+    float e[AX];
+#pragma unroll
+    for (int j = 0; j < AX; ++j) {
+      const int k = min(kb[r][j] ? kb[r][j] : K, cap(r, j));
+      e[j] = (float)(D == 0 ? x0 + j - k : D == 1 ? x0 + j + k
+                     : D == 2 ? y - k : y + k);
+    }
+    pair_store<VEC>(plane + (size_t)y * W, x0, W, e[0], e[1]);
+  }
+}
+
+// img: (H, W); arms: (4, H, W): [0] -x, [1] +x (column ends), [2] -y,
+// [3] +y (row ends). VEC: W even, img and arms 8-byte aligned. NP:
+// min(K - 2, NPMAX), the probes an arm from the first windows; MORE:
+// K > NP + 2, the arms may run past them.
+template <bool VEC, int NP, bool MORE>
+__global__ void __launch_bounds__(ANX * ANY)
+cross_arms_kernel(const float* __restrict__ img, float* __restrict__ arms,
+                  int H, int W, int K, float tau1) {
+  const int x0 = (blockIdx.x * ANX + threadIdx.x % ANX) * AX;
+  const int y0 = (blockIdx.y * ANY + threadIdx.x / ANX) * AY;
+  if (x0 >= W || y0 >= H) return;
+  float c[AY][AX];
+#pragma unroll
+  for (int r = 0; r < AY; ++r) {
+    const float2 p =
+        pair_at<VEC>(img + (size_t)min(y0 + r, H - 1) * W, x0, W);
+    c[r][0] = p.x;
+    c[r][1] = p.y;
+  }
+  arms_of<VEC, NP, MORE, 0>(img, arms, H, W, x0, y0, K, tau1, c);
+  arms_of<VEC, NP, MORE, 1>(img, arms, H, W, x0, y0, K, tau1, c);
+  arms_of<VEC, NP, MORE, 2>(img, arms, H, W, x0, y0, K, tau1, c);
+  arms_of<VEC, NP, MORE, 3>(img, arms, H, W, x0, y0, K, tau1, c);
+}
+
+// the kernel instance of NP = np (<= NPMAX) probes an arm from the first
+// windows
+template <bool VEC, int NP = 0>
+void arms_run(const float* img, float* arms, int H, int W, int K, float tau1,
+              int np, cudaStream_t stream) {
+  if constexpr (NP < NPMAX) {
+    if (np > NP)
+      return arms_run<VEC, NP + 1>(img, arms, H, W, K, tau1, np, stream);
+  }
+  const dim3 grid((W + ANX * AX - 1) / (ANX * AX),
+                  (H + ANY * AY - 1) / (ANY * AY));
+  if constexpr (NP == NPMAX) {
+    if (K > NP + 2) {
+      cross_arms_kernel<VEC, NP, true><<<grid, ANX * ANY, 0, stream>>>(
+          img, arms, H, W, K, tau1);
+      return;
+    }
+  }
+  cross_arms_kernel<VEC, NP, false><<<grid, ANX * ANY, 0, stream>>>(
+      img, arms, H, W, K, tau1);
+}
+
+bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 template <int KB>
 int cbca_run(const float* vol, const int16_t* packed, float* out, int D,
@@ -478,7 +715,11 @@ extern "C" int cbca_launch(const float* vol, const int16_t* packed,
 
 extern "C" int cross_arms_launch(const float* img, float* arms, int H, int W,
                                  int K, float tau1, cudaStream_t stream) {
-  const dim3 grid((W + 255) / 256, H);
-  cross_arms_kernel<<<grid, 256, 0, stream>>>(img, arms, H, W, K, tau1);
+  if (K < 2) return (int)cudaErrorInvalidValue;
+  const int np = min(K - 2, NPMAX);
+  if (W % 2 == 0 && aligned8(img) && aligned8(arms))
+    arms_run<true>(img, arms, H, W, K, tau1, np, stream);
+  else
+    arms_run<false>(img, arms, H, W, K, tau1, np, stream);
   return (int)cudaGetLastError();
 }

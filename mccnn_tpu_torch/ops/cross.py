@@ -7,9 +7,9 @@ right pixels' support regions).
 
 On CUDA tensors :func:`cross_arms`, :func:`cbca_pack` and :func:`cbca`
 launch their kernels of ``csrc/cross.cu`` (one launch a call; ``cbca``
-packs the arms first, so it makes two); on CPU tensors they run their
-plain versions, the ``*_plain`` functions beside them. The plain
-versions follow the formulation of the JAX package
+packs the arms first unless it is handed their pack, so it makes two);
+on CPU tensors they run their plain versions, the ``*_plain`` functions
+beside them. The plain versions follow the formulation of the JAX package
 (mccnn_tpu/ops/cross.py), which runs it in XLA with no Pallas kernel:
 arms from a short static unroll over arm length, the aggregation as
 2K-1 shifted masked adds per axis (K = max(2, L1)), in the same order,
@@ -146,20 +146,25 @@ def _arms_at(x1c: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 
 def cbca(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
-         direction: int, L1: int) -> torch.Tensor:
+         direction: int, L1: int, packed: torch.Tensor | None = None
+         ) -> torch.Tensor:
     """One CBCA iteration over vol (D, H, W) float32 with the arms x0c,
     x1c (4, H, W) of the left and right images (see :func:`cbca_plain`).
-    The kernel on a CUDA volume, the plain version on a CPU one."""
+    The kernel on a CUDA volume, the plain version on a CPU one.
+    ``packed``: :func:`cbca_pack` of these arms at this L1, made once
+    for every iteration over them; without it the kernel's call packs
+    them itself. The plain version reads no pack and ignores it."""
     if not vol.is_cuda:
         return cbca_plain(x0c, x1c, vol, direction, L1)
-    return _cbca_launch(x0c, x1c, vol, direction, L1)
+    return _cbca_launch(x0c, x1c, vol, direction, L1, packed)
 
 
 def _cbca_launch(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
-                 direction: int, L1: int) -> torch.Tensor:
-    """Pack the arms (:func:`cbca_pack`) and launch the CBCA kernel:
-    float32 operands, contiguous, on the card, or ValueError (a volume
-    of another dtype is never cast here)."""
+                 direction: int, L1: int, packed: torch.Tensor | None
+                 ) -> torch.Tensor:
+    """Pack the arms (:func:`cbca_pack`) unless ``packed`` holds them, and
+    launch the CBCA kernel: float32 operands, contiguous, on the card,
+    or ValueError (a volume of another dtype is never cast here)."""
     for t, what in ((vol, "cbca: vol"), (x0c, "cbca: x0c"),
                     (x1c, "cbca: x1c")):
         _build.check_cuda_f32(t, what)
@@ -177,7 +182,15 @@ def _cbca_launch(x0c: torch.Tensor, x1c: torch.Tensor, vol: torch.Tensor,
         raise ValueError(f"cbca: L1 = {L1} needs {cbca_smem_bytes(K)} bytes "
                          "of shared memory a block")
     D, H, W = vol.shape
-    packed = cbca_pack(x0c, x1c, L1)
+    if packed is None:
+        packed = cbca_pack(x0c, x1c, L1)
+    elif (packed.dtype != torch.int16 or packed.device != vol.device
+          or not packed.is_contiguous()
+          or packed.numel() != 9 * H * pack_pitch(W) + 2 * H * W):
+        raise ValueError(f"cbca: packed must be cbca_pack's contiguous int16 "
+                         f"offsets on {vol.device} for a {H}x{W} frame, got "
+                         f"{packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
     out = torch.empty_like(vol)
     rc = _lib().cbca_launch(vol.data_ptr(), packed.data_ptr(), out.data_ptr(),
                             D, H, W, K, direction, _build.stream(vol))

@@ -169,7 +169,8 @@ class RowShards(pipeline.Stages):
     row shards, one a device of ``devs``: a volume is a list of
     (D, hi - lo, W) shards and a map a list of (hi - lo, W) shards, for
     the ranges ``rows`` (:func:`splits` of H). CBCA fetches its halo from
-    the neighbouring shards before every iteration; the SGM runs its
+    the neighbouring shards before every iteration, on arms cut to each
+    shard's slab and packed once a pair (:meth:`pack`); the SGM runs its
     horizontal family per row shard and its vertical family per column
     shard (``cols``); WTA, the outlier labels and subpixel run per row
     shard; :meth:`whole` gathers a map on the first device."""
@@ -187,12 +188,13 @@ class RowShards(pipeline.Stages):
                  if lo < b and a < hi]
         return torch.cat(parts, dim=-2)
 
-    def cbca(self, x0c, x1c, vol, direction, L1):
-        """One CBCA iteration a shard, on its rows and the K - 1 rows
-        above and below that the vertical sums read (K = max(2, L1));
-        the arms' row coordinates (``x0c[2:4]``, absolute) are made
-        relative to the slab's first row, which ``cross.cbca`` counts as
-        row 0. The halo rows of the result are wrong and dropped."""
+    def pack(self, x0c, x1c, L1):
+        """Each shard's arms, once a pair: its rows and the K - 1 rows
+        above and below that the vertical sums read (K = max(2, L1)), the
+        row coordinates (``x0c[2:4]``, absolute) made relative to the
+        slab's first row, which ``cross.cbca`` counts as row 0, on the
+        shard's device; and their pack (``cross.cbca_pack``): (a, b,
+        arms, pack) a shard, rows a:b its slab."""
         halo = max(2, int(L1)) - 1
         H = x0c.shape[1]
         out = []
@@ -200,7 +202,17 @@ class RowShards(pipeline.Stages):
             a, b = max(0, lo - halo), min(H, hi + halo)
             arms = [torch.cat([c[:2, a:b], c[2:, a:b] - a]).to(dev)
                     for c in (x0c, x1c)]
-            agg = cross.cbca(*arms, self._slab(vol, a, b, dev), direction, L1)
+            out.append((a, b, arms, cross.cbca_pack(*arms, L1)))
+        return out
+
+    def cbca(self, x0c, x1c, vol, direction, L1, packed):
+        """One CBCA iteration a shard, on the slab of rows that
+        :meth:`pack` cut its arms to, with their pack; the halo rows of
+        the result are wrong and dropped."""
+        out = []
+        for (dev, (lo, hi)), (a, b, arms, pk) in zip(self.rows, packed):
+            agg = cross.cbca(*arms, self._slab(vol, a, b, dev), direction, L1,
+                             packed=pk)
             out.append(agg[:, lo - a:hi - a].contiguous())
         return out
 

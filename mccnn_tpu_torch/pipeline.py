@@ -228,8 +228,13 @@ class Stages:
     :meth:`wta` or :meth:`outlier` returns are lists of shards, and
     :meth:`whole` gathers a map before the stages that read all of it."""
 
-    def cbca(self, x0c, x1c, vol, direction, L1):
-        return cross.cbca(x0c, x1c, vol, direction, L1)
+    def pack(self, x0c, x1c, L1):
+        """The arms packed once a pair for every :meth:`cbca` call
+        (``cross.cbca_pack``)."""
+        return cross.cbca_pack(x0c, x1c, L1)
+
+    def cbca(self, x0c, x1c, vol, direction, L1, packed):
+        return cross.cbca(x0c, x1c, vol, direction, L1, packed=packed)
 
     def sgm(self, x0, x1, vols: dict, form, **kw) -> dict:
         """One SGM iteration: the four-sweep sums (h + v), divided by 4."""
@@ -264,16 +269,20 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
     D = int(disp_max)
     sm_active = _active_after(sm_terminate, "cnn")
     do_cbca = sm_active and sm_skip != "cbca"
+    do_cbca2 = do_cbca and _active_after(sm_terminate, "sgm")
     if do_cbca:
         x0c = cross.cross_arms(x0, L1, tau1)
         x1c = cross.cross_arms(x1, L1, tau1)
+        # packed once for every CBCA iteration of the pair, where one runs
+        if cbca_i1 or (do_cbca2 and cbca_i2):
+            packed = stages.pack(x0c, x1c, L1)
 
     cur = {}
     for direction in directions:
         vol = vols[direction]
         if do_cbca:
             for _ in range(cbca_i1):
-                vol = stages.cbca(x0c, x1c, vol, direction, L1)
+                vol = stages.cbca(x0c, x1c, vol, direction, L1, packed)
         cur[direction] = vol
 
     if _active_after(sm_terminate, "cbca1") and sm_skip != "sgm":
@@ -286,9 +295,9 @@ def _method(vols: dict, x0, x1, blur_kernel, *, disp_max, directions, kitti,
     final_vols = {}
     for direction in directions:
         vol = cur[direction]
-        if _active_after(sm_terminate, "sgm") and do_cbca:
+        if do_cbca2:
             for _ in range(cbca_i2):
-                vol = stages.cbca(x0c, x1c, vol, direction, L1)
+                vol = stages.cbca(x0c, x1c, vol, direction, L1, packed)
         disp[direction] = stages.wta(vol)
         final_vols[direction] = vol
 

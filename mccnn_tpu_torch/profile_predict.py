@@ -15,7 +15,8 @@ on the CUDA card: KITTI 370x1226 at D=228, or Middlebury at the ``-a
 time`` shape, 1000x1500 at D=200, the left direction alone. Twice to
 warm up, then once under ``torch.profiler``. Prints the device time of
 every CUDA kernel grouped as the port's hand-written kernels, the
-tower's convolutions and the plain torch operations, the top kernels by
+tower's convolutions and the plain torch operations, the calls of each
+hand kernel's wrapper (``_build.launches``), the top kernels by
 device time, the device's busy share of the wall time of the run, and
 the peak device memory of that run; the plain torch launches of a
 second run, in which each function of the port's pipeline, tower and
@@ -44,6 +45,7 @@ import torch
 
 from mccnn_tpu_torch.config import make_config
 from mccnn_tpu_torch.models import towers
+from mccnn_tpu_torch.ops import _build
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
@@ -143,6 +145,7 @@ def main(argv=None) -> None:
         stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -179,6 +182,8 @@ def main(argv=None) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms in {n} launches")
+    print("  the hand kernels' wrapper calls: "
+          + ", ".join(f"{k} {n}" for k, n in _build.launches().items() if n))
     print(f"top {args.top} kernels by device time:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:args.top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")

@@ -75,13 +75,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from mccnn_tpu_torch.cbca_variants import apply_edits, build
+from mccnn_tpu_torch.cbca_variants import apply_edits, build, chip_smoke
 from mccnn_tpu_torch.ops import _build, post
 
 _SAMPLE = "c[k] = j >= 0 && j < Dp ? widen<S>(base[j * sd]) : 0.f;"
@@ -179,14 +178,6 @@ extern "C" int fmnmx_launch(float* out, int blocks, int steps,
   return (int)cudaGetLastError();
 }
 """
-
-
-def _chip_smoke():
-    """The repository's ``chip_smoke.py`` as a module."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-
-    return chip_smoke
 
 
 def variant_source(src: str, names: str) -> str:
@@ -362,7 +353,7 @@ def main(argv=None) -> None:
     ap.add_argument("--case", nargs="+", choices=cases, default=list(cases))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
-    cs = _chip_smoke()
+    cs = chip_smoke()
     dev = torch.device("cuda")
     base = args.source.read_text()
     libs = {}

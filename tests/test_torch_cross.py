@@ -41,16 +41,133 @@ def _bits_equal(a, b) -> bool:
         np.ascontiguousarray(b).view(np.int32))
 
 
-@pytest.mark.parametrize("L1,tau1", [(0, 0.01), (1, 0.2), (3, 0.03),
-                                     (5, 0.13), (14, 0.02)])
-def test_cross_arms_exact(L1, tau1):
-    """The arms at the K of census (L1 = 0, as 1: K = 2), ad (3), slow
-    (5) and mb slow (14), equal to the JAX package's."""
-    x = _img(L1)
+# (L1, tau1): the K of census (L1 = 0 and 1: K = 2), ad, slow and mb slow
+# with their configs' tau1; K = 9, 10, 11 around a chunk edge of 8 probes;
+# and a tau1 of 0 (kitti fast's) and below it, where every in-frame
+# compare of a number breaks
+ARMS = [(0, 0.01), (1, 0.2), (3, 0.03), (5, 0.13), (14, 0.02), (9, 0.05),
+        (10, 0.05), (11, 0.05), (5, 0.0), (11, -1.0)]
+ARM_KINDS = ["texture", "nan", "row", "column", "small"]
+
+
+def _arms_img(kind, seed):
+    """The image of an arms case: ``texture`` 23x57 with a flat patch
+    (arms of every length); ``nan`` that with NaN at 10% of its pixels
+    and in a block (a NaN compare never breaks); ``row`` a single row and
+    ``column`` a single column through the patch (K past H or W);
+    ``small`` 3x5 (K >= W and K >= H for every K above 4)."""
+    x = _img(seed)
+    if kind == "nan":
+        x[np.random.RandomState(seed).rand(*x.shape) < 0.1] = np.nan
+        x[14:19, 3:25] = np.nan
+    return {"texture": x, "nan": x, "row": x[8:9], "column": x[:, 15:16],
+            "small": x[6:9, 12:17]}[kind].copy()
+
+
+@pytest.mark.parametrize("kind", ARM_KINDS)
+@pytest.mark.parametrize("L1,tau1", ARMS)
+def test_cross_arms_exact(L1, tau1, kind):
+    """The arms equal to the JAX package's, on the cases of ``ARMS`` and
+    the images of ``_arms_img``."""
+    x = _arms_img(kind, L1)
     got = cross.cross_arms(torch.as_tensor(x), L1, tau1).numpy()
     want = np.asarray(jcross.cross_arms(jnp.asarray(x), L1, tau1))
-    assert got.dtype == np.float32 and got.shape == (4, 23, 57)
+    assert got.dtype == np.float32 and got.shape == (4, *x.shape)
     assert np.array_equal(got, want)
+
+
+def _kernel_arms(img, L1, tau1, rng):
+    """A numpy model of the arms kernel's walk (csrc/cross.cu): each arm
+    breaks at its first probe k = 2 .. K - 1 with |c - p| >= tau1 in
+    float32, where a probe past the frame reads any value (drawn here
+    from ``rng`` a probe and a pixel: the clamped pixel's, as the kernel
+    reads, the centre's, a random one, NaN or inf), and the break is
+    capped at the frame. The kernel's steps (the windows' NP probes, then
+    chunks of AP up to the cap) change which probes load together, not
+    which breaks first."""
+    H, W = img.shape
+    K = max(2, int(L1))
+    t = np.float32(tau1)
+    rows, cols = np.arange(H)[:, None], np.arange(W)[None, :]
+    out = []
+    for axis, sign in ((1, -1), (1, 1), (0, -1), (0, 1)):
+        n = img.shape[axis]
+        coord = np.broadcast_to(rows if axis == 0 else cols, (H, W))
+        kb = np.full((H, W), K)
+        for k in range(2, K):
+            q = np.clip(coord + sign * k, 0, n - 1)
+            p = img[q, cols] if axis == 0 else img[rows, q]
+            junk = np.stack([p, img, rng.randn(H, W).astype(np.float32),
+                             np.full((H, W), np.nan, np.float32),
+                             np.full((H, W), np.inf, np.float32)])
+            pick = rng.randint(0, len(junk), (H, W))
+            inside = (coord + sign * k >= 0) & (coord + sign * k < n)
+            p = np.where(inside, p, np.take_along_axis(junk, pick[None], 0)[0])
+            with np.errstate(invalid="ignore"):
+                hit = (kb == K) & (np.abs(img - p) >= t)
+            kb = np.where(hit, k, kb)
+        cap = coord + 1 if sign < 0 else n - coord
+        out.append((coord + sign * np.minimum(kb, cap)).astype(np.float32))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("kind", ARM_KINDS)
+@pytest.mark.parametrize("L1,tau1", ARMS)
+def test_kernel_walk_is_the_plain_version_bit_for_bit(L1, tau1, kind):
+    """The kernel's walk (``_kernel_arms``), whatever its probes past the
+    frame read, gives ``cross_arms_plain``'s bits: the cap at the frame
+    makes a break there the same as none, so the kernel reads clamped
+    addresses and tests no frame in its compares."""
+    x = _arms_img(kind, L1)
+    want = cross.cross_arms_plain(torch.as_tensor(x), L1, tau1).numpy()
+    for seed in range(3):
+        got = _kernel_arms(x, L1, tau1, np.random.RandomState(seed))
+        assert _bits_equal(got, want)
+
+
+def test_arms_windows_hold_every_probe_they_serve():
+    """The register windows of the arms kernel (csrc/cross.cu
+    ``window_breaks<VEC, D, K0, N>``: AX = 2 columns a thread, AY rows;
+    the probes k = K0 .. F = K0 + N - 1 of direction D on side S; the -y
+    or +y window's NV rows from offset V0, a row's NQ pairs from column
+    offset P0), at the first windows (K0 = 2, N = NP <= NPMAX), at the
+    second (K0 = NPMAX + 2 up to KWIN - 1) and past them (the ``arms-np*``
+    variants of ``cbca_variants``): the window entry each probe reads is
+    inside the window and holds the probe's row or column."""
+    num = {k: int(re.search(rf"constexpr int {k} = (\d+);", SRC)[1])
+           for k in ("AX", "AY", "NPMAX", "KWIN")}
+    AX, AY = num["AX"], num["AY"]
+    assert AX == 2 and num["NPMAX"] >= 1 and num["KWIN"] >= 14
+    for line in ("constexpr int F = K0 + N - 1;",
+                 "constexpr int S = D % 2 ? 1 : -1;",
+                 "constexpr int NV = AY + N - 1;",
+                 "constexpr int V0 = S < 0 ? -F : K0;",
+                 "const float2 q = vw[r + S * (K0 + i) - V0];",
+                 "constexpr int P0 = S < 0 ? -((F + 1) & ~1) : K0 & ~1;",
+                 "constexpr int NQ = (S < 0 ? 1 - K0 - P0 : 1 + F - P0) / 2 + 1;",
+                 "hw[q] = pair_at<VEC>(row, x0 + P0 + 2 * q, W);",
+                 "const int o = j + S * (K0 + i) - P0;",
+                 "window_breaks<VEC, D, 2, NP>(",
+                 "window_breaks<VEC, D, K1, KWIN - K1>(",
+                 "const int np = min(K - 2, NPMAX);"):
+        assert line in SRC, line
+    stages = [(2, n) for n in range(1, 9)] + [
+        (npm + 2, num["KWIN"] - npm - 2) for npm in range(1, 7)]
+    for K0, N in stages:
+        F = K0 + N - 1
+        for S in (-1, 1):
+            NV, V0 = AY + N - 1, -F if S < 0 else K0
+            P0 = -((F + 1) & ~1) if S < 0 else K0 & ~1
+            NQ = ((1 - K0 - P0) if S < 0 else (1 + F - P0)) // 2 + 1
+            assert P0 % 2 == 0
+            for i in range(N):
+                k = K0 + i
+                for r in range(AY):
+                    v = r + S * k - V0
+                    assert 0 <= v < NV and V0 + v == r + S * k
+                for j in range(AX):
+                    o = j + S * k - P0
+                    assert 0 <= o >> 1 < NQ and P0 + o == j + S * k
 
 
 def _volume(rng, D, H, W, direction):
@@ -332,7 +449,8 @@ def test_packed_offsets(L1):
 
 def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     """``cross_arms``, ``cbca_pack`` and ``cbca`` on CPU tensors return
-    their plain versions' bits and launch no kernel."""
+    their plain versions' bits and launch no kernel; ``cbca`` the same
+    bits with its arms' pack handed to it or with any tensor there."""
     x0c, x1c, vol = _case(5, 1)
     img = torch.as_tensor(_img(4))
     before = _build.launches()
@@ -343,6 +461,11 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     got = cross.cbca(x0c, x1c, torch.as_tensor(vol), 1, 5).numpy()
     want = cross.cbca_plain(x0c, x1c, torch.as_tensor(vol), 1, 5).numpy()
     assert _bits_equal(got, want)
+    # a pack is read by the kernel only; the plain version ignores it
+    for packed in (cross.cbca_pack(x0c, x1c, 5), torch.zeros(1)):
+        got = cross.cbca(x0c, x1c, torch.as_tensor(vol), 1, 5,
+                         packed=packed).numpy()
+        assert _bits_equal(got, want)
     assert _build.launches() == before
 
 
@@ -399,9 +522,9 @@ def test_the_generic_lane_hands_cbca_what_the_kernel_takes(monkeypatch,
     seen = []
     orig = cross.cbca
 
-    def record(x0c, x1c, vol, direction, L1):
+    def record(x0c, x1c, vol, direction, L1, packed=None):
         seen.append((x0c, x1c, vol))
-        return orig(x0c, x1c, vol, direction, L1)
+        return orig(x0c, x1c, vol, direction, L1, packed=packed)
 
     monkeypatch.setattr(cross, "cbca", record)
     arch = case.split()[0]
@@ -424,3 +547,69 @@ def test_the_generic_lane_hands_cbca_what_the_kernel_takes(monkeypatch,
     assert seen
     for t in (t for ops in seen for t in ops):
         assert t.dtype == torch.float32 and t.is_contiguous()
+
+
+@pytest.mark.parametrize("case", ["slow", "census", "ad", "fast cbca",
+                                  "kitti2015 slow", "ad sm_terminate sgm",
+                                  "fast stream", "slow row-sharded"])
+def test_the_generic_lane_packs_the_arms_once_a_pair(monkeypatch, case):
+    """``_method`` packs the arms once a pair (``Stages.pack``) and hands
+    that pack to every ``cbca`` call of the pair: kitti slow, census
+    (4 + 8 iterations a direction), ad (its 4 after the SGM only),
+    fast with CBCA and kitti2015 slow; no pack where no iteration runs
+    (ad stopped after the SGM, fast on the generic lane); the row-sharded
+    slow pair packs once a shard, each shard's calls reading its own
+    pack. The maps equal those of a run where every call packs for
+    itself (the CPU's plain CBCA ignores the pack)."""
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.parallel import inference, make_mesh
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    packs, calls = [], []
+    orig_pack, orig_cbca = cross.cbca_pack, cross.cbca
+
+    def pack(x0c, x1c, L1):
+        packs.append(orig_pack(x0c, x1c, L1))
+        return packs[-1]
+
+    def cbca(x0c, x1c, vol, direction, L1, packed=None):
+        calls.append((vol.shape[1], packed))
+        return orig_cbca(x0c, x1c, vol, direction, L1, packed=packed)
+
+    words = case.split()
+    dataset = "kitti2015" if words[0] == "kitti2015" else "kitti"
+    arch = words[1] if dataset == "kitti2015" else words[0]
+    over = dict(NARROW) if arch == "slow" else {}
+    if case == "fast cbca":
+        over.update(cbca_i1=2, L1=5, tau1=0.13)
+    if "sm_terminate" in words:
+        over["sm_terminate"] = "sgm"
+    cfg = make_config(dataset, arch, a="predict", **over)
+    net = towers.init_net(cfg)
+    H, W, D = 20, 48, 12
+    base = np.random.RandomState(6).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    n = 2 if "row-sharded" in words else 1
+
+    def run():
+        if n > 1:
+            return inference.make_sharded_predict(
+                cfg, make_mesh(n, backend="cpu"), D)(net, x0, x1)
+        return stereo_predict(cfg, net, x0, x1, D, device="cpu",
+                              sgm_form="stream" if "stream" in words
+                              else None)
+
+    want = run()
+    monkeypatch.setattr(cross, "cbca_pack", pack)
+    monkeypatch.setattr(cross, "cbca", cbca)
+    got = run()
+    assert torch.equal(got, want)
+    its = cfg.cbca_i1 + (cfg.cbca_i2 if cfg.sm_terminate != "sgm" else 0)
+    assert len(calls) == 2 * n * its
+    assert len(packs) == (n if its else 0)
+    for i, pk in enumerate(packs):
+        mine = [c for c in calls if c[1] is pk]
+        assert len(mine) == 2 * its
+        # a shard's pack is of its slab's rows
+        assert pk.numel() == 9 * mine[0][0] * cross.pack_pitch(W) \
+            + 2 * mine[0][0] * W

@@ -1007,7 +1007,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     > 0.51; the join, head, hslab and vertical kernels launched once a
     shard and direction, the outlier and the subpixel kernel once a
     shard, the fills, the median and the blur once, CBCA once a shard,
-    direction and iteration, the arms once an image."""
+    direction and iteration, its pack once a shard, the arms once an
+    image."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.parallel import inference
@@ -1025,12 +1026,13 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     got = inference.make_sharded_predict(cfg, _card_mesh(n), D)(net, x0, x1)
     torch.cuda.synchronize()
     # CBCA a shard, direction and iteration (kitti census 4 + 8, slow 2,
-    # fast none), each packing its arms once; the arms once an image
+    # fast none); the arms packed once a shard where an iteration runs,
+    # and made once an image
+    its = cfg.cbca_i1 + cfg.cbca_i2
     counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
                   sgm_vertical=2 * n, outlier=n, blur=1, occlusion_fill=1,
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
-                  cbca=2 * n * (cfg.cbca_i1 + cfg.cbca_i2),
-                  cbca_pack=2 * n * (cfg.cbca_i1 + cfg.cbca_i2))
+                  cbca=2 * n * its, cbca_pack=n if its else 0)
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
                    "census": {}}[arch])
     assert _build.launches() == counts
@@ -1060,17 +1062,42 @@ def _cross_case(dev, rng, D, H, W, L1, direction, d_true=None):
     return arms, torch.as_tensor(vol, device=dev)
 
 
-@pytest.mark.parametrize("L1", [0, 3, 5, 14])
-@pytest.mark.parametrize("H,W", [(37, 150), (5, 3), (67, 301)])
-def test_cross_arms_kernel_is_bit_identical(dev, L1, H, W):
+# L1 -> tau1: the configs' K (2, 3, 5, 14); K = 6, 9, 10, 11, 13, whose
+# arms run past the kernel's first windows (k = 2 .. 4) into its second
+# (k = 5 .. 13); K = 15, 22, 23, whose arms walk past those (from k = 14,
+# 8 probes a chunk: the walk ends at, and one past, a chunk's edge); K
+# past 64
+ARMS_TAU1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02, 6: 0.05, 9: 0.05,
+             10: 0.05, 11: 0.05, 13: 0.05, 15: 0.05, 22: 0.05, 23: 0.05,
+             70: 0.08}
+
+
+@pytest.mark.parametrize("L1", list(ARMS_TAU1))
+@pytest.mark.parametrize("H,W,kind", [
+    (37, 150, ""), (5, 3, ""), (67, 301, ""), (37, 150, "nan"),
+    (1, 97, ""), (80, 1, ""), (33, 2, "nan"), (40, 96, "misaligned")])
+def test_cross_arms_kernel_is_bit_identical(dev, L1, H, W, kind):
     """``cross_arms`` against ``cross_arms_plain`` on the card, bit for
-    bit, one launch a call, at the K of census, ad, slow and mb slow,
-    odd shapes, one smaller than the window."""
-    rng = np.random.RandomState(H + L1)
+    bit, one launch a call: the K of census, ad, slow and mb slow, K
+    around the edge of the register windows and of the walk's chunks
+    (``ARMS_TAU1``) and K = 70 (> 64), on a texture with a flat patch
+    (arms of every length); odd shapes, one smaller than the window, a
+    single row and a single column (K past H or W); NaN pixels (``nan``:
+    10% and a block, never a break); and an image 4 bytes off an 8-byte
+    boundary (``misaligned``: the 4-byte path at an even W)."""
+    rng = np.random.RandomState(H + W + L1)
     x = rng.randn(H, W).astype(np.float32) * 0.1
     x[H // 5:H // 2, W // 6:W // 2] = 0.3
+    if kind == "nan":
+        x[rng.rand(H, W) < 0.1] = np.nan
+        x[H // 3:H // 2 + 1, :W // 3 + 1] = np.nan
     x = torch.as_tensor(x, device=dev)
-    tau1 = {0: 0.01, 3: 0.03, 5: 0.13, 14: 0.02}[L1]
+    if kind == "misaligned":
+        flat = torch.empty(H * W + 1, device=dev)
+        flat[1:] = x.flatten()
+        x = flat[1:].view(H, W)
+        assert x.data_ptr() % 8 == 4 and x.is_contiguous()
+    tau1 = ARMS_TAU1[L1]
     before = _build.launches()["cross_arms"]
     got = cross.cross_arms(x, L1, tau1)
     torch.cuda.synchronize()
@@ -1098,6 +1125,26 @@ def test_cbca_kernel_is_bit_identical(dev, L1, direction, D, H, W):
                                                    before["cbca_pack"] + 1)
     assert torch.equal(_bits(got), _bits(cross.cbca_plain(*arms, vol,
                                                           direction, L1)))
+
+
+@pytest.mark.parametrize("L1", [0, 5, 14])
+def test_cbca_kernel_reads_a_given_pack(dev, L1):
+    """``cbca`` handed its arms' pack (``packed``, as the generic lane
+    hands every iteration of a pair one pack) launches the CBCA kernel
+    alone and gives the bits of a call that packs them itself, in both
+    directions from the one pack."""
+    arms, vol = _cross_case(dev, np.random.RandomState(L1 + 9), 12, 37, 150,
+                            L1, 1)
+    packed = cross.cbca_pack(*arms, L1)
+    for direction in (-1, 1):
+        want = cross.cbca(*arms, vol, direction, L1)
+        before = _build.launches()
+        got = cross.cbca(*arms, vol, direction, L1, packed=packed)
+        torch.cuda.synchronize()
+        after = _build.launches()
+        assert (after["cbca"], after["cbca_pack"]) == (before["cbca"] + 1,
+                                                       before["cbca_pack"])
+        assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("L1", [0, 5, 14])
@@ -1144,8 +1191,9 @@ def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """The launchers take float32, contiguous operands on the card and
     cast or copy nothing: a 16-bit volume, a strided volume or arm stack,
     an operand on the CPU, an L1 past the widest window built (64) and
-    one whose block exceeds the shared memory raise ValueError; ``cbca``
-    on a CUDA volume launches (no fallback)."""
+    one whose block exceeds the shared memory, and a pack of another
+    dtype, size or device raise ValueError; ``cbca`` on a CUDA volume
+    launches (no fallback)."""
     arms, vol = _cross_case(dev, np.random.RandomState(1), 6, 9, 40, 5, 1)
     with pytest.raises(ValueError, match="float32"):
         cross.cbca(*arms, vol.to(torch.bfloat16), 1, 5)
@@ -1163,6 +1211,10 @@ def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cross.cbca(*arms, vol, 1, cross.KMAX + 1)
     with pytest.raises(ValueError, match="exceeds"):
         cross.cbca_pack(*arms, cross.KMAX + 1)
+    packed = cross.cbca_pack(*arms, 5)
+    for bad in (packed.int(), packed[:-1], packed.cpu()):
+        with pytest.raises(ValueError, match="packed"):
+            cross.cbca(*arms, vol, 1, 5, packed=bad)
     big = next(L1 for L1 in range(2, 1000)
                if cross.cbca_smem_bytes(L1) > _build.MAX_SMEM)
     with pytest.raises(ValueError, match="widest window|shared memory"):

@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 11 --te 40   # phases 1, 2, 11 alone
 
 Run from the root of the repository, on a machine with a CUDA card, the
 CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
@@ -158,7 +159,26 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    volume stage received against its share plus halo, s a pair; the
    data-parallel step (kitti fast and slow, bs=128, on 1 and 2 entries)
    against one ``train_chunk`` step (parameters within 1e-5, replicas
-   equal), ms a step.
+   equal), ms a step;
+11. the experiment drivers (``drivers_phase``, ``mccnn_tpu_torch/tools/``)
+   on a synthetic KITTI set with occlusions at 370x1226, D=228 (one te
+   image; ``--te N`` for N, and ``--phase 11`` to run it alone after
+   the build) under ``build/``, every child a ``python -m mccnn_tpu_torch``
+   process on the card: ``hs random kitti fast test_te`` with the seeded
+   fast net, as a process group of its own killed after its second log
+   line, then ``hillclimb_fast`` on that log for one more line (each
+   index within 1 of the best line's); kitti slow ``-make_cache`` by a
+   direct run with phase 5's slow net, then one ``hs random kitti slow
+   test_te`` line through ``-use_cache`` with that net; every logged
+   score in [0, 1); a fast line and the slow line rerun directly (the
+   slow one also without the cache), each scoring its logged score,
+   with the seconds each takes, its start-up apart from its pairs (the
+   first, and the mean of the rest); then
+   side by side ``rgs.run_job`` (kitti slow at the slow line's point,
+   the same score), one ``rgs_qsub`` job (kitti ad) with ``sh`` in
+   place of the scheduler, and where PIL imports ``predict_kitti`` on
+   two PNG scenes (its ``i err`` lines and mean in [0, 1)); no process
+   of a search left behind.
 
 Prints the kernels' JSON line (``launches`` counts the calls of a
 kernel's entry on its path, ``kernel_launches`` the kernel launches
@@ -1514,7 +1534,329 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
     print(f"  phase 10 took {time.perf_counter() - t10:.0f} s")
 
 
+def _group_alive(pgid: int) -> list:
+    """The processes of group ``pgid`` that still run (zombies, which
+    only wait to be reaped, apart), read from /proc."""
+    alive = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, _ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        if int(pgrp) == pgid and state not in ("Z", "X"):
+            alive.append(int(name))
+    return alive
+
+
+def _log_lines(log: str) -> list:
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return f.read().splitlines()
+
+
+def search_lines(args: list, cwd: str, log: str, n: int,
+                 deadline_s: float) -> list:
+    """Run ``python -m mccnn_tpu_torch.tools.hs *args`` in ``cwd`` as a
+    process group of its own, logging to ``log``, until the log holds
+    ``n`` lines or ``deadline_s`` passes; then kill the group and wait
+    until none of it runs. Returns the seconds from the start at which
+    each new line appeared."""
+    import signal
+
+    from mccnn_tpu_torch.tools import cli_env
+
+    seen = len(_log_lines(log))
+    times = []
+    with open(log + ".err", "a") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mccnn_tpu_torch.tools.hs", *args],
+            cwd=cwd, env=dict(cli_env(), MCCNN_HS_LOG=log),
+            stdout=subprocess.DEVNULL, stderr=err, start_new_session=True)
+        try:
+            while seen < n and time.perf_counter() - t0 < deadline_s \
+                    and proc.poll() is None:
+                time.sleep(0.05)
+                got = len(_log_lines(log))
+                times += [time.perf_counter() - t0] * (got - seen)
+                seen = got
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:  # the group has ended and been reaped
+                pass
+            proc.wait(timeout=60)
+            t = time.perf_counter()
+            while _group_alive(proc.pid) and time.perf_counter() - t < 30:
+                time.sleep(0.1)
+    left = _group_alive(proc.pid)
+    check(not left, f"hs {' '.join(args)}: processes {left} outlived it")
+    if seen < n:
+        with open(log + ".err") as f:
+            print(f.read()[-3000:], file=sys.stderr)
+    check(seen >= n, f"hs {' '.join(args)}: {seen} of {n} log lines in "
+          f"{deadline_s:.0f} s")
+    return times
+
+
+def cli_run(args: list, cwd: str, timeout: float = 600) -> tuple:
+    """One direct run of the port's command line in ``cwd``: (its
+    seconds, the list of its pairs' seconds as ``test_te`` prints them,
+    its score)."""
+    from mccnn_tpu_torch.tools import cli_command, cli_env, last_score
+
+    t = time.perf_counter()
+    out = subprocess.run(cli_command(*args), cwd=cwd, env=cli_env(),
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t
+    check(out.returncode == 0, f"{' '.join(args)} exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    pairs = []
+    for line in out.stdout.splitlines():  # "runtime err" a pair
+        toks = line.split()
+        try:
+            runtime, _err = (float(v) for v in toks)
+        except ValueError:
+            continue
+        pairs.append(runtime)
+    return secs, pairs, last_score(out.stdout)
+
+
+def kitti_pngs(root: str, n: int, h: int, w: int, disp_max: int) -> None:
+    """``n`` synthetic scenes with occlusions
+    (``datasets.make_occlusion_pair``) as KITTI's training layout: 8-bit
+    PNGs of both views and the 16-bit ground truth of the pixels seen in
+    both."""
+    from PIL import Image
+
+    from mccnn_tpu_torch.data.datasets import make_occlusion_pair
+    from mccnn_tpu_torch.data.png16 import write_png16
+
+    for sub in ("image_0", "image_1", "disp_noc"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        left, right, gt, occ, valid = make_occlusion_pair(h, w, disp_max,
+                                                          seed=11 + i)
+        lo = min(left.min(), right.min())
+        span = max(left.max(), right.max()) - lo
+        name = f"{i:06d}_10.png"
+        for sub, img in (("image_0", left), ("image_1", right)):
+            Image.fromarray(((img - lo) / span * 255).astype(np.uint8)) \
+                .save(os.path.join(root, sub, name))
+        write_png16(np.where(valid & ~occ, gt, 0.0),
+                    os.path.join(root, "disp_noc", name))
+
+
+def pair_times(secs: float, pairs: list) -> str:
+    """A run's seconds split into the child's start-up (all but its
+    pairs) and its pairs: the first, which pays the warm-ups, and the
+    mean of the rest."""
+    rest = (f", the rest {statistics.mean(pairs[1:]):.3f} a pair"
+            if len(pairs) > 1 else "")
+    return (f"{secs:.2f} (start-up {secs - sum(pairs):.2f}, "
+            f"{(secs - sum(pairs)) / secs:.1%} of the run; {len(pairs)} "
+            f"pair(s) {sum(pairs):.2f}: the first {pairs[0]:.2f}{rest})")
+
+
+def drivers_phase(torch, slow_net, disp_max: int = D, n_te: int = 1) -> None:
+    """Phase 11 (see the module docstring): the experiment drivers of
+    ``mccnn_tpu_torch/tools/`` on the card, every child a process of the
+    port's command line, on a synthetic KITTI set at 370x1226, D=228
+    with ``n_te`` te images (KITTI 2012's te split holds 40).
+    ``slow_net``: phase 5's kitti slow net, whose head scores the L1
+    distance of the descriptors (a random head takes no patch pair for a
+    match, so its error would sit near 1.0, the score of a failed run)."""
+    import concurrent.futures
+    import random
+    import shutil
+    import tempfile
+
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.data.bin_io import tofile
+    from mccnn_tpu_torch.models import checkpoint, towers
+    from mccnn_tpu_torch.tools import cli_env, hs, rgs, rgs_qsub
+
+    t11 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    # -make_cache writes both volumes of every te pair in float32
+    cache_bytes = n_te * 2 * disp_max * H * W * 4
+    free = shutil.disk_usage(os.path.join(ROOT, "build")).free
+    check(free > 1.25 * cache_bytes, f"{free / 2**30:.1f} GiB free under "
+          f"build/, the cache of {n_te} te pairs takes "
+          f"{cache_bytes / 2**30:.1f} GiB")
+    tmp = tempfile.mkdtemp(prefix="phase11_", dir=os.path.join(ROOT, "build"))
+    cwd = os.getcwd()
+    # deadlines: a child's start-up and a few seconds a pair
+    per_run = 90 + 10 * n_te
+    try:
+        # the set (scenes with occlusions; image 1 is tr, images 2 ..
+        # n_te + 1 te), the seeded kitti fast net and phase 5's slow net,
+        # at config.py's widths
+        data = os.path.join(tmp, "data.kitti")
+        datasets.make_synthetic_kitti(data, n_images=n_te + 1, height=H,
+                                      width=W, disp_max=disp_max,
+                                      occlusions=True)
+        tofile(os.path.join(data, "tr.bin"), np.asarray([1], np.int64))
+        tofile(os.path.join(data, "te.bin"),
+               np.arange(2, n_te + 2, dtype=np.int64))
+        nets = {arch: os.path.join(tmp, f"{arch}.npz")
+                for arch in ("fast", "slow")}
+        checkpoint.save(nets["fast"], towers.init_net(
+            make_config("kitti", "fast", a="test_te")), opt={})
+        checkpoint.save(nets["slow"], slow_net, opt={})
+        print(f"phase 11: synthetic data.kitti with occlusions at {H}x{W}, "
+              f"D={disp_max}, {n_te} te image(s); the seeded kitti fast net "
+              f"and phase 5's slow net saved in "
+              f"{time.perf_counter() - t11:.1f} s")
+
+        # 1. hs random kitti fast test_te: two lines, then its group
+        # killed; one more line from hillclimb_fast on that log
+        flog = os.path.join(tmp, "hs_fast.log")
+        times = search_lines(["random", "kitti", "fast", "test_te",
+                              nets["fast"]], tmp, flog, 2, 60 + 2 * per_run)
+        search_lines(["hillclimb_fast", "kitti", "fast", "test_te",
+                      nets["fast"], flog], tmp, flog, 3, per_run)
+        fast_lines = _log_lines(flog)
+        grid = hs.grid_for("kitti", "fast", "test_te")
+        logged = hs.parse_log([flog], "kitti", "fast", "test_te")
+        best = hs._indices_of(grid, min(logged[:2], key=lambda r: r[0])[1])
+        climb = hs._indices_of(grid, logged[2][1])
+        print(f"phase 11: hs random kitti fast test_te: lines at "
+              f"{[round(t, 2) for t in times]} s from its start (a search "
+              f"run {times[1] - times[0]:.2f} s), its group killed, no "
+              f"process left; hillclimb_fast on its log: one line, each "
+              f"index within 1 of the best line's ({best} -> {climb})")
+        check(all(abs(a - b) <= 1 for a, b in zip(best, climb)),
+              f"hillclimb_fast moved past a neighbour: {best} -> {climb}")
+
+        # 2. the slow arch: the cache made by a direct run, then one hs
+        # line through -use_cache with the net that made it
+        make = cli_run(["kitti", "slow", "-a", "test_te", "-make_cache",
+                        "-net_fname", nets["slow"]], tmp, 300 + 2 * per_run)
+        cached = len(os.listdir(os.path.join(tmp, "cache")))
+        check(cached == n_te, f"-make_cache wrote {cached} files in cache/ "
+              f"for {n_te} te pairs")
+        slog = os.path.join(tmp, "hs_slow.log")
+        stimes = search_lines(["random", "kitti", "slow", "test_te",
+                               nets["slow"]], tmp, slog, 1, per_run)
+        slow_line = _log_lines(slog)[0]
+        print(f"phase 11: kitti slow -make_cache {pair_times(*make[:2])}, "
+              f"score {make[2]}; hs random kitti slow "
+              f"test_te (-use_cache -net_fname): its line at "
+              f"{stimes[0]:.2f} s")
+        scores = [float(ln.split()[0]) for ln in fast_lines + [slow_line]]
+        print(f"phase 11: logged scores {scores}")
+        check(all(0.0 <= s < 1.0 for s in scores),
+              f"a logged score outside [0, 1): {scores}")
+
+        # 3. a fast line and the slow line rerun directly, the slow one
+        # also without the cache: each scores the logged score
+        reruns = {}
+        for what, line, net in (
+                ("kitti fast", fast_lines[0], ["-net_fname", nets["fast"]]),
+                ("kitti slow -use_cache", slow_line,
+                 ["-use_cache", "-net_fname", nets["slow"]]),
+                ("kitti slow uncached", slow_line,
+                 ["-net_fname", nets["slow"]])):
+            toks = line.split()
+            secs, pairs, score = cli_run(
+                [toks[1], toks[2], "-a", toks[3], *net, *toks[4:]], tmp,
+                per_run)
+            reruns[what] = secs, pairs
+            check(score == float(toks[0]), f"{what}: the direct run scores "
+                  f"{score}, the search logged {toks[0]}")
+        print(f"phase 11: s a configuration at {n_te} te pair(s), the "
+              f"child's start-up apart from its pairs ({card_line()}): "
+              + "; ".join(f"{w} {pair_times(*r)}" for w, r in reruns.items())
+              + "; each direct run scores its logged line's score")
+
+        # 4. side by side: rgs.run_job (kitti slow test_te at the slow
+        # line's point, uncached), one rgs_qsub job (kitti ad) through
+        # sh standing in for PBS, predict_kitti on two PNG pairs
+        flags = slow_line.split()[4:]
+        ps = {k[1:]: v for k, v in zip(flags[::2], flags[1::2])}
+        check(list(ps) == [k for k, _ in rgs.PARAMS],
+              f"the slow line's flags {list(ps)} are not rgs.PARAMS'")
+        rng = random.Random(42)
+        qps = {k: rng.choice(vs) for k, vs in rgs_qsub.PARAMS}
+        while qps["pi1"] > qps["pi2"]:
+            qps = {k: rng.choice(vs) for k, vs in rgs_qsub.PARAMS}
+        try:
+            import PIL
+        except ImportError as e:
+            pil = None
+            print(f"phase 11: PIL does not import on this machine ({e}): "
+                  "predict_kitti did not run (the CPU tests hold it to the "
+                  "JAX package's copy)")
+        else:
+            pil = PIL.__version__
+            proot = os.path.join(tmp, "unzip", "training")
+            kitti_pngs(proot, 2, H, W, disp_max)
+            os.makedirs(os.path.join(tmp, "predict"))
+        saved = rgs_qsub.SUBMIT, rgs_qsub.POLL, rgs_qsub.DELETE
+        rgs_qsub.SUBMIT, rgs_qsub.POLL, rgs_qsub.DELETE = \
+            ["sh"], ["true"], ["true"]
+        os.chdir(tmp)
+        t = time.perf_counter()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                job = pool.submit(rgs.run_job, ("kitti", "slow", "test_te",
+                                                nets["slow"], ps, 0))
+                pk = pool.submit(
+                    subprocess.run,
+                    [sys.executable, "-m",
+                     "mccnn_tpu_torch.tools.predict_kitti", nets["fast"],
+                     proot, "2"], cwd=os.path.join(tmp, "predict"),
+                    env=cli_env(), capture_output=True, text=True,
+                    timeout=600) if pil else None
+                ((qscore, _),) = rgs_qsub.wait_all([rgs_qsub.submit(
+                    "kitti", "ad", "test_te", "-", qps, 0)])
+                rscore, _ = job.result()
+                pout = pk.result() if pk else None
+        finally:
+            rgs_qsub.SUBMIT, rgs_qsub.POLL, rgs_qsub.DELETE = saved
+            os.chdir(cwd)
+        print(f"phase 11: rgs.run_job kitti slow test_te, uncached: "
+              f"{rscore} (the hs line: {slow_line.split()[0]}); one rgs_qsub "
+              f"job, kitti ad test_te through sh: {qscore}; with "
+              f"predict_kitti beside them, {time.perf_counter() - t:.1f} s")
+        check(rscore == float(slow_line.split()[0]),
+              f"rgs.run_job scored {rscore}, the hs line "
+              f"{slow_line.split()[0]}")
+        check(0.0 <= qscore < 1.0, f"the rgs_qsub job scored {qscore}")
+        if pout is not None:
+            check(pout.returncode == 0, f"predict_kitti exited "
+                  f"{pout.returncode}: {pout.stderr[-3000:]}")
+            lines = pout.stdout.splitlines()
+            print(f"phase 11: PIL {pil} imports; predict_kitti on 2 PNG "
+                  f"scenes with occlusions at {H}x{W} (kitti fast, the "
+                  f"seeded net): {lines}")
+            check(len(lines) == 3 and all(
+                0.0 <= float(ln.split()[-1]) < 1.0 for ln in lines),
+                f"predict_kitti printed {lines}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 11 took {time.perf_counter() - t11:.0f} s")
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one CUDA card (see the module docstring).")
+    ap.add_argument("--phase", type=int, choices=[11], help="run phases 1, "
+                    "2 and this one alone (no result line)")
+    ap.add_argument("--te", type=int, default=1, help="te images of phase "
+                    "11's synthetic KITTI set (default 1; KITTI 2012's te "
+                    "split holds 40)")
+    opts = ap.parse_args()
     t_start = time.perf_counter()
     import torch
 
@@ -1543,6 +1885,19 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if opts.phase == 11:
+        # phase 5's slow net, on phase 3's pair
+        scfg = make_config("kitti", "slow", a="predict")
+        x0, x1 = kitti_pair(np.random.RandomState(0), H, W, SHIFT)
+        snet = towers.init_slow(scfg, scfg.seed).to(dev).eval()
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                         allow_tf32=False):
+            sfeats = snet(torch.as_tensor(np.stack([x0, x1])[:, None])
+                          .to(dev))
+        drivers_phase(torch, matching_head(snet, sfeats), n_te=opts.te)
+        print(f"chip_smoke: phases 1, 2 and 11 passed in "
+              f"{time.perf_counter() - t_start:.0f} s")
+        return 0
 
     cfg = make_config("kitti", "fast", a="predict")
     tower = towers.init_fast(cfg, cfg.seed)
@@ -2607,6 +2962,10 @@ def main() -> int:
     parallel_phase(torch, dev, x0, x1,
                    (cfg, tower, d32, fast_want, pps_a, times_a),
                    (scfg, hand, slow_map, slow_counts))
+
+    # --- phase 11: the experiment drivers, each child the port's CLI -------
+    torch.cuda.empty_cache()
+    drivers_phase(torch, hand, n_te=opts.te)
 
     # launches: each kernel's count on the path that runs it (entry
     # calls, and the kernel launches they made); the three shared ones

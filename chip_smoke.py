@@ -59,7 +59,12 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    directions, each bit-identical to its plain version, timed by events,
    its bound counting the adds these arms need; the arms kernel at K = 2,
    3, 5 and 14 on the pair's left image, bit-identical, timed in a CUDA
-   graph; then (phase 3b) every kernel that
+   graph; the census signatures and both census volumes on kitti
+   census's own inputs, both ad volumes on kitti ad's, and the HWD
+   lane's tables of both directions on kitti fast's
+   (``capture_costs``, ``cost_rows``), each bit-identical to its plain
+   version, the volumes timed by events and the rest in a CUDA graph;
+   then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
    pair), against its plain version with its KITTI tolerance: the join
@@ -73,11 +78,18 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    kernel at K = 14, bit for bit; subpixel
    (its three storage types and the (D, H, W) layout) and the median on
    mb fast's own map and volume (and its adversarial copy), bit for bit;
-   each with kernel, plain and bound times;
+   the census and ad kernels on mb census's and mb ad's inputs and the
+   tables on mb fast's, bit for bit; each with kernel, plain and bound
+   times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
-   all-plain path (the CPU); then pairs/s (median of 10 runs after
+   all-plain path (the CPU), the map's SHA-256 and the map bit for bit
+   that of the same path with the cost volumes and the HWD tables built
+   by their plain versions on the card (``same_as_plain_route``), and
+   the plain torch launches of one run under ``torch.profiler``, at
+   most 64 (the tables' plain build alone issues 188); then pairs/s
+   (median of 10 runs after
    warm-up) on that pair and on bench.py's synthetic 350x1242 pair;
    then (phase 4b) the same path with ``-vol_dtype bfloat16``,
    ``-vol_dtype float16`` and ``-dtype bfloat16``: launch counts, the
@@ -99,15 +111,20 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    kitti fast arch with CBCA (the join kernel feeding the generic lane;
    launch counts at full size, the all-plain comparison at 96x320,
    D=48), and the census kernel path against the all-plain path at
-   96x320, D=48;
+   96x320, D=48; census's signatures once a pair and its volume and
+   ad's once a direction, census's (slab form) and ad's maps bit for bit
+   those of the plain route (SHA-256 printed), their plain launches at
+   most 1000 each (the plain volumes alone issue ~8,100 and ~1,800);
 7. Middlebury at the ``-a time`` shape, 1000x1500, D=200, on a seeded
    textured pair of true disparity 60: mb fast with the left direction
    alone (``-a time``) and with both (``-a predict``), and mb slow (the
    generic lane, CBCA x2 and x16 on the CBCA kernel, a head set by hand as
    in phase 5):
-   launch counts, accuracy, pairs/s (median of 10, of 3 for mb slow,
-   with the spread) and peak memory; both against the all-plain path on
-   the CPU at 96x320, D=48 with mb's own parameters;
+   launch counts (the HWD tables once a direction), accuracy, pairs/s
+   (median of 10, of 3 for mb slow, with the spread) and peak memory;
+   both mb fast maps bit for bit those of the plain route (SHA-256
+   printed); both against the all-plain path on the CPU at 96x320, D=48
+   with mb's own parameters;
 8. training on the card (``training_phase``): a synthetic KITTI set at
    350x1242, D=228 (three images; the third is te); kitti fast (8 steps)
    and kitti slow (4 steps) at config.py's full widths from one sampled
@@ -189,6 +206,8 @@ there is no CUDA card or the package is missing, and when any phase
 fails.
 """
 
+import collections
+import hashlib
 import json
 import os
 import statistics
@@ -354,17 +373,18 @@ REFINE_STAGES = ("interpolate_occlusion", "interpolate_mismatch",
                  "median2d")
 
 
-def capture_calls(torch, mod, names, run, key=lambda name, a: name) -> dict:
+def capture_calls(torch, mod, names, run, key=lambda name, a, kw: name
+                  ) -> dict:
     """The arguments the functions ``names`` of ``mod`` receive in
-    ``run()`` (one ``stereo_predict``): {key(name, args): (args, kwargs)}
-    of the last such call, so that phase 3 holds their kernels on the
-    path's own inputs."""
+    ``run()`` (one ``stereo_predict``): {key(name, args, kwargs): (args,
+    kwargs)} of the last such call, so that phase 3 holds their kernels
+    on the path's own inputs."""
     seen = {}
     orig = {name: getattr(mod, name) for name in names}
 
     def hook(name):
         def stage(*a, **kw):
-            seen[key(name, a)] = (a, kw)
+            seen[key(name, a, kw)] = (a, kw)
             return orig[name](*a, **kw)
         return stage
 
@@ -395,7 +415,168 @@ def capture_cbca(torch, run) -> dict:
 
     return capture_calls(
         torch, cross, ("cbca", "cross_arms"), run,
-        key=lambda name, a: (name, a[3]) if name == "cbca" else (name,))
+        key=lambda name, a, kw: (name, a[3]) if name == "cbca" else (name,))
+
+
+# the cost kernels a pair of each generic-lane arch: census's signatures
+# once a pair and a volume a direction, ad's volume a direction
+COSTS = {"census": dict(census_signatures=1, census_volume=2),
+         "ad": dict(ad_volume=2)}
+# the wrappers of the census and ad volumes and the HWD lane's SGM
+# tables, with their plain versions, as (module, wrapper, plain version)
+PLAIN_ROUTES = (("costs", "census_signatures", "census_signatures_plain"),
+                ("costs", "census_volume", "census_volume_plain"),
+                ("costs", "ad_volume", "ad_volume_plain"),
+                ("sgm", "sgm_tables", "sgm_tables_plain"))
+
+
+def capture_costs(torch, run) -> dict:
+    """The arguments of the last call in ``run()`` of
+    ``census_signatures``, keyed ("census_signatures",), of
+    ``census_volume`` and ``ad_volume`` of each direction, keyed (name,
+    direction), and of ``sgm_tables`` of each storage order, keyed
+    ("sgm_tables", xrev)."""
+    from mccnn_tpu_torch.ops import costs, sgm
+
+    tables = {}
+    seen = capture_calls(
+        torch, costs, ("census_signatures", "census_volume", "ad_volume"),
+        lambda: tables.update(capture_calls(
+            torch, sgm, ("sgm_tables",), run,
+            key=lambda name, a, kw: (name, kw["xrev"]))),
+        key=lambda name, a, kw: (name,) if name == "census_signatures"
+        else (name, a[3]))
+    seen.update(tables)
+    return seen
+
+
+def cost_rows(torch, seen, where) -> dict:
+    """Rows for the cost and table kernels on the inputs
+    ``capture_costs`` saw, each bit for bit against its plain version
+    (``exact_row``): the signatures and the tables timed in a CUDA
+    graph, the volumes by events. Bounds: the signatures read both
+    images and write their 8-byte words (the census bits only), with the
+    (2r+1)^2 compares a pixel; a census volume reads both signatures and
+    writes its cells,
+    with 3 nw + 3 integer instructions a cell (and, xor-not, popcount a
+    word; the subtract, the conversion, the multiply); an ad volume reads
+    both images and writes its cells, with 20 f32 instructions a cell
+    (the term, its row sum's and its column sum's 8 adds, the division);
+    the tables read both images and write the four sweeps' buffer."""
+    from mccnn_tpu_torch.ops import costs, sgm
+
+    rows = {}
+    if ("census_signatures",) in seen:
+        (x0, x1), _ = seen[("census_signatures",)]
+        npix = x0.numel()
+        nw = costs.census_words(4)
+        rows["census_signatures"] = exact_row(
+            torch, f"census_signatures {where}",
+            lambda: costs.census_signatures(x0, x1),
+            lambda: costs.census_signatures_plain(x0, x1),
+            2 * npix * (4 + 8 * nw), 2 * 81.0 * npix)
+    for name, plain in (("census_volume", costs.census_volume_plain),
+                        ("ad_volume", costs.ad_volume_plain)):
+        for direction in (-1, 1):
+            if (name, direction) not in seen:
+                continue
+            a, kw = seen[(name, direction)]
+            d = a[2]
+            h, w = a[0].shape[-2:]
+            cells = d * h * w
+            if name == "census_volume":
+                nw = kw["signatures"][0].shape[-1]
+                nbytes = 4 * cells + 2 * kw["signatures"][0].numel() * 8
+                ops = (3 * nw + 3.0) * cells
+            else:
+                nbytes, ops = 4 * cells + 8 * h * w, 20.0 * cells
+            key = name + ("" if direction == -1 else " (direction +1)")
+            rows[key] = exact_row(
+                torch, f"{name} {where}, direction {direction:+d}",
+                lambda: getattr(costs, name)(*a, **kw),
+                lambda: plain(*a, **kw), nbytes, ops, graph=False, reps=10)
+    for xrev in (True, False):
+        if ("sgm_tables", xrev) not in seen:
+            continue
+        a, kw = seen[("sgm_tables", xrev)]
+        x0, _, d, h, w, shape = a
+        hp, wp, dp = shape
+        _, stride = sgm.table_layout(hp, wp, d + wp + dp)
+        rows["sgm_tables" + ("" if xrev else " (xrev False)")] = exact_row(
+            torch, f"sgm_tables {where}, xrev {xrev}, buffer of "
+            f"{16 * stride} bytes", lambda: sgm.sgm_tables(*a, **kw),
+            lambda: sgm.sgm_tables_plain(*a, **kw), 8 * h * w + 16 * stride)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def map_sha(a) -> str:
+    """The SHA-256 of a map's float32 bytes (``profile_predict``'s)."""
+    arr = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return hashlib.sha256(arr.astype(np.float32).tobytes()).hexdigest()
+
+
+def plain_route(torch, run):
+    """``run()`` with the census and ad volumes and the HWD lane's SGM
+    tables built by their plain versions on the card; the kernels'
+    launch counts untouched."""
+    from mccnn_tpu_torch.ops import costs, sgm
+
+    mods = {"costs": costs, "sgm": sgm}
+    saved = [(mods[m], name, getattr(mods[m], name))
+             for m, name, _ in PLAIN_ROUTES]
+    try:
+        for m, name, plain in PLAIN_ROUTES:
+            setattr(mods[m], name, getattr(mods[m], plain))
+        out = run()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def same_as_plain_route(torch, what, run, disp) -> str:
+    """Check that the map ``disp`` of ``run()`` is bit for bit the map of
+    the plain route (``plain_route``); returns its SHA-256."""
+    ref = plain_route(torch, run)
+    check(torch.equal(disp.view(torch.int32), ref.view(torch.int32)),
+          f"{what}: the map differs from the plain cost and table route's")
+    sha = map_sha(disp)
+    print(f"  {what}: map sha256 {sha}, bit for bit the map with the cost "
+          f"volumes and the HWD tables built by their plain versions")
+    return sha
+
+
+def plain_launches(torch, run) -> tuple:
+    """(plain torch kernel launches, hand kernel launches) of ``run()``
+    under ``torch.profiler``, grouped as ``profile_predict`` groups them;
+    (None, None) where the profiler sees no device kernel."""
+    from mccnn_tpu_torch import profile_predict
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = collections.Counter()
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            n[profile_predict._group(e.key)] += e.count
+    if not n:
+        return None, None
+    return n[profile_predict.PLAIN], n["hand-written CUDA kernels"]
+
+
+def check_plain_launches(torch, what, run, most) -> None:
+    """Print ``run()``'s plain and hand kernel launches, and fail if the
+    plain ones exceed ``most`` or the profiler sees no device kernel."""
+    plain, hand = plain_launches(torch, run)
+    check(plain is not None, f"{what}: torch.profiler saw no device kernel, "
+          "so the plain launches cannot be counted")
+    print(f"  {what}: {plain} plain torch kernel launches, {hand} hand "
+          f"kernel launches (torch.profiler)")
+    check(plain <= most, f"{what}: {plain} plain launches, more than {most}")
 
 
 def ray_probes(torch, labels) -> int:
@@ -1042,7 +1223,8 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
         torch.cuda.synchronize()
         got = _build.launches()
         want_mb = dict.fromkeys(_build.KERNELS, 0)
-        want_mb.update(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1,
+        want_mb.update(join=1, sgm_tables=1, sgm_vertical=2,
+                       sgm_horizontal=2, blur=1,
                        **REFINE_MB)
         score = float(out.getvalue().split()[-1])
         x0, x1 = (np.array(mds.X[0][0][k, 0]) for k in (0, 1))
@@ -2303,6 +2485,17 @@ def main() -> int:
     rows["cross_arms"] = arms.pop("cross_arms (K = 5)")
     rows.update(arms)
 
+    # the census and ad volumes on the inputs kitti census and kitti ad
+    # give them (census's signatures once a pair, both directions), and
+    # the HWD lane's tables on kitti fast's (both storage orders)
+    seen = {}
+    for run in (lambda: stereo_predict(ccfg, None, x0, x1, D),
+                lambda: stereo_predict(acfg, None, x0, x1, D),
+                lambda: stereo_predict(cfg, tower, x0, x1, D)):
+        seen.update(capture_costs(torch, run))
+    rows.update(cost_rows(torch, seen, f"at {H}x{W}, D={D}"))
+    del seen
+
     # blur with kitti slow's own Gaussian and threshold, on the WTA map of
     # the slow head's left volume
     rows["blur (kitti slow)"] = blur_row(costs.wta(vols[-1]), scfg.blur_sigma,
@@ -2490,7 +2683,17 @@ def main() -> int:
     rows_mb.update(refine_rows(torch, capture_refine(
         torch, lambda: stereo_predict(mfcfg, mtower, m0_, m1_, dm)),
         f"at {hm}x{wm}, D={dm}"))
-    del mtower, mfeats
+    # the cost volumes and the HWD tables at the mb shape: mb census's and
+    # mb ad's volumes (-a time), mb fast's tables of both directions
+    mseen = {}
+    for run in (lambda: stereo_predict(make_config("mb", "census", a="time"),
+                                       None, m0_, m1_, dm),
+                lambda: stereo_predict(make_config("mb", "ad", a="time"),
+                                       None, m0_, m1_, dm),
+                lambda: stereo_predict(mfcfg, mtower, m0_, m1_, dm)):
+        mseen.update(capture_costs(torch, run))
+    rows_mb.update(cost_rows(torch, mseen, f"at {hm}x{wm}, D={dm}"))
+    del mtower, mfeats, mseen
     Cm = mfl.shape[-1]
     Hq, Wq, Dq = join.pad_dims(hm, wm, dm)
     nfm = (mfcfg.ws - 1) // 2
@@ -2679,9 +2882,15 @@ def main() -> int:
     counts, kcounts = _build.launches(), _build.kernel_launches()
     print(f"phase 4: launches in one stereo_predict: {counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
-    want.update(join=2, sgm_vertical=4, sgm_horizontal=4, outlier=1, blur=1,
-                **REFINE_KITTI)
+    want.update(join=2, sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
+                outlier=1, blur=1, **REFINE_KITTI)
     check(counts == want, f"launch counts {counts}, expected {want}")
+    fast_sha = same_as_plain_route(
+        torch, "kitti fast", lambda: stereo_predict(cfg, tower, x0, x1, D),
+        disp)
+    # the tables' plain build alone issues 188 launches
+    check_plain_launches(torch, "kitti fast",
+                         lambda: stereo_predict(cfg, tower, x0, x1, D), 64)
     d = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
           "disparity map not finite or misshaped")
@@ -2813,7 +3022,7 @@ def main() -> int:
         want = dict.fromkeys(_build.KERNELS, 0)
         want.update(outlier=1, blur=1, join=0 if net is None else 2,
                     **sweeps_of[form], **cbca_counts(gcfg, 2),
-                    **REFINE_KITTI)
+                    **COSTS.get(gcfg.arch, {}), **REFINE_KITTI)
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
@@ -2851,6 +3060,13 @@ def main() -> int:
         scan_counts[form] = got
         if ref is None:
             ref = (d_t, vols_f)
+            census_sha = same_as_plain_route(
+                torch, "kitti census (slab form)",
+                lambda: stereo_predict(ccfg, None, t0_, t1_, D), d_t)
+            # the plain census volumes alone issue ~8,100 launches
+            check_plain_launches(
+                torch, "kitti census (slab form)",
+                lambda: stereo_predict(ccfg, None, t0_, t1_, D), 1000)
             continue
         check(torch.equal(d_t, ref[0]), f"census map of form {form} differs "
               "from the slab form's")
@@ -2862,7 +3078,18 @@ def main() -> int:
         del d_t, vols_f
     print("  census: the three forms' maps and final volumes are equal")
     del ref
-    generic_path("ad", make_config("kitti", "ad", a="predict"), None, "stream")
+    acfg = make_config("kitti", "ad", a="predict")
+    ad_counts, d_t, _ = generic_path("ad", acfg, None, "stream")
+    ad_sha = same_as_plain_route(
+        torch, "kitti ad (stream form)",
+        lambda: stereo_predict(acfg, None, t0_, t1_, D, sgm_form="stream"),
+        d_t)
+    # the plain ad volumes alone issue ~1,800 launches
+    check_plain_launches(
+        torch, "kitti ad (stream form)",
+        lambda: stereo_predict(acfg, None, t0_, t1_, D, sgm_form="stream"),
+        1000)
+    del d_t
     fcfg = make_config("kitti", "fast", a="predict", cbca_i1=2, L1=5,
                        tau1=0.13)
     generic_path("fast with CBCA", fcfg, tower, "slab")
@@ -2915,13 +3142,18 @@ def main() -> int:
 
     mcfg_t = make_config("mb", "fast", a="time")
     mtower = towers.init_fast(mcfg_t, mcfg_t.seed).to(dev)
-    mb_path("mb fast -a time (left direction)", mcfg_t, mtower,
-            dict(join=1, sgm_vertical=2, sgm_horizontal=2, blur=1,
-                 **REFINE_MB), 10)
-    mb_path("mb fast -a predict (both directions)",
-            make_config("mb", "fast", a="predict"), mtower,
-            dict(join=2, sgm_vertical=4, sgm_horizontal=4, blur=1,
-                 **REFINE_MB), 10)
+    mb_shas = {}
+    for what, mcfg, want_mb in (
+            ("mb fast -a time (left direction)", mcfg_t,
+             dict(join=1, sgm_tables=1, sgm_vertical=2, sgm_horizontal=2,
+                  blur=1, **REFINE_MB)),
+            ("mb fast -a predict (both directions)",
+             make_config("mb", "fast", a="predict"),
+             dict(join=2, sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
+                  blur=1, **REFINE_MB))):
+        mb_path(what, mcfg, mtower, want_mb, 10)
+        run = (lambda c=mcfg: stereo_predict(c, mtower, m0_, m1_, dm))
+        mb_shas[what] = same_as_plain_route(torch, what, run, run())
     mscfg = make_config("mb", "slow", a="time")
     mhand = towers.init_slow(mscfg, mscfg.seed).to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
@@ -2974,10 +3206,14 @@ def main() -> int:
         dict(fast, slow_head=slow["slow_head"], sgm_hslab=slow["sgm_hslab"],
              sgm_scan=stream["sgm_scan"], sgm_step=grid["sgm_step"],
              cbca=slow["cbca"], cross_arms=slow["cross_arms"],
-             cbca_pack=slow["cbca_pack"])
-        for fast, slow, stream, grid in zip(
+             cbca_pack=slow["cbca_pack"],
+             census_signatures=census["census_signatures"],
+             census_volume=census["census_volume"],
+             ad_volume=ad["ad_volume"])
+        for fast, slow, stream, grid, census, ad in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
-            scan_counts["stream"], scan_counts["grid"]))
+            scan_counts["stream"], scan_counts["grid"], scan_counts["slab"],
+            ad_counts))
     sources = {"join": ("join.cu", "mccnn_tpu/ops/join_pallas.py:65"),
                "sgm_vertical": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:741"),
                "sgm_horizontal": ("sgm_sweep.cu", "mccnn_tpu/ops/sgm.py:462"),
@@ -2995,7 +3231,15 @@ def main() -> int:
                "median5": ("refine.cu", "mccnn_tpu/ops/post.py:270"),
                "cbca": ("cross.cu", "mccnn_tpu/ops/cross.py:69"),
                "cross_arms": ("cross.cu", "mccnn_tpu/ops/cross.py:20"),
-               "cbca_pack": ("cross.cu", "mccnn_tpu/ops/cross.py:69")}
+               "cbca_pack": ("cross.cu", "mccnn_tpu/ops/cross.py:69"),
+               "census_signatures": ("costs.cu", "mccnn_tpu/ops/costs.py:72"),
+               "census_volume": ("costs.cu", "mccnn_tpu/ops/costs.py:103"),
+               "ad_volume": ("costs.cu", "mccnn_tpu/ops/costs.py:49"),
+               "sgm_tables": ("sgm_tables.cu",
+                              "mccnn_tpu/ops/sgm.py:1237")}
+    print(f"map sha256: kitti fast {fast_sha}, kitti census {census_sha}, "
+          f"kitti ad {ad_sha}, "
+          + ", ".join(f"{k} {v}" for k, v in mb_shas.items()))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s, the build included")
     print(json.dumps({"kernels": [

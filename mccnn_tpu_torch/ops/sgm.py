@@ -55,6 +55,12 @@ is their blocks and ring). The scan form's ``sgm_scan`` and ``sgm_step``
 run the same kernel as those two, its D2 table streamed through the
 ring where their accumulator goes; the instances differ only in where a
 scanline reads D2.
+
+The HWD lane's D1/D2 tables of one direction's four sweeps are one
+buffer (:func:`table_layout`), written by one launch of
+``csrc/sgm_tables.cu`` (entry ``sgm_tables``) on CUDA images and by
+:func:`sgm_tables_plain` on CPU ones, the same bits; the generic lane's
+tables (:func:`horiz_plan`, :func:`vert_plan`) are plain torch.
 """
 
 from __future__ import annotations
@@ -454,23 +460,103 @@ def sweep_grid(vol_s, d1_s, d2_s, *, tau, pen, reverse=False):
     return _sweep_scan("step", vol_s, d1_s, d2_s, reverse, tau, pen)
 
 
+def table_layout(Hp: int, Wp: int, gw: int) -> tuple[int, int]:
+    """(n_d1, stride) of the HWD lane's table buffer: sweep t's (Hp, Wp)
+    D1 table at t * stride, its (Hp, gw) D2 table at t * stride + n_d1,
+    each start a multiple of 4 floats (16 bytes); the gaps hold 0."""
+    n_d1 = -(-Hp * Wp // 4) * 4
+    return n_d1, n_d1 + -(-Hp * gw // 4) * 4
+
+
+def table_views(buf: torch.Tensor, Hp: int, Wp: int, gw: int) -> list:
+    """The four sweeps' (d1, g) tables in chain order (down, up, right,
+    left) as views of the flat buffer of :func:`sgm_tables`."""
+    n_d1, stride = table_layout(Hp, Wp, gw)
+    return [(buf[t * stride:t * stride + Hp * Wp].view(Hp, Wp),
+             buf[t * stride + n_d1:t * stride + n_d1 + Hp * gw].view(Hp, gw))
+            for t in range(4)]
+
+
+def _tables_lib():
+    lib = _build.library("sgm_tables")
+    if lib.sgm_tables_launch.argtypes is None:
+        lib.sgm_tables_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        lib.sgm_tables_launch.restype = ctypes.c_int
+    return lib
+
+
+def sgm_tables(x0, x1, D, H, W, shape, *, xrev) -> torch.Tensor:
+    """All four sweeps' D1 and D2 tables of one reference direction of
+    the HWD lane, in the storage order the sweeps read (``xrev``: the
+    x-reversed left volume), as one flat float32 buffer laid out by
+    :func:`table_layout` (views: :func:`table_views`). ``shape`` is the
+    volume's (Hp, Wp, Dp); the D2 rows are gw = D + Wp + Dp wide. The
+    kernel of ``csrc/sgm_tables.cu`` on CUDA images, one launch;
+    :func:`sgm_tables_plain` on CPU ones."""
+    x0 = x0.to(torch.float32)
+    x1 = x1.to(torch.float32)
+    if not x0.is_cuda:
+        return sgm_tables_plain(x0, x1, D, H, W, shape, xrev=xrev)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    _check((("x0", x0), ("x1", x1)), "sgm_tables")
+    Hp, Wp, Dp = shape
+    if x0.shape != (H, W) or x1.shape != (H, W) or x0.device != x1.device \
+            or Hp < H or Wp < W or D < 0:
+        raise ValueError(f"sgm_tables: images {tuple(x0.shape)}, "
+                         f"{tuple(x1.shape)} do not fit H={H}, W={W}, D={D}, "
+                         f"volume {tuple(shape)}")
+    gw = D + Wp + Dp
+    n_d1, stride = table_layout(Hp, Wp, gw)
+    buf = torch.empty(4 * stride, dtype=torch.float32, device=x0.device)
+    if buf.numel():
+        rc = _tables_lib().sgm_tables_launch(
+            x0.data_ptr(), x1.data_ptr(), buf.data_ptr(), H, W, D, Hp, Wp,
+            gw, n_d1, stride, int(xrev), _build.stream(x0))
+        _build.check_launch(rc, "sgm_tables")
+        _build.count("sgm_tables")
+    return buf
+
+
+def sgm_tables_plain(x0, x1, D, H, W, shape, *, xrev) -> torch.Tensor:
+    """:func:`sgm_tables` from :func:`grad_with_sentinel`,
+    :func:`d2_columns` and :func:`_tables`, each table copied into the
+    buffer. The vertical D2 core ``|x1 - roll(x1, dy, 0)|`` wraps row 0
+    (down) or H - 1 (up) to the opposite row, with no sentinel."""
+    Hp, Wp, Dp = shape
+    gw = D + Wp + Dp
+    n_d1, stride = table_layout(Hp, Wp, gw)
+    buf = torch.zeros(4 * stride, dtype=torch.float32, device=x0.device)
+    pairs = []
+    for dy in (1, -1):  # vertical family (sgm_dir 2: down, 3: up)
+        core = torch.nn.functional.pad((x1 - torch.roll(x1, dy, 0)).abs(),
+                                       (D, D), value=10.0)
+        pairs.append((grad_with_sentinel(x0, axis=0, step=dy), core))
+    for dx in (1, -1):  # horizontal family (sgm_dir 0: right, 1: left)
+        pairs.append((grad_with_sentinel(x0, axis=1, step=dx),
+                      d2_columns(x1, dx, 0, D)))
+    for (d1, g), (v1, vg) in zip(
+            (_tables(d1, core, xrev, Hp, Wp, gw) for d1, core in pairs),
+            table_views(buf, Hp, Wp, gw)):
+        v1.copy_(d1)
+        vg.copy_(g)
+    return buf
+
+
 def sweep_plan(x0, x1, D, H, W, shape, *, xrev, pi1, pi2, tau_so, alpha1,
                q1, q2):
     """The four sweeps of one reference direction in chain order (down,
     up, right, left), each as the keyword arguments of :func:`_sweep`
     but the buffers: family, step order, real step count, D1/D2 tables
-    and penalty table. ``shape`` is the volume's (Hp, Wp, Dp)."""
+    (views of one :func:`sgm_tables` buffer) and penalty table.
+    ``shape`` is the volume's (Hp, Wp, Dp)."""
     Hp, Wp, Dp = shape
-    x0 = x0.to(torch.float32)
-    x1 = x1.to(torch.float32)
-    gw = D + Wp + Dp
+    tables = table_views(sgm_tables(x0, x1, D, H, W, shape, xrev=xrev), Hp,
+                         Wp, D + Wp + Dp)
     plan = []
     # vertical family (sgm_dir 2: down, 3: up), steps = rows
-    for sgm_dir, dy in ((2, 1), (3, -1)):
-        core = torch.nn.functional.pad((x1 - torch.roll(x1, dy, 0)).abs(),
-                                       (D, D), value=10.0)
-        d1, g = _tables(grad_with_sentinel(x0, axis=0, step=dy), core, xrev,
-                        Hp, Wp, gw)
+    for (d1, g), sgm_dir, dy in zip(tables[:2], (2, 3), (1, -1)):
         plan.append(dict(vertical=True, reverse=dy == -1, T=H, D=D,
                          tau=tau_so, d1=d1, g=g, n_rev=Wp if xrev else 0,
                          pen=pen_table(pi1, pi2, q1, q2,
@@ -479,9 +565,7 @@ def sweep_plan(x0, x1, D, H, W, shape, *, xrev, pi1, pi2, tau_so, alpha1,
     # horizontal family (sgm_dir 0: right, 1: left), steps = columns; for
     # x-reversed storage the natural right-going sweep runs the stored
     # steps in reverse
-    for dx in (1, -1):
-        d1, g = _tables(grad_with_sentinel(x0, axis=1, step=dx),
-                        d2_columns(x1, dx, 0, D), xrev, Hp, Wp, gw)
+    for (d1, g), dx in zip(tables[2:], (1, -1)):
         plan.append(dict(vertical=False, reverse=(dx == -1) != xrev, T=W,
                          D=D, tau=tau_so, d1=d1, g=g,
                          pen=pen_table(pi1, pi2, q1, q2, 1.0, 1.0)))

@@ -156,10 +156,17 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
     are a halo that the tower or the cost windows read, their features
     and costs computed and dropped."""
     own = slice(None) if rows is None else rows
-    if arch in ("ad", "census"):
-        cost = costs.ad_volume if arch == "ad" else costs.census_volume
-        vols = {-1: cost(x0, x1, disp_max, -1)[:, own].contiguous(),
-                1: cost(x1, x0, disp_max, 1)[:, own].contiguous()}
+    if arch == "census":
+        # both images' signatures once a pair, read by both volumes
+        s0, s1 = costs.census_signatures(x0, x1)
+        vols = {-1: costs.census_volume(x0, x1, disp_max, -1,
+                                        signatures=(s0, s1)),
+                1: costs.census_volume(x1, x0, disp_max, 1,
+                                       signatures=(s1, s0))}
+        vols = {k: v[:, own].contiguous() for k, v in vols.items()}
+    elif arch == "ad":
+        vols = {-1: costs.ad_volume(x0, x1, disp_max, -1)[:, own].contiguous(),
+                1: costs.ad_volume(x1, x0, disp_max, 1)[:, own].contiguous()}
     elif arch in ("fast", "slow"):
         feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)[:, :, own]
         fl = feats[0].permute(1, 2, 0)  # (H, W, C)

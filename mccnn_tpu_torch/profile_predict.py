@@ -52,7 +52,9 @@ from mccnn_tpu_torch.utils.images import standardize
 HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "blur_kernel", "head_chain_kernel", "occlusion_fill_kernel",
         "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel",
-        "cbca_kernel", "cross_arms_kernel", "cbca_pack_kernel")
+        "cbca_kernel", "cross_arms_kernel", "cbca_pack_kernel",
+        "census_sig_kernel", "census_volume_kernel", "ad_volume_kernel",
+        "sgm_tables_kernel")
 
 
 PLAIN = "plain torch operations"

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from mccnn_tpu_torch.ops import (_build, blur, cross, join, outlier, post,
-                                 sgm, slow_head)
+from mccnn_tpu_torch.ops import (_build, blur, costs, cross, join, outlier,
+                                 post, sgm, slow_head)
 
 pytestmark = pytest.mark.cuda
 
@@ -923,9 +923,9 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
     torch.cuda.synchronize()
     counts = _build.launches()
     assert counts == dict(dict.fromkeys(_build.KERNELS, 0), join=2,
-                          sgm_vertical=4, sgm_horizontal=4, outlier=1,
-                          blur=1, occlusion_fill=1, mismatch_fill=1,
-                          subpixel=1, median5=1)
+                          sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
+                          outlier=1, blur=1, occlusion_fill=1,
+                          mismatch_fill=1, subpixel=1, median5=1)
     assert torch.equal(got, want)
 
 
@@ -1008,7 +1008,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     shard and direction, the outlier and the subpixel kernel once a
     shard, the fills, the median and the blur once, CBCA once a shard,
     direction and iteration, its pack once a shard, the arms once an
-    image."""
+    image; census's signatures once a shard and its volumes once a shard
+    and direction."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.parallel import inference
@@ -1034,7 +1035,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
                   cbca=2 * n * its, cbca_pack=n if its else 0)
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
-                   "census": {}}[arch])
+                   "census": {"census_signatures": n,
+                              "census_volume": 2 * n}}[arch])
     assert _build.launches() == counts
     if arch == "census":
         assert torch.equal(got, want)
@@ -1226,3 +1228,143 @@ def test_cross_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="CUDA tensor"):
         cross._arms_launch(vol[0].cpu(), 5, 0.1)
     assert cross._lib().cbca_smem_bytes(14) == cross.cbca_smem_bytes(14)
+
+
+# --- the cost volumes and the HWD lane's SGM tables (csrc/costs.cu,
+# csrc/sgm_tables.cu): bit for bit with their plain versions -------------
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _cost_images(dev, seed, shape):
+    """Quarter-step images (census ties) on the card."""
+    rng = np.random.RandomState(seed)
+    return tuple(torch.as_tensor((np.round(rng.randn(*shape) * 4) / 4)
+                                 .astype(np.float32), device=dev)
+                 for _ in range(2))
+
+
+CENSUS_CUDA = [(9, 130, 1, 4, 70), (5, 40, 3, 2, 45), (37, 300, 1, 2, 33),
+               (3, 6, 1, 4, 4), (20, 77, 3, 7, 40), (64, 257, 1, 4, 100)]
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("H,W,C,r,D", CENSUS_CUDA)
+def test_census_kernels_are_bit_identical(dev, H, W, C, r, D, direction):
+    """The signature pass word for word and the volume pass bit for bit
+    (NaN masks included) against the plain versions on the card: gray
+    and rgb, radius 2, 4 and 7, W off a multiple of the 128-column block,
+    D above the 32-disparity chunk, a frame smaller than the window;
+    one launch a call, and two for a volume not handed its signatures."""
+    shape = (H, W) if C == 1 else (C, H, W)
+    x0, x1 = _cost_images(dev, H + W + r, shape)
+    _build.reset_launches()
+    sig = costs.census_signatures(x0, x1, r)
+    torch.cuda.synchronize()
+    assert _build.launches()["census_signatures"] == 1
+    assert torch.equal(sig, costs.census_signatures_plain(x0, x1, r))
+    a, b = (x0, x1) if direction == -1 else (x1, x0)
+    halves = (sig[0], sig[1]) if direction == -1 else (sig[1], sig[0])
+    got = costs.census_volume(a, b, D, direction, r, signatures=halves)
+    torch.cuda.synchronize()
+    assert _build.launches()["census_volume"] == 1
+    want = costs.census_volume_plain(a, b, D, direction, r)
+    assert want.isnan().any() and _same_bits(got, want)
+    again = costs.census_volume(a, b, D, direction, r)
+    torch.cuda.synchronize()
+    assert _build.launches()["census_signatures"] == 2
+    assert _build.launches()["census_volume"] == 2
+    assert _same_bits(again, want)
+
+
+AD_CUDA = [(9, 130, 4, 70), (40, 7, 4, 9), (37, 300, 2, 33), (3, 6, 4, 4),
+           (70, 257, 7, 100), (33, 64, 0, 5)]
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("H,W,r,D", AD_CUDA)
+def test_ad_kernel_is_bit_identical(dev, H, W, r, D, direction):
+    """The ad kernel against its plain version on the card, bit for bit:
+    rows past the 32-row tile, W off the 128-column tile, radius 0, 2,
+    4, 7, frames smaller than the window; one launch a call."""
+    rng = np.random.RandomState(H * W + r)
+    x0, x1 = (torch.as_tensor(rng.randn(H, W).astype(np.float32), device=dev)
+              for _ in range(2))
+    _build.reset_launches()
+    got = costs.ad_volume(x0, x1, D, direction, r)
+    torch.cuda.synchronize()
+    assert _build.launches()["ad_volume"] == 1
+    want = costs.ad_volume_plain(x0, x1, D, direction, r)
+    assert want.isnan().any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("xrev", [True, False])
+@pytest.mark.parametrize("H,W,D,shape", [
+    (45, 310, 150, join.pad_dims(45, 310, 150)),
+    (5, 9, 4, (8, 12, 4)), (1, 6, 3, (3, 7, 5)), (6, 20, 7, (8, 21, 9)),
+    (370, 1226, 228, join.pad_dims(370, 1226, 228))])
+def test_sgm_tables_kernel_is_bit_identical(dev, H, W, D, shape, xrev):
+    """The four sweeps' tables of one direction in one launch, the whole
+    buffer (alignment gaps included) bit for bit with the plain build;
+    ragged shapes, one row, the KITTI join shape."""
+    rng = np.random.RandomState(H + W + D)
+    x0, x1 = (torch.as_tensor(rng.rand(H, W).astype(np.float32), device=dev)
+              for _ in range(2))
+    _build.reset_launches()
+    got = sgm.sgm_tables(x0, x1, D, H, W, shape, xrev=xrev)
+    torch.cuda.synchronize()
+    assert _build.launches()["sgm_tables"] == 1
+    want = sgm.sgm_tables_plain(x0, x1, D, H, W, shape, xrev=xrev)
+    assert _same_bits(got, want)
+
+
+def test_row_sharded_census_volume_is_the_unsharded_slice(dev):
+    """``row_volumes`` of kitti census on row shards (the halo the
+    window reads) equals the rows of the whole pair's volumes, bit for
+    bit; signatures once a shard."""
+    from mccnn_tpu_torch import pipeline
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.parallel import inference
+
+    H, W, D = 37, 160, 24
+    x0, x1 = _cost_images(dev, 3, (H, W))
+    cfg = make_config("kitti", "census", a="predict")
+    whole = pipeline._volumes(None, x0, x1, arch="census", disp_max=D, ws=0)
+    for lo, hi in ((0, 10), (10, 19), (19, 28), (28, 37)):
+        _build.reset_launches()
+        part = inference.row_volumes(cfg, None, x0, x1, lo, hi, D, dev)
+        torch.cuda.synchronize()
+        assert _build.launches()["census_signatures"] == 1
+        for k in (-1, 1):
+            assert _same_bits(part[k], whole[k][:, lo:hi].contiguous())
+
+
+def test_cost_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """A radius past MAX_RADIUS, non-float32 images, an image on the CPU
+    beside one on the card, signatures of another dtype, shape or device
+    or not 16-byte aligned, and a
+    table image on the CPU raise ValueError; nothing falls back."""
+    x0, x1 = _cost_images(dev, 1, (9, 40))
+    for fn in (lambda *a, **k: costs.census_volume(*a, 5, -1, **k),
+               lambda *a, **k: costs.ad_volume(*a, 5, -1, **k),
+               costs.census_signatures):
+        with pytest.raises(ValueError, match="radius"):
+            fn(x0, x1, radius=costs.MAX_RADIUS + 1)
+        with pytest.raises(ValueError, match="float32"):
+            fn(x0.double(), x1.double())
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(x0, x1.cpu())
+    sig = costs.census_signatures(x0, x1)
+    # a view 8 bytes past a 16-byte boundary: the kernel reads word pairs
+    odd = torch.empty(sig[1].numel() + 1, dtype=torch.int64,
+                      device=dev)[1:].view(sig[1].shape)
+    for bad in ((sig[0].int(), sig[1]), (sig[0], sig[1][:, :5]),
+                (sig[0], sig[1].cpu()), (sig[0], odd)):
+        with pytest.raises(ValueError, match="signatures"):
+            costs.census_volume(x0, x1, 5, -1, signatures=bad)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sgm.sgm_tables(x0, x1.cpu(), 5, 9, 40, (16, 48, 8), xrev=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        sgm.sgm_tables(x0, x1, 5, 9, 40, (8, 48, 8), xrev=True)

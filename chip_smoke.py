@@ -454,15 +454,21 @@ def cost_rows(torch, seen, where) -> dict:
     """Rows for the cost and table kernels on the inputs
     ``capture_costs`` saw, each bit for bit against its plain version
     (``exact_row``): the signatures and the tables timed in a CUDA
-    graph, the volumes by events. Bounds: the signatures read both
-    images and write their 8-byte words (the census bits only), with the
-    (2r+1)^2 compares a pixel; a census volume reads both signatures and
-    writes its cells,
-    with 3 nw + 3 integer instructions a cell (and, xor-not, popcount a
-    word; the subtract, the conversion, the multiply); an ad volume reads
-    both images and writes its cells, with 20 f32 instructions a cell
-    (the term, its row sum's and its column sum's 8 adds, the division);
-    the tables read both images and write the four sweeps' buffer."""
+    graph, the volumes by events, each volume beside the card's store
+    floor for its bytes (one ``fill_`` of a (D, H, W) float32 volume, by
+    events). Bounds: the signatures read both images and write their
+    8-byte words (the census bits only), with the (2r+1)^2 compares a
+    pixel; a census volume reads both signatures and writes its cells,
+    with 3 nw + 3 integer instructions a cell (and-not-xor, popcount and
+    add a word; the subtract, the conversion, the multiply), which the
+    kernel does from a span of match signatures staged once a block of
+    a row's 256 columns x 32 disparities, two columns a thread stored as
+    8-byte pairs; an ad volume reads both images and writes its cells,
+    with 20 f32 instructions a cell (the term, its row sum's and its
+    column sum's 8 adds, the division), which the kernel does from
+    register windows over a tile of 32 rows x 128 columns x 16
+    disparities staged once, 16-byte or 8-byte stores; the tables read
+    both images and write the four sweeps' buffer."""
     from mccnn_tpu_torch.ops import costs, sgm
 
     rows = {}
@@ -495,6 +501,15 @@ def cost_rows(torch, seen, where) -> dict:
                 torch, f"{name} {where}, direction {direction:+d}",
                 lambda: getattr(costs, name)(*a, **kw),
                 lambda: plain(*a, **kw), nbytes, ops, graph=False, reps=10)
+            vol = torch.empty((d, h, w), dtype=torch.float32,
+                              device=a[0].device)
+            rows[key]["fill_ms"] = cuda_ms(
+                torch, lambda: vol.fill_(float("nan")), 10)
+            del vol
+            print(f"    the store floor: fill_ of the same volume "
+                  f"{rows[key]['fill_ms']:.4f} ms; the kernel at "
+                  f"{rows[key]['bound'][0] / rows[key]['ms']:.2f} of its "
+                  f"bound")
     for xrev in (True, False):
         if ("sgm_tables", xrev) not in seen:
             continue

@@ -1,0 +1,491 @@
+"""Time variants of the census and ad volume kernels against a build of
+their source.
+
+    python -m mccnn_tpu_torch.costs_variants [--source PATH]
+        [--variant NAME[+NAME] ...] [--case kitti mb] [--kernel census ad]
+        [--reps 10]
+
+On one CUDA card, from the repository's root (it takes its images from
+``chip_smoke.py`` there, its build from ``cbca_variants``): builds a
+``costs.cu`` (by default the shipped ``csrc/costs.cu``; ``--source``
+names another, such as an earlier commit's unpacked under ``build/``)
+and each named variant of it (text edits of that source, ``a+b`` for
+several, or ``file:PATH``, another whole source such as the parent's),
+then times the C entries ``census_volume_launch`` and
+``ad_volume_launch`` alone by CUDA events (the mean of ``--reps`` calls
+after a warm-up), in turns: source, variant, variant, source. The inputs
+are the path's own: ``chip_smoke.py``'s seeded KITTI pair (370x1226,
+D = 228, phase 3) and Middlebury pair (1000x1500, D = 200, phase 3b),
+both directions, radius 4, the census signatures from the package's
+``census_signatures``. The source's build is held bit for bit against
+the plain version, and a variant that keeps the function against the
+source's build. Beside each case: the bytes bound and the card's store
+floor, one ``fill_`` of the same (D, H, W) float32 volume. Prints each
+build's registers, stack and spills (ptxas) for both kernels.
+
+Variants (``l2-sig``, ``no-fast``, ``cx-1``, ``dch-*``, ``unroll-*``,
+``fdiv``, ``ty-*``, ``nd-*``, ``warps-*``, ``blocks-*`` and ``ax-8`` keep
+the function):
+
+- ``store-only``: no work, each cell's store alone (census: the
+  constant of a cell with no agreeing position, or NaN; ad: NaN, no
+  staging, no term): the floor of the design;
+- ``no-store``: all the work, no store (the compute's floor);
+- census ``no-fast``: no interior blocks (every cell's mask tested);
+- census ``l2-sig``: the match signatures loaded from global memory a
+  cell (the parent's reads) and no span staged;
+- census ``cx-1``: a column a thread, 4-byte stores (2 in the source);
+  ``dch-16``, ``dch-64``: disparities a block (32); ``unroll-4``,
+  ``unroll-8``: the single-channel disparity loops unrolled that far
+  (whole in the source);
+- ad ``no-div``: the product by the reciprocal alone, no correction;
+  ``fdiv``: ``__fdiv_rn`` in place of ``quotient_fast`` (the same
+  bits);
+- ad ``stage-only``: the block stages its tile and span and stops;
+- ad ``ty-16``, ``ty-64``: rows a block (32); ``nd-8``, ``nd-32``:
+  disparities a block (16); ``warps-2``, ``warps-8``: warps a block
+  (4); ``blocks-5``, ``blocks-6``: launch bounds of that many resident
+  blocks an SM (their registers capped to fit); ``ax-8``: 8 columns a
+  lane (blocks of 256 columns; 4 in the source);
+- ``parent-store-only``, ``parent-no-store``: the same two splits of
+  the first designs of both kernels (a thread a column, the census mask
+  from the shared table, ad's term tile a disparity), with ``--source``
+  naming that source (a cell's stores alone; all its work and no
+  store).
+
+``--stores`` first times kernels that only store NaN over each case's
+volume in the order of a block plan (``STORES``), in turns with one
+``fill_``: the card's store rate by plan. ``--div-check`` first holds
+the ad kernel's ``quotient`` (the source's, included whole) to
+``__fdiv_rn`` for every one of the 2^32 float bit patterns over every
+count a window of radius up to 7 can have (rows x columns, each 1 to
+15), and exits non-zero at the end on any difference.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mccnn_tpu_torch import cbca_variants
+from mccnn_tpu_torch.ops import _build, costs
+
+# name -> (H, W, D, seed, shift): chip_smoke.py's pairs
+CASES = {"kitti": (370, 1226, 228, 0, 40), "mb": (1000, 1500, 200, 3, 60)}
+RADIUS = 4
+
+_CENSUS_LOOP = "    stage(0);\n    __syncthreads();\n"
+_AD_STAGE = "  for (int i = warp; i < T::ROWS; i += AW) {\n"
+_AD_Q = "          const float q = quotient_fast(s, cnt[j], rc[j]);"
+_AD_RARE = "          rare |= centre[j] && small(s, cnt[j]);\n"
+_AD_TERM = ("          t[c] = __fmul_rn(fabsf(__fsub_rn(a[c], r1[slot[c]])), "
+            "ok[c]);")
+_CENSUS_STORE = "    // 8-byte pairs: x0 is even"
+_FAST = "    if (b0 >= R && b0 + CW - 1 <= W - 1 - R && xs >= R &&"
+_J_LOOP = ("#pragma unroll\n      for (int j = 0; j < DCH; ++j) {\n"
+           "        if (d0 + j >= D) break;\n")
+_AD_STORE = "        float* const orow = out + off;\n"
+# no store survives it (no cell holds this NaN payload)
+_NO_STORE = "if (__float_as_uint(v[0]) != 0x7fbfffffu) "
+
+# name -> [(old, new, occurrences)] text edits of a costs.cu
+VARIANTS = {
+    "store-only": [
+        (_CENSUS_LOOP, "    if (W > 0) {\n      const int none[CX] = {};\n"
+         "      if (!xin[0]) return;\n"
+         "      for (int j = 0; j < DCH && d0 + j < D; ++j) put(j, none);\n"
+         "      return;\n    }\n" + _CENSUS_LOOP, 1),
+        (_AD_STAGE, "  for (int i = warp; i < 0; i += AW) {\n", 1),
+        (_AD_Q, "          const float q = __uint_as_float(NAN_BITS);", 1),
+        (_AD_RARE, "", 1), (_AD_TERM, "          t[c] = 0.f;", 1)],
+    "no-store": [(_CENSUS_STORE, "    " + _NO_STORE + "return;\n"
+                  + _CENSUS_STORE, 1),
+                 (_AD_STORE,
+                  _AD_STORE + "        " + _NO_STORE + "continue;\n", 1)],
+    "no-fast": [(_FAST, "    if (false &&", 1)],
+    "l2-sig": [
+        ("span_words<NW>(sp, e0 + k + j * dir, s1);",
+         "load_words<NW>(sig1 + ((int64_t)y * W + min(max(\n"
+         "              x0 + k + (d0 + j) * dir, 0), W - 1)) * NW, s1);", 2),
+        ("    for (int e = threadIdx.x; e < SPAN; e += CT) {",
+         "    for (int e = threadIdx.x; e < 0; e += CT) {", 1)],
+    **{f"dch-{n}": [("constexpr int DCH = 32;", f"constexpr int DCH = {n};",
+                     1)] for n in (16, 64)},
+    "cx-1": [("constexpr int CX = 2;", "constexpr int CX = 1;", 1)],
+    **{f"unroll-{n}": [(_J_LOOP, _J_LOOP.replace("unroll", f"unroll {n}"), 2)]
+       for n in (4, 8)},
+    "no-div": [(_AD_Q, "          const float q = __fmul_rn(s, rc[j]);", 1)],
+    "fdiv": [(_AD_Q, "          const float q = __fdiv_rn(s, cnt[j]);", 1)],
+    "stage-only": [(
+        "  __syncthreads();\n  const int xc = xt + lane * AX;",
+        "  __syncthreads();\n  if (t0[threadIdx.x] == 12345.f) out[0] = 1.f;\n"
+        "  return;\n  const int xc = xt + lane * AX;", 1)],
+    **{f"ty-{n}": [("constexpr int ATY = 32;", f"constexpr int ATY = {n};", 1)]
+       for n in (16, 64)},
+    **{f"nd-{n}": [("constexpr int AND = 16;", f"constexpr int AND = {n};", 1)]
+       for n in (8, 32)},
+    **{f"warps-{n}": [("constexpr int AW = 4;", f"constexpr int AW = {n};", 1)]
+       for n in (2, 8)},
+    "ax-8": [("constexpr int AX = 4;", "constexpr int AX = 8;", 1)],
+    **{f"blocks-{n}": [("__launch_bounds__(32 * AW)\nad_volume_kernel(",
+                        f"__launch_bounds__(32 * AW, {n})\nad_volume_kernel(",
+                        1)] for n in (5, 6)},
+    # the first designs (their source given as --source): stores alone,
+    # work alone
+    "parent-store-only": [
+        ("    if (xm >= 0 && xm < W) {\n      const int xlo",
+         "    if (false) {\n      const int xlo", 1),
+        ("  for (int i = threadIdx.x; i < TR * TC; i += TX) {",
+         "  for (int i = threadIdx.x; i < 0; i += TX) {", 1),
+        ("    if (centre) {", "    if (false) {", 1)],
+    "parent-no-store": [(
+        "    out[((int64_t)d * H + y) * W + x] = cost;",
+        "    if (__float_as_uint(cost) == 0x7fbfffffu)\n"
+        "      out[((int64_t)d * H + y) * W + x] = cost;", 2)],
+}
+
+# the variants that change what a kernel computes
+NOT_SAME = ("store-only", "no-store", "no-div", "stage-only",
+            "parent-store-only", "parent-no-store")
+
+# ``--stores``: kernels that only store NaN over a (D, H, W) float32
+# volume, each in the order of one block plan, for the card's store rate
+# by plan (beside one ``fill_``)
+STORES = {
+    # a block a row of 128 columns x 32 disparities, a thread a column
+    # (the census plan), 4-byte stores; with 2 columns a thread and
+    # 8-byte stores; with the disparity chunks first in the grid
+    "row-32": 0, "row-32-pairs": 1, "row-32-chunks-first": 2,
+    # a block 32 rows x 128 columns x 16 disparities, 4 warps, a warp a
+    # disparity at a time, a lane 4 columns of each row (the ad plan):
+    # 8-byte pairs, 4-byte stores
+    "tile-16": 3, "tile-16-scalar": 4,
+    # a block a row of one plane (128 columns), a thread a column: the
+    # volume in its memory order; with 2 columns a thread
+    "plane": 5, "plane-pairs": 6,
+    # a block a row of 128 columns x all D disparities
+    "row-all": 7,
+}
+STORES_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void store_kernel(float* __restrict__ out, int H, int W, int D,
+                             int p) {
+  const float v = __uint_as_float(0x7fc00000u);
+  const int64_t plane = (int64_t)H * W;
+  if (p <= 2 || p == 7) {
+    const int cx = p == 1 ? 2 : 1;
+    const int bx = p == 2 ? blockIdx.y : blockIdx.x;
+    const int y = p == 2 ? blockIdx.z : blockIdx.y;
+    const int z = p == 2 ? blockIdx.x : blockIdx.z;
+    const int n = p == 7 ? D : 32;
+    const int x = (bx * 128 + threadIdx.x) * cx;
+    if (x >= W) return;
+    for (int j = 0; j < n; ++j) {
+      const int d = z * n + j;
+      if (d >= D) break;
+      float* o = out + d * plane + (int64_t)y * W + x;
+      if (cx == 2 && x + 1 < W)
+        *reinterpret_cast<float2*>(o) = make_float2(v, v);
+      else
+        *o = v;
+    }
+  } else if (p <= 4) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int xc = blockIdx.x * 128 + lane * 4;
+    for (int k = warp; k < 16; k += 4) {
+      const int d = blockIdx.z * 16 + k;
+      if (d >= D) break;
+      for (int i = 0; i < 32; ++i) {
+        const int y = blockIdx.y * 32 + i;
+        if (y >= H) break;
+        float* o = out + ((int64_t)d * H + y) * W + xc;
+        if (p == 3 && W % 2 == 0 && xc + 4 <= W) {
+          reinterpret_cast<float2*>(o)[0] = make_float2(v, v);
+          reinterpret_cast<float2*>(o)[1] = make_float2(v, v);
+        } else {
+          for (int j = 0; j < 4; ++j)
+            if (xc + j < W) o[j] = v;
+        }
+      }
+    }
+  } else {
+    const int cx = p == 6 ? 2 : 1;
+    const int x = (blockIdx.x * 128 + threadIdx.x) * cx;
+    if (x >= W) return;
+    float* o = out + blockIdx.z * plane + (int64_t)blockIdx.y * W + x;
+    if (cx == 2 && x + 1 < W)
+      *reinterpret_cast<float2*>(o) = make_float2(v, v);
+    else
+      *o = v;
+  }
+}
+
+extern "C" int store_launch(float* out, int H, int W, int D, int p,
+                            cudaStream_t stream) {
+  const int cx = p == 1 || p == 6 ? 2 : 1;
+  const int tiles = (W + 128 * cx - 1) / (128 * cx);
+  dim3 grid;
+  if (p == 0 || p == 1) grid = dim3(tiles, H, (D + 31) / 32);
+  else if (p == 2) grid = dim3((D + 31) / 32, tiles, H);
+  else if (p <= 4) grid = dim3((W + 127) / 128, (H + 31) / 32, (D + 15) / 16);
+  else if (p == 7) grid = dim3(tiles, H, 1);
+  else grid = dim3(tiles, H, D);
+  store_kernel<<<grid, 128, 0, stream>>>(out, H, W, D, p);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def variant_source(src: str, names: str) -> str:
+    if names.startswith("file:"):
+        return cbca_variants.variant_source(src, names)
+    for name in names.split("+"):
+        src = cbca_variants.apply_edits(src, name, VARIANTS[name])
+    return src
+
+
+def census_launcher(lib: ctypes.CDLL, s0, s1, D: int, direction: int):
+    """A call of the build's census_volume_launch on these signatures."""
+    lib.census_volume_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_void_p])
+    lib.census_volume_launch.restype = ctypes.c_int
+    C, H, W, _ = s0.shape
+    out = torch.empty((D, H, W), dtype=torch.float32, device=s0.device)
+
+    def run():
+        rc = lib.census_volume_launch(s0.data_ptr(), s1.data_ptr(),
+                                      out.data_ptr(), C, H, W, D, direction,
+                                      RADIUS, costs._recip(C),
+                                      _build.stream(s0))
+        _build.check_launch(rc, "census_volume variant")
+        return out
+    return run
+
+
+def ad_launcher(lib: ctypes.CDLL, x0, x1, D: int, direction: int):
+    """A call of the build's ad_volume_launch on these images."""
+    lib.ad_volume_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.ad_volume_launch.restype = ctypes.c_int
+    H, W = x0.shape
+    out = torch.empty((D, H, W), dtype=torch.float32, device=x0.device)
+
+    def run():
+        rc = lib.ad_volume_launch(x0.data_ptr(), x1.data_ptr(),
+                                  out.data_ptr(), H, W, D, direction, RADIUS,
+                                  _build.stream(x0))
+        _build.check_launch(rc, "ad_volume variant")
+        return out
+    return run
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
+              dev) -> None:
+    """Both directions of ``kernel`` on ``case``'s pair: the source's
+    build against the plain version, each variant that keeps the function
+    against the source's build, the times in turns beside the bound and
+    the ``fill_`` floor."""
+    H, W, D, seed, shift = CASES[case]
+    x0, x1 = (torch.as_tensor(v, device=dev)
+              for v in cs.kitti_pair(np.random.RandomState(seed), H, W,
+                                     shift))
+    sig = costs.census_signatures(x0, x1, RADIUS) if kernel == "census" \
+        else None
+    vol = torch.empty((D, H, W), dtype=torch.float32, device=dev)
+    floor = cbca_variants.ms(lambda: vol.fill_(float("nan")), reps)
+    for direction in (-1, 1):
+        a, b = (x0, x1) if direction == -1 else (x1, x0)
+        if kernel == "census":
+            halves = (sig[0], sig[1]) if direction == -1 else (sig[1], sig[0])
+            runs = {tag: census_launcher(lib, *halves, D, direction)
+                    for tag, lib in libs.items()}
+            plain = costs.census_volume_plain(a, b, D, direction, RADIUS,
+                                              signatures=halves)
+            nbytes = 4 * D * H * W + 2 * halves[0].numel() * 8
+        else:
+            runs = {tag: ad_launcher(lib, a, b, D, direction)
+                    for tag, lib in libs.items()}
+            plain = costs.ad_volume_plain(a, b, D, direction, RADIUS)
+            nbytes = 4 * D * H * W + 8 * H * W
+        want = runs["source"]().clone()
+        torch.cuda.synchronize()
+        if not same_bits(want, plain):
+            raise SystemExit(f"{kernel} {case} {direction:+d}: the source's "
+                             "build differs from the plain version")
+        del plain
+        first = cbca_variants.ms(runs["source"], reps)
+        print(f"  {kernel} {case} ({H}x{W}, D = {D}), direction "
+              f"{direction:+d}: source {first:.4f}, bit-identical to the "
+              f"plain version; bound "
+              f"{cs.bound_ms(nbytes, 0)[0]:.4f} (bytes), fill_ of the "
+              f"volume {floor:.4f}")
+        for v in variants:
+            same = ""
+            if v.startswith("file:") or not any(n in v.split("+")
+                                                for n in NOT_SAME):
+                got = runs[v]()
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    raise SystemExit(f"variant {v} differs from the source's "
+                                     f"build: {kernel} {case} {direction:+d}")
+                same = ", bit-identical"
+            times = [cbca_variants.ms(runs[n], reps)
+                     for n in ("source", v, v, "source")]
+            print(f"    source / {v} / {v} / source: "
+                  f"{' / '.join(f'{t:.4f}' for t in times)}{same}")
+        del runs, want
+        torch.cuda.empty_cache()
+
+
+def time_stores(cs, reps: int, dev) -> None:
+    """Each ``STORES`` plan's NaN stores over the KITTI and Middlebury
+    volumes, by events, in turns with one ``fill_``."""
+    lib, _ = cbca_variants.build("stores", STORES_SRC, prefix="costs_v",
+                                 kernels=("store_kernel",))
+    lib.store_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p])
+    lib.store_launch.restype = ctypes.c_int
+    for case, (H, W, D, _, _) in CASES.items():
+        vol = torch.empty((D, H, W), dtype=torch.float32, device=dev)
+
+        def fill():
+            vol.fill_(float("nan"))
+
+        want = torch.full_like(vol, float("nan"))
+        for name, p in STORES.items():
+            def run(p=p):
+                _build.check_launch(
+                    lib.store_launch(vol.data_ptr(), H, W, D, p,
+                                     _build.stream(vol)), "store plan")
+            vol.zero_()
+            run()
+            torch.cuda.synchronize()
+            if not same_bits(vol, want):
+                raise SystemExit(f"store plan {name} left cells unwritten")
+            times = [cbca_variants.ms(f, reps) for f in (fill, run, run, fill)]
+            print(f"  stores {case} ({D}x{H}x{W} float32, bound "
+                  f"{cs.bound_ms(4 * D * H * W, 0)[0]:.4f}): fill_ / {name} / "
+                  f"{name} / fill_: {' / '.join(f'{t:.4f}' for t in times)}")
+        del vol, want
+        torch.cuda.empty_cache()
+
+
+# every count of a window up to radius 7: in-frame rows x ok columns
+COUNTS = sorted({r * c for r in range(1, 16) for c in range(1, 16)})
+DIV_CHECK = r"""
+#include "%s"
+
+__global__ void div_check(const int* counts, int n,
+                          unsigned long long* bad, unsigned* first) {
+  __shared__ float y[256];
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    y[k] = __frcp_rn((float)counts[k]);
+  __syncthreads();
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x
+                              + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float a = __uint_as_float((unsigned)i);
+    for (int k = 0; k < n; ++k) {
+      const float b = (float)counts[k];
+      if (__float_as_uint(quotient(a, b, y[k])) !=
+          __float_as_uint(__fdiv_rn(a, b))) {
+        atomicAdd(bad + k, 1ull);
+        atomicMin(first + k, (unsigned)i);
+      }
+    }
+  }
+}
+
+extern "C" int div_check_launch(const int* counts, int n,
+                                unsigned long long* bad, unsigned* first) {
+  div_check<<<132 * 8, 256>>>(counts, n, bad, first);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def div_check(source: Path, dev) -> bool:
+    """``quotient`` of ``source`` against ``__fdiv_rn`` over every float
+    bit pattern and every count of ``COUNTS``: whether all agree."""
+    lib, _ = cbca_variants.build(
+        "div_check", DIV_CHECK % source.resolve(), prefix="costs_v",
+        kernels=("div_check",))
+    lib.div_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    lib.div_check_launch.restype = ctypes.c_int
+    counts = torch.tensor(COUNTS, dtype=torch.int32, device=dev)
+    bad = torch.zeros(len(COUNTS), dtype=torch.int64, device=dev)
+    first = torch.full((len(COUNTS),), -1, dtype=torch.int32, device=dev)
+    start = time.perf_counter()
+    _build.check_launch(lib.div_check_launch(counts.data_ptr(), len(COUNTS),
+                                             bad.data_ptr(), first.data_ptr()),
+                        "div_check")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    wrong = {c: (int(b), f"0x{int(f) & 0xffffffff:08x}")
+             for c, b, f in zip(COUNTS, bad.tolist(), first.tolist()) if b}
+    print(f"  div-check: quotient against __fdiv_rn, {2 ** 32} floats x "
+          f"{len(COUNTS)} counts ({COUNTS[0]}-{COUNTS[-1]}) in {secs:.1f} s: "
+          + (f"differs {wrong}" if wrong else "the same bits for every one"))
+    return not wrong
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", type=Path, default=_build.CSRC / "costs.cu")
+    ap.add_argument("--variant", nargs="*", default=[])
+    ap.add_argument("--case", nargs="+", choices=sorted(CASES),
+                    default=["kitti", "mb"])
+    ap.add_argument("--kernel", nargs="+", choices=("census", "ad"),
+                    default=["census", "ad"])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--stores", action="store_true",
+                    help="time the store plans (STORES) first")
+    ap.add_argument("--div-check", action="store_true",
+                    help="hold quotient to __fdiv_rn for every float first")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("costs_variants: no CUDA device")
+    dev = torch.device("cuda")
+    base = args.source.read_text()
+    sources = [("source", base)] + [(v, variant_source(base, v))
+                                    for v in args.variant]
+    # one nvcc a build, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(lambda ts: cbca_variants.build(
+            ts[0], ts[1], prefix="costs_v",
+            kernels=("census_volume_kernel", "ad_volume_kernel")), sources))
+    libs = {}
+    for (tag, _), (lib, used) in zip(sources, built):
+        libs[tag] = lib
+        print(f"{tag}:\n  {used}")
+    cs = cbca_variants.chip_smoke()
+    print(f"{torch.cuda.get_device_name(0)}, {cs.card_line()}; "
+          f"{args.source}; ms a call by CUDA events (mean of {args.reps} "
+          "after a warm-up)")
+    same = div_check(args.source, dev) if args.div_check else True
+    if args.stores:
+        time_stores(cs, args.reps, dev)
+    for case in args.case:
+        for kernel in args.kernel:
+            time_case(cs, case, kernel, libs, args.variant, args.reps, dev)
+    if not same:
+        raise SystemExit("div-check: quotient is not __fdiv_rn")
+
+
+if __name__ == "__main__":
+    main()

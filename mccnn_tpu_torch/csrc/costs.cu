@@ -16,45 +16,87 @@
 // ceil(n / 64) words, 8 bytes each; no in-frame words: which positions
 // lie in the frame follows from (y, x) and the frame.
 //
-// census_volume_kernel<NW, ONE>: cost[d, y, x] = sum over channels of
-// n - popc(m & ~(b0 ^ b1)) (the hamming distance plus one for each
+// census_volume_kernel<R, ONE, DIR>: cost[d, y, x] = sum over channels
+// of n - popc(m & ~(b0 ^ b1)) (the hamming distance plus one for each
 // window position out of frame on either side), signature 0 at (y, x),
 // signature 1 at (y, x + d * dir), m the window positions in frame for
 // both centres: the rows dy in frame at y, the columns dx in frame at x
-// and at x + d * dir, a rectangle of the window (one of the (r + 1)^2
-// column ranges of the block's row, a table in shared memory). The
-// channels' distances are small integers, so their float32 sum in any
-// order is exact and equals the integer sum converted; the mean
-// multiplies by the float32 reciprocal of C (__fmul_rn), as the plain
-// version does. A thread a column, a block 128 columns of one row and DCH
-// disparities; ONE (C = 1) keeps the reference signature in registers.
+// and at x + d * dir. The channels' distances are small integers, so
+// their float32 sum in any order is exact and equals the integer sum
+// converted; the mean multiplies by the float32 reciprocal of C
+// (__fmul_rn), as the plain version does. A block takes one row, CW =
+// 256 columns (a thread CX = 2 adjacent ones) and DCH = 32 disparities.
+// It stages once, in shared memory, the span of match signatures its
+// cells read (CW + DCH - 1 columns, zeros off the frame: no finite cell
+// reads them) in two planes by the entry's parity, so that a warp's reads
+// of one column and disparity are 32 consecutive 16-byte word pairs; the
+// reference signatures stay in registers. A cell whose x and x + d * dir
+// both lie in [R, W - 1 - R] takes the row's rows-only mask, built once a
+// block in registers, and a block whose cells all do takes it without a
+// test; only cells within R of an edge read the (R + 1)^2 column-range
+// table of the block's row in shared memory. The two columns' costs of a
+// disparity go out as one 8-byte pair where W is even: 4-byte stores
+// (a warp's 128 bytes a store) ran the volume's writes at half the rate of
+// 8-byte pairs (costs_variants --stores). R (0-7: the words, the masks'
+// constants, which popcounts a word needs) and, for one channel, the
+// direction (each cell's span slot a constant offset) are template
+// arguments; several channels add their distances in registers first.
 //
-// ad_volume_kernel<R>: cost[d, y, x] = num / cnt (__fdiv_rn), num the
-// (2R + 1)^2 box sum of t[y', x'] = |x0[y', x'] - x1s[y', x']| * ok(x')
-// (x1s = x1 shifted by d * dir, 0 out of frame; ok whether x' + d * dir
-// lies in frame) with zeros outside the frame, in the plain version's
-// order: each row's horizontal sum from the leftmost tap to the
-// rightmost, then the row sums from the top row to the bottom one, each
-// add rounded (__fadd_rn). cnt, the box sum of ok, is a sum of 0/1
-// values and so the exact product of the in-frame rows and the in-frame,
-// ok columns of the window. A block is one disparity and a tile of TY
-// rows x TX columns: the terms of its rows and columns and a halo of R
-// in shared memory (computed once each), each thread the row sums of its
-// column in registers, reused by the TY outputs of the column.
+// ad_volume_kernel<R>: cost[d, y, x] = num / cnt, num the (2R + 1)^2 box
+// sum of t[y', x'] = |x0[y', x'] - x1s[y', x']| * ok(x') (x1s = x1
+// shifted by d * dir, 0 out of frame; ok whether x' + d * dir lies in
+// frame) with zeros outside the frame, in the plain version's order: each
+// row's horizontal sum from the leftmost tap to the rightmost, then the
+// row sums from the top row to the bottom one, each add rounded
+// (__fadd_rn). cnt, the box sum of ok, is a sum of 0/1 values and so the
+// exact product of the in-frame rows and the in-frame, ok columns of the
+// window. A block takes ATY = 32 rows x ATX = 128 columns and AND = 16
+// disparities and stages, once, x0's tile with its halo of R (16-byte
+// aligned rows) and x1's span (the tile's columns, the halo and AND - 1
+// more; a column m at m + m / 32, so that the lanes' loads four columns
+// apart hit distinct banks, and one zero slot). A warp (AW = 4 a block)
+// takes a disparity at a time, a lane AX = 4 adjacent columns: for each
+// of the ATY + 2R staged rows it loads its window of AX + 2R values of x0
+// (16-byte loads) and of x1, forms the terms (a column off the frame
+// reads x0's staged 0 and the zero slot, so its term is +0 whatever x1
+// holds) and sums each column's row from registers; a ring of the last
+// 2R + 1 row sums a column, in registers, gives each output row its
+// column sum from the top. The rows run in groups of 2R + 1, each group
+// unrolled (a ring slot is a constant): the 40-row unroll ran past the
+// instruction cache at 15,040 instructions. The division is quotient():
+// the product by the count's reciprocal and one FMA correction, equal to
+// __fdiv_rn for every float (costs_variants --div-check), __fdiv_rn itself
+// on a warp's rare branch. A row that starts on 16 bytes goes out as a
+// 16-byte store a lane; otherwise (W even) through shared memory as two
+// contiguous 256-byte stores of 8-byte pairs. The term stays a product by
+// ok (NaN * 0 is NaN in the plain version); no running or prefix sum (it
+// rounds otherwise).
 //
 // Bounds on the H100 at KITTI size (370 x 1226, D = 228): a volume is
-// 413.7 MB written, 0.124 ms at 3.35 TB/s; the signatures of a pair at
-// radius 4 are 14.5 MB (two 8-byte words a pixel).
+// 413.7 MB written, 0.124 ms at 3.35 TB/s (one fill_ of it takes about
+// 0.13 ms); the signatures of a pair at radius 4 are 14.5 MB (two 8-byte
+// words a pixel). A census cell costs 3 NW + 3 integer instructions
+// (and-not-xor, popcount and add a word; the subtract, the conversion,
+// the multiply); an ad cell 20 f32 instructions (the term, its row sum's
+// and its column sum's 8 adds at R = 4, the division): both under the
+// bytes at the instruction rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int CT = 128;   // census volume: threads (columns) a block
+constexpr int CT = 128;   // census volume: threads a block
+constexpr int CX = 2;     // census volume: adjacent columns a thread
+constexpr int CW = CT * CX;  // census volume: columns a block
 constexpr int DCH = 32;   // census volume: disparities a block
-constexpr int TX = 128;   // ad: columns (threads) a block
-constexpr int TY = 32;    // ad: rows a block
+constexpr int SPAN = CW + DCH - 1;  // census volume: match columns a block
+constexpr int HALF = (SPAN + 1) / 2;  // census volume: entries a parity
+constexpr int AX = 4;         // ad: adjacent columns a lane
+constexpr int ATX = 32 * AX;  // ad: columns a block (a warp's width)
+constexpr int ATY = 32;       // ad: rows a block
+constexpr int AND = 16;       // ad: disparities a block
+constexpr int AW = 4;         // ad: warps a block (disparity d0 + k to k % AW)
 constexpr int ST = 256;   // signature pass: threads a block
 constexpr int MAX_R = 7;  // the largest radius (four signature words)
 constexpr unsigned NAN_BITS = 0x7fc00000u;
@@ -93,8 +135,26 @@ census_sig_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
   }
 }
 
-// NW words of a signature, 16-byte loads where NW is even (the wrapper
-// refuses signatures that are not 16-byte aligned then)
+// The census window of radius R: N positions in NW 64-bit words; LAST_HI
+// whether the last word's high half holds positions.
+template <int R>
+struct Win {
+  static constexpr int WD = 2 * R + 1, N = WD * WD, NW = (N + 63) / 64;
+  static constexpr bool LAST_HI = N - 64 * (NW - 1) > 32;
+};
+
+// word j of the positions of window row dy, all 2R + 1 columns
+template <int R>
+__device__ __forceinline__ unsigned long long row_word(int dy, int j) {
+  constexpr int WD = 2 * R + 1;
+  const unsigned long long run = (1ull << WD) - 1;
+  const int sh = (dy + R) * WD - 64 * j;
+  return sh >= 0 && sh < 64 ? run << sh
+         : sh < 0 && sh > -64 ? run >> -sh : 0ull;
+}
+
+// NW words of a signature in global memory, 16-byte loads where NW is
+// even (the wrapper refuses signatures that are not 16-byte aligned then)
 template <int NW>
 __device__ __forceinline__ void load_words(const unsigned long long* p,
                                            unsigned long long (&v)[NW]) {
@@ -111,143 +171,492 @@ __device__ __forceinline__ void load_words(const unsigned long long* p,
   }
 }
 
+// Entry e of the staged span, at (e & 1) * HALF + e / 2 of each plane:
+// NW / 2 planes of word pairs (NW even) or NW planes of words. A warp's
+// reads of one column k and disparity, entries 2 lane + k + const, all
+// of one parity, are 32 consecutive slots.
+__device__ __forceinline__ int span_slot(int e) {
+  return (e & 1) * HALF + (e >> 1);
+}
+
+template <int NW>
+__device__ __forceinline__ void span_words(const unsigned long long* sp,
+                                           int e,
+                                           unsigned long long (&v)[NW]) {
+  const int i = span_slot(e);
+  if (NW % 2 == 0) {
+#pragma unroll
+    for (int w = 0; w < NW; w += 2) {
+      const ulonglong2 t =
+          reinterpret_cast<const ulonglong2*>(sp)[(w / 2) * 2 * HALF + i];
+      v[w] = t.x;
+      v[w + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) v[w] = sp[w * 2 * HALF + i];
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void span_put(unsigned long long* sp, int e,
+                                         const unsigned long long (&v)[NW]) {
+  const int i = span_slot(e);
+  if (NW % 2 == 0) {
+#pragma unroll
+    for (int w = 0; w < NW; w += 2)
+      reinterpret_cast<ulonglong2*>(sp)[(w / 2) * 2 * HALF + i] =
+          make_ulonglong2(v[w], v[w + 1]);
+  } else {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sp[w * 2 * HALF + i] = v[w];
+  }
+}
+
+// the window positions that agree: popc(m & ~(s0 ^ s1)) over the words
+// (one 32-bit count for a last word whose high half holds no position)
+template <int R>
+__device__ __forceinline__ int agreeing(
+    const unsigned long long (&m)[Win<R>::NW],
+    const unsigned long long (&s0)[Win<R>::NW],
+    const unsigned long long (&s1)[Win<R>::NW]) {
+  constexpr int NW = Win<R>::NW;
+  int a = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const unsigned long long v = m[k] & ~(s0[k] ^ s1[k]);
+    a += (k < NW - 1 || Win<R>::LAST_HI) ? __popcll(v) : __popc((unsigned)v);
+  }
+  return a;
+}
+
 // sig0, sig1: (C, H, W, NW) words of the reference image and of the
 // image the match is taken in. win[(a, b)]: the block's row's window
-// positions (dy, dx) with y + dy in frame and dx in [a - r, b], for a, b
-// in [0, r], built once a block in shared memory; a cell reads the entry
-// of its column range [max(-r, -x, -xm), min(r, W - 1 - x, W - 1 - xm)].
-template <int NW, bool ONE>
+// positions (dy, dx) with y + dy in frame and dx in [a - R, b], for a, b
+// in [0, R], built once a block in shared memory; an edge cell reads the
+// entry of its column range [max(-R, -x, -xm), min(R, W - 1 - x,
+// W - 1 - xm)], an interior cell the rows-only mask rowm (the entry
+// (0, R)). ONE (C = 1): the span staged once, each cell stored as soon
+// as it is counted, and a block whose columns and match columns are all
+// interior takes every cell's mask from rowm without a test; the
+// direction is the template's DIR, so each cell's span slot is a
+// constant offset. Otherwise (DIR 0, the direction dir_in) the
+// distances of a thread's cells add up over the channels in registers,
+// then the stores.
+template <int R, bool ONE, int DIR>
 __global__ void __launch_bounds__(CT)
 census_volume_kernel(const unsigned long long* __restrict__ sig0,
                      const unsigned long long* __restrict__ sig1,
                      float* __restrict__ out, int C, int H, int W, int D,
-                     int dir, int r, float recip) {
-  constexpr int NR = MAX_R + 1;
-  __shared__ unsigned long long win[NR * NR][NW];
+                     int dir_in, float recip) {
+  const int dir = DIR ? DIR : dir_in;
+  using V = Win<R>;
+  constexpr int NW = V::NW;
+  __shared__ unsigned long long win[(R + 1) * (R + 1)][NW];
+  __shared__ __align__(16) unsigned long long sp[NW * 2 * HALF];
   const int y = blockIdx.y;
-  const int w = 2 * r + 1, n = w * w;
-  const int ylo = max(-r, -y), yhi = min(r, H - 1 - y);
-  for (int i = threadIdx.x; i < (r + 1) * (r + 1) * NW; i += CT) {
+  const int ylo = max(-R, -y), yhi = min(R, H - 1 - y);
+  for (int i = threadIdx.x; i < (R + 1) * (R + 1) * NW; i += CT) {
     const int e = i / NW, j = i - e * NW;
-    const int a = e / (r + 1) - r, b = e - (e / (r + 1)) * (r + 1);
+    const int a = e / (R + 1) - R, b = e - (e / (R + 1)) * (R + 1);
     // a row's run of dx in [a, b], shifted to each row's first position
-    const unsigned long long run = ((1ull << (b - a + 1)) - 1) << (a + r);
+    const unsigned long long run = ((1ull << (b - a + 1)) - 1) << (a + R);
     unsigned long long m = 0;
     for (int dy = ylo; dy <= yhi; ++dy) {
-      const int sh = (dy + r) * w - 64 * j;
+      const int sh = (dy + R) * V::WD - 64 * j;
       if (sh >= 0 && sh < 64) m |= run << sh;
       else if (sh < 0 && sh > -64) m |= run >> -sh;
     }
     win[e][j] = m;
   }
-  __syncthreads();
-  const int x = blockIdx.x * CT + threadIdx.x;
-  if (x >= W) return;
-  const int64_t plane = (int64_t)H * W;
-  const int64_t pix = (int64_t)y * W + x;
-  const int xlo0 = max(-r, -x), xhi0 = min(r, W - 1 - x);
-  unsigned long long s0[NW], s1[NW];
-  if (ONE) load_words<NW>(sig0 + pix * NW, s0);
-  const int d_end = min(D, (int)(blockIdx.z + 1) * DCH);
-  for (int d = blockIdx.z * DCH; d < d_end; ++d) {
-    const int xm = x + d * dir;
-    float cost = __uint_as_float(NAN_BITS);
-    if (xm >= 0 && xm < W) {
-      const int xlo = max(xlo0, -xm), xhi = min(xhi0, W - 1 - xm);
-      const unsigned long long* m = win[(xlo + r) * (r + 1) + xhi];
-      int dist = 0;
-      const int64_t q = (int64_t)y * W + xm;
-      for (int c = 0; c < C; ++c) {
-        if (!ONE) load_words<NW>(sig0 + (c * plane + pix) * NW, s0);
-        load_words<NW>(sig1 + (c * plane + q) * NW, s1);
-        int agree = 0;
+  unsigned long long rowm[NW];
 #pragma unroll
-        for (int k = 0; k < NW; ++k)
-          agree += __popcll(m[k] & ~(s0[k] ^ s1[k]));
-        dist += n - agree;
-      }
-      cost = __fmul_rn((float)dist, recip);
+  for (int j = 0; j < NW; ++j) rowm[j] = 0;
+#pragma unroll
+  for (int dy = -R; dy <= R; ++dy)
+    if (dy >= ylo && dy <= yhi) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) rowm[j] |= row_word<R>(dy, j);
     }
-    out[((int64_t)d * H + y) * W + x] = cost;
+  const int x0 = blockIdx.x * CW + threadIdx.x * CX;  // the first column
+  const int d0 = blockIdx.z * DCH;
+  // the span's first column: the block's least match column
+  const int xs = blockIdx.x * CW + (dir > 0 ? d0 : -(d0 + DCH - 1));
+  // the span entry of column x0 + k at disparity d0 (+ j * dir at d0 + j)
+  const int e0 = threadIdx.x * CX + (dir > 0 ? 0 : DCH - 1);
+  const int64_t plane = (int64_t)H * W;
+  bool xin[CX], xint[CX];
+  int xlo0[CX], xhi0[CX];
+#pragma unroll
+  for (int k = 0; k < CX; ++k) {
+    const int x = x0 + k;
+    xin[k] = x < W;
+    xint[k] = x >= R && x <= W - 1 - R;
+    xlo0[k] = max(-R, -x);
+    xhi0[k] = min(R, W - 1 - x);
   }
-}
-
-template <int NW>
-int census_volume_nw(const unsigned long long* s0,
-                     const unsigned long long* s1, float* out, int C, int H,
-                     int W, int D, int dir, int r, float recip,
-                     cudaStream_t stream) {
-  const dim3 grid((W + CT - 1) / CT, H, (D + DCH - 1) / DCH);
-  if (C == 1)
-    census_volume_kernel<NW, true><<<grid, CT, 0, stream>>>(
-        s0, s1, out, C, H, W, D, dir, r, recip);
-  else
-    census_volume_kernel<NW, false><<<grid, CT, 0, stream>>>(
-        s0, s1, out, C, H, W, D, dir, r, recip);
-  return (int)cudaGetLastError();
+  // channel c's span, staged once
+  auto stage = [&](int c) {
+    const unsigned long long* row1 = sig1 + (c * plane + (int64_t)y * W) * NW;
+    for (int e = threadIdx.x; e < SPAN; e += CT) {
+      const int xm = xs + e;
+      unsigned long long v[NW];
+      if (xm >= 0 && xm < W) {
+        load_words<NW>(row1 + (int64_t)xm * NW, v);
+      } else {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) v[w] = 0;
+      }
+      span_put<NW>(sp, e, v);
+    }
+  };
+  auto reference = [&](int c, unsigned long long (&s0)[CX][NW]) {
+    const unsigned long long* row0 = sig0 + (c * plane + (int64_t)y * W) * NW;
+#pragma unroll
+    for (int k = 0; k < CX; ++k)
+      load_words<NW>(row0 + (int64_t)min(x0 + k, W - 1) * NW, s0[k]);
+  };
+  // the agreeing positions of cell (k, j), its mask tested
+  auto cell = [&](int k, int j, const unsigned long long (&s0)[NW]) {
+    const int xm = x0 + k + (d0 + j) * dir;
+    unsigned long long s1[NW], m[NW];
+    span_words<NW>(sp, e0 + k + j * dir, s1);
+    if (xint[k] && xm >= R && xm <= W - 1 - R) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m[w] = rowm[w];
+    } else if (xin[k] && xm >= 0 && xm < W) {
+      const int xlo = max(xlo0[k], -xm), xhi = min(xhi0[k], W - 1 - xm);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m[w] = win[(xlo + R) * (R + 1) + xhi][w];
+    } else {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m[w] = 0;
+    }
+    return agreeing<R>(m, s0, s1);
+  };
+  float* const o = out + (int64_t)y * W + x0;
+  // the costs of disparity d0 + j from C * n - agree
+  auto put = [&](int j, const int (&agree)[CX]) {
+    const int d = d0 + j;
+    float v[CX];
+#pragma unroll
+    for (int k = 0; k < CX; ++k) {
+      const int xm = x0 + k + d * dir;
+      v[k] = xm >= 0 && xm < W
+                 ? __fmul_rn((float)(C * V::N - agree[k]), recip)
+                 : __uint_as_float(NAN_BITS);
+    }
+    // 8-byte pairs: x0 is even, and so is every row's start where W is
+    if (CX == 2 && W % 2 == 0 && xin[CX - 1]) {
+      *reinterpret_cast<float2*>(o + d * plane) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < CX; ++k)
+        if (xin[k]) o[d * plane + k] = v[k];
+    }
+  };
+  if (ONE) {
+    stage(0);
+    __syncthreads();
+    if (!xin[0]) return;
+    unsigned long long s0[CX][NW];
+    reference(0, s0);
+    const int b0 = blockIdx.x * CW;
+    if (b0 >= R && b0 + CW - 1 <= W - 1 - R && xs >= R &&
+        xs + SPAN - 1 <= W - 1 - R) {
+#pragma unroll
+      for (int j = 0; j < DCH; ++j) {
+        if (d0 + j >= D) break;
+        int agree[CX];
+#pragma unroll
+        for (int k = 0; k < CX; ++k) {
+          unsigned long long s1[NW];
+          span_words<NW>(sp, e0 + k + j * dir, s1);
+          agree[k] = agreeing<R>(rowm, s0[k], s1);
+        }
+        put(j, agree);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < DCH; ++j) {
+        if (d0 + j >= D) break;
+        int agree[CX];
+#pragma unroll
+        for (int k = 0; k < CX; ++k) agree[k] = cell(k, j, s0[k]);
+        put(j, agree);
+      }
+    }
+    return;
+  }
+  int agree[DCH][CX];
+#pragma unroll
+  for (int j = 0; j < DCH; ++j)
+#pragma unroll
+    for (int k = 0; k < CX; ++k) agree[j][k] = 0;
+  for (int c = 0; c < C; ++c) {
+    if (c) __syncthreads();
+    stage(c);
+    __syncthreads();
+    if (!xin[0]) continue;
+    unsigned long long s0[CX][NW];
+    reference(c, s0);
+#pragma unroll
+    for (int j = 0; j < DCH; ++j) {
+      if (d0 + j >= D) break;
+#pragma unroll
+      for (int k = 0; k < CX; ++k) agree[j][k] += cell(k, j, s0[k]);
+    }
+  }
+  if (!xin[0]) return;
+#pragma unroll
+  for (int j = 0; j < DCH; ++j) {
+    if (d0 + j >= D) break;
+    put(j, agree[j]);
+  }
 }
 
 template <int R>
-__global__ void __launch_bounds__(TX)
+int census_volume_r(const unsigned long long* s0,
+                    const unsigned long long* s1, float* out, int C, int H,
+                    int W, int D, int dir, float recip, cudaStream_t stream) {
+  const dim3 grid((W + CW - 1) / CW, H, (D + DCH - 1) / DCH);
+  if (C == 1 && dir > 0)
+    census_volume_kernel<R, true, 1><<<grid, CT, 0, stream>>>(
+        s0, s1, out, C, H, W, D, dir, recip);
+  else if (C == 1)
+    census_volume_kernel<R, true, -1><<<grid, CT, 0, stream>>>(
+        s0, s1, out, C, H, W, D, dir, recip);
+  else
+    census_volume_kernel<R, false, 0><<<grid, CT, 0, stream>>>(
+        s0, s1, out, C, H, W, D, dir, recip);
+  return (int)cudaGetLastError();
+}
+
+// a / b rounded to nearest even (__fdiv_rn's bits) for b a window's count
+// (an integer in [1, 225]) and y = RN(1 / b), where |a| >= b 2^-125 (not
+// small()): the product a * y, then one correction by its residual,
+// exact by FMA (Markstein); an infinite a keeps the product (the residual
+// would be NaN). The small a (zeros, subnormals, quotients below 2^-125,
+// where the residual is not exact) take __fdiv_rn itself, on a branch the
+// whole warp takes only when one of its sums is that small: inline in
+// every output, __fdiv_rn's call to its slow path held the registers of
+// the whole kernel. quotient() is the kernel's composition of the two;
+// costs_variants --div-check holds it to __fdiv_rn for every float a and
+// every count.
+__device__ __forceinline__ bool small(float a, float b) {
+  return fabsf(a) < b * 0x1p-125f;
+}
+
+__device__ __forceinline__ float quotient_fast(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  const float c = __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+  return isinf(a) ? q : c;
+}
+
+__device__ __forceinline__ float quotient(float a, float b, float y) {
+  return small(a, b) ? __fdiv_rn(a, b) : quotient_fast(a, b, y);
+}
+
+// The ad block's shared memory: a row of ATX floats a warp (the stores'
+// transpose), x0's tile, ROWS rows of P0 floats (a lane's window of NX
+// columns in NV 16-byte loads), then x1's span, ROWS rows of P1 floats
+// (SPAN1 columns, column m at m + m / 32, the zero slot Z last).
+template <int R>
+struct AdTile {
+  static constexpr int ROWS = ATY + 2 * R;
+  static constexpr int NX = AX + 2 * R;
+  static constexpr int NV = (NX + 3) / 4;
+  static constexpr int P0 = ATX - AX + 4 * NV;
+  static constexpr int SPAN1 = ATX + 2 * R + AND - 1;
+  static constexpr int Z = SPAN1 + SPAN1 / 32;
+  static constexpr int P1 = Z + 1;
+  static constexpr int SMEM = (AW * ATX + ROWS * (P0 + P1)) * 4;
+};
+
+template <int R>
+__global__ void __launch_bounds__(32 * AW)
 ad_volume_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
-                 float* __restrict__ out, int H, int W, int dir) {
+                 float* __restrict__ out, int H, int W, int D, int dir) {
+  using T = AdTile<R>;
   constexpr int WIN = 2 * R + 1;
-  constexpr int TR = TY + 2 * R;   // term rows
-  constexpr int TC = TX + 2 * R;   // term columns
-  __shared__ float term[TR][TC];
-  const int d = blockIdx.z;
-  const int delta = d * dir;
-  const int y0 = blockIdx.y * TY, xt = blockIdx.x * TX;
-  for (int i = threadIdx.x; i < TR * TC; i += TX) {
-    const int ty = i / TC, tx = i - ty * TC;
-    const int yy = y0 - R + ty, xx = xt - R + tx;
-    float t = 0.f;
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-      const int xm = xx + delta;
-      const bool ok = xm >= 0 && xm < W;
-      const float a = x0[(int64_t)yy * W + xx];
-      const float b = ok ? x1[(int64_t)yy * W + xm] : 0.f;
-      t = __fmul_rn(fabsf(__fsub_rn(a, b)), ok ? 1.f : 0.f);
+  extern __shared__ __align__(16) float ad_smem[];
+  // the reciprocals of the counts a window can have
+  __shared__ float rcp[WIN * WIN + 1];
+  for (int b = threadIdx.x + 1; b <= WIN * WIN; b += 32 * AW)
+    rcp[b] = __frcp_rn((float)b);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* const sw = ad_smem + warp * ATX;
+  float* const t0 = ad_smem + AW * ATX;
+  float* const t1 = t0 + T::ROWS * T::P0;
+  const int xt = blockIdx.x * ATX, y0 = blockIdx.y * ATY;
+  const int d0 = blockIdx.z * AND;
+  // the chunk's least shift d * dir: x1's span starts there
+  const int dmin = dir > 0 ? d0 : -(d0 + AND - 1);
+  for (int i = warp; i < T::ROWS; i += AW) {
+    const int yy = y0 - R + i;
+    const bool yin = yy >= 0 && yy < H;
+    const int64_t row = (int64_t)yy * W;
+    for (int c = lane; c < T::P0; c += 32) {
+      const int xx = xt - R + c;
+      t0[i * T::P0 + c] = yin && xx >= 0 && xx < W ? x0[row + xx] : 0.f;
     }
-    term[ty][tx] = t;
+    for (int m = lane; m <= T::SPAN1; m += 32) {
+      const int xx = xt - R + dmin + m;
+      t1[i * T::P1 + m + m / 32] =
+          yin && m < T::SPAN1 && xx >= 0 && xx < W ? x1[row + xx] : 0.f;
+    }
   }
   __syncthreads();
-  const int x = xt + threadIdx.x;
-  if (x >= W) return;
-  float hs[TR];
+  const int xc = xt + lane * AX;  // the lane's first column
+  for (int k = warp; k < AND; k += AW) {
+    const int d = d0 + k;
+    if (d >= D) break;
+    const int delta = d * dir;
+    // each window column's x1 slot (the zero slot off the frame) and ok
+    int slot[T::NX];
+    float ok[T::NX];
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    float s = term[i][threadIdx.x];
-#pragma unroll
-    for (int k = 1; k < WIN; ++k) s = __fadd_rn(s, term[i][threadIdx.x + k]);
-    hs[i] = s;
-  }
-  // the window's in-frame columns whose match column is in frame too
-  const int lo = max(max(0, -delta), x - R);
-  const int hi = min(min(W - 1, W - 1 - delta), x + R);
-  const int cols = max(0, hi - lo + 1);
-  const bool centre = x + delta >= 0 && x + delta < W;
-#pragma unroll
-  for (int j = 0; j < TY; ++j) {
-    const int y = y0 + j;
-    if (y >= H) break;
-    float cost = __uint_as_float(NAN_BITS);
-    if (centre) {
-      float s = hs[j];
-#pragma unroll
-      for (int k = 1; k < WIN; ++k) s = __fadd_rn(s, hs[j + k]);
-      const int rows = min(H - 1, y + R) - max(0, y - R) + 1;
-      cost = __fdiv_rn(s, (float)(rows * cols));
+    for (int c = 0; c < T::NX; ++c) {
+      const int xx = xc - R + c;
+      const int m = lane * AX + c + delta - dmin;
+      slot[c] = xx >= 0 && xx < W ? m + m / 32 : T::Z;
+      ok[c] = xx + delta >= 0 && xx + delta < W ? 1.f : 0.f;
     }
-    out[((int64_t)d * H + y) * W + x] = cost;
+    // each output column's in-frame, ok window columns; centre in frame;
+    // the count and its reciprocal where all 2R + 1 rows are in frame
+    int cols[AX];
+    bool centre[AX];
+    float full[AX], rfull[AX];
+#pragma unroll
+    for (int j = 0; j < AX; ++j) {
+      const int x = xc + j;
+      centre[j] = x < W && x + delta >= 0 && x + delta < W;
+      const int lo = max(max(0, -delta), x - R);
+      const int hi = min(min(W - 1, W - 1 - delta), x + R);
+      cols[j] = centre[j] ? hi - lo + 1 : 1;
+      full[j] = (float)(WIN * cols[j]);
+      rfull[j] = rcp[WIN * cols[j]];
+    }
+    // the offset of output row y0 + i - 2R of disparity d
+    int64_t off = ((int64_t)d * H + y0 - 2 * R) * W;
+    // the staged rows in groups of WIN, each group unrolled: row i's sums
+    // sit in ring slot i % WIN, a constant
+    float ring[WIN][AX];
+    for (int i0 = 0; i0 < T::ROWS; i0 += WIN) {
+#pragma unroll
+      for (int u = 0; u < WIN; ++u) {
+        const int i = i0 + u;
+        if (i >= T::ROWS) break;
+        if (i) off += W;
+        float a[4 * T::NV];
+        const float4* a4 =
+            reinterpret_cast<const float4*>(t0 + i * T::P0 + lane * AX);
+#pragma unroll
+        for (int v = 0; v < T::NV; ++v) {
+          const float4 q = a4[v];
+          a[4 * v] = q.x;
+          a[4 * v + 1] = q.y;
+          a[4 * v + 2] = q.z;
+          a[4 * v + 3] = q.w;
+        }
+        const float* r1 = t1 + i * T::P1;
+        float t[T::NX];
+#pragma unroll
+        for (int c = 0; c < T::NX; ++c)
+          t[c] = __fmul_rn(fabsf(__fsub_rn(a[c], r1[slot[c]])), ok[c]);
+#pragma unroll
+        for (int j = 0; j < AX; ++j) {
+          float s = t[j];
+#pragma unroll
+          for (int tap = 1; tap < WIN; ++tap) s = __fadd_rn(s, t[j + tap]);
+          ring[u][j] = s;
+        }
+        const int yo = i - 2 * R;  // the output row in the tile
+        if (yo < 0 || y0 + yo >= H) continue;
+        const int y = y0 + yo;
+        const int rows = min(H - 1, y + R) - max(0, y - R) + 1;
+        float cnt[AX], rc[AX];
+        if (rows == WIN) {
+#pragma unroll
+          for (int j = 0; j < AX; ++j) {
+            cnt[j] = full[j];
+            rc[j] = rfull[j];
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < AX; ++j) {
+            cnt[j] = (float)(rows * cols[j]);
+            rc[j] = rcp[rows * cols[j]];
+          }
+        }
+        float v[AX], num[AX];
+        bool rare = false;
+#pragma unroll
+        for (int j = 0; j < AX; ++j) {
+          // rows i - 2R .. i, from the top: slots (u + 1 + tap) % WIN
+          float s = ring[(u + 1) % WIN][j];
+#pragma unroll
+          for (int tap = 1; tap < WIN; ++tap)
+            s = __fadd_rn(s, ring[(u + 1 + tap) % WIN][j]);
+          num[j] = s;
+          const float q = quotient_fast(s, cnt[j], rc[j]);
+          v[j] = centre[j] ? q : __uint_as_float(NAN_BITS);
+          rare |= centre[j] && small(s, cnt[j]);
+        }
+        // the small quotients, a branch of the whole warp (never on images
+        // whose sums stay above 2^-125 b)
+        if (__any_sync(0xffffffffu, rare)) {
+#pragma unroll
+          for (int j = 0; j < AX; ++j)
+            if (centre[j] && small(num[j], cnt[j]))
+              v[j] = __fdiv_rn(num[j], cnt[j]);
+        }
+        // a row that starts on 16 bytes: a 16-byte store a lane; on 8
+        // bytes (W even): the warp's row through shared memory, then two
+        // 8-byte pairs a lane, each store a contiguous 256 bytes
+        float* const orow = out + off;
+        const int mod = (int)off & 3;
+        if (mod == 0 && xc + AX <= W) {
+#pragma unroll
+          for (int j = 0; j < AX; j += 4)
+            *reinterpret_cast<float4*>(orow + xc + j) =
+                make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+        } else if (mod != 0 && W % 2 == 0) {
+#pragma unroll
+          for (int j = 0; j < AX; j += 4)
+            *reinterpret_cast<float4*>(sw + lane * AX + j) =
+                make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+          __syncwarp();
+#pragma unroll
+          for (int h = 0; h < AX / 2; ++h) {
+            const int x = xt + h * 64 + 2 * lane;
+            const float2 p =
+                reinterpret_cast<const float2*>(sw)[h * 32 + lane];
+            if (x + 1 < W) *reinterpret_cast<float2*>(orow + x) = p;
+          }
+          __syncwarp();
+        } else {
+#pragma unroll
+          for (int j = 0; j < AX; ++j)
+            if (xc + j < W) orow[xc + j] = v[j];
+        }
+      }
+    }
   }
 }
 
 template <int R>
 int ad_launch_r(const float* x0, const float* x1, float* out, int H, int W,
                 int D, int dir, cudaStream_t stream) {
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, D);
-  ad_volume_kernel<R><<<grid, TX, 0, stream>>>(x0, x1, out, H, W, dir);
+  using T = AdTile<R>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ad_volume_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + ATX - 1) / ATX, (H + ATY - 1) / ATY,
+                  (D + AND - 1) / AND);
+  ad_volume_kernel<R><<<grid, 32 * AW, T::SMEM, stream>>>(x0, x1, out, H, W,
+                                                           D, dir);
   return (int)cudaGetLastError();
 }
 
@@ -271,28 +680,38 @@ extern "C" int census_signatures_launch(const float* x0, const float* x1,
 // s0, s1: (C, H, W, nw) signatures of the reference image and of the
 // match image, made by census_signatures_launch at the same r (r = 4 and
 // r = 5 both have nw = 2: nothing here tells them apart); out: (D, H, W)
-// float32; recip: the float32 reciprocal of C.
+// float32; dir: -1 or +1; recip: the float32 reciprocal of C.
 extern "C" int census_volume_launch(const unsigned long long* s0,
                                     const unsigned long long* s1, float* out,
                                     int C, int H, int W, int D, int dir,
                                     int r, float recip, cudaStream_t stream) {
-  if (r < 0 || r > MAX_R) return (int)cudaErrorInvalidValue;
-  switch (((2 * r + 1) * (2 * r + 1) + 63) / 64) {
-    case 1: return census_volume_nw<1>(s0, s1, out, C, H, W, D, dir, r, recip,
-                                       stream);
-    case 2: return census_volume_nw<2>(s0, s1, out, C, H, W, D, dir, r, recip,
-                                       stream);
-    case 3: return census_volume_nw<3>(s0, s1, out, C, H, W, D, dir, r, recip,
-                                       stream);
-    default: return census_volume_nw<4>(s0, s1, out, C, H, W, D, dir, r, recip,
-                                        stream);
+  if (dir != -1 && dir != 1) return (int)cudaErrorInvalidValue;
+  switch (r) {
+    case 0: return census_volume_r<0>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 1: return census_volume_r<1>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 2: return census_volume_r<2>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 3: return census_volume_r<3>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 4: return census_volume_r<4>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 5: return census_volume_r<5>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 6: return census_volume_r<6>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    case 7: return census_volume_r<7>(s0, s1, out, C, H, W, D, dir, recip,
+                                      stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// x0, x1: (H, W) float32; out: (D, H, W) float32.
+// x0, x1: (H, W) float32; out: (D, H, W) float32; dir: -1 or +1.
 extern "C" int ad_volume_launch(const float* x0, const float* x1, float* out,
                                 int H, int W, int D, int dir, int r,
                                 cudaStream_t stream) {
+  if (dir != -1 && dir != 1) return (int)cudaErrorInvalidValue;
   switch (r) {
     case 0: return ad_launch_r<0>(x0, x1, out, H, W, D, dir, stream);
     case 1: return ad_launch_r<1>(x0, x1, out, H, W, D, dir, stream);

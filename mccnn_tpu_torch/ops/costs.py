@@ -62,6 +62,12 @@ def _check_radius(radius: int, what: str) -> None:
                          "(the kernel's signature words)")
 
 
+def _check_direction(direction: int, what: str) -> None:
+    if direction not in (-1, 1):
+        raise ValueError(f"{what}: direction {direction}, expected -1 or +1 "
+                         "(the kernel stages the span of one sign)")
+
+
 def _check_pair(x0: torch.Tensor, x1: torch.Tensor, what: str) -> None:
     _build.check_cuda_f32(x0, f"{what} x0")
     _build.check_cuda_f32(x1, f"{what} x1")
@@ -108,6 +114,7 @@ def ad_volume(x0: torch.Tensor, x1: torch.Tensor, disp_max: int,
     x0, x1 = x0.contiguous(), x1.contiguous()
     _check_pair(x0, x1, "ad_volume")
     _check_radius(radius, "ad_volume")
+    _check_direction(direction, "ad_volume")
     if x0.dim() != 2:
         raise ValueError(f"ad_volume: expected (H, W) images, got "
                          f"{tuple(x0.shape)}")
@@ -267,6 +274,7 @@ def census_volume(x0: torch.Tensor, x1: torch.Tensor, disp_max: int,
                                    signatures=signatures)
     x0, x1 = _as_chw(x0, x1)
     _check_radius(radius, "census_volume")
+    _check_direction(direction, "census_volume")
     C, H, W = x0.shape
     if signatures is None:
         sig = census_signatures(x0, x1, radius)

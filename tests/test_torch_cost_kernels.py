@@ -5,13 +5,18 @@ Each kernel's per-output arithmetic is mirrored in numpy float32 and
 uint64 (the census signature pass's 64-bit words and the volume pass's
 popcount, the ad kernel's row sums then column sums and its count of
 valid positions, the table kernel's index decode of one buffer) and held
-bit for bit to the plain version the wrapper runs on CPU tensors; the
+bit for bit to the plain version the wrapper runs on CPU tensors, and so
+are the volume kernels' tile plans, block by block with the tile
+constants read out of ``costs.cu`` (census: the staged span, its parity
+slots, the interior rows-only mask; ad: the staged tile and span, the
+slots with their zero slot, the ring of row sums); the
 plain versions are held to the JAX package here (the signatures) and in
 tests/test_torch_costs.py, tests/test_torch_sgm.py and the pipeline
 tests (the volumes, the tables through ``sgm_slab_hwd``).
 """
 
 import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +28,19 @@ from mccnn_tpu_torch import pipeline
 from mccnn_tpu_torch.ops import _build, costs, join, sgm
 
 F32 = np.float32
+SRC = (_build.CSRC / "costs.cu").read_text()
+
+
+def _const(name):
+    """``constexpr int name = expr;`` in costs.cu, its expression over the
+    constants before it evaluated (``/`` as C++'s integer division)."""
+    env = {}
+    for n, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", SRC):
+        # integers, names, + - * and /, no negative operands
+        env[n] = eval(expr.replace("/", "//"), {}, dict(env))
+        if n == name:
+            return env[n]
+    raise KeyError(name)
 
 
 def _images(seed, shape):
@@ -107,6 +125,141 @@ def test_census_window_table_is_the_rectangle(r):
                     got = [_kernel_window_word(r, ylo, yhi, xlo, xhi, j)
                            for j in range(nw)]
                     assert got == [int(v) for v in want]
+
+
+def _kernel_row_mask(r, ylo, yhi):
+    """The volume kernel's rows-only mask of a block's row (``rowm``): the
+    whole run of 2r + 1 bits of each window row dy in [ylo, yhi], each
+    word as ``row_word`` builds it."""
+    w = 2 * r + 1
+    run = (1 << w) - 1
+    m = []
+    for j in range(costs.census_words(r)):
+        word = 0
+        for dy in range(ylo, yhi + 1):
+            sh = (dy + r) * w - 64 * j
+            if 0 <= sh < 64:
+                word |= (run << sh) & (2 ** 64 - 1)
+            elif -64 < sh < 0:
+                word |= run >> -sh
+        m.append(word)
+    return m
+
+
+@pytest.mark.parametrize("r", range(8))
+def test_census_row_mask_is_the_interior_rectangle(r):
+    """The rows-only mask that an interior cell (x and x + d * dir both
+    in [r, W - 1 - r]) takes equals the window rectangle of its row range
+    and the full column range [-r, r], word for word, for every row range
+    a block's y can give: radius 0 to 7, one to four words."""
+    nw = costs.census_words(r)
+    for ylo in range(-r, 1):
+        for yhi in range(r + 1):
+            want = _mirror_window_mask(r, nw, ylo, yhi, -r, r)
+            assert _kernel_row_mask(r, ylo, yhi) == [int(v) for v in want]
+
+
+def _popcount_words(v, r):
+    """The kernel's count of a cell's words (``agreeing``): 64 bits a
+    word, 32 for a last word whose high half holds no window position."""
+    n = (2 * r + 1) ** 2
+    nw = costs.census_words(r)
+    last_hi = n - 64 * (nw - 1) > 32
+    keep = [np.uint64(2 ** 64 - 1)] * (nw - 1) + [
+        np.uint64(2 ** 64 - 1 if last_hi else 2 ** 32 - 1)]
+    return np.bitwise_count(v & np.array(keep, np.uint64)).astype(
+        np.int64).sum(-1)
+
+
+def _tiled_census(sig0, sig1, D, direction, r):
+    """The volume kernel's plan, block by block (CT threads of CX adjacent
+    columns of a row, DCH disparities): each channel's span of CW + DCH
+    - 1 match signatures staged from its least column (zeros off the
+    frame) in parity planes (``span_slot``), column x0 + k of a thread
+    read at entry e0 + k + j * dir; an interior cell takes the row mask,
+    an edge cell in frame the table entry, a cell off the frame 0; the
+    distances summed over channels, then one store a cell."""
+    CT, CX, CW, DCH, span, half = (_const(n) for n in (
+        "CT", "CX", "CW", "DCH", "SPAN", "HALF"))
+    C, H, W, nw = sig0.shape
+    n = (2 * r + 1) ** 2
+    recip = F32(1) / F32(C)
+    out = np.full((D, H, W), 7.0, F32)  # every cell written below
+    tid = np.arange(CT)
+    ent = np.arange(span)
+    slot = (ent & 1) * half + (ent >> 1)
+    assert len(set(slot)) == span and slot.max() < 2 * half
+    for bx in range(-(-W // CW)):
+        for y in range(H):
+            ylo, yhi = max(-r, -y), min(r, H - 1 - y)
+            rowm = np.array(_kernel_row_mask(r, ylo, yhi), np.uint64)
+            table = {(a, b): np.array(
+                [_kernel_window_word(r, ylo, yhi, a, b, j) for j in range(nw)],
+                np.uint64) for a in range(-r, 1) for b in range(r + 1)}
+            for d0 in range(0, D, DCH):
+                xs = bx * CW + (d0 if direction > 0 else -(d0 + DCH - 1))
+                e0 = tid * CX + (0 if direction > 0 else DCH - 1)
+                cols = xs + ent
+                agree = np.zeros((CX, DCH, CT), np.int64)
+                for c in range(C):
+                    sp = np.zeros((2 * half, nw), np.uint64)
+                    sp[slot] = np.where(((cols >= 0) & (cols < W))[:, None],
+                                        sig1[c, y, np.clip(cols, 0, W - 1)],
+                                        np.uint64(0))
+                    for k in range(CX):
+                        x = bx * CW + tid * CX + k
+                        xin = x < W
+                        xint = (x >= r) & (x <= W - 1 - r)
+                        s0 = sig0[c, y, np.minimum(x, W - 1)]
+                        for j in range(min(DCH, D - d0)):
+                            xm = x + (d0 + j) * direction
+                            e = e0 + k + j * direction
+                            s1 = sp[(e & 1) * half + (e >> 1)]
+                            inner = xint & (xm >= r) & (xm <= W - 1 - r)
+                            inframe = (xm >= 0) & (xm < W)
+                            xlo = np.maximum(np.maximum(-r, -x), -xm)
+                            xhi = np.minimum(np.minimum(r, W - 1 - x),
+                                             W - 1 - xm)
+                            m = np.zeros((CT, nw), np.uint64)
+                            for t in np.nonzero(xin & inframe & ~inner)[0]:
+                                m[t] = table[(xlo[t], xhi[t])]
+                            m[inner] = rowm
+                            agree[k, j] += _popcount_words(m & ~(s0 ^ s1), r)
+                for k in range(CX):
+                    x = bx * CW + tid * CX + k
+                    xin = x < W
+                    for j in range(min(DCH, D - d0)):
+                        xm = x + (d0 + j) * direction
+                        cost = (C * n - agree[k, j]).astype(F32) * recip
+                        cost = np.where((xm >= 0) & (xm < W), cost, np.nan)
+                        out[d0 + j, y, x[xin]] = cost[xin].astype(F32)
+    return out
+
+
+TILED_CENSUS = [((9, 131), 0, 33), ((5, 126), 4, 40), ((3, 50), 4, 70),
+                ((3, 4, 61), 7, 36), ((2, 6, 140), 2, 34), ((4, 3), 1, 5),
+                ((3, 259), 4, 40)]
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("shape,r,D", TILED_CENSUS,
+                         ids=[f"{'x'.join(map(str, s))}-r{r}-D{D}"
+                              for s, r, D in TILED_CENSUS])
+def test_census_tile_plan_is_the_plain_volume(shape, r, D, direction):
+    """The volume kernel's staged spans, parity slots, entry indices,
+    interior and edge masks and half-word counts, block by block with
+    the tile constants read from costs.cu, bit for bit against the plain
+    volume: W odd, W 2 mod 4, W below one block and past two, D off the
+    disparity chunk, spans that leave the frame on both sides, radius 0,
+    1, 2, 4, 7, C = 2 and 3."""
+    x0, x1 = _images(5 * r + D, shape)
+    t0, t1 = torch.as_tensor(x0), torch.as_tensor(x1)
+    sig = costs.census_signatures(t0, t1, r).numpy().view(np.uint64)
+    a, b = (sig[0], sig[1]) if direction == -1 else (sig[1], sig[0])
+    ta, tb = (t0, t1) if direction == -1 else (t1, t0)
+    want = costs.census_volume_plain(ta, tb, D, direction, r).numpy()
+    got = _tiled_census(a, b, D, direction, r)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def _mirror_census(sig0, sig1, D, direction, r):
@@ -261,6 +414,109 @@ def test_ad_kernel_mirror_is_the_plain_volume(shape, r, D, direction):
     want = _mirror_ad(x0, x1, D, direction, r)
     assert np.isnan(want).any()
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def _tiled_ad(x0, x1, D, direction, r):
+    """The ad kernel's plan, block by block (ATY rows x ATX columns, AND
+    disparities, a warp a disparity at a time, a lane AX columns) with the
+    constants read from costs.cu: x0's tile and x1's span staged with
+    zeros off the frame, the span's column m at m + m // 32 and a zero
+    slot Z (the gaps hold NaN here: a read of one shows); each window
+    column's slot (Z off the frame) and ok; the terms, each row's sum from
+    its leftmost tap, a ring of 2r + 1 row sums, each column sum from the
+    top, the integer count, one division."""
+    AX, ATX, ATY, AND = (_const(n) for n in ("AX", "ATX", "ATY", "AND"))
+    H, W = x0.shape
+    win = 2 * r + 1
+    rows_, nx = ATY + 2 * r, AX + 2 * r
+    nv = -(-nx // 4)
+    p0 = ATX - AX + 4 * nv
+    span1 = ATX + 2 * r + AND - 1
+    z = span1 + span1 // 32
+    out = np.full((D, H, W), 7.0, F32)  # every cell written below
+    lane = np.arange(32)
+    c = np.arange(nx)
+    inf = lambda v: (v >= 0) & (v < W)  # noqa: E731
+    for xt in range(0, W, ATX):
+        for y0 in range(0, H, ATY):
+            for d0 in range(0, D, AND):
+                dmin = d0 if direction > 0 else -(d0 + AND - 1)
+                t0 = np.zeros((rows_, p0), F32)
+                t1 = np.full((rows_, z + 1), np.nan, F32)
+                for i in range(rows_):
+                    yy = y0 - r + i
+                    if not 0 <= yy < H:
+                        t0[i] = 0
+                        m = np.arange(span1 + 1)
+                        t1[i, m + m // 32] = 0
+                        continue
+                    xx = xt - r + np.arange(p0)
+                    t0[i] = np.where(inf(xx), x0[yy, np.clip(xx, 0, W - 1)], 0)
+                    m = np.arange(span1 + 1)
+                    xx = xt - r + dmin + m
+                    t1[i, m + m // 32] = np.where(
+                        (m < span1) & inf(xx),
+                        x1[yy, np.clip(xx, 0, W - 1)], 0)
+                for k in range(min(AND, D - d0)):
+                    d = d0 + k
+                    delta = d * direction
+                    xc = xt + lane * AX
+                    xx = xc[:, None] - r + c[None]
+                    m = lane[:, None] * AX + c[None] + delta - dmin
+                    slot = np.where(inf(xx), m + m // 32, z)
+                    ok = inf(xx + delta).astype(F32)
+                    x = xc[:, None] + np.arange(AX)[None]
+                    centre = (x < W) & inf(x + delta)
+                    lo = np.maximum(max(0, -delta), x - r)
+                    hi = np.minimum(min(W - 1, W - 1 - delta), x + r)
+                    cols = np.where(centre, hi - lo + 1, 1)
+                    ring = {}
+                    for i in range(rows_):
+                        a = t0[i][lane[:, None] * AX + c[None]]
+                        t = np.abs(a - t1[i][slot]) * ok
+                        s = t[:, 0:AX].copy()
+                        for tap in range(1, win):
+                            s = s + t[:, tap:tap + AX]
+                        ring[i % win] = s
+                        y = y0 + i - 2 * r
+                        if i < 2 * r or y >= H:
+                            continue
+                        s = ring[(i - 2 * r) % win].copy()
+                        for tap in range(1, win):
+                            s = s + ring[(i - 2 * r + tap) % win]
+                        n_rows = min(H - 1, y + r) - max(0, y - r) + 1
+                        with np.errstate(invalid="ignore", divide="ignore"):
+                            cnt = (n_rows * cols).astype(F32)
+                            v = np.where(centre, s / cnt, np.nan).astype(F32)
+                        keep = x < W
+                        out[d, y, x[keep]] = v[keep]
+    return out
+
+
+TILED_AD = [((33, 131), 0, 17), ((35, 126), 7, 33), ((31, 50), 4, 60),
+            ((40, 10), 2, 18), ((3, 6), 4, 4)]
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("shape,r,D", TILED_AD,
+                         ids=[f"{'x'.join(map(str, s))}-r{r}-D{D}"
+                              for s, r, D in TILED_AD])
+def test_ad_tile_plan_is_the_plain_volume(shape, r, D, direction):
+    """The ad kernel's staging, slots, register windows and ring, block by
+    block, bit for bit against the plain volume: W odd, W 2 mod 4, W
+    below one tile, H off the row tile, D off the disparity chunk, spans
+    that leave the frame on both sides, radius 0, 2, 4, 7; NaN and inf in
+    x1 near both edges, which the terms of columns off the frame must
+    not read."""
+    H, W = shape
+    rng = np.random.RandomState(H * W + r)
+    x0, x1 = (rng.randn(*shape).astype(F32) for _ in range(2))
+    x1[:, :1] = np.nan
+    x1[H // 2, -1] = np.inf
+    want = costs.ad_volume_plain(torch.as_tensor(x0), torch.as_tensor(x1), D,
+                                 direction, r).numpy()
+    got = _tiled_ad(x0, x1, D, direction, r)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 # --- the HWD lane's SGM tables ------------------------------------------

@@ -1247,7 +1247,9 @@ def _cost_images(dev, seed, shape):
 
 
 CENSUS_CUDA = [(9, 130, 1, 4, 70), (5, 40, 3, 2, 45), (37, 300, 1, 2, 33),
-               (3, 6, 1, 4, 4), (20, 77, 3, 7, 40), (64, 257, 1, 4, 100)]
+               (3, 6, 1, 4, 4), (20, 77, 3, 7, 40), (64, 257, 1, 4, 100),
+               (9, 131, 1, 0, 33), (5, 126, 3, 7, 65), (3, 50, 1, 4, 228),
+               (33, 1226, 1, 4, 70), (4, 61, 2, 2, 36)]
 
 
 @pytest.mark.parametrize("direction", [-1, 1])
@@ -1255,8 +1257,11 @@ CENSUS_CUDA = [(9, 130, 1, 4, 70), (5, 40, 3, 2, 45), (37, 300, 1, 2, 33),
 def test_census_kernels_are_bit_identical(dev, H, W, C, r, D, direction):
     """The signature pass word for word and the volume pass bit for bit
     (NaN masks included) against the plain versions on the card: gray
-    and rgb, radius 2, 4 and 7, W off a multiple of the 128-column block,
-    D above the 32-disparity chunk, a frame smaller than the window;
+    and rgb (C = 2, 3), radius 0, 2, 4 and 7, W off a multiple of the
+    128-column block (odd, 2 mod 4, below one block, KITTI's 1226), D
+    off the 32-disparity chunk, spans that leave the frame on both sides
+    (D past W), a frame smaller than the window; every frame holds the
+    columns r - 1, r, W - r - 1 and W - r at the interior mask's edge;
     one launch a call, and two for a volume not handed its signatures."""
     shape = (H, W) if C == 1 else (C, H, W)
     x0, x1 = _cost_images(dev, H + W + r, shape)
@@ -1280,15 +1285,19 @@ def test_census_kernels_are_bit_identical(dev, H, W, C, r, D, direction):
 
 
 AD_CUDA = [(9, 130, 4, 70), (40, 7, 4, 9), (37, 300, 2, 33), (3, 6, 4, 4),
-           (70, 257, 7, 100), (33, 64, 0, 5)]
+           (70, 257, 7, 100), (33, 64, 0, 5), (33, 131, 0, 17),
+           (65, 126, 7, 33), (31, 50, 4, 60), (40, 1226, 2, 40),
+           (35, 10, 2, 18)]
 
 
 @pytest.mark.parametrize("direction", [-1, 1])
 @pytest.mark.parametrize("H,W,r,D", AD_CUDA)
 def test_ad_kernel_is_bit_identical(dev, H, W, r, D, direction):
     """The ad kernel against its plain version on the card, bit for bit:
-    rows past the 32-row tile, W off the 128-column tile, radius 0, 2,
-    4, 7, frames smaller than the window; one launch a call."""
+    H off the 32-row tile, W off the 128-column tile (odd, 2 mod 4,
+    below one tile, KITTI's 1226), D off the 16-disparity chunk, spans
+    that leave the frame on both sides (D past W), radius 0, 2, 4, 7,
+    frames smaller than the window; one launch a call."""
     rng = np.random.RandomState(H * W + r)
     x0, x1 = (torch.as_tensor(rng.randn(H, W).astype(np.float32), device=dev)
               for _ in range(2))
@@ -1298,6 +1307,25 @@ def test_ad_kernel_is_bit_identical(dev, H, W, r, D, direction):
     assert _build.launches()["ad_volume"] == 1
     want = costs.ad_volume_plain(x0, x1, D, direction, r)
     assert want.isnan().any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("H,W,r,D", [(33, 131, 4, 17), (35, 126, 7, 40),
+                                     (20, 50, 2, 60)])
+def test_ad_kernel_is_bit_identical_with_nan_and_inf(dev, H, W, r, D,
+                                                     direction):
+    """NaN and inf in both images near both edges: the terms of window
+    columns off the frame are +0 whatever x1 holds at their match, the
+    terms of in-frame columns keep NaN * 0 = NaN; bit for bit."""
+    rng = np.random.RandomState(H + W + r)
+    a = rng.randn(2, H, W).astype(np.float32)
+    a[1, :, :2] = np.nan
+    a[1, H // 2, -1] = np.inf
+    a[0, 3, W - 3] = np.nan
+    x0, x1 = (torch.as_tensor(v, device=dev) for v in a)
+    got = costs.ad_volume(x0, x1, D, direction, r)
+    want = costs.ad_volume_plain(x0, x1, D, direction, r)
+    assert _same_bits(got, want)
 
 
 @pytest.mark.parametrize("xrev", [True, False])
@@ -1342,10 +1370,10 @@ def test_row_sharded_census_volume_is_the_unsharded_slice(dev):
 
 
 def test_cost_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """A radius past MAX_RADIUS, non-float32 images, an image on the CPU
-    beside one on the card, signatures of another dtype, shape or device
-    or not 16-byte aligned, and a
-    table image on the CPU raise ValueError; nothing falls back."""
+    """A radius past MAX_RADIUS, a direction other than -1 or +1,
+    non-float32 images, an image on the CPU beside one on the card,
+    signatures of another dtype, shape or device or not 16-byte aligned,
+    and a table image on the CPU raise ValueError; nothing falls back."""
     x0, x1 = _cost_images(dev, 1, (9, 40))
     for fn in (lambda *a, **k: costs.census_volume(*a, 5, -1, **k),
                lambda *a, **k: costs.ad_volume(*a, 5, -1, **k),
@@ -1356,6 +1384,10 @@ def test_cost_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fn(x0.double(), x1.double())
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(x0, x1.cpu())
+    for fn in (costs.census_volume, costs.ad_volume):
+        for direction in (0, 2, -2):
+            with pytest.raises(ValueError, match="direction"):
+                fn(x0, x1, 5, direction)
     sig = costs.census_signatures(x0, x1)
     # a view 8 bytes past a 16-byte boundary: the kernel reads word pairs
     odd = torch.empty(sig[1].numel() + 1, dtype=torch.int64,

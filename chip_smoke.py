@@ -63,7 +63,10 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    census's own inputs, both ad volumes on kitti ad's, and the HWD
    lane's tables of both directions on kitti fast's
    (``capture_costs``, ``cost_rows``), each bit-identical to its plain
-   version, the volumes timed by events and the rest in a CUDA graph;
+   version, the volumes timed by events and the rest in a CUDA graph,
+   each beside one ``fill_`` of its output bytes (the store floor), the
+   signatures also word for word on the pair's left image with NaN of
+   two payloads, +-inf, -0.0 and ties (``adversarial_census``);
    then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
@@ -450,37 +453,81 @@ def capture_costs(torch, run) -> dict:
     return seen
 
 
+def adversarial_census(torch, img):
+    """The pair's left image with what the census ``<`` must keep strict:
+    NaN of two payloads, +inf, -inf, -0.0 beside +0.0 and runs of ties
+    (a value repeated along a row and down a column), every 37th row from
+    3 and every 101st column from 5, the frame's edges included."""
+    img = img.clone()
+    h, w = img.shape
+    for y in list(range(3, h - 8, 37)) + [0, h - 1]:
+        for x in list(range(5, w - 12, 101)) + [0, w - 1]:
+            img[y, x] = float("nan")
+            img[y, min(x + 1, w - 1)] = float("inf")
+            img[y, min(x + 2, w - 1)] = float("-inf")
+            img[y, min(x + 3, w - 1)] = -0.0
+            img[y, min(x + 4, w - 1)] = 0.0
+            img[y, min(x + 5, w - 1):min(x + 9, w)] = img[y, x - 1] \
+                if x else 0.5
+            img[y:min(y + 4, h), min(x + 10, w - 1)] = 0.25
+            img.view(torch.int32)[min(y + 1, h - 1), x] = 0x7fc00123
+    return img
+
+
 def cost_rows(torch, seen, where) -> dict:
     """Rows for the cost and table kernels on the inputs
     ``capture_costs`` saw, each bit for bit against its plain version
     (``exact_row``): the signatures and the tables timed in a CUDA
-    graph, the volumes by events, each volume beside the card's store
-    floor for its bytes (one ``fill_`` of a (D, H, W) float32 volume, by
-    events). Bounds: the signatures read both images and write their
-    8-byte words (the census bits only), with the (2r+1)^2 compares a
-    pixel; a census volume reads both signatures and writes its cells,
-    with 3 nw + 3 integer instructions a cell (and-not-xor, popcount and
-    add a word; the subtract, the conversion, the multiply), which the
-    kernel does from a span of match signatures staged once a block of
-    a row's 256 columns x 32 disparities, two columns a thread stored as
-    8-byte pairs; an ad volume reads both images and writes its cells,
-    with 20 f32 instructions a cell (the term, its row sum's and its
-    column sum's 8 adds, the division), which the kernel does from
-    register windows over a tile of 32 rows x 128 columns x 16
-    disparities staged once, 16-byte or 8-byte stores; the tables read
-    both images and write the four sweeps' buffer."""
+    graph, the volumes by events, each beside the card's store floor for
+    its output bytes (one ``fill_`` of the same bytes, timed as the kernel
+    is: a (D, H, W) float32 volume by events, the signatures' words and
+    the tables' buffer in a CUDA graph; ``fill_ms``), the signatures also
+    on ``adversarial_census`` of the left image (key "census_signatures
+    (adversarial)"). Bounds: the signatures read both images and write
+    their 8-byte words (the census bits only), with the (2r+1)^2 compares
+    a pixel, which the kernel does from a tile of 16 rows x 32 columns
+    staged once a block with a NaN halo, a lane a column and 4 rows from
+    register windows, one 16-byte store a pixel; a census volume reads
+    both signatures and writes its cells, with 3 nw + 3 integer
+    instructions a cell (and-not-xor, popcount and add a word; the
+    subtract, the conversion, the multiply), which the kernel does from a
+    span of match signatures staged once a block of a row's 256 columns x
+    32 disparities, two columns a thread stored as 8-byte pairs; an ad
+    volume reads both images and writes its cells, with 20 f32
+    instructions a cell (the term, its row sum's and its column sum's 8
+    adds, the division), which the kernel does from register windows over
+    a tile of 32 rows x 128 columns x 16 disparities staged once, 16-byte
+    or 8-byte stores; the tables read both images and write the four
+    sweeps' buffer, a block a row of a table part in 16-byte stores."""
     from mccnn_tpu_torch.ops import costs, sgm
+
+    def floor(row, out, graph=True):
+        """One ``fill_`` of ``out``'s bytes beside the kernel's row."""
+        fill = (lambda: out.fill_(0)) if out.dtype != torch.float32 \
+            else (lambda: out.fill_(float("nan")))
+        row["fill_ms"] = (graph_ms(torch, fill, 20) if graph
+                          else cuda_ms(torch, fill, 10))
+        print(f"    the store floor: fill_ of the same "
+              f"{out.numel() * out.element_size()} bytes "
+              f"{row['fill_ms']:.4f} ms; the kernel at "
+              f"{row['bound'][0] / row['ms']:.2f} of its bound")
 
     rows = {}
     if ("census_signatures",) in seen:
         (x0, x1), _ = seen[("census_signatures",)]
         npix = x0.numel()
         nw = costs.census_words(4)
-        rows["census_signatures"] = exact_row(
-            torch, f"census_signatures {where}",
-            lambda: costs.census_signatures(x0, x1),
-            lambda: costs.census_signatures_plain(x0, x1),
-            2 * npix * (4 + 8 * nw), 2 * 81.0 * npix)
+        for key, a, b in (
+                ("census_signatures", x0, x1),
+                ("census_signatures (adversarial)",
+                 adversarial_census(torch, x0), x1)):
+            rows[key] = exact_row(
+                torch, f"{key} {where}",
+                lambda a=a, b=b: costs.census_signatures(a, b),
+                lambda a=a, b=b: costs.census_signatures_plain(a, b),
+                2 * npix * (4 + 8 * nw), 2 * 81.0 * npix)
+            floor(rows[key], torch.empty((2, npix, nw), dtype=torch.int64,
+                                         device=x0.device))
     for name, plain in (("census_volume", costs.census_volume_plain),
                         ("ad_volume", costs.ad_volume_plain)):
         for direction in (-1, 1):
@@ -501,15 +548,8 @@ def cost_rows(torch, seen, where) -> dict:
                 torch, f"{name} {where}, direction {direction:+d}",
                 lambda: getattr(costs, name)(*a, **kw),
                 lambda: plain(*a, **kw), nbytes, ops, graph=False, reps=10)
-            vol = torch.empty((d, h, w), dtype=torch.float32,
-                              device=a[0].device)
-            rows[key]["fill_ms"] = cuda_ms(
-                torch, lambda: vol.fill_(float("nan")), 10)
-            del vol
-            print(f"    the store floor: fill_ of the same volume "
-                  f"{rows[key]['fill_ms']:.4f} ms; the kernel at "
-                  f"{rows[key]['bound'][0] / rows[key]['ms']:.2f} of its "
-                  f"bound")
+            floor(rows[key], torch.empty((d, h, w), dtype=torch.float32,
+                                         device=a[0].device), graph=False)
     for xrev in (True, False):
         if ("sgm_tables", xrev) not in seen:
             continue
@@ -517,10 +557,13 @@ def cost_rows(torch, seen, where) -> dict:
         x0, _, d, h, w, shape = a
         hp, wp, dp = shape
         _, stride = sgm.table_layout(hp, wp, d + wp + dp)
-        rows["sgm_tables" + ("" if xrev else " (xrev False)")] = exact_row(
+        key = "sgm_tables" + ("" if xrev else " (xrev False)")
+        rows[key] = exact_row(
             torch, f"sgm_tables {where}, xrev {xrev}, buffer of "
             f"{16 * stride} bytes", lambda: sgm.sgm_tables(*a, **kw),
             lambda: sgm.sgm_tables_plain(*a, **kw), 8 * h * w + 16 * stride)
+        floor(rows[key], torch.empty(4 * stride, dtype=torch.float32,
+                                     device=x0.device))
     torch.cuda.empty_cache()
     return rows
 

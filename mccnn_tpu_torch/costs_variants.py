@@ -1,36 +1,47 @@
-"""Time variants of the census and ad volume kernels against a build of
-their source.
+"""Time variants of the cost-volume, census-signature and SGM-table
+kernels against a build of their source.
 
-    python -m mccnn_tpu_torch.costs_variants [--source PATH]
-        [--variant NAME[+NAME] ...] [--case kitti mb] [--kernel census ad]
-        [--reps 10]
+    python -m mccnn_tpu_torch.costs_variants [--source PATH ...]
+        [--variant NAME[+NAME] ...] [--case kitti mb]
+        [--kernel census ad signatures tables] [--reps 10]
 
-On one CUDA card, from the repository's root (it takes its images from
-``chip_smoke.py`` there, its build from ``cbca_variants``): builds a
-``costs.cu`` (by default the shipped ``csrc/costs.cu``; ``--source``
-names another, such as an earlier commit's unpacked under ``build/``)
-and each named variant of it (text edits of that source, ``a+b`` for
-several, or ``file:PATH``, another whole source such as the parent's),
-then times the C entries ``census_volume_launch`` and
-``ad_volume_launch`` alone by CUDA events (the mean of ``--reps`` calls
-after a warm-up), in turns: source, variant, variant, source. The inputs
-are the path's own: ``chip_smoke.py``'s seeded KITTI pair (370x1226,
-D = 228, phase 3) and Middlebury pair (1000x1500, D = 200, phase 3b),
-both directions, radius 4, the census signatures from the package's
-``census_signatures``. The source's build is held bit for bit against
-the plain version, and a variant that keeps the function against the
-source's build. Beside each case: the bytes bound and the card's store
-floor, one ``fill_`` of the same (D, H, W) float32 volume. Prints each
-build's registers, stack and spills (ptxas) for both kernels.
+On one CUDA card, from the repository's root (it takes its images, its
+bound and its CUDA-graph timer from ``chip_smoke.py`` there, its build
+from ``cbca_variants``): builds each source the named kernels live in,
+``costs.cu`` (``census``, ``ad``, ``signatures``) and ``sgm_tables.cu``
+(``tables``), by default the shipped ones under ``csrc/`` (``--source``
+names another file of the same name, such as an earlier commit's
+unpacked under ``build/``), and each named variant of it (text edits of
+that source, ``a+b`` for several, or ``file:PATH``, another whole source
+of the same file name such as the parent's; a text variant is built for
+each source one of its edits matches), then times the C entries in
+turns: source, variant, variant, source. The census and ad volumes
+(``census_volume_launch``, ``ad_volume_launch``) by CUDA events (the
+mean of ``--reps`` calls after a warm-up), the signatures and the tables
+(``census_signatures_launch``, ``sgm_tables_launch``, microseconds a
+call) in a CUDA graph of ``--reps`` calls (``chip_smoke.graph_ms``).
+The inputs are the path's own: ``chip_smoke.py``'s seeded KITTI pair
+(370x1226, D = 228, phase 3) and Middlebury pair (1000x1500, D = 200,
+phase 3b), both directions of each volume, radius 4, the census
+signatures from the package's ``census_signatures``, the tables of both
+storage orders (``xrev``) on the join's padded shape. The source's build
+is held bit for bit against the plain version, and a variant that keeps
+the function against the source's build. Beside each case: the bytes
+bound and the card's store floor, one ``fill_`` of the same output bytes
+(timed as the kernel is). Prints each build's registers, stack and
+spills (ptxas) for its kernels.
 
 Variants (``l2-sig``, ``no-fast``, ``cx-1``, ``dch-*``, ``unroll-*``,
-``fdiv``, ``ty-*``, ``nd-*``, ``warps-*``, ``blocks-*`` and ``ax-8`` keep
-the function):
+``fdiv``, ``ty-*``, ``nd-*``, ``warps-*``, ``blocks-*``, ``ax-8``,
+``sig-*``, ``tab-*`` and ``div64`` keep the function):
 
-- ``store-only``: no work, each cell's store alone (census: the
+- ``store-only``: no work, each output's store alone (census: the
   constant of a cell with no agreeing position, or NaN; ad: NaN, no
-  staging, no term): the floor of the design;
-- ``no-store``: all the work, no store (the compute's floor);
+  staging, no term; signatures: zero words, no staging, no compare, in
+  this source and in the first design's; tables: 0, no image read): the
+  floor of the design;
+- ``no-store``: all the work, no store (the compute's floor; the
+  signatures' first design and this one);
 - census ``no-fast``: no interior blocks (every cell's mask tested);
 - census ``l2-sig``: the match signatures loaded from global memory a
   cell (the parent's reads) and no span staged;
@@ -47,11 +58,20 @@ the function):
   (4); ``blocks-5``, ``blocks-6``: launch bounds of that many resident
   blocks an SM (their registers capped to fit); ``ax-8``: 8 columns a
   lane (blocks of 256 columns; 4 in the source);
+- signatures ``sig-early``: each centre's words stored as soon as its
+  last window row is compared (after all rows in the source);
+  ``sig-scy-2``, ``sig-scy-8``: rows a lane (4);
+  ``sig-swx-2``, ``sig-swx-4``: warps across a block (1: 32 columns);
+- tables ``tab-unroll-4``: the loop of 16-byte groups unrolled 4 deep;
+  ``tab-nt-64``, ``tab-nt-256``: threads a block (128);
+- tables ``div64``: the first design's index arithmetic added to every
+  value, two 64-bit divisions of its flat index (their quotients shifted
+  out, so the values stay);
 - ``parent-store-only``, ``parent-no-store``: the same two splits of
-  the first designs of both kernels (a thread a column, the census mask
-  from the shared table, ad's term tile a disparity), with ``--source``
-  naming that source (a cell's stores alone; all its work and no
-  store).
+  the first designs of both volume kernels (a thread a column, the census
+  mask from the shared table, ad's term tile a disparity), with
+  ``--source`` naming that source (a cell's stores alone; all its work
+  and no store).
 
 ``--stores`` first times kernels that only store NaN over each case's
 volume in the order of a block plan (``STORES``), in turns with one
@@ -74,7 +94,7 @@ import numpy as np
 import torch
 
 from mccnn_tpu_torch import cbca_variants
-from mccnn_tpu_torch.ops import _build, costs
+from mccnn_tpu_torch.ops import _build, costs, join, sgm
 
 # name -> (H, W, D, seed, shift): chip_smoke.py's pairs
 CASES = {"kitti": (370, 1226, 228, 0, 40), "mb": (1000, 1500, 200, 3, 60)}
@@ -93,6 +113,30 @@ _J_LOOP = ("#pragma unroll\n      for (int j = 0; j < DCH; ++j) {\n"
 _AD_STORE = "        float* const orow = out + off;\n"
 # no store survives it (no cell holds this NaN payload)
 _NO_STORE = "if (__float_as_uint(v[0]) != 0x7fbfffffu) "
+# the signature pass (census_sig_kernel<R>): its staging and its window rows
+_SIG_STAGE = "  for (int i = threadIdx.x; i < PY * PX; i += ST) {"
+_SIG_ROWS = "  for (int i = 0; i < SCY + 2 * R; ++i) {\n    float v[WD];"
+_SIG_STORE = ("    store_words<NW>(sig + (img * plane + (int64_t)y * W + x)"
+              " * NW, h[k]);")
+# the first signature pass (a thread a pixel, a run-time radius)
+_SIG1_LOOP = ("    unsigned long long b = 0;\n    int bit = 0, word = 0;\n"
+              "    for (int dy = -r; dy <= r; ++dy) {")
+_SIG1_WORD = "          out[word++] = b;"
+_SIG1_LAST = "    if (bit) out[word] = b;"
+_SIG1_NONE = "__float_as_uint(c) == 0x7fbfffffu"
+# the table kernel (sgm_tables.cu): each value, its three stores
+_TAB_VALUE = ("  auto value = [&](int j) -> float {\n"
+              "    if (j >= len) return 0.f;  // the alignment gap\n")
+_TAB_HEAD = ("  if ((int)threadIdx.x < head) row[threadIdx.x] = "
+             "value(threadIdx.x);")
+_TAB_BODY = ("    *reinterpret_cast<float4*>(row + j) =\n"
+             "        make_float4(value(j), value(j + 1), value(j + 2), "
+             "value(j + 3));")
+_TAB_TAIL = ("  if ((int)threadIdx.x < end - tail)\n"
+             "    row[tail + threadIdx.x] = value(tail + threadIdx.x);")
+_TAB_NONE = "__float_as_uint({}) == 0x7fbfffffu"
+# the first table kernel (a thread an element of the flat buffer)
+_TAB1_STORE = "    out[i] = v;"
 
 # name -> [(old, new, occurrences)] text edits of a costs.cu
 VARIANTS = {
@@ -103,11 +147,68 @@ VARIANTS = {
          "      return;\n    }\n" + _CENSUS_LOOP, 1),
         (_AD_STAGE, "  for (int i = warp; i < 0; i += AW) {\n", 1),
         (_AD_Q, "          const float q = __uint_as_float(NAN_BITS);", 1),
-        (_AD_RARE, "", 1), (_AD_TERM, "          t[c] = 0.f;", 1)],
+        (_AD_RARE, "", 1), (_AD_TERM, "          t[c] = 0.f;", 1),
+        (_SIG_STAGE, _SIG_STAGE.replace("PY * PX", "0"), 1),
+        (_SIG_ROWS, _SIG_ROWS.replace("SCY + 2 * R", "0"), 1),
+        (_SIG1_LOOP, "    for (int w = 0; w < nw; ++w) out[w] = 0;\n"
+         + _SIG1_LOOP.replace("dy <= r", "dy < -r"), 1),
+        (_TAB_VALUE, _TAB_VALUE.replace("(j >= len)", "(j >= 0)"), 1),
+        (_TAB1_STORE, "    out[i] = 0.f;", 1)],
     "no-store": [(_CENSUS_STORE, "    " + _NO_STORE + "return;\n"
                   + _CENSUS_STORE, 1),
                  (_AD_STORE,
-                  _AD_STORE + "        " + _NO_STORE + "continue;\n", 1)],
+                  _AD_STORE + "        " + _NO_STORE + "continue;\n", 1),
+                 # the last word's top bit: no window position reaches it
+                 (_SIG_STORE, "    if (h[k][2 * NW - 1] >> 31)\n  "
+                  + _SIG_STORE, 1),
+                 (_SIG1_WORD, f"          if ({_SIG1_NONE}) out[word] = b;\n"
+                  "          ++word;", 1),
+                 (_SIG1_LAST, f"    if (bit && {_SIG1_NONE}) out[word] = b;",
+                  1),
+                 (_TAB_HEAD, "  if ((int)threadIdx.x < head && "
+                  + _TAB_NONE.format("value(threadIdx.x)")
+                  + ") row[threadIdx.x] = 0.f;", 1),
+                 (_TAB_BODY, "    {\n      const float4 v = make_float4("
+                  "value(j), value(j + 1), value(j + 2),\n"
+                  "                                   value(j + 3));\n"
+                  "      if (" + _TAB_NONE.format("v.x") + " && "
+                  + _TAB_NONE.format("v.y") + " &&\n          "
+                  + _TAB_NONE.format("v.z") + " && "
+                  + _TAB_NONE.format("v.w") + ")\n"
+                  "        *reinterpret_cast<float4*>(row + j) = v;\n"
+                  "    }", 1),
+                 (_TAB_TAIL, "  if ((int)threadIdx.x < end - tail && "
+                  + _TAB_NONE.format("value(tail + threadIdx.x)")
+                  + ")\n    row[tail + threadIdx.x] = 0.f;", 1),
+                 (_TAB1_STORE, "    if (" + _TAB_NONE.format("v")
+                  + ") out[i] = v;", 1)],
+    **{f"sig-scy-{n}": [("constexpr int SCY = 4;", f"constexpr int SCY = {n};",
+                         1)] for n in (2, 8)},
+    **{f"sig-swx-{n}": [("constexpr int SWX = 1;", f"constexpr int SWX = {n};",
+                         1)] for n in (2, 4)},
+    "sig-early": [
+        ("      }\n    }\n  }\n#pragma unroll\n"
+         "  for (int k = 0; k < SCY; ++k) {\n"
+         "    const int y = by + cy + k;\n    if (y >= H) break;\n"
+         "    store_words<NW>(",
+         "      }\n    }\n"
+         "    if (i >= 2 * R) {  // centre i - 2R is complete\n"
+         "      const int k = i - 2 * R;\n"
+         "      const int y = by + cy + k;\n"
+         "      if (y < H)\n        store_words<NW>(", 1),
+        ("(img * plane + (int64_t)y * W + x) * NW, h[k]);\n  }\n}",
+         "(img * plane + (int64_t)y * W + x) * NW,\n"
+         "                        h[k]);\n    }\n  }\n}", 1)],
+    "tab-unroll-4": [("  for (int q = threadIdx.x; q < nq; q += NT) {",
+                      "#pragma unroll 4\n"
+                      "  for (int q = threadIdx.x; q < nq; q += NT) {", 1)],
+    **{f"tab-nt-{n}": [("constexpr int NT = 128;", f"constexpr int NT = {n};",
+                        1)] for n in (64, 256)},
+    "div64": [(_TAB_VALUE, _TAB_VALUE.replace(
+        "    if (j >= len)",
+        "    j += (int)(((base + j) / (int64_t)len) >> 62) +\n"
+        "         (int)(((base + j) / ((int64_t)len + end)) >> 62);\n"
+        "    if (j >= len)"), 1)],
     "no-fast": [(_FAST, "    if (false &&", 1)],
     "l2-sig": [
         ("span_words<NW>(sp, e0 + k + j * dir, s1);",
@@ -153,6 +254,13 @@ VARIANTS = {
 # the variants that change what a kernel computes
 NOT_SAME = ("store-only", "no-store", "no-div", "stage-only",
             "parent-store-only", "parent-no-store")
+
+# each kernel's source (by file name) and the kernels ptxas reports of it
+SOURCE_OF = {"census": "costs.cu", "ad": "costs.cu", "signatures": "costs.cu",
+             "tables": "sgm_tables.cu"}
+PTXAS = {"costs.cu": ("census_sig_kernel", "census_volume_kernel",
+                      "ad_volume_kernel"),
+         "sgm_tables.cu": ("sgm_tables_kernel",)}
 
 # ``--stores``: kernels that only store NaN over a (D, H, W) float32
 # volume, each in the order of one block plan, for the card's store rate
@@ -252,6 +360,16 @@ def variant_source(src: str, names: str) -> str:
     return src
 
 
+def applies(src: str, file_name: str, names: str) -> bool:
+    """Whether the variant ``names`` is built for the source ``src`` (of
+    that file name): a whole file of the same name, or text edits of which
+    each name has one that matches ``src``."""
+    if names.startswith("file:"):
+        return Path(names[5:]).name == file_name
+    return all(any(src.count(old) == n for old, _, n in VARIANTS[name])
+               for name in names.split("+"))
+
+
 def census_launcher(lib: ctypes.CDLL, s0, s1, D: int, direction: int):
     """A call of the build's census_volume_launch on these signatures."""
     lib.census_volume_launch.argtypes = (
@@ -293,47 +411,121 @@ def same_bits(a, b) -> bool:
                                               b.view(torch.int32))
 
 
+def signatures_launcher(lib: ctypes.CDLL, x0, x1):
+    """A call of the build's census_signatures_launch on these images."""
+    lib.census_signatures_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.census_signatures_launch.restype = ctypes.c_int
+    C, H, W = x0.shape
+    out = torch.empty((2, C, H, W, costs.census_words(RADIUS)),
+                      dtype=torch.int64, device=x0.device)
+
+    def run():
+        rc = lib.census_signatures_launch(x0.data_ptr(), x1.data_ptr(),
+                                          out.data_ptr(), C, H, W, RADIUS,
+                                          _build.stream(x0))
+        _build.check_launch(rc, "census_signatures variant")
+        return out
+    return run
+
+
+def tables_launcher(lib: ctypes.CDLL, x0, x1, D: int, shape, xrev: bool):
+    """A call of the build's sgm_tables_launch on these images."""
+    lib.sgm_tables_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.sgm_tables_launch.restype = ctypes.c_int
+    H, W = x0.shape
+    Hp, Wp, Dp = shape
+    gw = D + Wp + Dp
+    n_d1, stride = sgm.table_layout(Hp, Wp, gw)
+    out = torch.empty(4 * stride, dtype=torch.float32, device=x0.device)
+
+    def run():
+        rc = lib.sgm_tables_launch(x0.data_ptr(), x1.data_ptr(),
+                                   out.data_ptr(), H, W, D, Hp, Wp, gw, n_d1,
+                                   stride, int(xrev), _build.stream(x0))
+        _build.check_launch(rc, "sgm_tables variant")
+        return out
+    return run
+
+
 def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
               dev) -> None:
-    """Both directions of ``kernel`` on ``case``'s pair: the source's
-    build against the plain version, each variant that keeps the function
-    against the source's build, the times in turns beside the bound and
-    the ``fill_`` floor."""
+    """``kernel`` on ``case``'s pair (each direction of a volume, each
+    storage order of the tables): the source's build against the plain
+    version, each variant that keeps the function against the source's
+    build, the times in turns beside the bound and the ``fill_`` floor of
+    the same output bytes. Volumes by events, the signatures and the
+    tables in a CUDA graph."""
     H, W, D, seed, shift = CASES[case]
     x0, x1 = (torch.as_tensor(v, device=dev)
               for v in cs.kitti_pair(np.random.RandomState(seed), H, W,
                                      shift))
+    if kernel in ("census", "ad"):
+        def timer(fn):
+            return cbca_variants.ms(fn, reps)
+        how = "by events"
+    else:
+        def timer(fn):
+            return cs.graph_ms(torch, fn, reps)
+        how = "in a CUDA graph"
     sig = costs.census_signatures(x0, x1, RADIUS) if kernel == "census" \
         else None
-    vol = torch.empty((D, H, W), dtype=torch.float32, device=dev)
-    floor = cbca_variants.ms(lambda: vol.fill_(float("nan")), reps)
-    for direction in (-1, 1):
-        a, b = (x0, x1) if direction == -1 else (x1, x0)
+    if kernel == "signatures":
+        settings = [("", None)]
+    elif kernel == "tables":
+        shape = join.pad_dims(H, W, D)
+        settings = [(f", xrev {xrev}", xrev) for xrev in (True, False)]
+    else:
+        settings = [(f", direction {d:+d}", d) for d in (-1, 1)]
+    floor = None
+    for label, setting in settings:
         if kernel == "census":
+            direction = setting
+            a, b = (x0, x1) if direction == -1 else (x1, x0)
             halves = (sig[0], sig[1]) if direction == -1 else (sig[1], sig[0])
             runs = {tag: census_launcher(lib, *halves, D, direction)
                     for tag, lib in libs.items()}
             plain = costs.census_volume_plain(a, b, D, direction, RADIUS,
                                               signatures=halves)
             nbytes = 4 * D * H * W + 2 * halves[0].numel() * 8
-        else:
+        elif kernel == "ad":
+            direction = setting
+            a, b = (x0, x1) if direction == -1 else (x1, x0)
             runs = {tag: ad_launcher(lib, a, b, D, direction)
                     for tag, lib in libs.items()}
             plain = costs.ad_volume_plain(a, b, D, direction, RADIUS)
             nbytes = 4 * D * H * W + 8 * H * W
+        elif kernel == "signatures":
+            runs = {tag: signatures_launcher(lib, x0[None], x1[None])
+                    for tag, lib in libs.items()}
+            plain = costs.census_signatures_plain(x0, x1, RADIUS)
+            nbytes = 8 * H * W + 8 * plain.numel()
+        else:
+            runs = {tag: tables_launcher(lib, x0, x1, D, shape, setting)
+                    for tag, lib in libs.items()}
+            plain = sgm.sgm_tables_plain(x0, x1, D, H, W, shape,
+                                         xrev=setting)
+            nbytes = 8 * H * W + 4 * plain.numel()
         want = runs["source"]().clone()
         torch.cuda.synchronize()
         if not same_bits(want, plain):
-            raise SystemExit(f"{kernel} {case} {direction:+d}: the source's "
-                             "build differs from the plain version")
+            raise SystemExit(f"{kernel} {case}{label}: the source's build "
+                             "differs from the plain version")
+        if floor is None:  # one fill_ of the output's bytes
+            buf = torch.empty_like(want)
+            floor = timer(lambda: buf.fill_(0))
+            del buf
         del plain
-        first = cbca_variants.ms(runs["source"], reps)
-        print(f"  {kernel} {case} ({H}x{W}, D = {D}), direction "
-              f"{direction:+d}: source {first:.4f}, bit-identical to the "
-              f"plain version; bound "
-              f"{cs.bound_ms(nbytes, 0)[0]:.4f} (bytes), fill_ of the "
-              f"volume {floor:.4f}")
+        first = timer(runs["source"])
+        print(f"  {kernel} {case} ({H}x{W}, D = {D}){label}: source "
+              f"{first:.5f} ms {how}, bit-identical to the plain version; "
+              f"bound {cs.bound_ms(nbytes, 0)[0]:.5f} (bytes), fill_ of the "
+              f"output {floor:.5f}")
         for v in variants:
+            if v not in runs:
+                continue
             same = ""
             if v.startswith("file:") or not any(n in v.split("+")
                                                 for n in NOT_SAME):
@@ -341,12 +533,11 @@ def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
                 torch.cuda.synchronize()
                 if not same_bits(got, want):
                     raise SystemExit(f"variant {v} differs from the source's "
-                                     f"build: {kernel} {case} {direction:+d}")
+                                     f"build: {kernel} {case}{label}")
                 same = ", bit-identical"
-            times = [cbca_variants.ms(runs[n], reps)
-                     for n in ("source", v, v, "source")]
+            times = [timer(runs[n]) for n in ("source", v, v, "source")]
             print(f"    source / {v} / {v} / source: "
-                  f"{' / '.join(f'{t:.4f}' for t in times)}{same}")
+                  f"{' / '.join(f'{t:.5f}' for t in times)}{same}")
         del runs, want
         torch.cuda.empty_cache()
 
@@ -446,11 +637,12 @@ def div_check(source: Path, dev) -> bool:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=Path, default=_build.CSRC / "costs.cu")
+    ap.add_argument("--source", type=Path, nargs="+", default=[],
+                    help="another costs.cu or sgm_tables.cu (by file name)")
     ap.add_argument("--variant", nargs="*", default=[])
     ap.add_argument("--case", nargs="+", choices=sorted(CASES),
                     default=["kitti", "mb"])
-    ap.add_argument("--kernel", nargs="+", choices=("census", "ad"),
+    ap.add_argument("--kernel", nargs="+", choices=tuple(SOURCE_OF),
                     default=["census", "ad"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--stores", action="store_true",
@@ -461,28 +653,42 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("costs_variants: no CUDA device")
     dev = torch.device("cuda")
-    base = args.source.read_text()
-    sources = [("source", base)] + [(v, variant_source(base, v))
-                                    for v in args.variant]
+    paths = {name: _build.CSRC / name for name in PTXAS}
+    for path in args.source:
+        if path.name not in paths:
+            raise SystemExit(f"--source {path}: not one of {sorted(paths)}")
+        paths[path.name] = path
+    names = sorted({SOURCE_OF[k] for k in args.kernel}
+                   | ({"costs.cu"} if args.div_check else set()))
+    jobs = []  # (file name, tag, text)
+    for name in names:
+        base = paths[name].read_text()
+        jobs += [(name, "source", base)] + [
+            (name, v, variant_source(base, v)) for v in args.variant
+            if applies(base, name, v)]
+    for v in args.variant:
+        if not any(tag == v for _, tag, _ in jobs):
+            raise SystemExit(f"variant {v} matches none of {names}")
     # one nvcc a build, all at once
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(lambda ts: cbca_variants.build(
-            ts[0], ts[1], prefix="costs_v",
-            kernels=("census_volume_kernel", "ad_volume_kernel")), sources))
-    libs = {}
-    for (tag, _), (lib, used) in zip(sources, built):
-        libs[tag] = lib
-        print(f"{tag}:\n  {used}")
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: cbca_variants.build(
+            job[1], job[2], prefix=f"costs_v_{Path(job[0]).stem}",
+            kernels=PTXAS[job[0]]), jobs))
+    libs = {name: {} for name in names}
+    for (name, tag, _), (lib, used) in zip(jobs, built):
+        libs[name][tag] = lib
+        print(f"{name} {tag}:\n  {used}")
     cs = cbca_variants.chip_smoke()
     print(f"{torch.cuda.get_device_name(0)}, {cs.card_line()}; "
-          f"{args.source}; ms a call by CUDA events (mean of {args.reps} "
-          "after a warm-up)")
-    same = div_check(args.source, dev) if args.div_check else True
+          + ", ".join(str(paths[n]) for n in names)
+          + f"; ms a call (the mean of {args.reps} after a warm-up)")
+    same = div_check(paths["costs.cu"], dev) if args.div_check else True
     if args.stores:
         time_stores(cs, args.reps, dev)
     for case in args.case:
         for kernel in args.kernel:
-            time_case(cs, case, kernel, libs, args.variant, args.reps, dev)
+            time_case(cs, case, kernel, libs[SOURCE_OF[kernel]],
+                      args.variant, args.reps, dev)
     if not same:
         raise SystemExit("div-check: quotient is not __fdiv_rn")
 

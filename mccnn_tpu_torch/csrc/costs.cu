@@ -7,14 +7,26 @@
 // Volumes are (D, H, W) float32, NaN (0x7fc00000, torch.nan's bits)
 // where the match column x + d * dir leaves the frame.
 //
-// census_sig_kernel: the signature pass, once a pair. For every pixel of
+// census_sig_kernel<R>: the signature pass, once a pair. For every pixel of
 // every channel of both images, n = (2r + 1)^2 window positions k =
 // (dy + r) * (2r + 1) + (dx + r), bit k % 64 of word k / 64 holds
 // x[y + dy, x + dx] < x[y, x] (strict: ties and NaN give 0), clear where
 // (y + dy, x + dx) leaves the frame (the plain version's torch.roll wraps
 // and masks the wrapped neighbours: the same bits). A pixel's NW =
 // ceil(n / 64) words, 8 bytes each; no in-frame words: which positions
-// lie in the frame follows from (y, x) and the frame.
+// lie in the frame follows from (y, x) and the frame. A block takes STY =
+// 16 rows x STX = 32 columns of one channel plane of one image (a 3-D
+// grid, no division) and stages them once in shared memory with a halo of
+// R, the cells off the frame as NaN: NaN < c is false, so an off-frame
+// neighbour gives bit 0 with no test a tap. A lane takes one column and
+// SCY = 4 rows of it: for each of the SCY + 2R staged rows it loads the
+// 2R + 1 values of its window row once into registers and compares them
+// with each centre whose window holds that row. R (0-7) is a template
+// argument, so every bit position is a constant and each word is built in
+// registers as two 32-bit halves. A warp's lanes hold adjacent columns, so
+// a pixel's words go out as one 16-byte store at NW = 2 (the path's radius
+// 4: 512 contiguous bytes a warp), two at NW = 4, 8-byte stores at NW = 1
+// or 3.
 //
 // census_volume_kernel<R, ONE, DIR>: cost[d, y, x] = sum over channels
 // of n - popc(m & ~(b0 ^ b1)) (the hamming distance plus one for each
@@ -74,12 +86,15 @@
 //
 // Bounds on the H100 at KITTI size (370 x 1226, D = 228): a volume is
 // 413.7 MB written, 0.124 ms at 3.35 TB/s (one fill_ of it takes about
-// 0.13 ms); the signatures of a pair at radius 4 are 14.5 MB (two 8-byte
-// words a pixel). A census cell costs 3 NW + 3 integer instructions
-// (and-not-xor, popcount and add a word; the subtract, the conversion,
-// the multiply); an ad cell 20 f32 instructions (the term, its row sum's
-// and its column sum's 8 adds at R = 4, the division): both under the
-// bytes at the instruction rate.
+// 0.13 ms); the signatures of a pair at radius 4 are 14.5 MB written and
+// 3.6 MB read (two 8-byte words a pixel), 0.0054 ms. Their blocks all fit
+// on the card at once, so the pass compares (81 compares a pixel, each
+// with its predicated OR) and then stores, the two one after the other
+// (costs_variants' no-store and store-only split it). A census cell costs
+// 3 NW + 3 integer instructions (and-not-xor, popcount and add a word; the
+// subtract, the conversion, the multiply); an ad cell 20 f32 instructions
+// (the term, its row sum's and its column sum's 8 adds at R = 4, the
+// division): both under the bytes at the instruction rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,43 +112,13 @@ constexpr int ATX = 32 * AX;  // ad: columns a block (a warp's width)
 constexpr int ATY = 32;       // ad: rows a block
 constexpr int AND = 16;       // ad: disparities a block
 constexpr int AW = 4;         // ad: warps a block (disparity d0 + k to k % AW)
-constexpr int ST = 256;   // signature pass: threads a block
-constexpr int MAX_R = 7;  // the largest radius (four signature words)
+constexpr int SCY = 4;    // signature pass: rows a lane (one column)
+constexpr int SWX = 1;    // signature pass: warps across a block
+constexpr int SWY = 4;    // signature pass: warps down a block
+constexpr int STX = 32 * SWX;  // signature pass: columns a block
+constexpr int STY = SCY * SWY;  // signature pass: rows a block
+constexpr int ST = 32 * SWX * SWY;  // signature pass: threads a block
 constexpr unsigned NAN_BITS = 0x7fc00000u;
-
-__global__ void __launch_bounds__(ST)
-census_sig_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
-                  unsigned long long* __restrict__ sig, int C, int H, int W,
-                  int r, int nw) {
-  const int64_t plane = (int64_t)H * W;
-  const int64_t total = 2 * (int64_t)C * plane;
-  for (int64_t i = blockIdx.x * (int64_t)ST + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * ST) {
-    const int64_t img = i / plane;  // image * C + channel
-    const int64_t p = i - img * plane;
-    const int y = (int)(p / W), x = (int)(p - (int64_t)y * W);
-    const float* im = (img < C ? x0 + img * plane : x1 + (img - C) * plane);
-    const float c = im[p];
-    unsigned long long* out = sig + i * nw;
-    unsigned long long b = 0;
-    int bit = 0, word = 0;
-    for (int dy = -r; dy <= r; ++dy) {
-      const int yy = y + dy;
-      const bool yok = yy >= 0 && yy < H;
-      for (int dx = -r; dx <= r; ++dx) {
-        const int xx = x + dx;
-        if (yok && xx >= 0 && xx < W && im[(int64_t)yy * W + xx] < c)
-          b |= 1ull << bit;
-        if (++bit == 64) {
-          out[word++] = b;
-          b = 0;
-          bit = 0;
-        }
-      }
-    }
-    if (bit) out[word] = b;
-  }
-}
 
 // The census window of radius R: N positions in NW 64-bit words; LAST_HI
 // whether the last word's high half holds positions.
@@ -142,6 +127,93 @@ struct Win {
   static constexpr int WD = 2 * R + 1, N = WD * WD, NW = (N + 63) / 64;
   static constexpr bool LAST_HI = N - 64 * (NW - 1) > 32;
 };
+
+// NW words of a signature as 2 NW 32-bit halves (word w = h[2w] | h[2w + 1]
+// << 32): 16-byte stores where NW is even, else 8-byte stores
+template <int NW>
+__device__ __forceinline__ void store_words(unsigned long long* o,
+                                            const unsigned (&h)[2 * NW]) {
+  if constexpr (NW % 2 == 0) {
+#pragma unroll
+    for (int w = 0; w < NW / 2; ++w)
+      reinterpret_cast<uint4*>(o)[w] =
+          make_uint4(h[4 * w], h[4 * w + 1], h[4 * w + 2], h[4 * w + 3]);
+  } else {
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      reinterpret_cast<uint2*>(o)[w] = make_uint2(h[2 * w], h[2 * w + 1]);
+  }
+}
+
+// x0, x1: (C, H, W); sig: (2, C, H, W, NW), plane blockIdx.z = image * C +
+// channel. The tile's staged cells: rows by - R .. by + STY + R - 1, columns
+// bx - R .. bx + STX + R - 1, NaN off the frame.
+template <int R>
+__global__ void __launch_bounds__(ST)
+census_sig_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
+                  unsigned long long* __restrict__ sig, int C, int H, int W) {
+  using V = Win<R>;
+  constexpr int WD = V::WD, NW = V::NW;
+  constexpr int PX = STX + 2 * R, PY = STY + 2 * R;
+  __shared__ float tile[PY][PX];
+  const int img = blockIdx.z;
+  const int64_t plane = (int64_t)H * W;
+  const float* const im =
+      img < C ? x0 + img * plane : x1 + (img - C) * plane;
+  const int bx = blockIdx.x * STX, by = blockIdx.y * STY;
+  for (int i = threadIdx.x; i < PY * PX; i += ST) {
+    const int r = i / PX, c = i - r * PX;
+    const int yy = by - R + r, xx = bx - R + c;
+    tile[r][c] = yy >= 0 && yy < H && xx >= 0 && xx < W
+                     ? im[(int64_t)yy * W + xx]
+                     : __uint_as_float(NAN_BITS);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cx = (warp % SWX) * 32 + lane;  // the lane's column in the tile
+  const int cy = (warp / SWX) * SCY;        // its first row in the tile
+  const int x = bx + cx;
+  if (x >= W || by + cy >= H) return;
+  float c[SCY];
+#pragma unroll
+  for (int k = 0; k < SCY; ++k) c[k] = tile[cy + k + R][cx + R];
+  unsigned h[SCY][2 * NW];
+#pragma unroll
+  for (int k = 0; k < SCY; ++k)
+#pragma unroll
+    for (int w = 0; w < 2 * NW; ++w) h[k][w] = 0;
+  // staged row cy + i is window row i - k of centre k
+#pragma unroll
+  for (int i = 0; i < SCY + 2 * R; ++i) {
+    float v[WD];
+#pragma unroll
+    for (int dx = 0; dx < WD; ++dx) v[dx] = tile[cy + i][cx + dx];
+#pragma unroll
+    for (int k = 0; k < SCY; ++k) {
+      const int wy = i - k;
+      if (wy < 0 || wy >= WD) continue;
+#pragma unroll
+      for (int dx = 0; dx < WD; ++dx) {
+        const int b = wy * WD + dx;  // the window position, a constant
+        if (v[dx] < c[k]) h[k][b / 32] |= 1u << (b % 32);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SCY; ++k) {
+    const int y = by + cy + k;
+    if (y >= H) break;
+    store_words<NW>(sig + (img * plane + (int64_t)y * W + x) * NW, h[k]);
+  }
+}
+
+template <int R>
+int census_sig_r(const float* x0, const float* x1, unsigned long long* sig,
+                 int C, int H, int W, cudaStream_t stream) {
+  const dim3 grid((W + STX - 1) / STX, (H + STY - 1) / STY, 2 * C);
+  census_sig_kernel<R><<<grid, ST, 0, stream>>>(x0, x1, sig, C, H, W);
+  return (int)cudaGetLastError();
+}
 
 // word j of the positions of window row dy, all 2R + 1 columns
 template <int R>
@@ -668,13 +740,17 @@ int ad_launch_r(const float* x0, const float* x1, float* out, int H, int W,
 extern "C" int census_signatures_launch(const float* x0, const float* x1,
                                         unsigned long long* sig, int C, int H,
                                         int W, int r, cudaStream_t stream) {
-  if (r < 0 || r > MAX_R) return (int)cudaErrorInvalidValue;
-  const int nw = ((2 * r + 1) * (2 * r + 1) + 63) / 64;
-  const int64_t total = 2 * (int64_t)C * H * W;
-  const int64_t blocks = (total + ST - 1) / ST;
-  census_sig_kernel<<<(int)(blocks < 65536 ? blocks : 65536), ST, 0,
-                      stream>>>(x0, x1, sig, C, H, W, r, nw);
-  return (int)cudaGetLastError();
+  switch (r) {
+    case 0: return census_sig_r<0>(x0, x1, sig, C, H, W, stream);
+    case 1: return census_sig_r<1>(x0, x1, sig, C, H, W, stream);
+    case 2: return census_sig_r<2>(x0, x1, sig, C, H, W, stream);
+    case 3: return census_sig_r<3>(x0, x1, sig, C, H, W, stream);
+    case 4: return census_sig_r<4>(x0, x1, sig, C, H, W, stream);
+    case 5: return census_sig_r<5>(x0, x1, sig, C, H, W, stream);
+    case 6: return census_sig_r<6>(x0, x1, sig, C, H, W, stream);
+    case 7: return census_sig_r<7>(x0, x1, sig, C, H, W, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // s0, s1: (C, H, W, nw) signatures of the reference image and of the

@@ -6,13 +6,16 @@ uint64 (the census signature pass's 64-bit words and the volume pass's
 popcount, the ad kernel's row sums then column sums and its count of
 valid positions, the table kernel's index decode of one buffer) and held
 bit for bit to the plain version the wrapper runs on CPU tensors, and so
-are the volume kernels' tile plans, block by block with the tile
-constants read out of ``costs.cu`` (census: the staged span, its parity
-slots, the interior rows-only mask; ad: the staged tile and span, the
-slots with their zero slot, the ring of row sums); the
-plain versions are held to the JAX package here (the signatures) and in
-tests/test_torch_costs.py, tests/test_torch_sgm.py and the pipeline
-tests (the volumes, the tables through ``sgm_slab_hwd``).
+are the kernels' block plans, block by block with the tile constants
+read out of ``costs.cu`` (census: the staged span, its parity slots, the
+interior rows-only mask; ad: the staged tile and span, the slots with
+their zero slot, the ring of row sums; the signatures: the NaN-staged
+tile, the register windows, the 32-bit halves of each word; the tables:
+a block a row of a part, 16-byte groups with a scalar head and tail, the
+gaps with the last row); the plain versions are held to the JAX
+package here (the signatures) and in tests/test_torch_costs.py,
+tests/test_torch_sgm.py and the pipeline tests (the volumes, the tables
+through ``sgm_slab_hwd``).
 """
 
 import functools
@@ -350,6 +353,116 @@ def test_census_signatures_hold_the_jax_bits(shape, r):
                                       _unpack(jv, n, 32))
 
 
+def _adversarial_images(seed, shape):
+    """Quarter-step images (ties) with NaN of two payloads, +inf, -inf,
+    -0.0 beside +0.0, spread over each plane and its edges."""
+    x0, x1 = _images(seed, shape)
+    rng = np.random.RandomState(seed + 1)
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 0.0], F32)
+    for x in (x0, x1):
+        flat = x.reshape(-1)
+        n = max(2, flat.size // 7)
+        idx = rng.choice(flat.size, size=min(n, flat.size), replace=False)
+        flat[idx] = specials[rng.randint(0, len(specials), size=idx.size)]
+        flat.view(np.uint32)[idx[:max(1, idx.size // 6)]] = 0x7fc00123
+        flat[idx[-1]] = np.nan
+    return x0, x1
+
+
+def _tiled_signatures(x0, x1, r):
+    """The signature kernel's plan, block by block with the tile constants
+    read from costs.cu: a block's STY x STX tile of one plane staged with a
+    halo of r, NaN (0x7fc00000) off the frame; a lane one column and SCY
+    rows of it, each staged row's window of 2r + 1 values compared with
+    every centre whose window holds that row (``v < c``), bit b of the
+    window into 32-bit half b // 32; the halves assembled into words (word
+    w = half 2w | half 2w + 1 << 32), written only for pixels in the frame.
+    Returns the (2, C, H, W, nw) uint64 words and the (2, C, H, W, 2 nw)
+    uint32 halves."""
+    scy, swx, swy, stx, sty = (_const(n) for n in (
+        "SCY", "SWX", "SWY", "STX", "STY"))
+    assert stx == 32 * swx and sty == scy * swy
+    ims = np.concatenate([x0, x1])  # (2C, H, W)
+    n2, H, W = ims.shape
+    wd = 2 * r + 1
+    n = wd * wd
+    nw = -(-n // 64)
+    nan = np.array([0x7fc00000], np.uint32).view(F32)[0]
+    halves = np.full((n2, H, W, 2 * nw), 0xDEADBEEF, np.uint32)
+    cx = np.arange(stx)
+    for img in range(n2):
+        for by in range(0, H, sty):
+            for bx in range(0, W, stx):
+                ys = by - r + np.arange(sty + 2 * r)
+                xs = bx - r + np.arange(stx + 2 * r)
+                inside = (((ys >= 0) & (ys < H))[:, None]
+                          & ((xs >= 0) & (xs < W))[None, :])
+                tile = np.where(inside, ims[img][np.clip(ys, 0, H - 1)][
+                    :, np.clip(xs, 0, W - 1)], nan).astype(F32)
+                x = bx + cx
+                keep = x < W
+                for cy in range(0, sty, scy):
+                    if by + cy >= H:
+                        break
+                    c = tile[cy + r:cy + r + scy, cx + r]  # (SCY, STX)
+                    bits = np.zeros((scy, n, stx), bool)
+                    for i in range(scy + 2 * r):
+                        v = tile[cy + i][cx[:, None] + np.arange(wd)]
+                        for k in range(scy):
+                            wy = i - k
+                            if 0 <= wy < wd:
+                                bits[k, wy * wd:(wy + 1) * wd] = (
+                                    v < c[k][:, None]).T
+                    h = np.zeros((scy, 2 * nw, stx), np.uint32)
+                    for b in range(n):
+                        h[:, b // 32] |= (bits[:, b].astype(np.uint32)
+                                          << np.uint32(b % 32))
+                    for k in range(scy):
+                        y = by + cy + k
+                        if y >= H:
+                            break
+                        halves[img, y, x[keep]] = h[k][:, keep].T
+    words = (halves[..., 0::2].astype(np.uint64)
+             | halves[..., 1::2].astype(np.uint64) << np.uint64(32))
+    C = n2 // 2
+    return (words.reshape(2, C, H, W, nw),
+            halves.reshape(2, C, H, W, 2 * nw))
+
+
+SIG_SHAPES = [(5, 9), (21, 70), (1, 80), (40, 1), (2, 18, 66)]
+
+
+@pytest.mark.parametrize("shape", SIG_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SIG_SHAPES])
+@pytest.mark.parametrize("r", [0, 1, 3, 4, 5, 6, 7])
+def test_signature_tile_plan_is_the_plain_signatures(shape, r):
+    """The signature kernel's tiles, NaN-staged halo, register windows and
+    word assembly, block by block, word for word against
+    ``census_signatures_plain`` and, half by half, against the JAX
+    package's ``_census_bits`` (its 32-bit words are the kernel's
+    halves), on images with NaN of two payloads, +-inf, -0.0 beside +0.0
+    and ties: radius 0, 1, 3-7 (one to four words), a frame smaller than
+    a tile, one off a multiple of the tile, one row, one column, two
+    channels."""
+    x0, x1 = _adversarial_images(7 * r + sum(shape), shape)
+    c0, c1 = (x[None] if x.ndim == 2 else x for x in (x0, x1))
+    words, halves = _tiled_signatures(c0, c1, r)
+    want = costs.census_signatures_plain(torch.as_tensor(x0),
+                                         torch.as_tensor(x1), r)
+    np.testing.assert_array_equal(words, want.numpy().view(np.uint64))
+    n = (2 * r + 1) ** 2
+    for i, cs in enumerate((c0, c1)):
+        for c, x in enumerate(cs):
+            jb, _ = jcosts._census_bits(jnp.asarray(x), r)
+            jb = np.asarray(jb)  # (ceil(n / 32), H, W) uint32
+            got = np.moveaxis(halves[i, c], -1, 0)
+            np.testing.assert_array_equal(got[:len(jb)], jb)
+            assert not got[len(jb):].any()  # a half past the last position
+            np.testing.assert_array_equal(
+                _unpack(np.moveaxis(words[i, c], -1, 0), n, 64),
+                _unpack(jb, n, 32))
+
+
 def test_popcount64_counts_all_64_bits():
     rng = np.random.RandomState(12)
     vals = [0, -1, -(1 << 63), (1 << 63) - 1, 1 << 62] + [
@@ -574,6 +687,93 @@ def test_sgm_tables_mirror_is_the_plain_buffer(H, W, D, shape, xrev):
                          shape, xrev=xrev)
     want = _mirror_tables(x0, x1, D, H, W, shape, xrev)
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def _row_plan_tables(x0, x1, D, H, W, shape, xrev):
+    """The table kernel's plan: a block a stored row y of a part (table t =
+    part // 2, D1 for an even part), the last row's block also the gap to
+    the next part; each row's elements from its first 16-byte boundary in
+    groups of four, a scalar head before it and a tail after; the two image
+    rows fixed a block (clamped for D1, wrapped for D2), the xrev flip as
+    index arithmetic. Every element written exactly once (a sentinel NaN
+    payload elsewhere)."""
+    Hp, Wp, Dp = shape
+    gw = D + Wp + Dp
+    n_d1, stride = sgm.table_layout(Hp, Wp, gw)
+    out = np.full(4 * stride, np.nan, F32)
+    out.view(np.uint32)[:] = 0x7fbadbad
+    written = np.zeros(4 * stride, np.int64)
+    core = W + 2 * D
+    for part in range(8):
+        t, d2 = part >> 1, bool(part & 1)
+        vertical, step = t < 2, -1 if t & 1 else 1
+        length = gw if d2 else Wp
+        start = t * stride + (n_d1 if d2 else 0)
+        region = (stride - n_d1) if d2 else n_d1
+        img = x1 if d2 else x0
+        for y in range(Hp):
+            yin = y < H
+            end = length if y < Hp - 1 else region - (Hp - 1) * length
+            yb = y
+            if yin and vertical:
+                yb = y - step
+                yb = (yb + H if yb < 0 else yb - H if yb >= H else yb) if d2 \
+                    else min(max(yb, 0), H - 1)
+            base = start + y * length
+            head = min((4 - base % 4) % 4, end)
+            nq = (end - head) // 4
+            tail = head + 4 * nq
+            assert all((base + head + 4 * q) % 4 == 0 for q in range(nq))
+            j = np.arange(end)
+            v = np.full(end, 0 if not d2 else 10, F32)
+            if yin:
+                ra, rb = img[y], img[yb]
+                if d2:
+                    x = (core - 1 - j if xrev else j) - D
+                    xb = x if vertical else x - step
+                    ok = (x >= 0) & (x < W) & (xb >= 0) & (xb < W)
+                else:
+                    x = W - 1 - j if xrev else j
+                    xb = x if vertical else np.clip(x - step, 0, W - 1)
+                    ok = j < W
+                xc, xbc = np.clip(x, 0, W - 1), np.clip(xb, 0, W - 1)
+                with np.errstate(invalid="ignore"):  # inf - inf
+                    v = np.where(ok, np.abs(ra[xc] - rb[xbc]),
+                                 v).astype(F32)
+            v[j >= length] = 0  # the alignment gap
+            for lo, hi in ((0, head), (head, tail), (tail, end)):
+                out[base + lo:base + hi] = v[lo:hi]
+                written[base + lo:base + hi] += 1
+    assert (written == 1).all()
+    return out
+
+
+# gw = D + Wp + Dp 0, 1, 2, 3 mod 4 (D2 rows off 16 bytes), Wp odd (D1
+# rows off 16 bytes), H = Hp = 1, a frame narrower than D
+TABLE_PLAN_CASES = TABLE_CASES + [
+    (7, 40, 9, (8, 44, 12)), (1, 33, 6, (1, 35, 8)), (3, 17, 2, (4, 20, 4)),
+    (2, 5, 8, (3, 8, 9)), (12, 30, 10, (13, 31, 11))]
+
+
+@pytest.mark.parametrize("xrev", [True, False])
+@pytest.mark.parametrize("H,W,D,shape", TABLE_PLAN_CASES)
+def test_table_row_plan_is_the_plain_buffer(H, W, D, shape, xrev):
+    """The table kernel's row plan (a block a row of a part, 16-byte
+    groups from the first boundary, scalar head and tail, the gaps with
+    the last row) bit for bit against ``sgm_tables_plain``, the whole
+    buffer, gaps and pad rows included: gw 0-3 mod 4, Wp odd, H = 1,
+    images with NaN, +-inf and -0.0."""
+    rng = np.random.RandomState(H * W + D + 1)
+    x0, x1 = (rng.rand(H, W).astype(F32) for _ in range(2))
+    x0[0, 0] = x0[0, -1]  # a zero gradient
+    x0[-1, W // 2] = np.inf
+    x1[0, W // 3] = np.nan
+    x1[-1, -1] = -0.0
+    x0[H // 2, 0] = -np.inf
+    want = sgm.sgm_tables_plain(torch.as_tensor(x0), torch.as_tensor(x1), D,
+                                H, W, shape, xrev=xrev)
+    got = _row_plan_tables(x0, x1, D, H, W, shape, xrev)
+    np.testing.assert_array_equal(_bits(got), _bits(want.numpy()))
 
 
 @pytest.mark.parametrize("xrev", [True, False])

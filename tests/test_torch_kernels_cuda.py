@@ -1246,25 +1246,48 @@ def _cost_images(dev, seed, shape):
                  for _ in range(2))
 
 
+def _adversarial_cost_images(dev, seed, shape):
+    """``_cost_images`` with NaN of two payloads, +inf, -inf and -0.0
+    beside +0.0 at random cells, the first and last of the frame among
+    them."""
+    x0, x1 = (x.cpu().numpy() for x in _cost_images(dev, seed, shape))
+    rng = np.random.RandomState(seed + 1)
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+    for x in (x0, x1):
+        flat = x.reshape(-1)
+        idx = rng.choice(flat.size, size=max(2, flat.size // 9),
+                         replace=False)
+        idx[:2] = 0, flat.size - 1
+        flat[idx] = specials[rng.randint(0, len(specials), size=idx.size)]
+        flat.view(np.uint32)[idx[1::7]] = 0x7fc00123
+    return tuple(torch.as_tensor(x, device=dev) for x in (x0, x1))
+
+
 CENSUS_CUDA = [(9, 130, 1, 4, 70), (5, 40, 3, 2, 45), (37, 300, 1, 2, 33),
                (3, 6, 1, 4, 4), (20, 77, 3, 7, 40), (64, 257, 1, 4, 100),
                (9, 131, 1, 0, 33), (5, 126, 3, 7, 65), (3, 50, 1, 4, 228),
-               (33, 1226, 1, 4, 70), (4, 61, 2, 2, 36)]
+               (33, 1226, 1, 4, 70), (4, 61, 2, 2, 36), (5, 9, 1, 1, 6),
+               (1, 80, 1, 3, 20), (40, 1, 1, 5, 3), (21, 70, 2, 6, 30),
+               (17, 65, 1, 5, 40), (370, 1226, 1, 4, 12)]
 
 
 @pytest.mark.parametrize("direction", [-1, 1])
 @pytest.mark.parametrize("H,W,C,r,D", CENSUS_CUDA)
 def test_census_kernels_are_bit_identical(dev, H, W, C, r, D, direction):
     """The signature pass word for word and the volume pass bit for bit
-    (NaN masks included) against the plain versions on the card: gray
-    and rgb (C = 2, 3), radius 0, 2, 4 and 7, W off a multiple of the
-    128-column block (odd, 2 mod 4, below one block, KITTI's 1226), D
-    off the 32-disparity chunk, spans that leave the frame on both sides
-    (D past W), a frame smaller than the window; every frame holds the
-    columns r - 1, r, W - r - 1 and W - r at the interior mask's edge;
-    one launch a call, and two for a volume not handed its signatures."""
+    (NaN masks included) against the plain versions on the card, on
+    images with ties, NaN of two payloads, +-inf and -0.0 beside +0.0:
+    gray and rgb (C = 2, 3), every radius 0 to 7 (one to four words), W
+    off a multiple of the 128-column block and of the signature tile's
+    32 columns (odd, 2 mod 4, below one block, KITTI's 1226), H off the
+    signature tile's 16 rows, one row, one column, D off the
+    32-disparity chunk, spans that leave the frame on both sides (D past
+    W), a frame smaller than the window, the KITTI frame; every frame
+    holds the columns r - 1, r, W - r - 1 and W - r at the interior
+    mask's edge; one launch a call, and two for a volume not handed its
+    signatures."""
     shape = (H, W) if C == 1 else (C, H, W)
-    x0, x1 = _cost_images(dev, H + W + r, shape)
+    x0, x1 = _adversarial_cost_images(dev, H + W + r, shape)
     _build.reset_launches()
     sig = costs.census_signatures(x0, x1, r)
     torch.cuda.synchronize()
@@ -1332,14 +1355,25 @@ def test_ad_kernel_is_bit_identical_with_nan_and_inf(dev, H, W, r, D,
 @pytest.mark.parametrize("H,W,D,shape", [
     (45, 310, 150, join.pad_dims(45, 310, 150)),
     (5, 9, 4, (8, 12, 4)), (1, 6, 3, (3, 7, 5)), (6, 20, 7, (8, 21, 9)),
-    (370, 1226, 228, join.pad_dims(370, 1226, 228))])
+    (370, 1226, 228, join.pad_dims(370, 1226, 228)),
+    (4, 3, 5, (5, 7, 6)), (7, 40, 9, (8, 44, 12)), (1, 33, 6, (1, 35, 8)),
+    (3, 17, 2, (4, 20, 4)), (12, 30, 10, (13, 31, 11)),
+    (1000, 1500, 200, join.pad_dims(1000, 1500, 200))])
 def test_sgm_tables_kernel_is_bit_identical(dev, H, W, D, shape, xrev):
     """The four sweeps' tables of one direction in one launch, the whole
-    buffer (alignment gaps included) bit for bit with the plain build;
-    ragged shapes, one row, the KITTI join shape."""
+    buffer (alignment gaps and pad rows included) bit for bit with the
+    plain build, on images with NaN of two payloads, +-inf and -0.0:
+    ragged shapes, gw = D + Wp + Dp 0, 1, 2 and 3 mod 4 (D2 rows off 16
+    bytes), Wp odd (D1 rows off 16 bytes), H = Hp = 1, one row, the KITTI
+    and Middlebury join shapes."""
     rng = np.random.RandomState(H + W + D)
-    x0, x1 = (torch.as_tensor(rng.rand(H, W).astype(np.float32), device=dev)
-              for _ in range(2))
+    a = rng.rand(2, H, W).astype(np.float32)
+    a[0, -1, W // 2] = np.inf
+    a[0, H // 2, 0] = -np.inf
+    a[1, 0, W // 3] = np.nan
+    a[1].view(np.uint32)[H - 1, 0] = 0x7fc00123
+    a[1, -1, -1] = -0.0
+    x0, x1 = (torch.as_tensor(v, device=dev) for v in a)
     _build.reset_launches()
     got = sgm.sgm_tables(x0, x1, D, H, W, shape, xrev=xrev)
     torch.cuda.synchronize()

@@ -66,7 +66,13 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    version, the volumes timed by events and the rest in a CUDA graph,
    each beside one ``fill_`` of its output bytes (the store floor), the
    signatures also word for word on the pair's left image with NaN of
-   two payloads, +-inf, -0.0 and ties (``adversarial_census``);
+   two payloads, +-inf, -0.0 and ties (``adversarial_census``); the
+   generic lane's layout kernels on kitti census's own inputs
+   (``capture_layout``, ``layout_rows``): both families' d-minor volumes,
+   both families' tables, the family sum with the quarter and the
+   winner-take-all, each bit-identical to its plain version, beside one
+   PyTorch call of the same function (a ``copy_`` of each permuted view,
+   ``torch.add`` and ``div_``, ``torch.argmin`` of a NaN-free copy);
    then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
@@ -82,8 +88,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    (its three storage types and the (D, H, W) layout) and the median on
    mb fast's own map and volume (and its adversarial copy), bit for bit;
    the census and ad kernels on mb census's and mb ad's inputs and the
-   tables on mb fast's, bit for bit; each with kernel, plain and bound
-   times;
+   tables on mb fast's, bit for bit; the generic lane's layout kernels
+   on one SGM iteration of the mb slow head's volume (the -1 direction),
+   bit for bit; each with kernel, plain and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -102,7 +109,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    of every kernel in one run (CBCA twice a direction, the arms once an
    image) and the accuracy, with a head set by hand
    to score the L1 distance of the descriptors (a random head does not
-   score identical patches as a match); pairs/s (median of 5 after a
+   score identical patches as a match), the map bit for bit that of the
+   plain route (SHA-256 printed); pairs/s (median of 5 after a
    warm-up) and peak memory with seeded random weights; the share of
    pixels where it differs from the all-plain path on the CPU at
    96x320, D=48;
@@ -115,9 +123,10 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    launch counts at full size, the all-plain comparison at 96x320,
    D=48), and the census kernel path against the all-plain path at
    96x320, D=48; census's signatures once a pair and its volume and
-   ad's once a direction, census's (slab form) and ad's maps bit for bit
-   those of the plain route (SHA-256 printed), their plain launches at
-   most 1000 each (the plain volumes alone issue ~8,100 and ~1,800);
+   ad's once a direction, the layout kernels (``layout_counts``),
+   census's (slab form), ad's and fast with CBCA's maps bit for bit
+   those of the plain route (SHA-256 printed), census's and ad's plain
+   launches under a limit each;
 7. Middlebury at the ``-a time`` shape, 1000x1500, D=200, on a seeded
    textured pair of true disparity 60: mb fast with the left direction
    alone (``-a time``) and with both (``-a predict``), and mb slow (the
@@ -125,8 +134,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    in phase 5):
    launch counts (the HWD tables once a direction), accuracy, pairs/s
    (median of 10, of 3 for mb slow, with the spread) and peak memory;
-   both mb fast maps bit for bit those of the plain route (SHA-256
-   printed); both against the all-plain path on the CPU at 96x320, D=48
+   both mb fast maps and the mb slow map bit for bit those of the plain
+   route (SHA-256 printed); both against the all-plain path on the CPU at 96x320, D=48
    with mb's own parameters;
 8. training on the card (``training_phase``): a synthetic KITTI set at
    350x1242, D=228 (three images; the third is te); kitti fast (8 steps)
@@ -425,12 +434,36 @@ def capture_cbca(torch, run) -> dict:
 # once a pair and a volume a direction, ad's volume a direction
 COSTS = {"census": dict(census_signatures=1, census_volume=2),
          "ad": dict(ad_volume=2)}
-# the wrappers of the census and ad volumes and the HWD lane's SGM
-# tables, with their plain versions, as (module, wrapper, plain version)
+# the wrappers of the census and ad volumes, the HWD lane's SGM tables
+# and the generic lane's layouts, tables, family sum and winner-take-all,
+# with their plain versions, as (module, wrapper, plain version)
 PLAIN_ROUTES = (("costs", "census_signatures", "census_signatures_plain"),
                 ("costs", "census_volume", "census_volume_plain"),
                 ("costs", "ad_volume", "ad_volume_plain"),
-                ("sgm", "sgm_tables", "sgm_tables_plain"))
+                ("sgm", "sgm_tables", "sgm_tables_plain"),
+                ("sgm", "sgm_layout", "sgm_layout_plain"),
+                ("sgm", "sgm_generic_tables", "sgm_generic_tables_plain"),
+                ("sgm", "sgm_combine", "sgm_combine_plain"),
+                ("costs", "wta", "wta_plain"))
+
+
+def layout_counts(directions: int, form: str = "slab", shards: int = 0
+                  ) -> dict:
+    """The generic lane's layout kernels a pair (``csrc/sgm_layout.cu``):
+    in the slab form a family's volume each (``sgm_layout`` 2), both
+    families' tables in one launch and the family sum with the quarter
+    in one; in the scan forms none of these; the winner-take-all once a
+    direction in every form. On ``shards`` row shards of the mesh the
+    horizontal family runs a row shard and the vertical one a column
+    shard, each with its own tables, the sum plain, the winner-take-all
+    once a shard and direction."""
+    if shards:
+        return dict(sgm_layout=2 * shards, sgm_generic_tables=2 * shards,
+                    wta_dhw=directions * shards)
+    if form != "slab":
+        return dict(wta_dhw=directions)
+    return dict(sgm_layout=2, sgm_generic_tables=1, sgm_combine=1,
+                wta_dhw=directions)
 
 
 def capture_costs(torch, run) -> dict:
@@ -568,6 +601,117 @@ def cost_rows(torch, seen, where) -> dict:
     return rows
 
 
+def capture_layout(torch, run) -> dict:
+    """The arguments of the last call in ``run()`` of ``sgm_layout`` of
+    each family, keyed ("sgm_layout", vertical), and of
+    ``sgm_generic_tables``, ``sgm_combine`` and ``costs.wta``, keyed
+    (name,)."""
+    from mccnn_tpu_torch.ops import costs, sgm
+
+    seen = {}
+    seen.update(capture_calls(
+        torch, costs, ("wta",), lambda: seen.update(capture_calls(
+            torch, sgm, ("sgm_layout", "sgm_generic_tables", "sgm_combine"),
+            run, key=lambda name, a, kw: (name, kw["vertical"])
+            if name == "sgm_layout" else (name,))),
+        key=lambda name, a, kw: (name,)))
+    return seen
+
+
+def layout_rows(torch, seen, where) -> dict:
+    """Rows for the generic lane's layout kernels on the inputs
+    ``capture_layout`` saw, each bit for bit against its plain version,
+    beside one PyTorch call of the same function (``library_ms``): the
+    families' volumes (by events) beside a ``copy_`` of each direction's
+    permuted view into a contiguous buffer (the parent's op without the
+    NaN pad); both families' tables (in a CUDA graph; no library call);
+    the family sum with the quarter (by events) beside ``torch.add`` of
+    the families' views and ``div_`` by 4; the winner-take-all (by
+    events) beside ``torch.argmin`` over d of a NaN-free copy (a
+    yardstick: argmin does not skip NaN). Bounds by bytes, each input
+    read once (the real cells: the volumes, the accumulators' D real
+    lanes, both images) and each output written once (the layouts' pad
+    lanes included)."""
+    from mccnn_tpu_torch.ops import costs, sgm
+
+    rows = {}
+    for vertical in (False, True):
+        if ("sgm_layout", vertical) not in seen:
+            continue
+        a, kw = seen[("sgm_layout", vertical)]
+        vols, dp = a
+        n = len(vols)
+        d, h, w = vols[0].shape
+        key = "sgm_layout" + (" (vertical)" if vertical else "")
+        rows[key] = exact_row(
+            torch, f"{key} {where}, {n} direction(s)",
+            lambda: sgm.sgm_layout(*a, **kw),
+            lambda: sgm.sgm_layout_plain(*a, **kw),
+            4 * n * d * h * w + 4 * n * h * w * dp, graph=False, reps=10)
+        perm = (1, 2, 0) if vertical else (2, 1, 0)
+        bufs = [torch.empty_like(v.permute(*perm),
+                                 memory_format=torch.contiguous_format)
+                for v in vols]
+        rows[key]["library_ms"] = cuda_ms(torch, lambda: [
+            b.copy_(v.permute(*perm)) for b, v in zip(bufs, vols)], 5)
+        del bufs
+    if ("sgm_generic_tables",) in seen:
+        a, kw = seen[("sgm_generic_tables",)]
+        x0, _, d, dirs = a
+        _, total = sgm.generic_table_layout(*x0.shape, d, len(dirs), **kw)
+
+        def flat(t):
+            return torch.as_strided(next(iter(t.values())), (total,), (1,), 0)
+
+        rows["sgm_generic_tables"] = exact_row(
+            torch, f"sgm_generic_tables {where}, buffer of {4 * total} bytes",
+            lambda: flat(sgm.sgm_generic_tables(*a, **kw)),
+            lambda: flat(sgm.sgm_generic_tables_plain(*a, **kw)),
+            4 * total + 8 * x0.numel())
+    if ("sgm_combine",) in seen:
+        a, kw = seen[("sgm_combine",)]
+        acc_h, acc_v, dirs, d = a
+        cells = len(dirs) * d * (acc_h.shape[1] // len(dirs)) * acc_h.shape[0]
+        got = sgm.sgm_combine(*a, **kw)
+        want = sgm.sgm_combine_plain(*a, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(got[k].view(torch.int32),
+                              want[k].view(torch.int32)) for k in dirs),
+              f"sgm_combine {where}: not bit-identical to its plain version")
+        del got, want
+        row = dict(err=0.0,
+                   ms=cuda_ms(torch, lambda: sgm.sgm_combine(*a, **kw), 10),
+                   plain_ms=cuda_ms(torch,
+                                    lambda: sgm.sgm_combine_plain(*a, **kw), 2),
+                   bound=bound_ms(12.0 * cells, 2.0 * cells, F32_INSTR))
+        hv = sgm.horizontal_views(acc_h, dirs, d)
+        vv = sgm.vertical_views(acc_v, dirs, d)
+        bufs = {k: torch.empty(hv[k].shape, dtype=torch.float32,
+                               device=acc_h.device) for k in dirs}
+        row["library_ms"] = cuda_ms(torch, lambda: [
+            torch.add(hv[k], vv[k], out=bufs[k]).div_(4.0) for k in dirs], 5)
+        del bufs
+        print(f"  sgm_combine {where}, {len(dirs)} direction(s), quarter "
+              f"{kw.get('quarter')}: bit-identical to the plain version; "
+              f"kernel {row['ms']:.4f} ms by events, plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
+              f"ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+        rows["sgm_combine"] = row
+    if ("wta",) in seen:
+        (vol,), _ = seen[("wta",)]
+        h, w = vol.shape[1:]
+        rows["wta_dhw"] = exact_row(
+            torch, f"wta_dhw {where}", lambda: costs.wta(vol),
+            lambda: costs.wta_plain(vol), 4 * vol.numel() + 4 * h * w,
+            graph=False, reps=10)
+        clean = torch.where(vol.isnan(), torch.inf, vol)
+        rows["wta_dhw"]["library_ms"] = cuda_ms(
+            torch, lambda: torch.argmin(clean, dim=0), 10)
+        del clean
+    torch.cuda.empty_cache()
+    return rows
+
+
 def map_sha(a) -> str:
     """The SHA-256 of a map's float32 bytes (``profile_predict``'s)."""
     arr = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
@@ -575,9 +719,10 @@ def map_sha(a) -> str:
 
 
 def plain_route(torch, run):
-    """``run()`` with the census and ad volumes and the HWD lane's SGM
-    tables built by their plain versions on the card; the kernels'
-    launch counts untouched."""
+    """``run()`` with the census and ad volumes, the HWD lane's SGM
+    tables and the generic lane's layouts, tables, family sum and
+    winner-take-all built by their plain versions on the card
+    (``PLAIN_ROUTES``); the kernels' launch counts untouched."""
     from mccnn_tpu_torch.ops import costs, sgm
 
     mods = {"costs": costs, "sgm": sgm}
@@ -599,10 +744,11 @@ def same_as_plain_route(torch, what, run, disp) -> str:
     the plain route (``plain_route``); returns its SHA-256."""
     ref = plain_route(torch, run)
     check(torch.equal(disp.view(torch.int32), ref.view(torch.int32)),
-          f"{what}: the map differs from the plain cost and table route's")
+          f"{what}: the map differs from the plain route's")
     sha = map_sha(disp)
     print(f"  {what}: map sha256 {sha}, bit for bit the map with the cost "
-          f"volumes and the HWD tables built by their plain versions")
+          f"volumes, the HWD tables and the generic lane's layouts, "
+          f"tables, sum and winner-take-all built by their plain versions")
     return sha
 
 
@@ -1694,6 +1840,7 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
                 want.update(sgm_hslab=2 * n, sgm_vertical=2 * n, outlier=n,
                             blur=1, **dict(REFINE_KITTI, subpixel=n),
                             **cbca_counts(cfg, 2, n),
+                            **layout_counts(2, shards=n),
                             **({"join": 2 * n} if arch == "fast"
                                else {"slow_head": n}))
                 check(got == want, f"row-sharded kitti {arch} on {n}: "
@@ -2553,6 +2700,11 @@ def main() -> int:
         seen.update(capture_costs(torch, run))
     rows.update(cost_rows(torch, seen, f"at {H}x{W}, D={D}"))
     del seen
+    # the generic lane's layouts, tables, family sum and winner-take-all
+    # on the inputs kitti census gives them (both directions, slab form)
+    seen = capture_layout(torch, lambda: stereo_predict(ccfg, None, x0, x1, D))
+    rows.update(layout_rows(torch, seen, f"kitti census at {H}x{W}, D={D}"))
+    del seen
 
     # blur with kitti slow's own Gaussian and threshold, on the WTA map of
     # the slow head's left volume
@@ -2921,9 +3073,17 @@ def main() -> int:
         lambda v, a, o, d1, g, **p: sgm._sweep(v, a, o, None, d1, g, **p),
         lambda v, a, o, d1, g, **p: sgm.sweep_plain(v, a, o, None, d1, g, **p),
         (hm * wm + 2 * hm * (wm + 2 * dm)) * 4, n=mcells)
-    del vol_y, vplan, mvols, mimages
+    del vol_y, vplan
     print("  sgm_hslab, sgm_vertical (stacked, the -1 direction) at the mb "
           "shape: bit-identical to the plain loop")
+    # the layout kernels on one SGM iteration of that volume (the -1
+    # direction, slab form) and its winner-take-all, as mb slow runs them
+    seen = capture_layout(torch, lambda: costs.wta(sgm.sgm_multi(
+        m0_, m1_, mvols, form="slab", quarter=True, alpha1=mscfg.alpha1,
+        pi1=mscfg.pi1, pi2=mscfg.pi2, tau_so=mscfg.tau_so,
+        sgm_q1=mscfg.sgm_q1, sgm_q2=mscfg.sgm_q2)[-1]))
+    rows_mb.update(layout_rows(torch, seen, f"mb slow at {hm}x{wm}, D={dm}"))
+    del seen, mvols, mimages
     for name, row in rows_mb.items():
         plain = ("" if row["plain_ms"] is None
                  else f", plain {row['plain_ms']:.3f} ms")
@@ -3025,8 +3185,11 @@ def main() -> int:
     print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
     want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2,
-                **cbca_counts(scfg, 2), **REFINE_KITTI)
+                **cbca_counts(scfg, 2), **layout_counts(2), **REFINE_KITTI)
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
+    slow_sha = same_as_plain_route(
+        torch, "kitti slow", lambda: stereo_predict(scfg, hand, x0, x1, D),
+        disp)
     d = slow_map = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
           "slow disparity map not finite or misshaped")
@@ -3080,7 +3243,8 @@ def main() -> int:
         want = dict.fromkeys(_build.KERNELS, 0)
         want.update(outlier=1, blur=1, join=0 if net is None else 2,
                     **sweeps_of[form], **cbca_counts(gcfg, 2),
-                    **COSTS.get(gcfg.arch, {}), **REFINE_KITTI)
+                    **layout_counts(2, form), **COSTS.get(gcfg.arch, {}),
+                    **REFINE_KITTI)
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
@@ -3121,10 +3285,11 @@ def main() -> int:
             census_sha = same_as_plain_route(
                 torch, "kitti census (slab form)",
                 lambda: stereo_predict(ccfg, None, t0_, t1_, D), d_t)
-            # the plain census volumes alone issue ~8,100 launches
+            # with the generic lane's layouts, tables, sum and WTA on
+            # their kernels it issued none (the parent's issued 125)
             check_plain_launches(
                 torch, "kitti census (slab form)",
-                lambda: stereo_predict(ccfg, None, t0_, t1_, D), 1000)
+                lambda: stereo_predict(ccfg, None, t0_, t1_, D), 5)
             continue
         check(torch.equal(d_t, ref[0]), f"census map of form {form} differs "
               "from the slab form's")
@@ -3142,15 +3307,19 @@ def main() -> int:
         torch, "kitti ad (stream form)",
         lambda: stereo_predict(acfg, None, t0_, t1_, D, sgm_form="stream"),
         d_t)
-    # the plain ad volumes alone issue ~1,800 launches
+    # the scan form's plans stay plain: 122 launches
     check_plain_launches(
         torch, "kitti ad (stream form)",
         lambda: stereo_predict(acfg, None, t0_, t1_, D, sgm_form="stream"),
-        1000)
+        130)
     del d_t
     fcfg = make_config("kitti", "fast", a="predict", cbca_i1=2, L1=5,
                        tau1=0.13)
-    generic_path("fast with CBCA", fcfg, tower, "slab")
+    _, d_t, _ = generic_path("fast with CBCA", fcfg, tower, "slab")
+    cbca_sha = same_as_plain_route(
+        torch, "kitti fast with CBCA (slab form)",
+        lambda: stereo_predict(fcfg, tower, t0_, t1_, D), d_t)
+    del d_t
 
     for what, gcfg, net in (("census", ccfg, None),
                             ("fast with CBCA", fcfg, tower)):
@@ -3219,9 +3388,12 @@ def main() -> int:
         mfeats = mhand(torch.stack([m0_, m1_])[:, None])
     matching_head(mhand, mfeats)
     del mfeats
-    mb_path("mb slow -a time (left direction, head set by hand)", mscfg, mhand,
+    what = "mb slow -a time (left direction, head set by hand)"
+    mb_path(what, mscfg, mhand,
             dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1,
-                 **cbca_counts(mscfg, 1), **REFINE_MB), 3)
+                 **cbca_counts(mscfg, 1), **layout_counts(1), **REFINE_MB), 3)
+    run = (lambda: stereo_predict(mscfg, mhand, m0_, m1_, dm))
+    mb_shas[what] = same_as_plain_route(torch, what, run, run())
 
     # the all-plain comparison at 96x320, D=48 with mb's own parameters
     for what, mcfg, net in (("mb fast", mcfg_t, mtower),
@@ -3267,7 +3439,9 @@ def main() -> int:
              cbca_pack=slow["cbca_pack"],
              census_signatures=census["census_signatures"],
              census_volume=census["census_volume"],
-             ad_volume=ad["ad_volume"])
+             ad_volume=ad["ad_volume"], sgm_layout=census["sgm_layout"],
+             sgm_generic_tables=census["sgm_generic_tables"],
+             sgm_combine=census["sgm_combine"], wta_dhw=census["wta_dhw"])
         for fast, slow, stream, grid, census, ad in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
             scan_counts["stream"], scan_counts["grid"], scan_counts["slab"],
@@ -3294,9 +3468,15 @@ def main() -> int:
                "census_volume": ("costs.cu", "mccnn_tpu/ops/costs.py:103"),
                "ad_volume": ("costs.cu", "mccnn_tpu/ops/costs.py:49"),
                "sgm_tables": ("sgm_tables.cu",
-                              "mccnn_tpu/ops/sgm.py:1237")}
+                              "mccnn_tpu/ops/sgm.py:1237"),
+               "sgm_layout": ("sgm_layout.cu", "mccnn_tpu/ops/sgm.py:1149"),
+               "sgm_generic_tables": ("sgm_layout.cu",
+                                      "mccnn_tpu/ops/sgm.py:1156"),
+               "sgm_combine": ("sgm_layout.cu", "mccnn_tpu/ops/sgm.py:1234"),
+               "wta_dhw": ("sgm_layout.cu", "mccnn_tpu/ops/costs.py:197")}
     print(f"map sha256: kitti fast {fast_sha}, kitti census {census_sha}, "
-          f"kitti ad {ad_sha}, "
+          f"kitti ad {ad_sha}, kitti slow {slow_sha}, kitti fast with CBCA "
+          f"{cbca_sha}, "
           + ", ".join(f"{k} {v}" for k, v in mb_shas.items()))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s, the build included")

@@ -1,15 +1,18 @@
 """Time variants of the cost-volume, census-signature and SGM-table
-kernels against a build of their source.
+kernels, and of the generic lane's layout kernels, against a build of
+their source.
 
     python -m mccnn_tpu_torch.costs_variants [--source PATH ...]
         [--variant NAME[+NAME] ...] [--case kitti mb]
-        [--kernel census ad signatures tables] [--reps 10]
+        [--kernel census ad signatures tables layout combine wta]
+        [--reps 10]
 
 On one CUDA card, from the repository's root (it takes its images, its
 bound and its CUDA-graph timer from ``chip_smoke.py`` there, its build
 from ``cbca_variants``): builds each source the named kernels live in,
-``costs.cu`` (``census``, ``ad``, ``signatures``) and ``sgm_tables.cu``
-(``tables``), by default the shipped ones under ``csrc/`` (``--source``
+``costs.cu`` (``census``, ``ad``, ``signatures``), ``sgm_tables.cu``
+(``tables``) and ``sgm_layout.cu`` (``layout``, ``combine``, ``wta``),
+by default the shipped ones under ``csrc/`` (``--source``
 names another file of the same name, such as an earlier commit's
 unpacked under ``build/``), and each named variant of it (text edits of
 that source, ``a+b`` for several, or ``file:PATH``, another whole source
@@ -19,7 +22,11 @@ turns: source, variant, variant, source. The census and ad volumes
 (``census_volume_launch``, ``ad_volume_launch``) by CUDA events (the
 mean of ``--reps`` calls after a warm-up), the signatures and the tables
 (``census_signatures_launch``, ``sgm_tables_launch``, microseconds a
-call) in a CUDA graph of ``--reps`` calls (``chip_smoke.graph_ms``).
+call) in a CUDA graph of ``--reps`` calls (``chip_smoke.graph_ms``),
+the layout kernels (``sgm_layout_launch`` of both families,
+``sgm_combine_launch`` with the quarter, ``wta_dhw_launch``) by events
+on both directions' census volumes of the pair (the horizontal and the
+vertical family's d-minor volumes of them as the accumulators).
 The inputs are the path's own: ``chip_smoke.py``'s seeded KITTI pair
 (370x1226, D = 228, phase 3) and Middlebury pair (1000x1500, D = 200,
 phase 3b), both directions of each volume, radius 4, the census
@@ -38,10 +45,12 @@ Variants (``l2-sig``, ``no-fast``, ``cx-1``, ``dch-*``, ``unroll-*``,
 - ``store-only``: no work, each output's store alone (census: the
   constant of a cell with no agreeing position, or NaN; ad: NaN, no
   staging, no term; signatures: zero words, no staging, no compare, in
-  this source and in the first design's; tables: 0, no image read): the
-  floor of the design;
+  this source and in the first design's; tables: 0, no image read;
+  layout and combine: the tile's stores, no load; wta: index 0, no
+  load): the floor of the design;
 - ``no-store``: all the work, no store (the compute's floor; the
-  signatures' first design and this one);
+  signatures' first design and this one; layout, combine, wta: the loads
+  and the tile, no store);
 - census ``no-fast``: no interior blocks (every cell's mask tested);
 - census ``l2-sig``: the match signatures loaded from global memory a
   cell (the parent's reads) and no span staged;
@@ -137,6 +146,14 @@ _TAB_TAIL = ("  if ((int)threadIdx.x < end - tail)\n"
 _TAB_NONE = "__float_as_uint({}) == 0x7fbfffffu"
 # the first table kernel (a thread an element of the flat buffer)
 _TAB1_STORE = "    out[i] = v;"
+# the layout kernels (sgm_layout.cu): each one's loads and its stores
+_LAY_LOAD = "  if (d0 < D) {  // the whole block alike"
+_LAY_STORE = "    *reinterpret_cast<float4*>(out + row * Dp + d0 + r) = q;"
+_COMB_LOAD = "  if (d0 + r < D) {\n#pragma unroll"
+_COMB_STORE = ("  for (int rr = t / 32; rr < TD && d0 + rr < D; "
+               "rr += NT / 32) {")
+_WTA_LOAD = "  if (x < W) {\n    const int64_t plane"
+_WTA_STORE = "    out[(int64_t)y * W + x] = (float)idx;"
 
 # name -> [(old, new, occurrences)] text edits of a costs.cu
 VARIANTS = {
@@ -153,7 +170,10 @@ VARIANTS = {
         (_SIG1_LOOP, "    for (int w = 0; w < nw; ++w) out[w] = 0;\n"
          + _SIG1_LOOP.replace("dy <= r", "dy < -r"), 1),
         (_TAB_VALUE, _TAB_VALUE.replace("(j >= len)", "(j >= 0)"), 1),
-        (_TAB1_STORE, "    out[i] = 0.f;", 1)],
+        (_TAB1_STORE, "    out[i] = 0.f;", 1),
+        (_LAY_LOAD, _LAY_LOAD.replace("d0 < D", "false"), 1),
+        (_COMB_LOAD, _COMB_LOAD.replace("d0 + r < D", "false"), 1),
+        (_WTA_LOAD, _WTA_LOAD.replace("x < W", "false"), 1)],
     "no-store": [(_CENSUS_STORE, "    " + _NO_STORE + "return;\n"
                   + _CENSUS_STORE, 1),
                  (_AD_STORE,
@@ -181,7 +201,12 @@ VARIANTS = {
                   + _TAB_NONE.format("value(tail + threadIdx.x)")
                   + ")\n    row[tail + threadIdx.x] = 0.f;", 1),
                  (_TAB1_STORE, "    if (" + _TAB_NONE.format("v")
-                  + ") out[i] = v;", 1)],
+                  + ") out[i] = v;", 1),
+                 (_LAY_STORE, "    if (__float_as_uint(q.x) == 0x7fbfffffu)\n"
+                  "  " + _LAY_STORE, 1),
+                 (_COMB_STORE, "  if (__float_as_uint(tile[t / 32][t & 31])"
+                  " != 0x7fbfffffu) return;\n" + _COMB_STORE, 1),
+                 (_WTA_STORE, "    if (idx == -7)\n  " + _WTA_STORE, 1)],
     **{f"sig-scy-{n}": [("constexpr int SCY = 4;", f"constexpr int SCY = {n};",
                          1)] for n in (2, 8)},
     **{f"sig-swx-{n}": [("constexpr int SWX = 1;", f"constexpr int SWX = {n};",
@@ -257,10 +282,13 @@ NOT_SAME = ("store-only", "no-store", "no-div", "stage-only",
 
 # each kernel's source (by file name) and the kernels ptxas reports of it
 SOURCE_OF = {"census": "costs.cu", "ad": "costs.cu", "signatures": "costs.cu",
-             "tables": "sgm_tables.cu"}
+             "tables": "sgm_tables.cu", "layout": "sgm_layout.cu",
+             "combine": "sgm_layout.cu", "wta": "sgm_layout.cu"}
 PTXAS = {"costs.cu": ("census_sig_kernel", "census_volume_kernel",
                       "ad_volume_kernel"),
-         "sgm_tables.cu": ("sgm_tables_kernel",)}
+         "sgm_tables.cu": ("sgm_tables_kernel",),
+         "sgm_layout.cu": ("sgm_layout_kernel", "sgm_combine_kernel",
+                           "wta_dhw_kernel")}
 
 # ``--stores``: kernels that only store NaN over a (D, H, W) float32
 # volume, each in the order of one block plan, for the card's store rate
@@ -450,6 +478,98 @@ def tables_launcher(lib: ctypes.CDLL, x0, x1, D: int, shape, xrev: bool):
     return run
 
 
+# the generic lane's layout kernels (sgm_layout.cu)
+LAYOUT = ("layout", "combine", "wta")
+
+
+def layout_launcher(lib: ctypes.CDLL, vols, Dp: int, vertical: bool):
+    """A call of the build's sgm_layout_launch on these (D, H, W) volumes
+    (the -1 direction first)."""
+    lib.sgm_layout_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.sgm_layout_launch.restype = ctypes.c_int
+    D, H, W = vols[0].shape
+    n = len(vols)
+    out = torch.empty((H, n * W, Dp) if vertical else (W, n * H, Dp),
+                      dtype=torch.float32, device=vols[0].device)
+
+    def run():
+        rc = lib.sgm_layout_launch(vols[0].data_ptr(), vols[-1].data_ptr(),
+                                   out.data_ptr(), n, D, H, W, Dp,
+                                   int(vertical), 1, _build.stream(out))
+        _build.check_launch(rc, "sgm_layout variant")
+        return out
+    return run
+
+
+def combine_launcher(lib: ctypes.CDLL, acc_h, acc_v, D: int):
+    """A call of the build's sgm_combine_launch (both directions, the
+    quarter) on these family accumulators."""
+    lib.sgm_combine_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.sgm_combine_launch.restype = ctypes.c_int
+    W, nH, Dp = acc_h.shape
+    H = acc_v.shape[0]
+    n = nH // H
+    out = torch.empty((n, D, H, W), dtype=torch.float32, device=acc_h.device)
+
+    def run():
+        rc = lib.sgm_combine_launch(acc_h.data_ptr(), acc_v.data_ptr(),
+                                    out.data_ptr(), n, D, H, W, Dp, 1, 1,
+                                    _build.stream(out))
+        _build.check_launch(rc, "sgm_combine variant")
+        return out
+    return run
+
+
+def wta_launcher(lib: ctypes.CDLL, vol):
+    """A call of the build's wta_dhw_launch on this (D, H, W) volume."""
+    lib.wta_dhw_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.wta_dhw_launch.restype = ctypes.c_int
+    D, H, W = vol.shape
+    out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
+
+    def run():
+        rc = lib.wta_dhw_launch(vol.data_ptr(), out.data_ptr(), D, H, W,
+                                _build.stream(vol))
+        _build.check_launch(rc, "wta_dhw variant")
+        return out
+    return run
+
+
+def layout_case(x0, x1, D: int, kernel: str, libs: dict) -> list:
+    """[(label, {tag: run}, plain output, bytes)] of one layout kernel on
+    both directions' census volumes of the pair: each family's d-minor
+    volume, the family sum with the quarter (the two families' volumes
+    as the accumulators), the winner-take-all of the -1 volume."""
+    vols = [costs.census_volume(x0, x1, D, -1),
+            costs.census_volume(x1, x0, D, 1)]
+    Dp = -(-D // 32) * 32
+    n = 2 * vols[0].numel()
+    if kernel == "layout":
+        out = []
+        for vertical in (False, True):
+            plain = sgm.sgm_layout_plain(vols, Dp, vertical=vertical,
+                                         rev=vertical)
+            out.append((f", {'vertical' if vertical else 'horizontal'}",
+                        {tag: layout_launcher(lib, vols, Dp, vertical)
+                         for tag, lib in libs.items()}, plain,
+                        4 * n + 4 * plain.numel()))
+        return out
+    if kernel == "combine":
+        acc_h = sgm.sgm_layout(vols, Dp, vertical=False, rev=False)
+        acc_v = sgm.sgm_layout(vols, Dp, vertical=True, rev=True)
+        want = sgm.sgm_combine_plain(acc_h, acc_v, (-1, 1), D, quarter=True)
+        return [(", both directions, the quarter",
+                 {tag: combine_launcher(lib, acc_h, acc_v, D)
+                  for tag, lib in libs.items()},
+                 torch.stack([want[-1], want[1]]), 12 * n)]
+    return [(", direction -1", {tag: wta_launcher(lib, vols[0])
+                                for tag, lib in libs.items()},
+             costs.wta_plain(vols[0]), 2 * n + 4 * vols[0][0].numel())]
+
+
 def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
               dev) -> None:
     """``kernel`` on ``case``'s pair (each direction of a volume, each
@@ -462,7 +582,7 @@ def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
     x0, x1 = (torch.as_tensor(v, device=dev)
               for v in cs.kitti_pair(np.random.RandomState(seed), H, W,
                                      shift))
-    if kernel in ("census", "ad"):
+    if kernel in ("census", "ad", "layout", "combine", "wta"):
         def timer(fn):
             return cbca_variants.ms(fn, reps)
         how = "by events"
@@ -472,7 +592,9 @@ def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
         how = "in a CUDA graph"
     sig = costs.census_signatures(x0, x1, RADIUS) if kernel == "census" \
         else None
-    if kernel == "signatures":
+    if kernel in LAYOUT:
+        settings = [(s[0], s) for s in layout_case(x0, x1, D, kernel, libs)]
+    elif kernel == "signatures":
         settings = [("", None)]
     elif kernel == "tables":
         shape = join.pad_dims(H, W, D)
@@ -497,6 +619,8 @@ def time_case(cs, case: str, kernel: str, libs: dict, variants, reps: int,
                     for tag, lib in libs.items()}
             plain = costs.ad_volume_plain(a, b, D, direction, RADIUS)
             nbytes = 4 * D * H * W + 8 * H * W
+        elif kernel in LAYOUT:
+            _, runs, plain, nbytes = setting
         elif kernel == "signatures":
             runs = {tag: signatures_launcher(lib, x0[None], x1[None])
                     for tag, lib in libs.items()}
@@ -638,7 +762,8 @@ def div_check(source: Path, dev) -> bool:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", type=Path, nargs="+", default=[],
-                    help="another costs.cu or sgm_tables.cu (by file name)")
+                    help="another costs.cu, sgm_tables.cu or sgm_layout.cu "
+                    "(by file name)")
     ap.add_argument("--variant", nargs="*", default=[])
     ap.add_argument("--case", nargs="+", choices=sorted(CASES),
                     default=["kitti", "mb"])

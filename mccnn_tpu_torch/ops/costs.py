@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from mccnn_tpu_torch.ops import _build
+from mccnn_tpu_torch.ops import _build, sgm
 
 CHUNK = 16  # disparities per pass of the plain ad and census volumes
 # the largest census / ad radius of the kernels: 225 window positions,
@@ -379,7 +379,28 @@ def fix_border(vol: torch.Tensor, direction: int, n: int) -> torch.Tensor:
 
 def wta(vol: torch.Tensor) -> torch.Tensor:
     """Argmin over disparity (axis 0) as float (H, W), NaN never wins,
-    ties to the lowest disparity (main.lua:1049-1050)."""
+    ties to the lowest disparity (main.lua:1049-1050). The kernel of
+    ``csrc/sgm_layout.cu`` (entry ``wta_dhw``) on a CUDA volume, float32
+    and contiguous; :func:`wta_plain` on a CPU one."""
+    if not vol.is_cuda:
+        return wta_plain(vol)
+    _build.check_cuda_f32(vol, "wta vol")
+    if vol.dim() != 3 or vol.shape[0] < 1 or vol.shape[1] > 65535:
+        raise ValueError(f"wta: expected a (D, H, W) volume with D >= 1, got "
+                         f"{tuple(vol.shape)}")
+    D, H, W = vol.shape
+    out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
+    if out.numel():
+        rc = sgm._layout_lib().wta_dhw_launch(vol.data_ptr(), out.data_ptr(),
+                                              D, H, W, _build.stream(vol))
+        _build.check_launch(rc, "wta_dhw")
+        _build.count("wta_dhw")
+    return out
+
+
+def wta_plain(vol: torch.Tensor) -> torch.Tensor:
+    """:func:`wta` as ``torch.argmin`` of the volume with NaN replaced by
+    +inf."""
     clean = torch.where(torch.isnan(vol), torch.inf, vol)
     return torch.argmin(clean, dim=0).to(torch.float32)
 

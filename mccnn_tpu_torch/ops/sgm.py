@@ -59,8 +59,12 @@ scanline reads D2.
 The HWD lane's D1/D2 tables of one direction's four sweeps are one
 buffer (:func:`table_layout`), written by one launch of
 ``csrc/sgm_tables.cu`` (entry ``sgm_tables``) on CUDA images and by
-:func:`sgm_tables_plain` on CPU ones, the same bits; the generic lane's
-tables (:func:`horiz_plan`, :func:`vert_plan`) are plain torch.
+:func:`sgm_tables_plain` on CPU ones, the same bits. The generic lane's
+data movement is ``csrc/sgm_layout.cu`` on CUDA tensors and its plain
+versions on CPU ones, the same bits: each family's d-minor volume
+(:func:`sgm_layout`), both families' tables in one buffer
+(:func:`sgm_generic_tables`) and, in the slab form, the family sum with
+the quarter (:func:`sgm_combine`); the scan form's plans stay plain torch.
 """
 
 from __future__ import annotations
@@ -611,30 +615,269 @@ def _pad_d(v: torch.Tensor, Dp: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, Dp - v.shape[-1]), value=torch.nan)
 
 
+def _layout_lib():
+    lib = _build.library("sgm_layout")
+    if lib.sgm_layout_launch.argtypes is None:
+        lib.sgm_layout_launch.argtypes = ([ctypes.c_void_p] * 3
+                                          + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p])
+        lib.sgm_combine_launch.argtypes = ([ctypes.c_void_p] * 3
+                                           + [ctypes.c_int] * 7
+                                           + [ctypes.c_void_p])
+        lib.wta_dhw_launch.argtypes = ([ctypes.c_void_p] * 2
+                                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.sgm_generic_tables_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        for fn in (lib.sgm_layout_launch, lib.sgm_combine_launch,
+                   lib.wta_dhw_launch, lib.sgm_generic_tables_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_vols(vols, what):
+    """The (D, H, w) float32 volumes of one family, one shape, on the card,
+    contiguous: 1 or 2 of them."""
+    if not 1 <= len(vols) <= 2:
+        raise ValueError(f"{what}: expected 1 or 2 volumes, got {len(vols)}")
+    for v in vols:
+        _build.check_cuda_f32(v, f"{what} volume")
+        if v.dim() != 3 or v.shape != vols[0].shape \
+                or v.device != vols[0].device or 0 in v.shape:
+            raise ValueError(f"{what}: volumes of shapes "
+                             f"{[tuple(u.shape) for u in vols]}, expected one "
+                             f"(D, H, w) shape on one device")
+
+
+def sgm_layout(vols: list, Dp: int, *, vertical: bool, rev: bool
+               ) -> torch.Tensor:
+    """A family's d-minor volume from the stacked directions' (D, H, w)
+    volumes (the -1 direction first), lanes [D, Dp) NaN: horizontal, the
+    step-major (w, n*H, Dp) volume; vertical, the (H, n*w, Dp) volume,
+    the first volume's columns reversed when ``rev``. The kernel of
+    ``csrc/sgm_layout.cu`` (entry ``sgm_layout``) on CUDA volumes, one
+    launch; :func:`sgm_layout_plain` on CPU ones."""
+    if not vols[0].is_cuda:
+        return sgm_layout_plain(vols, Dp, vertical=vertical, rev=rev)
+    _check_vols(vols, "sgm_layout")
+    D, H, w = vols[0].shape
+    n = len(vols)
+    if Dp % 32 or Dp < D or n * H > 65535:
+        raise ValueError(f"sgm_layout: Dp {Dp} for D={D}, or {n * H} "
+                         f"scanlines")
+    out = torch.empty((H, n * w, Dp) if vertical else (w, n * H, Dp),
+                      dtype=torch.float32, device=vols[0].device)
+    rc = _layout_lib().sgm_layout_launch(
+        vols[0].data_ptr(), vols[-1].data_ptr(), out.data_ptr(), n, D, H, w,
+        Dp, int(vertical), int(rev), _build.stream(out))
+    _build.check_launch(rc, "sgm_layout")
+    _build.count("sgm_layout")
+    return out
+
+
+def sgm_layout_plain(vols: list, Dp: int, *, vertical: bool, rev: bool
+                     ) -> torch.Tensor:
+    """:func:`sgm_layout` as permuted views padded by :func:`_pad_d`,
+    concatenated and made contiguous."""
+    if vertical:
+        parts = [v.permute(1, 2, 0) for v in vols]  # (H, w, D)
+        if rev:
+            parts[0] = parts[0].flip(1)
+    else:
+        parts = [v.permute(2, 1, 0) for v in vols]  # (w, H, D)
+    return torch.cat([_pad_d(v, Dp) for v in parts], dim=1).contiguous()
+
+
+# the kind of each table of the generic lane in csrc/sgm_layout.cu's
+# generic_tables_kernel, by (family, table)
+TABLE_KINDS = {("h", "d1"): 0, ("h", "g"): 1, ("v", "d1"): 2, ("v", "g"): 3,
+               ("v", "g_nat"): 4}
+
+
+def generic_table_layout(H: int, W: int, D: int, n: int, *,
+                         horizontal: bool = True, vertical: bool = True,
+                         cols=None) -> tuple[list, int]:
+    """The parts of the generic lane's table buffer, as ([(key, rows,
+    cols, first element)], length): key (family, table, step), the
+    horizontal family's right then left sweep (``"d1"`` (W, n*H), ``"g"``
+    (n*H, D + W + Dp)), then the vertical family's down then up sweep
+    (``"d1"`` (H, n*w), ``"g"`` and ``"g_nat"`` (H, D + w + Dp)), w the
+    columns of ``cols`` = (c0, c1) (default all W). Each part starts on a
+    multiple of 4 floats (16 bytes); the gaps hold 0."""
+    c0, c1 = (0, W) if cols is None else cols
+    w = c1 - c0
+    Dp = -(-D // 32) * 32
+    shapes = []
+    if horizontal:
+        for dx in (1, -1):
+            shapes += [(("h", "d1", dx), (W, n * H)),
+                       (("h", "g", dx), (n * H, D + W + Dp))]
+    if vertical:
+        for dy in (1, -1):
+            shapes += [(("v", "d1", dy), (H, n * w)),
+                       (("v", "g", dy), (H, D + w + Dp)),
+                       (("v", "g_nat", dy), (H, D + w + Dp))]
+    parts, off = [], 0
+    for key, (rows, ncols) in shapes:
+        parts.append((key, rows, ncols, off))
+        off += -(-rows * ncols // 4) * 4
+    return parts, off
+
+
+def _table_views(buf, parts) -> dict:
+    return {key: buf[off:off + rows * ncols].view(rows, ncols)
+            for key, rows, ncols, off in parts}
+
+
+def sgm_generic_tables(x0, x1, D: int, dirs, *, horizontal=True,
+                       vertical=True, cols=None) -> dict:
+    """The D1 and D2 tables of the generic lane's sweeps for the stacked
+    directions ``dirs`` (sorted), of the horizontal family, the vertical
+    one (on the columns ``cols``, see :func:`vert_plan`) or both, as
+    {(family, table, step): view} of one float32 buffer laid out by
+    :func:`generic_table_layout`: the tables :func:`horiz_plan` and
+    :func:`vert_plan` hand to the sweeps. The kernel of
+    ``csrc/sgm_layout.cu`` (entry ``sgm_generic_tables``) on CUDA images,
+    one launch; :func:`sgm_generic_tables_plain` on CPU ones."""
+    x0 = x0.to(torch.float32)
+    x1 = x1.to(torch.float32)
+    kw = dict(horizontal=horizontal, vertical=vertical, cols=cols)
+    if not x0.is_cuda:
+        return sgm_generic_tables_plain(x0, x1, D, dirs, **kw)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    _check((("x0", x0), ("x1", x1)), "sgm_generic_tables")
+    H, W = x0.shape
+    c0, c1 = (0, W) if cols is None else cols
+    if x1.shape != (H, W) or x0.device != x1.device or not 0 <= c0 < c1 <= W \
+            or D < 1 or not 1 <= len(dirs) <= 2 or 0 in x0.shape \
+            or not (horizontal or vertical):
+        raise ValueError(f"sgm_generic_tables: images {tuple(x0.shape)}, "
+                         f"{tuple(x1.shape)}, D={D}, directions {dirs}, "
+                         f"columns {cols}")
+    parts, total = generic_table_layout(H, W, D, len(dirs), **kw)
+    buf = torch.empty(total, dtype=torch.float32, device=x0.device)
+    desc = [v for key, rows, ncols, off in parts
+            for v in (TABLE_KINDS[key[:2]], key[2], rows, ncols, off)]
+    rc = _layout_lib().sgm_generic_tables_launch(
+        x0.data_ptr(), x1.data_ptr(), buf.data_ptr(),
+        (ctypes.c_longlong * len(desc))(*desc), len(parts), total, H, W, D,
+        len(dirs), c0, c1, int(-1 in dirs), _build.stream(x0))
+    _build.check_launch(rc, "sgm_generic_tables")
+    _build.count("sgm_generic_tables")
+    return _table_views(buf, parts)
+
+
+def sgm_generic_tables_plain(x0, x1, D: int, dirs, *, horizontal=True,
+                             vertical=True, cols=None) -> dict:
+    """:func:`sgm_generic_tables` from :func:`grad_with_sentinel` and
+    :func:`d2_columns` (the horizontal D2 rows lane-reversed for the -1
+    direction) and the vertical core ``|x1 - roll(x1, dy, 0)|`` (no
+    sentinel: row 0 or H - 1 wraps to the opposite row) padded by D
+    columns of 10, lane-reversed for ``g`` and sliced to the columns
+    ``cols``, each copied into the buffer."""
+    H, W = x0.shape
+    c0, c1 = (0, W) if cols is None else cols
+    w = c1 - c0
+    Dp = -(-D // 32) * 32
+    gw = D + W + Dp
+    tabs = {}
+    if horizontal:
+        for dx in (1, -1):
+            d1 = grad_with_sentinel(x0, axis=1, step=dx).T  # (W, H)
+            g0 = d2_columns(x1, dx, 0, D)  # (H, W + 2D)
+            tabs["h", "d1", dx] = torch.cat([d1] * len(dirs), dim=1)
+            tabs["h", "g", dx] = torch.nn.functional.pad(
+                torch.cat([g0.flip(1) if d < 0 else g0 for d in dirs]),
+                (0, gw - g0.shape[1]), value=10.0)
+    if vertical:
+        def table(c, x):  # (H, W + 2D) padded with 10 to (H, gw), from x
+            c = torch.nn.functional.pad(c, (0, gw - c.shape[1]), value=10.0)
+            return c[:, x:x + D + w + Dp]
+
+        for dy in (1, -1):
+            d1 = grad_with_sentinel(x0, axis=0, step=dy)[:, c0:c1]  # (H, w)
+            core = torch.nn.functional.pad(
+                (x1 - torch.roll(x1, dy, 0)).abs(), (D, D),
+                value=10.0)  # (H, W + 2D)
+            tabs["v", "d1", dy] = torch.cat(
+                [d1.flip(1) if d == -1 else d1 for d in dirs], dim=1)
+            tabs["v", "g", dy] = table(core.flip(1), W - c1)
+            tabs["v", "g_nat", dy] = table(core, c0)
+    parts, total = generic_table_layout(H, W, D, len(dirs),
+                                        horizontal=horizontal,
+                                        vertical=vertical, cols=cols)
+    views = _table_views(torch.zeros(total, dtype=torch.float32,
+                                     device=x0.device), parts)
+    for key, view in views.items():
+        view.copy_(tabs[key])
+    return views
+
+
 def horiz_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so, q1,
-               q2):
+               q2, tables=None):
     """The generic lane's horizontal family as inputs of
     :func:`_sweep_hslab`: the step-major (W, n*H, Dp) volume (the
     directions' (D, H, W) volumes stacked on the scanline axis, the -1
-    direction first) and the keyword arguments of the right and the left
-    sweep, the -1 direction's D2 rows lane-reversed (sgm.py:1135-1171)."""
+    direction first; :func:`sgm_layout`) and the keyword arguments of the
+    right and the left sweep, the -1 direction's D2 rows lane-reversed
+    (sgm.py:1135-1171), from ``tables`` (:func:`sgm_generic_tables` of
+    this family or both; default built here)."""
     Dp = -(-D // 32) * 32
-    gw = D + W + Dp
-    vol_x = torch.cat([_pad_d(vols[d].permute(2, 1, 0), Dp) for d in dirs],
-                      dim=1).contiguous()  # (W, n*H, Dp)
+    vol_x = sgm_layout([vols[d] for d in dirs], Dp, vertical=False,
+                       rev=False)  # (W, n*H, Dp)
+    if tables is None:
+        tables = sgm_generic_tables(x0, x1, D, dirs, vertical=False)
     plan = []
     for dx in (1, -1):
-        d1 = grad_with_sentinel(x0, axis=1, step=dx).T  # (W, H)
-        g0 = d2_columns(x1, dx, 0, D)  # (H, W + 2D)
-        g = torch.nn.functional.pad(
-            torch.cat([g0.flip(1) if d < 0 else g0 for d in dirs]),
-            (0, gw - g0.shape[1]), value=10.0)
         plan.append(dict(
-            d1=torch.cat([d1] * len(dirs), dim=1).contiguous(),
-            g=g.contiguous(), reverse=dx == -1, D=D,
-            n_rev=H if -1 in dirs else 0, rev_base=W + D - 1, tau=tau_so,
+            d1=tables["h", "d1", dx], g=tables["h", "g", dx],
+            reverse=dx == -1, D=D, n_rev=H if -1 in dirs else 0,
+            rev_base=W + D - 1, tau=tau_so,
             pen=pen_table(pi1, pi2, q1, q2, 1.0, 1.0)))
     return vol_x, plan
+
+
+def _family_sum(vol, plan, sweep):
+    """A family's two sweeps on ``vol``, the second adding into the
+    first one's result in place: the accumulator."""
+    acc = None
+    for p in plan:
+        p = dict(p)
+        d1, g = p.pop("d1"), p.pop("g")
+        out = torch.empty_like(vol) if acc is None else acc
+        sweep(vol, acc, out, d1, g, **p)
+        acc = out
+    return acc
+
+
+def _slab_horiz_acc(x0, x1, vols: dict, dirs, D, H, W, **kw):
+    vol_x, plan = horiz_plan(x0, x1, vols, dirs, D, H, W, **kw)
+    return _family_sum(vol_x, plan, _sweep_hslab)
+
+
+def _slab_vert_acc(x0, x1, vols: dict, dirs, D, H, W, **kw):
+    vol_y, plan = vert_plan(x0, x1, vols, dirs, D, H, W, **kw)
+    return _family_sum(vol_y, plan, lambda v, a, o, d1, g, **p:
+                       _sweep(v, a, o, None, d1, g, **p))
+
+
+def horizontal_views(acc, dirs, D) -> dict:
+    """{direction: (D, H, W) view} of the horizontal family's (W, n*H, Dp)
+    accumulator."""
+    H = acc.shape[1] // len(dirs)
+    return {d: acc[:, i * H:(i + 1) * H, :D].permute(2, 1, 0)
+            for i, d in enumerate(dirs)}
+
+
+def vertical_views(acc, dirs, D) -> dict:
+    """{direction: (D, H, w) view} of the vertical family's (H, n*w, Dp)
+    accumulator, the -1 direction's columns reversed back."""
+    w = acc.shape[1] // len(dirs)
+    outs = {}
+    for i, d in enumerate(dirs):
+        v = acc[:, i * w:(i + 1) * w, :D]
+        outs[d] = (v.flip(1) if d == -1 else v).permute(2, 0, 1)
+    return outs
 
 
 def sgm_slab_horiz(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
@@ -643,55 +886,38 @@ def sgm_slab_horiz(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
     on the plan of :func:`horiz_plan`; the left sweep adds into the
     right one's result in place. Returns {direction: (D, H, W) sum of
     both sweeps}."""
-    vol_x, plan = horiz_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1, pi2=pi2,
-                             tau_so=tau_so, q1=q1, q2=q2)
-    acc = None
-    for p in plan:
-        p = dict(p)
-        d1, g = p.pop("d1"), p.pop("g")
-        out = torch.empty_like(vol_x) if acc is None else acc
-        _sweep_hslab(vol_x, acc, out, d1, g, **p)
-        acc = out
-    return {d: acc[:, i * H:(i + 1) * H, :D].permute(2, 1, 0)
-            for i, d in enumerate(dirs)}
+    return horizontal_views(_slab_horiz_acc(
+        x0, x1, vols, dirs, D, H, W, pi1=pi1, pi2=pi2, tau_so=tau_so, q1=q1,
+        q2=q2), dirs, D)
 
 
 def vert_plan(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
-              alpha1, q1, q2, cols=None):
+              alpha1, q1, q2, cols=None, tables=None):
     """The generic lane's vertical family as inputs of :func:`_sweep`:
     the (H, n*w, Dp) volume (the -1 direction's columns first and
-    x-reversed) and the keyword arguments of the down and the up sweep,
-    the -1 direction's D2 rows lane-reversed in ``g`` and the natural
-    ones in ``g_nat`` (sgm.py:1174-1217). ``cols``: (c0, c1) when the
-    volumes hold only the columns c0:c1 of the (H, W) images x0, x1 (a
-    column shard of the row-sharded inference), w = c1 - c0: the tables
-    are built from the whole images and sliced, since D2 reads x1 at
-    x -/+ d, outside the shard's columns."""
+    x-reversed; :func:`sgm_layout`) and the keyword arguments of the down
+    and the up sweep, the -1 direction's D2 rows lane-reversed in ``g``
+    and the natural ones in ``g_nat`` (sgm.py:1174-1217), from ``tables``
+    (:func:`sgm_generic_tables` of this family or both; default built
+    here). ``cols``: (c0, c1) when the volumes hold only the columns c0:c1
+    of the (H, W) images x0, x1 (a column shard of the row-sharded
+    inference), w = c1 - c0: the tables are built from the whole images
+    and sliced, since D2 reads x1 at x -/+ d, outside the shard's
+    columns."""
     c0, c1 = (0, W) if cols is None else cols
-    w = c1 - c0
     Dp = -(-D // 32) * 32
-    gw = D + W + Dp
-    parts = []
-    for d in dirs:
-        v = vols[d].permute(1, 2, 0)  # (H, w, D)
-        parts.append(_pad_d(v.flip(1) if d == -1 else v, Dp))
-    vol_y = torch.cat(parts, dim=1).contiguous()  # (H, n*w, Dp)
-
-    def table(c, x):  # (H, W + 2D) padded with 10 to (H, gw), from column x
-        c = torch.nn.functional.pad(c, (0, gw - c.shape[1]), value=10.0)
-        return c[:, x:x + D + w + Dp].contiguous()
-
+    vol_y = sgm_layout([vols[d] for d in dirs], Dp, vertical=True,
+                       rev=-1 in dirs)  # (H, n*w, Dp)
+    if tables is None:
+        tables = sgm_generic_tables(x0, x1, D, dirs, horizontal=False,
+                                    cols=cols)
     plan = []
     for sgm_dir, dy in ((2, 1), (3, -1)):
-        d1 = grad_with_sentinel(x0, axis=0, step=dy)[:, c0:c1]  # (H, w)
-        core = torch.nn.functional.pad((x1 - torch.roll(x1, dy, 0)).abs(),
-                                       (D, D), value=10.0)  # (H, W + 2D)
         plan.append(dict(
-            d1=torch.cat([d1.flip(1) if d == -1 else d1 for d in dirs],
-                         dim=1).contiguous(),
-            g=table(core.flip(1), W - c1), g_nat=table(core, c0),
-            n_rev=w if -1 in dirs else 0, vertical=True, reverse=dy == -1,
-            T=H, D=D, tau=tau_so,
+            d1=tables["v", "d1", dy], g=tables["v", "g", dy],
+            g_nat=tables["v", "g_nat", dy],
+            n_rev=c1 - c0 if -1 in dirs else 0, vertical=True,
+            reverse=dy == -1, T=H, D=D, tau=tau_so,
             pen=pen_table(pi1, pi2, q1, q2, alpha1 if sgm_dir == 2 else 1.0,
                           alpha1 if sgm_dir == 3 else 1.0)))
     return vol_y, plan
@@ -703,22 +929,49 @@ def sgm_slab_vert(x0, x1, vols: dict, dirs, D, H, W, *, pi1, pi2, tau_so,
     the plan of :func:`vert_plan` (``cols``: see there); the up sweep
     adds into the down one's result in place. Returns {direction:
     (D, H, w) sum of both sweeps}."""
-    vol_y, plan = vert_plan(x0, x1, vols, dirs, D, H, W, pi1=pi1, pi2=pi2,
-                            tau_so=tau_so, alpha1=alpha1, q1=q1, q2=q2,
-                            cols=cols)
-    w = vol_y.shape[1] // len(dirs)
-    acc = None
-    for p in plan:
-        p = dict(p)
-        d1, g = p.pop("d1"), p.pop("g")
-        out = torch.empty_like(vol_y) if acc is None else acc
-        _sweep(vol_y, acc, out, None, d1, g, **p)
-        acc = out
-    outs = {}
-    for i, d in enumerate(dirs):
-        v = acc[:, i * w:(i + 1) * w, :D]
-        outs[d] = (v.flip(1) if d == -1 else v).permute(2, 0, 1)
-    return outs
+    return vertical_views(_slab_vert_acc(
+        x0, x1, vols, dirs, D, H, W, pi1=pi1, pi2=pi2, tau_so=tau_so,
+        alpha1=alpha1, q1=q1, q2=q2, cols=cols), dirs, D)
+
+
+def sgm_combine(acc_h, acc_v, dirs, D: int, *, quarter: bool = False
+                ) -> dict:
+    """The generic lane's four-sweep sums from the two family
+    accumulators of the slab form, the horizontal (W, n*H, Dp) and the
+    vertical (H, n*W, Dp) one: {direction: (D, H, W) contiguous h + v},
+    or (h + v) / 4 with ``quarter`` (the SGM iteration's result). The
+    kernel of ``csrc/sgm_layout.cu`` (entry ``sgm_combine``) on CUDA
+    accumulators, one launch for all directions (the results are views of
+    one (n, D, H, W) buffer); :func:`sgm_combine_plain` on CPU ones."""
+    if not acc_h.is_cuda:
+        return sgm_combine_plain(acc_h, acc_v, dirs, D, quarter=quarter)
+    _check((("h", acc_h), ("v", acc_v)), "sgm_combine")
+    n = len(dirs)
+    W, nH, Dp = acc_h.shape
+    H = nH // n
+    if not 1 <= n <= 2 or nH != n * H or acc_v.shape != (H, n * W, Dp) \
+            or Dp % 32 or not 0 < D <= Dp or nH > 65535 \
+            or acc_v.device != acc_h.device:
+        raise ValueError(f"sgm_combine: accumulators {tuple(acc_h.shape)}, "
+                         f"{tuple(acc_v.shape)} for directions {dirs}, D={D}")
+    out = torch.empty((n, D, H, W), dtype=torch.float32, device=acc_h.device)
+    rc = _layout_lib().sgm_combine_launch(
+        acc_h.data_ptr(), acc_v.data_ptr(), out.data_ptr(), n, D, H, W, Dp,
+        int(-1 in dirs), int(quarter), _build.stream(out))
+    _build.check_launch(rc, "sgm_combine")
+    _build.count("sgm_combine")
+    return {d: out[i] for i, d in enumerate(dirs)}
+
+
+def sgm_combine_plain(acc_h, acc_v, dirs, D: int, *, quarter: bool = False
+                      ) -> dict:
+    """:func:`sgm_combine` as ``torch.add`` of the families' views into
+    (D, H, W) contiguous tensors, then ``/ 4.0`` with ``quarter``."""
+    h = horizontal_views(acc_h, dirs, D)
+    v = vertical_views(acc_v, dirs, D)
+    out = {d: torch.add(h[d], v[d], out=torch.empty(
+        h[d].shape, dtype=h[d].dtype, device=h[d].device)) for d in dirs}
+    return {d: s / 4.0 for d, s in out.items()} if quarter else out
 
 
 def _d2_table(d2col: torch.Tensor, direction: int, D: int, W: int):
@@ -854,22 +1107,33 @@ def vertical_family(form, x0, x1, vols: dict, dirs, D, H, W, **kw) -> dict:
 
 
 def sgm_multi(x0, x1, vols: dict, *, pi1, pi2, tau_so, alpha1, sgm_q1,
-              sgm_q2, form=None) -> dict:
+              sgm_q2, form=None, quarter=False) -> dict:
     """Four sweeps, summed (h + v, not divided by 4), for one or both
     reference directions at once. vols: {direction: (D, H, W)};
-    ``form``: see :func:`resolve_form`."""
+    ``form``: see :func:`resolve_form`; ``quarter``: (h + v) / 4 instead,
+    the result of one SGM iteration of the stereo method. The slab form
+    builds both families' tables in one :func:`sgm_generic_tables` call
+    and adds the families with :func:`sgm_combine`."""
     form = resolve_form(form)
     dirs = sorted(vols)
     D, H, W = vols[dirs[0]].shape
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=vols[dirs[0]].device)
     x1 = torch.as_tensor(x1, dtype=torch.float32, device=vols[dirs[0]].device)
     kw = dict(pi1=pi1, pi2=pi2, tau_so=tau_so, q1=sgm_q1, q2=sgm_q2)
+    if form == "slab":
+        tables = sgm_generic_tables(x0, x1, D, dirs)
+        acc_h = _slab_horiz_acc(x0, x1, vols, dirs, D, H, W, tables=tables,
+                                **kw)
+        acc_v = _slab_vert_acc(x0, x1, vols, dirs, D, H, W, alpha1=alpha1,
+                               tables=tables, **kw)
+        return sgm_combine(acc_h, acc_v, dirs, D, quarter=quarter)
     h = horizontal_family(form, x0, x1, vols, dirs, D, H, W, **kw)
     v = vertical_family(form, x0, x1, vols, dirs, D, H, W, alpha1=alpha1, **kw)
-    # the slab families return views with d fastest; the sum is laid out
-    # (D, H, W) contiguous, which the stages after the SGM read far faster
-    return {d: torch.add(h[d], v[d], out=torch.empty_like(
+    # the sum is laid out (D, H, W) contiguous, which the stages after the
+    # SGM read far faster
+    out = {d: torch.add(h[d], v[d], out=torch.empty_like(
         vols[d], memory_format=torch.contiguous_format)) for d in dirs}
+    return {d: s / 4.0 for d, s in out.items()} if quarter else out
 
 
 def sgm(x0, x1, vol, *, pi1, pi2, tau_so, alpha1, sgm_q1, sgm_q2,

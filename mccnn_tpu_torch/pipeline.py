@@ -245,8 +245,7 @@ class Stages:
 
     def sgm(self, x0, x1, vols: dict, form, **kw) -> dict:
         """One SGM iteration: the four-sweep sums (h + v), divided by 4."""
-        outs = sgm.sgm_multi(x0, x1, vols, form=form, **kw)
-        return {d: v / 4.0 for d, v in outs.items()}
+        return sgm.sgm_multi(x0, x1, vols, form=form, quarter=True, **kw)
 
     def wta(self, vol):
         return costs.wta(vol)

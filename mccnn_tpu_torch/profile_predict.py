@@ -19,9 +19,9 @@ tower's convolutions and the plain torch operations, the calls of each
 hand kernel's wrapper (``_build.launches``), the top kernels by
 device time, the device's busy share of the wall time of the run, and
 the peak device memory of that run; the plain torch launches of a
-second run, in which each function of the port's pipeline, tower and
-ops modules runs in a profiler range, by the innermost such function
-that issued them; the SHA-256 of the map's float32
+second run and their device time, in which each function of the port's
+pipeline, tower and ops modules runs in a profiler range, by the
+innermost such function that issued them; the SHA-256 of the map's float32
 bytes, so that two versions' maps can be compared across processes;
 then pairs/s of 10 runs without the profiler, the median and the spread
 of their wall times (host clock around a synchronized call).
@@ -54,7 +54,8 @@ HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "mismatch_fill_kernel", "subpixel_kernel", "median5_kernel",
         "cbca_kernel", "cross_arms_kernel", "cbca_pack_kernel",
         "census_sig_kernel", "census_volume_kernel", "ad_volume_kernel",
-        "sgm_tables_kernel")
+        "sgm_tables_kernel", "sgm_layout_kernel", "generic_tables_kernel",
+        "sgm_combine_kernel", "wta_dhw_kernel")
 
 
 PLAIN = "plain torch operations"
@@ -193,15 +194,18 @@ def main(argv=None) -> None:
         stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
         torch.cuda.synchronize()
     by_source = collections.Counter()
+    us_of = collections.Counter()
     for e in prof.events():
-        n = sum(_group(k.name) == PLAIN for k in e.kernels)
-        if n:
-            by_source[_source(e)] += n
-    print(f"plain torch launches by the port's function that issued them (a "
-          f"second run, each function in a profiler range; "
-          f"{sum(by_source.values())} in all):")
+        plain = [k for k in e.kernels if _group(k.name) == PLAIN]
+        if plain:
+            by_source[_source(e)] += len(plain)
+            us_of[_source(e)] += sum(k.duration for k in plain)
+    print(f"plain torch launches and their device ms by the port's function "
+          f"that issued them (a second run, each function in a profiler "
+          f"range; {sum(by_source.values())} launches, "
+          f"{sum(us_of.values()) / 1e3:.3f} ms in all):")
     for src, n in by_source.most_common():
-        print(f"  {n:6d}  {src}")
+        print(f"  {n:6d}  {us_of[src] / 1e3:9.3f} ms  {src}")
     digest = hashlib.sha256(disp.cpu().numpy().astype(np.float32).tobytes())
     print(f"map sha256 {digest.hexdigest()}")
     times = []

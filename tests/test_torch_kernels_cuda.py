@@ -1009,7 +1009,9 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     shard, the fills, the median and the blur once, CBCA once a shard,
     direction and iteration, its pack once a shard, the arms once an
     image; census's signatures once a shard and its volumes once a shard
-    and direction."""
+    and direction; the generic lane's layout kernel and its tables once a
+    row shard (horizontal) and once a column shard (vertical), the
+    winner-take-all once a shard and direction, the family sum plain."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.parallel import inference
@@ -1033,7 +1035,8 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
     counts = dict(dict.fromkeys(_build.KERNELS, 0), sgm_hslab=2 * n,
                   sgm_vertical=2 * n, outlier=n, blur=1, occlusion_fill=1,
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
-                  cbca=2 * n * its, cbca_pack=n if its else 0)
+                  cbca=2 * n * its, cbca_pack=n if its else 0,
+                  sgm_layout=2 * n, sgm_generic_tables=2 * n, wta_dhw=2 * n)
     counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
                    "census": {"census_signatures": n,
                               "census_volume": 2 * n}}[arch])
@@ -1434,3 +1437,182 @@ def test_cost_wrappers_refuse_what_the_kernels_do_not_take(dev):
         sgm.sgm_tables(x0, x1.cpu(), 5, 9, 40, (16, 48, 8), xrev=True)
     with pytest.raises(ValueError, match="do not fit"):
         sgm.sgm_tables(x0, x1, 5, 9, 40, (8, 48, 8), xrev=True)
+
+
+def _generic_vols(dev, seed, D, H, W, dirs):
+    """(D, H, W) volumes with the out-of-frame NaN masks, NaN of two
+    payloads, -0.0 beside +0.0, +-inf and 1e9 cells, a column of ties and
+    an all-NaN column, on the card."""
+    rng = np.random.RandomState(seed)
+    xs, ds = np.arange(W)[None, None, :], np.arange(D)[:, None, None]
+    vols = {}
+    for k in dirs:
+        v = rng.rand(D, H, W).astype(np.float32)
+        v[np.broadcast_to((xs + ds * k < 0) | (xs + ds * k >= W), v.shape)] \
+            = np.nan
+        v[rng.rand(D, H, W) < 0.02] = np.nan
+        v.view(np.uint32)[rng.rand(D, H, W) < 0.01] = 0x7fc00123
+        v[rng.rand(D, H, W) < 0.02] = -0.0
+        v[rng.rand(D, H, W) < 0.02] = 0.0
+        v[rng.rand(D, H, W) < 0.01] = np.inf
+        v[rng.rand(D, H, W) < 0.01] = -np.inf
+        v[rng.rand(D, H, W) < 0.02] = 1e9
+        v[:, H // 2, W // 3] = 0.25
+        v[:, H - 1, W - 1] = np.nan
+        vols[k] = torch.as_tensor(v, device=dev)
+    return vols
+
+
+GENERIC_SHAPES = [(13, 17, 45), (40, 23, 150), (70, 9, 257), (1, 3, 5),
+                  (228, 37, 300), (200, 6, 1500)]
+
+
+@pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
+@pytest.mark.parametrize("D,H,W", GENERIC_SHAPES)
+def test_sgm_layout_kernel_is_bit_identical(dev, D, H, W, dirs):
+    """Both families' d-minor volumes, one launch each, bit for bit with
+    the plain permute, pad and cat (NaN payloads kept, lanes [D, Dp)
+    0x7fc00000): ragged column and disparity tiles, one direction and
+    both, the -1 direction's columns reversed in the vertical one."""
+    vols = _generic_vols(dev, D + H, D, H, W, dirs)
+    tv = [vols[d] for d in dirs]
+    Dp = -(-D // 32) * 32
+    for vertical in (False, True):
+        kw = dict(vertical=vertical, rev=vertical and -1 in dirs)
+        _build.reset_launches()
+        got = sgm.sgm_layout(tv, Dp, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches()["sgm_layout"] == 1
+        assert _same_bits(got, sgm.sgm_layout_plain(tv, Dp, **kw))
+
+
+@pytest.mark.parametrize("cols", [None, "left", "right"])
+@pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
+@pytest.mark.parametrize("D,H,W", GENERIC_SHAPES)
+def test_sgm_generic_tables_kernel_is_bit_identical(dev, D, H, W, dirs, cols):
+    """Both families' tables in one launch, and each family alone, the
+    whole buffer (gaps included) bit for bit with the plain build, on
+    images with NaN of two payloads, +-inf and -0.0; the vertical family
+    also on a column shard (the left or right half)."""
+    x0, x1 = _adversarial_cost_images(dev, D + W, (H, W))
+    c = {None: None, "left": (0, W // 2 + 1), "right": (W // 3, W)}[cols]
+    for kw in (dict(cols=c), dict(vertical=False),
+               dict(horizontal=False, cols=c)):
+        _build.reset_launches()
+        got = sgm.sgm_generic_tables(x0, x1, D, dirs, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches()["sgm_generic_tables"] == 1
+        want = sgm.sgm_generic_tables_plain(x0, x1, D, dirs, **kw)
+        parts, total = sgm.generic_table_layout(H, W, D, len(dirs), **kw)
+        flat = [torch.as_strided(next(iter(t.values())), (total,), (1,), 0)
+                for t in (got, want)]
+        assert _same_bits(*flat)
+
+
+@pytest.mark.parametrize("quarter", [True, False])
+@pytest.mark.parametrize("dirs", [(-1, 1), (-1,), (1,)])
+@pytest.mark.parametrize("D,H,W", GENERIC_SHAPES)
+def test_sgm_combine_kernel_is_bit_identical(dev, D, H, W, dirs, quarter):
+    """The family sum (with the quarter or without) of two accumulators
+    holding NaN of two payloads, -0.0, +-inf and 1e9, one launch, bit for
+    bit with torch.add of the families' views then / 4.0 (rows of the
+    output off 16 bytes: W odd)."""
+    a = _generic_vols(dev, D + 1, D, H, W, dirs)
+    b = _generic_vols(dev, D + 2, D, H, W, dirs)
+    Dp = -(-D // 32) * 32
+    acc_h = sgm.sgm_layout([a[d] for d in dirs], Dp, vertical=False,
+                           rev=False)
+    acc_v = sgm.sgm_layout([b[d] for d in dirs], Dp, vertical=True,
+                           rev=-1 in dirs)
+    _build.reset_launches()
+    got = sgm.sgm_combine(acc_h, acc_v, dirs, D, quarter=quarter)
+    torch.cuda.synchronize()
+    assert _build.launches()["sgm_combine"] == 1
+    want = sgm.sgm_combine_plain(acc_h, acc_v, dirs, D, quarter=quarter)
+    for d in dirs:
+        assert got[d].is_contiguous() and _same_bits(got[d], want[d])
+
+
+@pytest.mark.parametrize("D,H,W", GENERIC_SHAPES + [(7, 5, 31), (8, 4, 33),
+                                                    (9, 2, 64)])
+def test_wta_kernel_is_bit_identical(dev, D, H, W):
+    """The winner-take-all of a volume with NaN, -0.0 beside +0.0, +-inf,
+    1e9, a column of ties and an all-NaN column, one launch, equal to
+    torch.argmin of the NaN-free copy: D below, at and past the warps of
+    a block."""
+    vol = _generic_vols(dev, D + W, D, H, W, (1,))[1]
+    _build.reset_launches()
+    got = costs.wta(vol)
+    torch.cuda.synchronize()
+    assert _build.launches()["wta_dhw"] == 1
+    assert _same_bits(got, costs.wta_plain(vol))
+
+
+@pytest.mark.parametrize("dirs", [(-1, 1), (-1,)])
+def test_generic_slab_sgm_launches_the_layout_kernels(dev, dirs):
+    """``Stages.sgm`` in the slab form on the card: the layout kernel a
+    family, both families' tables in one launch, one combine launch, and
+    the map of ``costs.wta`` bit for bit with the plain route (every
+    wrapper's plain version on the card)."""
+    from mccnn_tpu_torch import pipeline
+
+    D, H, W = 70, 23, 150
+    vols = _generic_vols(dev, 7, D, H, W, dirs)
+    for v in vols.values():
+        v[v.isinf()] = 1e9
+    x0, x1 = _cost_images(dev, 2, (H, W))
+    kw = dict(pi1=1.32, pi2=24.25, tau_so=0.08, alpha1=2.0, sgm_q1=3.0,
+              sgm_q2=2.0)
+    _build.reset_launches()
+    got = pipeline.ONE_DEVICE.sgm(x0, x1, vols, "slab", **kw)
+    maps = {d: costs.wta(got[d]) for d in dirs}
+    torch.cuda.synchronize()
+    n = _build.launches()
+    assert (n["sgm_layout"], n["sgm_generic_tables"], n["sgm_combine"],
+            n["wta_dhw"]) == (2, 1, 1, len(dirs))
+    routes = ((sgm, "sgm_layout"), (sgm, "sgm_generic_tables"),
+              (sgm, "sgm_combine"), (costs, "wta"))
+    saved = [getattr(m, name) for m, name in routes]
+    try:
+        for m, name in routes:
+            setattr(m, name, getattr(m, name + "_plain"))
+        want = pipeline.ONE_DEVICE.sgm(x0, x1, vols, "slab", **kw)
+        want_maps = {d: costs.wta(want[d]) for d in dirs}
+    finally:
+        for (m, name), fn in zip(routes, saved):
+            setattr(m, name, fn)
+    for d in dirs:
+        assert _same_bits(got[d], want[d])
+        assert _same_bits(maps[d], want_maps[d])
+
+
+def test_layout_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Non-float32, non-contiguous, mismatched or CPU operands raise
+    ValueError; nothing falls back."""
+    vols = _generic_vols(dev, 1, 13, 9, 40, (-1, 1))
+    a, b = vols[-1], vols[1]
+    with pytest.raises(ValueError, match="float32"):
+        sgm.sgm_layout([a.double(), b.double()], 32, vertical=False,
+                       rev=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sgm.sgm_layout([a.transpose(1, 2), b], 32, vertical=False, rev=False)
+    with pytest.raises(ValueError, match="shape"):
+        sgm.sgm_layout([a, b[:, :5].contiguous()], 32, vertical=True,
+                       rev=True)
+    with pytest.raises(ValueError, match="Dp"):
+        sgm.sgm_layout([a, b], 8, vertical=True, rev=True)
+    with pytest.raises(ValueError, match="float32"):
+        costs.wta(a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        costs.wta(a.transpose(1, 2))
+    x0, x1 = _cost_images(dev, 1, (9, 40))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sgm.sgm_generic_tables(x0, x1.cpu(), 13, (-1, 1))
+    with pytest.raises(ValueError, match="columns"):
+        sgm.sgm_generic_tables(x0, x1, 13, (-1, 1), cols=(5, 50))
+    acc_h = sgm.sgm_layout([a, b], 32, vertical=False, rev=False)
+    acc_v = sgm.sgm_layout([a, b], 32, vertical=True, rev=True)
+    with pytest.raises(ValueError, match="accumulators"):
+        sgm.sgm_combine(acc_h, acc_v[:, :40].contiguous(), (-1, 1), 13)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sgm.sgm_combine(acc_h, acc_v.cpu(), (-1, 1), 13)

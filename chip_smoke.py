@@ -72,7 +72,16 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    both families' tables, the family sum with the quarter and the
    winner-take-all, each bit-identical to its plain version, beside one
    PyTorch call of the same function (a ``copy_`` of each permuted view,
-   ``torch.add`` and ``div_``, ``torch.argmin`` of a NaN-free copy);
+   ``torch.add`` and ``div_``, ``torch.argmin`` of a NaN-free copy); the
+   towers' kernels (``csrc/tower.cu``; ``capture_tower``, ``tower_rows``,
+   ``epilogue_rows``): the bias kernel and the normalization (the join's
+   packed operands and the features' layout) on kitti fast's own
+   convolution outputs in float32 and with ``-dtype bfloat16``, the bias
+   kernel on kitti slow's, and the slow volumes' epilogue on kitti slow's
+   head scores with and without d_true = 200, each bit for bit against
+   its plain version (``.view(torch.int32)``) on those inputs and on
+   copies with NaN of two payloads, -0.0 and +-inf planted, timed in a
+   CUDA graph and by events beside its bound;
    then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
@@ -90,7 +99,11 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    the census and ad kernels on mb census's and mb ad's inputs and the
    tables on mb fast's, bit for bit; the generic lane's layout kernels
    on one SGM iteration of the mb slow head's volume (the -1 direction),
-   bit for bit; each with kernel, plain and bound times;
+   bit for bit; the towers' kernels on mb fast's convolution outputs
+   (``-a predict`` in float32, both sides' operands; ``-a time`` with
+   ``-dtype bfloat16``, the left side's) and mb slow's, and the epilogue
+   on mb slow's head scores (and d_true = 150), bit for bit; each with
+   kernel, plain and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -434,9 +447,10 @@ def capture_cbca(torch, run) -> dict:
 # once a pair and a volume a direction, ad's volume a direction
 COSTS = {"census": dict(census_signatures=1, census_volume=2),
          "ad": dict(ad_volume=2)}
-# the wrappers of the census and ad volumes, the HWD lane's SGM tables
-# and the generic lane's layouts, tables, family sum and winner-take-all,
-# with their plain versions, as (module, wrapper, plain version)
+# the wrappers of the census and ad volumes, the HWD lane's SGM tables,
+# the generic lane's layouts, tables, family sum and winner-take-all and
+# the towers' bias, normalization and slow epilogue, with their plain
+# versions, as (module, wrapper, plain version)
 PLAIN_ROUTES = (("costs", "census_signatures", "census_signatures_plain"),
                 ("costs", "census_volume", "census_volume_plain"),
                 ("costs", "ad_volume", "ad_volume_plain"),
@@ -444,7 +458,10 @@ PLAIN_ROUTES = (("costs", "census_signatures", "census_signatures_plain"),
                 ("sgm", "sgm_layout", "sgm_layout_plain"),
                 ("sgm", "sgm_generic_tables", "sgm_generic_tables_plain"),
                 ("sgm", "sgm_combine", "sgm_combine_plain"),
-                ("costs", "wta", "wta_plain"))
+                ("costs", "wta", "wta_plain"),
+                ("tower", "bias_act", "bias_act_plain"),
+                ("tower", "normalize", "normalize_plain"),
+                ("tower", "slow_epilogue", "slow_epilogue_plain"))
 
 
 def layout_counts(directions: int, form: str = "slab", shards: int = 0
@@ -712,6 +729,196 @@ def layout_rows(torch, seen, where) -> dict:
     return rows
 
 
+def tower_counts(cfg, shards: int = 1) -> dict:
+    """The tower kernels a pair (``csrc/tower.cu``), on each of ``shards``
+    row shards: the fast tower's bias kernel a layer but the last, whose
+    bias and normalization write the join's operands (or the features)
+    in one launch; the slow tower's bias kernel a layer and the slow
+    volumes' epilogue once; none for census and ad."""
+    if cfg.arch == "fast":
+        return dict(tower_bias_act=shards * (cfg.l1 - 1),
+                    tower_normalize_pack=shards)
+    if cfg.arch == "slow":
+        return dict(tower_bias_act=shards * cfg.l1,
+                    slow_volumes_epilogue=shards)
+    return {}
+
+
+def capture_tower(torch, run) -> dict:
+    """The arguments of the last ``tower.bias_act`` and ``tower.normalize``
+    call of each compute dtype in ``run()``, keyed (name, dtype, pack's
+    sides or None), the convolution output cloned before the call
+    (``bias_act`` writes into it)."""
+    from mccnn_tpu_torch.ops import tower
+
+    seen = {}
+    orig = {name: getattr(tower, name) for name in ("bias_act", "normalize")}
+
+    def hook(name):
+        def call(acc, bias, *a, **kw):
+            if name == "bias_act":
+                key = (name, a[1], None)
+            else:
+                pack = a[1] if len(a) > 1 else kw.get("pack")
+                key = (name, a[0], None if pack is None else pack[1])
+            seen[key] = ((acc.clone(), bias.detach().clone(), *a), kw)
+            return orig[name](acc, bias, *a, **kw)
+        return call
+
+    try:
+        for name in orig:
+            setattr(tower, name, hook(name))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(tower, name, fn)
+    return seen
+
+
+def plant(torch, t):
+    """A copy of ``t`` with NaN of two payloads, -0.0 and +-inf planted at
+    strides that reach every plane."""
+    t = t.clone()
+    flat = t.view(-1)
+    flat[::9973] = float("nan")
+    flat[1::9967] = torch.tensor([0x7fc00123], dtype=torch.int32).view(
+        torch.float32).item()
+    flat[2::9949] = -0.0
+    flat[3::9941] = float("inf")
+    flat[4::9931] = -float("inf")
+    return t
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Equal shapes and equal bits (``.view(torch.int32)``), element by
+    element of two tensors or of two tuples of tensors (None for None)."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    return len(got) == len(want) and all(
+        (g is None and w is None) or (
+            g is not None and w is not None and g.shape == w.shape
+            and torch.equal(g.contiguous().view(torch.int32),
+                            w.contiguous().view(torch.int32)))
+        for g, w in zip(got, want))
+
+
+def tower_rows(torch, seen, where) -> dict:
+    """Rows for the tower kernels on the inputs ``capture_tower`` saw:
+    each kernel bit for bit (``.view(torch.int32)``) against its plain
+    version on the path's own input and on a copy with NaN, -0.0 and
+    +-inf planted (and a -0.0 bias), timed in a CUDA graph and by events
+    (the bias kernel in place on a scratch copy), the plain version by
+    events. Bounds by bytes: the bias kernel reads and writes its tensor
+    once; the normalization reads the convolution output once and writes
+    its outputs once (the operands' pad included). No single PyTorch call
+    computes either (``library_ms`` null)."""
+    from mccnn_tpu_torch.ops import tower
+
+    rows = {}
+    for key in sorted(seen, key=str):
+        name, dtype, sides = key
+        (acc, bias, *rest), kw = seen[key]
+        dt = str(dtype).replace("torch.", "")
+        planted = plant(torch, acc)
+        pbias = bias.clone()
+        pbias[0] = -0.0
+        with torch.no_grad():
+            if name == "bias_act":
+                relu = rest[0]
+                for a, b in ((acc, bias), (planted, pbias)):
+                    got = tower.bias_act(a.clone(), b, relu, dtype)
+                    want = tower.bias_act_plain(a.clone(), b, relu, dtype)
+                    check(bits_equal(torch, got, want), f"tower_bias_act "
+                          f"{where} {dt}: not bit-identical to its plain "
+                          "version")
+                del got, want
+                scratch = acc.clone()
+                kernel = (lambda: tower.bias_act(scratch, bias, relu, dtype))
+                plain = (lambda: tower.bias_act_plain(scratch, bias, relu,
+                                                      dtype))
+                nbytes = 2 * 4 * acc.numel()
+                label = f"tower_bias_act ({dt}, relu {relu})"
+            else:
+                pack = rest[1] if len(rest) > 1 else kw.get("pack")
+                for a, b in ((acc, bias), (planted, pbias)):
+                    for p in (pack, None):
+                        got = tower.normalize(a, b, dtype, p)
+                        want = tower.normalize_plain(a, b, dtype, p)
+                        check(bits_equal(torch, tuple(got[:4]) if p else got,
+                                         tuple(want[:4]) if p else want),
+                              f"tower_normalize {where} {dt} pack {p}: not "
+                              "bit-identical to its plain version")
+                del got, want
+                out = tower.normalize(acc, bias, dtype, pack)
+                nbytes = 4 * acc.numel() + sum(
+                    4 * t.numel() for t in (out[:4] if pack else (out,))
+                    if t is not None)
+                del out
+                kernel = (lambda: tower.normalize(acc, bias, dtype, pack))
+                plain = (lambda: tower.normalize_plain(acc, bias, dtype,
+                                                       pack))
+                label = (f"tower_normalize_pack ({dt}, "
+                         f"{'sides ' + sides if sides else 'features'})")
+                scratch = None
+            row = dict(err=0.0, ms=graph_ms(torch, kernel, 10),
+                       events_ms=cuda_ms(torch, kernel, 10),
+                       plain_ms=cuda_ms(torch, plain, 3),
+                       bound=bound_ms(nbytes, 0.0), library_ms=None)
+        del planted, scratch
+        print(f"  {label} {where}, {tuple(acc.shape)}: bit-identical to the "
+              f"plain version (also with NaN, -0.0, +-inf planted); kernel "
+              f"{row['ms']:.4f} ms in a CUDA graph, {row['events_ms']:.4f} ms "
+              f"by events, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound'][0]:.4f} ms (bytes), "
+              f"{row['bound'][0] / row['ms']:.2f} of it")
+        rows[label] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def epilogue_rows(torch, s, n, d_true, where) -> dict:
+    """Rows for the slow volumes' epilogue on the head scores ``s`` of a
+    path, with ``n`` border columns, without and with ``d_true``: bit for
+    bit against its plain version on ``s`` and on a copy with NaN, -0.0
+    and +-inf planted, timed by events and in a CUDA graph; the bound by
+    bytes, the real planes of ``s`` read once and both volumes written
+    once."""
+    from mccnn_tpu_torch.ops import tower
+
+    rows = {}
+    planted = plant(torch, s)
+    for dt in (None, d_true):
+        for v in (s, planted):
+            check(bits_equal(torch, tower.slow_epilogue(v, n, dt),
+                             tower.slow_epilogue_plain(v, n, dt)),
+                  f"slow_volumes_epilogue {where} (n {n}, d_true {dt}): not "
+                  "bit-identical to its plain version")
+        torch.cuda.synchronize()
+        D, h, w = s.shape
+        real = D if dt is None else dt
+        row = dict(err=0.0,
+                   ms=graph_ms(torch, lambda: tower.slow_epilogue(s, n, dt),
+                               5),
+                   events_ms=cuda_ms(torch, lambda: tower.slow_epilogue(
+                       s, n, dt), 5),
+                   plain_ms=cuda_ms(torch, lambda: tower.slow_epilogue_plain(
+                       s, n, dt), 2),
+                   bound=bound_ms(4.0 * h * w * (real + 2 * D), 0.0),
+                   library_ms=None)
+        label = ("slow_volumes_epilogue" if dt is None
+                 else f"slow_volumes_epilogue (d_true {dt})")
+        print(f"  {label} {where}, n = {n}: bit-identical to the plain version"
+              f" (also with NaN, -0.0, +-inf planted); kernel {row['ms']:.4f}"
+              f" ms in a CUDA graph, {row['events_ms']:.4f} ms by events, "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms"
+              f" (bytes), {row['bound'][0] / row['ms']:.2f} of it")
+        rows[label] = row
+    del planted
+    torch.cuda.empty_cache()
+    return rows
+
+
 def map_sha(a) -> str:
     """The SHA-256 of a map's float32 bytes (``profile_predict``'s)."""
     arr = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
@@ -720,12 +927,13 @@ def map_sha(a) -> str:
 
 def plain_route(torch, run):
     """``run()`` with the census and ad volumes, the HWD lane's SGM
-    tables and the generic lane's layouts, tables, family sum and
-    winner-take-all built by their plain versions on the card
-    (``PLAIN_ROUTES``); the kernels' launch counts untouched."""
-    from mccnn_tpu_torch.ops import costs, sgm
+    tables, the generic lane's layouts, tables, family sum and
+    winner-take-all and the towers' passes after the convolutions built
+    by their plain versions on the card (``PLAIN_ROUTES``); the kernels'
+    launch counts untouched."""
+    from mccnn_tpu_torch.ops import costs, sgm, tower
 
-    mods = {"costs": costs, "sgm": sgm}
+    mods = {"costs": costs, "sgm": sgm, "tower": tower}
     saved = [(mods[m], name, getattr(mods[m], name))
              for m, name, _ in PLAIN_ROUTES]
     try:
@@ -747,8 +955,9 @@ def same_as_plain_route(torch, what, run, disp) -> str:
           f"{what}: the map differs from the plain route's")
     sha = map_sha(disp)
     print(f"  {what}: map sha256 {sha}, bit for bit the map with the cost "
-          f"volumes, the HWD tables and the generic lane's layouts, "
-          f"tables, sum and winner-take-all built by their plain versions")
+          f"volumes, the HWD tables, the generic lane's layouts, tables, sum "
+          f"and winner-take-all and the towers' bias, normalization and slow "
+          f"epilogue built by their plain versions")
     return sha
 
 
@@ -1429,7 +1638,7 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
         want_mb = dict.fromkeys(_build.KERNELS, 0)
         want_mb.update(join=1, sgm_tables=1, sgm_vertical=2,
                        sgm_horizontal=2, blur=1,
-                       **REFINE_MB)
+                       **REFINE_MB, **tower_counts(mcfg))
         score = float(out.getvalue().split()[-1])
         x0, x1 = (np.array(mds.X[0][0][k, 0]) for k in (0, 1))
         dm = int(mds.metadata[0, 2])
@@ -1575,7 +1784,9 @@ def cache_phase(torch, dev, x0, x1, fast_want: dict, slow_want: dict,
         base = runs["uncached"][0]
         for what, want in (("uncached", slow_want),
                            ("cache-making", slow_want),
-                           ("cached", dict(slow_want, slow_head=0))):
+                           ("cached", dict(slow_want, slow_head=0,
+                                           tower_bias_act=0,
+                                           slow_volumes_epilogue=0))):
             check(runs[what][2] == want, f"{what}: launch counts "
                   f"{runs[what][2]}, expected {want}")
         check(all(torch.equal(base, r[0]) for r in runs.values()),
@@ -1841,6 +2052,7 @@ def parallel_phase(torch, dev, x0, x1, fast: tuple, slow: tuple) -> None:
                             blur=1, **dict(REFINE_KITTI, subpixel=n),
                             **cbca_counts(cfg, 2, n),
                             **layout_counts(2, shards=n),
+                            **tower_counts(cfg, n),
                             **({"join": 2 * n} if arch == "fast"
                                else {"slow_head": n}))
                 check(got == want, f"row-sharded kitti {arch} on {n}: "
@@ -2630,7 +2842,33 @@ def main() -> int:
           f"of the {BF16_TC_OPS / 1e12:.0f} TFLOP/s bf16 peak (the mma.sync "
           f"kernel it replaces took {OLD_HEAD_MS} ms)")
     vols = dict(zip((-1, 1), slow_head.masked_volumes(s_k)))
-    del s_k, s_p, valid
+    del s_p, valid
+    # the slow volumes' epilogue on this head's scores (kitti slow's border
+    # of ws // 2 columns; and with d_true = 200), then the towers' kernels
+    # on the convolution outputs of kitti fast (float32 and -dtype
+    # bfloat16) and kitti slow, captured in one stereo_predict each
+    t_tower = time.perf_counter()
+    ep = epilogue_rows(torch, s_k, (scfg.ws - 1) // 2, 200,
+                       f"kitti slow at {H}x{W}, D={D}")
+    rows["slow_volumes_epilogue"] = ep.pop("slow_volumes_epilogue")
+    rows_tower = dict(ep)
+    del s_k
+    seen = {}
+    for c in (cfg, make_config("kitti", "fast", a="predict",
+                               dtype="bfloat16")):
+        seen.update(capture_tower(
+            torch, lambda c=c: stereo_predict(c, tower, x0, x1, D)))
+    got = tower_rows(torch, seen, f"kitti fast at {H}x{W}")
+    rows["tower_bias_act"] = got.pop("tower_bias_act (float32, relu True)")
+    rows["tower_normalize_pack"] = got.pop(
+        "tower_normalize_pack (float32, sides both)")
+    rows_tower.update(got)
+    seen = capture_tower(torch, lambda: stereo_predict(scfg, snet, x0, x1, D))
+    rows_tower.update({f"{k} kitti slow": v for k, v in tower_rows(
+        torch, seen, f"kitti slow at {H}x{W}").items()})
+    del seen, got
+    print(f"  the tower kernels' checks took "
+          f"{time.perf_counter() - t_tower:.0f} s")
 
     # the Middlebury shape of the chain (two mid layers, a narrow head
     # padded to the 64-wide instance) at a small ragged size
@@ -2868,6 +3106,10 @@ def main() -> int:
         print(f"  {name}: kernel {row['ms']:.4f} ms, bound "
               f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), equal to the "
               f"plain version bit for bit")
+    for name, row in rows_tower.items():
+        print(f"  {name}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.4f} ms "
+              f"({row['bound'][1]}), equal to the plain version bit for bit")
 
     # --- phase 3b: the Middlebury paths' kernels at 1000x1500, D=200 ------
     # (hm, wm, dm: the -a time shape) on the inputs phase 7's mb fast and
@@ -2893,6 +3135,19 @@ def main() -> int:
     rows_mb.update(refine_rows(torch, capture_refine(
         torch, lambda: stereo_predict(mfcfg, mtower, m0_, m1_, dm)),
         f"at {hm}x{wm}, D={dm}"))
+    t_tower = time.perf_counter()
+    # the towers' kernels on mb fast's convolution outputs: -a predict in
+    # float32 (both sides' operands) and -a time with -dtype bfloat16 (the
+    # left side's)
+    seen = capture_tower(torch, lambda: stereo_predict(
+        mfcfg, mtower, m0_, m1_, dm))
+    seen.update(capture_tower(torch, lambda: stereo_predict(
+        make_config("mb", "fast", a="time", dtype="bfloat16"), mtower, m0_,
+        m1_, dm)))
+    rows_mb.update({f"{k} (fast)": v for k, v in tower_rows(
+        torch, seen, f"mb fast at {hm}x{wm}").items()})
+    del seen
+    tower_secs = time.perf_counter() - t_tower
     # the cost volumes and the HWD tables at the mb shape: mb census's and
     # mb ad's volumes (-a time), mb fast's tables of both directions
     mseen = {}
@@ -3020,7 +3275,14 @@ def main() -> int:
         msf = msnet(mimages)
     mops = slow_head.head_operands(msnet, msf[0].permute(1, 2, 0),
                                    msf[1].permute(1, 2, 0))
-    del msf, msnet
+    # the bias kernel on mb slow's convolution outputs (one -a time run)
+    t_tower = time.perf_counter()
+    seen = capture_tower(torch, lambda: stereo_predict(
+        mscfg, msnet, m0_, m1_, dm))
+    rows_mb.update({f"{k} (slow)": v for k, v in tower_rows(
+        torch, seen, f"mb slow at {hm}x{wm}").items()})
+    del msf, msnet, seen
+    tower_secs += time.perf_counter() - t_tower
     s_k = slow_head.slow_head_volume(*mops, dm)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3049,6 +3311,12 @@ def main() -> int:
                        * mw_.shape[2], BF16_TC_OPS))
     del A_, B_, mw_, mops
     mvols = {-1: slow_head.masked_volumes(s_k)[0]}
+    t_tower = time.perf_counter()
+    rows_mb.update({f"{k} (slow)": v for k, v in epilogue_rows(
+        torch, s_k, (mscfg.ws - 1) // 2, 150,
+        f"mb slow at {hm}x{wm}, D={dm}").items()})
+    tower_secs += time.perf_counter() - t_tower
+    print(f"  the tower kernels' checks at the mb shape took {tower_secs:.0f} s")
     del s_k
     # CBCA at mb slow's K = 14 on that volume, the -1 direction (-a time),
     # with the pair's arms; the arms kernel at K = 14
@@ -3101,7 +3369,7 @@ def main() -> int:
     print(f"phase 4: launches in one stereo_predict: {counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
     want.update(join=2, sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
-                outlier=1, blur=1, **REFINE_KITTI)
+                outlier=1, blur=1, **REFINE_KITTI, **tower_counts(cfg))
     check(counts == want, f"launch counts {counts}, expected {want}")
     fast_sha = same_as_plain_route(
         torch, "kitti fast", lambda: stereo_predict(cfg, tower, x0, x1, D),
@@ -3185,7 +3453,8 @@ def main() -> int:
     print(f"phase 5: launches in one slow stereo_predict: {slow_counts}")
     want = dict.fromkeys(_build.KERNELS, 0)
     want.update(sgm_vertical=2, outlier=1, blur=1, slow_head=1, sgm_hslab=2,
-                **cbca_counts(scfg, 2), **layout_counts(2), **REFINE_KITTI)
+                **cbca_counts(scfg, 2), **layout_counts(2), **REFINE_KITTI,
+                **tower_counts(scfg))
     check(slow_counts == want, f"launch counts {slow_counts}, expected {want}")
     slow_sha = same_as_plain_route(
         torch, "kitti slow", lambda: stereo_predict(scfg, hand, x0, x1, D),
@@ -3244,7 +3513,7 @@ def main() -> int:
         want.update(outlier=1, blur=1, join=0 if net is None else 2,
                     **sweeps_of[form], **cbca_counts(gcfg, 2),
                     **layout_counts(2, form), **COSTS.get(gcfg.arch, {}),
-                    **REFINE_KITTI)
+                    **REFINE_KITTI, **tower_counts(gcfg))
         print(f"phase 6: launches in one {what} stereo_predict, form {form}: "
               f"{got}, kernel launches of sgm_step {got_k['sgm_step']}")
         check(got == want, f"{what} {form}: launch counts {got}, expected {want}")
@@ -3373,11 +3642,11 @@ def main() -> int:
     for what, mcfg, want_mb in (
             ("mb fast -a time (left direction)", mcfg_t,
              dict(join=1, sgm_tables=1, sgm_vertical=2, sgm_horizontal=2,
-                  blur=1, **REFINE_MB)),
+                  blur=1, **REFINE_MB, **tower_counts(mcfg_t))),
             ("mb fast -a predict (both directions)",
              make_config("mb", "fast", a="predict"),
              dict(join=2, sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
-                  blur=1, **REFINE_MB))):
+                  blur=1, **REFINE_MB, **tower_counts(mcfg_t)))):
         mb_path(what, mcfg, mtower, want_mb, 10)
         run = (lambda c=mcfg: stereo_predict(c, mtower, m0_, m1_, dm))
         mb_shas[what] = same_as_plain_route(torch, what, run, run())
@@ -3391,7 +3660,8 @@ def main() -> int:
     what = "mb slow -a time (left direction, head set by hand)"
     mb_path(what, mscfg, mhand,
             dict(slow_head=1, sgm_hslab=2, sgm_vertical=2, blur=1,
-                 **cbca_counts(mscfg, 1), **layout_counts(1), **REFINE_MB), 3)
+                 **cbca_counts(mscfg, 1), **layout_counts(1), **REFINE_MB,
+                 **tower_counts(mscfg)), 3)
     run = (lambda: stereo_predict(mscfg, mhand, m0_, m1_, dm))
     mb_shas[what] = same_as_plain_route(torch, what, run, run())
 
@@ -3441,7 +3711,8 @@ def main() -> int:
              census_volume=census["census_volume"],
              ad_volume=ad["ad_volume"], sgm_layout=census["sgm_layout"],
              sgm_generic_tables=census["sgm_generic_tables"],
-             sgm_combine=census["sgm_combine"], wta_dhw=census["wta_dhw"])
+             sgm_combine=census["sgm_combine"], wta_dhw=census["wta_dhw"],
+             slow_volumes_epilogue=slow["slow_volumes_epilogue"])
         for fast, slow, stream, grid, census, ad in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
             scan_counts["stream"], scan_counts["grid"], scan_counts["slab"],
@@ -3473,7 +3744,12 @@ def main() -> int:
                "sgm_generic_tables": ("sgm_layout.cu",
                                       "mccnn_tpu/ops/sgm.py:1156"),
                "sgm_combine": ("sgm_layout.cu", "mccnn_tpu/ops/sgm.py:1234"),
-               "wta_dhw": ("sgm_layout.cu", "mccnn_tpu/ops/costs.py:197")}
+               "wta_dhw": ("sgm_layout.cu", "mccnn_tpu/ops/costs.py:197"),
+               "tower_bias_act": ("tower.cu", "mccnn_tpu/models/towers.py:84"),
+               "tower_normalize_pack": ("tower.cu",
+                                        "mccnn_tpu/models/towers.py:96"),
+               "slow_volumes_epilogue": ("tower.cu",
+                                         "mccnn_tpu/ops/slow_head_pallas.py:218")}
     print(f"map sha256: kitti fast {fast_sha}, kitti census {census_sha}, "
           f"kitti ad {ad_sha}, kitti slow {slow_sha}, kitti fast with CBCA "
           f"{cbca_sha}, "

@@ -36,13 +36,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head", "refine",
-           "cross", "costs", "sgm_tables", "sgm_layout")
+           "cross", "costs", "sgm_tables", "sgm_layout", "tower")
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
            "slow_head", "sgm_hslab", "sgm_scan", "sgm_step",
            "occlusion_fill", "mismatch_fill", "subpixel", "median5", "cbca",
            "cross_arms", "cbca_pack", "census_signatures", "census_volume",
            "ad_volume", "sgm_tables", "sgm_layout", "sgm_generic_tables",
-           "sgm_combine", "wta_dhw")
+           "sgm_combine", "wta_dhw", "tower_bias_act", "tower_normalize_pack",
+           "slow_volumes_epilogue")
 HOST_SOURCES = ("host_gather",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

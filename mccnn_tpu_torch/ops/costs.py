@@ -362,14 +362,17 @@ def stereo_join(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int
     return vol_l, vol_r
 
 
-def fix_border(vol: torch.Tensor, direction: int, n: int) -> torch.Tensor:
+def fix_border(vol: torch.Tensor, direction: int, n: int,
+               inplace: bool = False) -> torch.Tensor:
     """Replicate the first valid column over the CNN's half-window
     border: direction -1 fixes the last n columns from column W-1-n,
-    +1 the first n columns from column n. vol is (D, H, W)."""
+    +1 the first n columns from column n. vol is (D, H, W). A new volume,
+    or with ``inplace`` (a caller that owns ``vol``) ``vol`` itself with
+    its n border columns overwritten."""
     if n <= 0:
         return vol
     W = vol.shape[-1]
-    out = vol.clone()
+    out = vol if inplace else vol.clone()
     if direction == -1:
         out[..., W - n:] = vol[..., W - 1 - n:W - n]
     else:

@@ -24,6 +24,7 @@ runs :func:`join_plus_plain`, a float32 sum.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -169,32 +170,78 @@ def _prep(f: torch.Tensor, flip: bool, Hp: int, width: int) -> torch.Tensor:
                                    ).contiguous()
 
 
-def stereo_join_hwd(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
-                    n_fix: int = 0, sides: str = "both", d_true=None,
-                    out_dtype: torch.dtype = torch.float32):
+class Operands(NamedTuple):
+    """The join's operands of both sides for (H, W) maps: a_l (fl) and b_l
+    (fr) x-reversed, a_r (fr) and b_r (fl) natural, each zero-padded
+    channel-major, a (Hp, C, Wp) and b (Hp, C, Wp + Dp) (:func:`pad_dims`);
+    a_r and b_r None for the left side alone."""
+    a_l: torch.Tensor
+    b_l: torch.Tensor
+    a_r: torch.Tensor | None
+    b_r: torch.Tensor | None
+    H: int
+    W: int
+
+
+def _side(f: torch.Tensor, g: torch.Tensor, right: bool, Hp: int, Wp: int,
+          Dp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of one side from (H, W, C) maps: a from f, b from g, both
+    x-reversed for the left side."""
+    f, g = f.to(torch.float32), g.to(torch.float32)
+    return _prep(f, not right, Hp, Wp), _prep(g, not right, Hp, Wp + Dp)
+
+
+def operands(feat_l: torch.Tensor, feat_r: torch.Tensor, disp_max: int,
+             sides: str = "both") -> Operands:
+    """The :class:`Operands` of (H, W, C) maps by :func:`_prep`."""
+    H, W, _ = feat_l.shape
+    dims = pad_dims(H, W, int(disp_max))
+    a_l, b_l = _side(feat_l, feat_r, False, *dims)
+    if sides == "left":
+        return Operands(a_l, b_l, None, None, H, W)
+    return Operands(a_l, b_l, *_side(feat_r, feat_l, True, *dims), H, W)
+
+
+def stereo_join_hwd(feat_l: torch.Tensor | None, feat_r: torch.Tensor | None,
+                    disp_max: int, n_fix: int = 0, sides: str = "both",
+                    d_true=None, out_dtype: torch.dtype = torch.float32,
+                    packed: Operands | None = None):
     """Both cost volumes, (vol_l_xrev, vol_r), each (Hp, Wp, Dp):
     ``vol_r[y, x, d] = -<fr[y,x], fl[y,x+d]>`` and
     ``vol_l_xrev[y, x', d] = vol_L[y, W-1-x', d]``. feat_l/feat_r:
-    (H, W, C) L2-normalized maps. ``sides="left"`` returns the left
+    (H, W, C) L2-normalized maps, or None with ``packed``, their
+    :class:`Operands` built already (the fast tower's packed route,
+    ``ops.tower.normalize``). ``sides="left"`` returns the left
     volume alone. ``d_true``: the real disparity count when ``disp_max``
     was padded (lanes d >= d_true NaN; None: all of disp_max);
     ``out_dtype``: the storage dtype, float32, bfloat16 or float16."""
     if sides not in ("both", "left"):
         raise ValueError(f"sides must be 'both' or 'left', got {sides!r}")
-    H, W, _ = feat_l.shape
     D = int(disp_max)
+    H, W = feat_l.shape[:2] if packed is None else (packed.H, packed.W)
     Hp, Wp, Dp = pad_dims(H, W, D)
-    feat_l = feat_l.to(torch.float32)
-    feat_r = feat_r.to(torch.float32)
+    if packed is not None and (
+            packed.a_l.shape[::2] != (Hp, Wp)
+            or packed.b_l.shape[::2] != (Hp, Wp + Dp)
+            or (sides == "both" and packed.a_r is None)):
+        raise ValueError(f"join: operands a {tuple(packed.a_l.shape)}, b "
+                         f"{tuple(packed.b_l.shape)} (right side "
+                         f"{packed.a_r is not None}) do not fit {H}x{W}, "
+                         f"D={D}, sides {sides!r}")
+
+    def side(right: bool):
+        """(a, b) of one side, each prepared only when it is joined."""
+        if packed is not None:
+            return (packed.a_r, packed.b_r) if right else (packed.a_l,
+                                                           packed.b_l)
+        f, g = (feat_r, feat_l) if right else (feat_l, feat_r)
+        return _side(f, g, right, Hp, Wp, Dp)
+
     kw = dict(d_true=d_true, out_dtype=out_dtype)
-    vol_l_xrev = _join_plus(_prep(feat_l, True, Hp, Wp),
-                            _prep(feat_r, True, Hp, Wp + Dp), D, W, H, n_fix,
-                            **kw)
+    vol_l_xrev = _join_plus(*side(False), D, W, H, n_fix, **kw)
     if sides == "left":
         return vol_l_xrev
-    vol_r = _join_plus(_prep(feat_r, False, Hp, Wp),
-                       _prep(feat_l, False, Hp, Wp + Dp), D, W, H, n_fix,
-                       **kw)
+    vol_r = _join_plus(*side(True), D, W, H, n_fix, **kw)
     return vol_l_xrev, vol_r
 
 

@@ -267,10 +267,17 @@ def masked_volumes(s: torch.Tensor):
 
 @torch.no_grad()
 def slow_volumes(net, fl: torch.Tensor, fr: torch.Tensor, disp_max: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, n: int = 0,
+                 disp_true=None):
     """Both slow-arch cost volumes (vol_l, vol_r), each (D, H, W) with
     NaN out of frame, for feature maps fl, fr (H, W, C). ``net``: a
     :class:`~mccnn_tpu_torch.models.towers.SlowNet`; ``dtype``: the
-    compute dtype of :func:`head_operands`."""
-    return masked_volumes(slow_head_volume(*head_operands(net, fl, fr, dtype),
-                                           int(disp_max)))
+    compute dtype of :func:`head_operands`. The masks run in one pass with
+    the ``n`` border columns of ``costs.fix_border`` and the 1e9 planes
+    d >= ``disp_true`` (``tower.slow_epilogue``); the defaults give
+    :func:`masked_volumes`."""
+    from mccnn_tpu_torch.ops import tower
+
+    return tower.slow_epilogue(
+        slow_head_volume(*head_operands(net, fl, fr, dtype), int(disp_max)),
+        n, disp_true)

@@ -13,8 +13,9 @@ Orchestration contract: ``stereo_predict`` (main.lua:929-1082).
 - Generic (D, H, W) lane, every other configuration (``_volumes_jit`` +
   ``_method_jit``, pipeline.py:34-229). Three sources of volumes
   (:func:`_volumes`): the slow arch (slow tower -> factored head kernel
-  -> NaN masks -> ``fix_border``), the fast arch with CBCA (fast tower
-  -> join kernel, relaid to (D, H, W) -> ``fix_border``), and the
+  -> NaN masks, ``fix_border`` and the ``disp_true`` planes in one
+  epilogue kernel), the fast arch with CBCA (fast tower -> join kernel,
+  relaid to (D, H, W) -> ``fix_border`` in place), and the
   census and ad costs of the two images (no network, no border fix).
   Then (:func:`_method`) CBCA ×cbca_i1 -> SGM (both directions stacked,
   four sweeps, h + v, /4) -> CBCA ×cbca_i2 -> WTA -> outlier labels ->
@@ -119,14 +120,18 @@ def _check_lane(cfg: Config, hwd: bool) -> None:
             "arch, cbca_i1=cbca_i2=0, no volume cache, the slab SGM form)")
 
 
-def _tower(net, images, dtype=torch.float32):
-    """The conv tower in the compute ``dtype``; on CUDA with TF32 off
-    (TF32 would drift the features from the f32 reference and flip WTA
-    near-ties), set here, not globally."""
+def _tower(net, images, dtype=torch.float32, pack=None):
+    """The conv tower of prediction (``net.infer``: the bias-free
+    convolutions, then the tower kernels of ``ops/tower.py``) in the
+    compute ``dtype``; ``pack`` = (disp_max, sides) asks the fast tower
+    for the join's operands. On CUDA with TF32 off (TF32 would drift the
+    features from the f32 reference and flip WTA near-ties), set here,
+    not globally."""
+    kw = {} if pack is None else dict(pack=pack)
     if images.is_cuda:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return net(images, dtype)
-    return net(images, dtype)
+            return net.infer(images, dtype, **kw)
+    return net.infer(images, dtype, **kw)
 
 
 @torch.no_grad()
@@ -156,6 +161,7 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
     are a halo that the tower or the cost windows read, their features
     and costs computed and dropped."""
     own = slice(None) if rows is None else rows
+    pad = disp_true is not None and disp_true < disp_max
     if arch == "census":
         # both images' signatures once a pair, read by both volumes
         s0, s1 = costs.census_signatures(x0, x1)
@@ -171,16 +177,21 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
         feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)[:, :, own]
         fl = feats[0].permute(1, 2, 0)  # (H, W, C)
         fr = feats[1].permute(1, 2, 0)
-        if arch == "fast":
-            vol_l, vol_r = join.stereo_join_dhw(fl, fr, disp_max)
-        else:
-            vol_l, vol_r = slow_head.slow_volumes(net, fl, fr, disp_max, dtype)
         n = (ws - 1) // 2
-        vols = {-1: costs.fix_border(vol_l, -1, n),
-                1: costs.fix_border(vol_r, 1, n)}
+        if arch == "fast":
+            # fresh volumes of the relayout: the border is fixed in place
+            vol_l, vol_r = join.stereo_join_dhw(fl, fr, disp_max)
+            vols = {-1: costs.fix_border(vol_l, -1, n, inplace=True),
+                    1: costs.fix_border(vol_r, 1, n, inplace=True)}
+        else:
+            # the masks, the border and the disp_true planes in one pass
+            vol_l, vol_r = slow_head.slow_volumes(
+                net, fl, fr, disp_max, dtype, n=n,
+                disp_true=disp_true if pad else None)
+            return {-1: vol_l, 1: vol_r}
     else:
         raise ValueError(arch)
-    if disp_true is not None and disp_true < disp_max:
+    if pad:
         real = torch.arange(disp_max, device=x0.device)[:, None, None] \
             < disp_true
         vols = {k: torch.where(real, v, 1e9) for k, v in vols.items()}
@@ -349,16 +360,19 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
         raise ValueError("KITTI runs both reference directions")
     D = int(disp_max)
     H, W = x0.shape
-    feats = _tower(tower, torch.stack([x0, x1])[:, None], dtype)
-    fl = feats[0].permute(1, 2, 0)  # (H, W, C)
-    fr = feats[1].permute(1, 2, 0)
-    n_fix = (ws - 1) // 2
-    jkw = dict(n_fix=n_fix, d_true=disp_true, out_dtype=vol_dtype)
+    sides = "left" if single else "both"
+    # the tower's last kernel writes the join's operands
+    packed = _tower(tower, torch.stack([x0, x1])[:, None], dtype,
+                    pack=(D, sides))
+    jkw = dict(n_fix=(ws - 1) // 2, d_true=disp_true, out_dtype=vol_dtype,
+               sides=sides)
     if single:
-        cur_lr = join.stereo_join_hwd(fl, fr, D, sides="left", **jkw)
+        cur_lr = join.stereo_join_hwd(None, None, D, packed=packed, **jkw)
         cur_r = None
     else:
-        cur_lr, cur_r = join.stereo_join_hwd(fl, fr, D, **jkw)
+        cur_lr, cur_r = join.stereo_join_hwd(None, None, D, packed=packed,
+                                             **jkw)
+    del packed  # the operands (0.55 GB at KITTI) go before the sweeps
 
     sgm_ran = _active_after(sm_terminate, "cbca1") and sm_skip != "sgm"
     if sgm_ran:

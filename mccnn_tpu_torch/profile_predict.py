@@ -18,7 +18,9 @@ every CUDA kernel grouped as the port's hand-written kernels, the
 tower's convolutions and the plain torch operations, the calls of each
 hand kernel's wrapper (``_build.launches``), the top kernels by
 device time, the device's busy share of the wall time of the run, and
-the peak device memory of that run; the plain torch launches of a
+the peak device memory of that run, and where the arch has a tower its
+convolutions' bound at the f32 peak beside cuDNN's time; the plain
+torch launches of a
 second run and their device time, in which each function of the port's
 pipeline, tower and ops modules runs in a profiler range, by the
 innermost such function that issued them; the SHA-256 of the map's float32
@@ -55,10 +57,14 @@ HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "cbca_kernel", "cross_arms_kernel", "cbca_pack_kernel",
         "census_sig_kernel", "census_volume_kernel", "ad_volume_kernel",
         "sgm_tables_kernel", "sgm_layout_kernel", "generic_tables_kernel",
-        "sgm_combine_kernel", "wta_dhw_kernel")
+        "sgm_combine_kernel", "wta_dhw_kernel", "tower_bias_act_kernel",
+        "tower_normalize_kernel", "slow_volumes_epilogue_kernel")
 
 
 PLAIN = "plain torch operations"
+# the H100 SXM's published f32 peak (a fused multiply-add two operations):
+# the tower's bound
+F32_PEAK = 67e12
 # the port's modules whose functions the second run labels, and the prefix
 # of those labels among the profiler's ranges
 LABELLED = ("pipeline", "models.towers", "ops.costs", "ops.cross", "ops.join",
@@ -185,6 +191,19 @@ def main(argv=None) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms in {n} launches")
+    if tower is not None:
+        # the convolutions' f32 operations, a multiply-add two, both images
+        flops = sum(2.0 * 2 * H * W * c.in_channels * c.out_channels
+                    * c.kernel_size[0] * c.kernel_size[1] for c in tower.convs)
+        # cuDNN's convolutions alone (the group also holds cuBLAS's
+        # matmuls of the slow head's first layer)
+        conv_ms = sum(dev_us(e) for e in kernels
+                      if any(k in e.key.lower()
+                             for k in ("fprop", "conv", "implicit"))) / 1e3
+        print(f"  the tower's bound: {flops / 1e9:.1f} GFLOP at the "
+              f"{F32_PEAK / 1e12:.0f} TFLOP/s f32 peak, "
+              f"{flops / F32_PEAK * 1e3:.3f} ms; cuDNN {conv_ms:.3f} ms, "
+              f"{flops / F32_PEAK * 1e3 / max(conv_ms, 1e-9):.3f} of the peak")
     print("  the hand kernels' wrapper calls: "
           + ", ".join(f"{k} {n}" for k, n in _build.launches().items() if n))
     print(f"top {args.top} kernels by device time:")

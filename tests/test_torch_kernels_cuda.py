@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mccnn_tpu_torch.ops import (_build, blur, costs, cross, join, outlier,
-                                 post, sgm, slow_head)
+                                 post, sgm, slow_head, tower)
 
 pytestmark = pytest.mark.cuda
 
@@ -925,7 +925,8 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
     assert counts == dict(dict.fromkeys(_build.KERNELS, 0), join=2,
                           sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
                           outlier=1, blur=1, occlusion_fill=1,
-                          mismatch_fill=1, subpixel=1, median5=1)
+                          mismatch_fill=1, subpixel=1, median5=1,
+                          tower_bias_act=1, tower_normalize_pack=1)
     assert torch.equal(got, want)
 
 
@@ -1037,7 +1038,12 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
                   cbca=2 * n * its, cbca_pack=n if its else 0,
                   sgm_layout=2 * n, sgm_generic_tables=2 * n, wta_dhw=2 * n)
-    counts.update({"fast": {"join": 2 * n}, "slow": {"slow_head": n},
+    # the tower a shard: a bias kernel a layer but the fast tower's last,
+    # which is the normalization; the slow volumes' epilogue a shard
+    counts.update({"fast": {"join": 2 * n, "tower_bias_act": 3 * n,
+                            "tower_normalize_pack": n},
+                   "slow": {"slow_head": n, "tower_bias_act": 2 * n,
+                            "slow_volumes_epilogue": n},
                    "census": {"census_signatures": n,
                               "census_volume": 2 * n}}[arch])
     assert _build.launches() == counts
@@ -1616,3 +1622,174 @@ def test_layout_wrappers_refuse_what_the_kernels_do_not_take(dev):
         sgm.sgm_combine(acc_h, acc_v[:, :40].contiguous(), (-1, 1), 13)
     with pytest.raises(ValueError, match="CUDA tensor"):
         sgm.sgm_combine(acc_h, acc_v.cpu(), (-1, 1), 13)
+
+
+# --- the towers' kernels (csrc/tower.cu) ------------------------------------
+
+TOWER_SHAPES = [(2, 64, 37, 123), (2, 64, 23, 41), (2, 112, 9, 50),
+                (1, 8, 5, 7), (2, 64, 1, 3)]
+TOWER_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _planted(rng, shape, dev):
+    """Random values with NaN of two payloads, -0.0 and +-inf planted."""
+    t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+    flat = t.view(-1)
+    flat[::97] = float("nan")
+    flat[3::89] = -0.0
+    flat[5::83] = float("inf")
+    flat[7::79] = -float("inf")
+    flat[9::73] = torch.tensor([0x7fc00123], dtype=torch.int32).view(
+        torch.float32).item()
+    return t
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", TOWER_DTYPES)
+@pytest.mark.parametrize("shape", TOWER_SHAPES)
+def test_tower_bias_act_is_bit_identical(dev, shape, dtype, relu):
+    """``bias_act`` in place against its plain version, ``.view(int32)``:
+    planes off a multiple of 4 floats (heads and tails at every offset),
+    NaN, -0.0 and +-inf in the input and a -0.0 bias (ReLU's NaN and
+    signed zero)."""
+    rng = np.random.RandomState(sum(shape))
+    acc = _planted(rng, shape, dev)
+    bias = torch.as_tensor(rng.randn(shape[1]).astype(np.float32), device=dev)
+    bias[0] = -0.0
+    want = tower.bias_act_plain(acc.clone(), bias, relu, dtype)
+    got = acc.clone()
+    before = _build.launches()["tower_bias_act"]
+    with torch.no_grad():
+        assert tower.bias_act(got, bias, relu, dtype) is got
+    torch.cuda.synchronize()
+    assert _build.launches()["tower_bias_act"] == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", TOWER_DTYPES)
+@pytest.mark.parametrize("shape", TOWER_SHAPES)
+def test_tower_normalize_is_bit_identical(dev, shape, dtype):
+    """``normalize`` (the features' layout) against its plain version, the
+    torch operations of ``l2_normalize`` on the card, bit for bit: the
+    kernel sums the channels in torch's order (``sum_rows`` thread rows,
+    4 on H * W a multiple of 4, else 1 here), which ``channel_sum_plain``
+    writes out and which must be torch's own sum's bits."""
+    rng = np.random.RandomState(sum(shape) + 1)
+    acc = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+    bias = torch.as_tensor(rng.randn(shape[1]).astype(np.float32), device=dev)
+    with torch.no_grad():
+        got = tower.normalize(acc, bias, dtype)
+    want = tower.normalize_plain(acc, bias, dtype)
+    assert torch.equal(_bits(got), _bits(want))
+    v = (acc + bias[:, None, None]).to(dtype)
+    sq = v * v
+    rows = tower.sum_rows(shape[1], shape[0], shape[2] * shape[3])
+    order = tower.channel_sum_plain(sq.float(), rows).to(dtype)
+    ref = sq.sum(dim=1, keepdim=True)
+    assert torch.equal(order.float().view(torch.int32),
+                       ref.float().view(torch.int32))
+
+
+@pytest.mark.parametrize("sides", ["both", "left"])
+@pytest.mark.parametrize("dtype", TOWER_DTYPES)
+@pytest.mark.parametrize("H,W,D", [(37, 123, 40), (70, 300, 228), (3, 5, 1)])
+def test_tower_normalize_pack_is_bit_identical(dev, H, W, D, dtype, sides):
+    """The packed form against ``join.operands`` of the plain features,
+    each operand bit for bit (the +0.0 pad rows and columns included);
+    the join's volumes from them equal."""
+    rng = np.random.RandomState(H + W)
+    acc = torch.as_tensor(rng.randn(2, 64, H, W).astype(np.float32),
+                          device=dev)
+    bias = torch.as_tensor(rng.randn(64).astype(np.float32), device=dev)
+    with torch.no_grad():
+        got = tower.normalize(acc, bias, dtype, pack=(D, sides))
+    want = tower.normalize_plain(acc, bias, dtype, pack=(D, sides))
+    assert (got.H, got.W) == (H, W)
+    for g, w in zip(got[:4], want[:4]):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("disp_true", [None, 9])
+@pytest.mark.parametrize("n", [0, 1, 4])
+@pytest.mark.parametrize("D,H,W", [(17, 5, 33), (40, 7, 45), (12, 3, 1501),
+                                   (1, 1, 5)])
+def test_slow_volumes_epilogue_is_bit_identical(dev, D, H, W, n, disp_true):
+    """``slow_epilogue`` against ``masked_volumes`` -> ``fix_border`` ->
+    the disp_true planes, ``.view(int32)``, on scores with NaN of two
+    payloads, -0.0 and +-inf; rows at every 16-byte offset; a row wider
+    than 48 KB of shared memory."""
+    if n >= W:
+        pytest.skip("the border needs n < W")
+    rng = np.random.RandomState(D + H + W + n)
+    s = _planted(rng, (D, H, W), dev)
+    before = _build.launches()["slow_volumes_epilogue"]
+    got = tower.slow_epilogue(s, n, disp_true)
+    torch.cuda.synchronize()
+    assert _build.launches()["slow_volumes_epilogue"] == before + 1
+    want = tower.slow_epilogue_plain(s, n, disp_true)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def test_tower_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    acc = torch.zeros(2, 8, 4, 4, device=dev)
+    bias = torch.zeros(8, device=dev)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        tower.bias_act(acc, bias.requires_grad_(), True)
+    bias = bias.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        tower.bias_act(acc.transpose(2, 3), bias, True)
+    with pytest.raises(ValueError, match="float32"):
+        tower.normalize(acc.double(), bias)
+    with pytest.raises(ValueError, match="shapes"):
+        tower.normalize(acc, bias[:4])
+    with pytest.raises(ValueError, match="two images"):
+        tower.normalize(acc[:1], bias, pack=(16, "both"))
+    s = torch.zeros(4, 3, 5, device=dev)
+    with pytest.raises(ValueError, match="n=5"):
+        tower.slow_epilogue(s, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        tower.slow_epilogue(torch.zeros(61, device=dev)[1:].view(1, 4, 15))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prediction_runs_the_tower_kernels(dev, dtype):
+    """kitti fast and kitti slow (narrow) at 40x160, D=24: the fast tower
+    runs ``tower_bias_act`` a layer but the last and
+    ``tower_normalize_pack`` once, the slow one ``tower_bias_act`` a
+    layer and ``slow_volumes_epilogue`` once; each map bit for bit the
+    map with the three wrappers swapped for their plain versions."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    H, W, D = 40, 160, 24
+    base = np.random.RandomState(23).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    for arch, over, want in (
+            ("fast", {}, dict(tower_bias_act=3, tower_normalize_pack=1)),
+            ("slow", dict(l1=2, fm=8, l2=3, nh2=16),
+             dict(tower_bias_act=2, slow_volumes_epilogue=1))):
+        cfg = make_config("kitti", arch, a="predict", dtype=dtype, **over)
+        net = towers.init_net(cfg).to(dev)
+        _build.reset_launches()
+        got = stereo_predict(cfg, net, x0, x1, D)
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        assert {k: counts[k] for k in want} == want
+        saved = (tower.bias_act, tower.normalize, tower.slow_epilogue)
+        try:
+            tower.bias_act = tower.bias_act_plain
+            tower.normalize = tower.normalize_plain
+            tower.slow_epilogue = tower.slow_epilogue_plain
+            ref = stereo_predict(cfg, net, x0, x1, D)
+        finally:
+            tower.bias_act, tower.normalize, tower.slow_epilogue = saved
+        assert torch.equal(_bits(got), _bits(ref))

@@ -153,23 +153,40 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
 8. training on the card (``training_phase``): a synthetic KITTI set at
    350x1242, D=228 (three images; the third is te); kitti fast (8 steps)
    and kitti slow (4 steps) at config.py's full widths from one sampled
-   chunk, on the card and on the CPU from the same seeded weights (the
-   per-step losses within 1e-5 relative on step 1 and 1e-4 over the
-   chunk, the weights within 1e-5); ``train()`` over 4 epochs of 256
-   steps for each: the end-to-end steps/s of epochs 2-4 with the rate of
-   each epoch, patch pairs/s, the chunks' steps/s (median and spread
-   after a warm-up chunk), the host's share of the time outside the
-   chunk calls and a chunk build's time, peak memory, no hand kernel
-   launched, and one chunk under the profiler (launches and device time
-   a step; the busy share is that device time over the chunk's wall
-   without the profiler); ``test_te`` of the untrained and the trained
-   fast net on the third image through kernels 1-5 (phase 4's launch
-   counts, an error in [0, 1]); each trained net's checkpoint with its
-   momentum, reloaded bit-equal, two more steps from each copy on a
-   chunk whose positive and negative patches are swapped (losses above
-   0) bit-equal; mb fast for 8 steps on the host
-   gather against the CPU, and its ``test_te`` through the 64-buckets
-   (launch counts, the map against the CPU's);
+   chunk as eager steps, on the card and on the CPU from the same seeded
+   weights (the per-step losses within 1e-5 relative on step 1 and 1e-4
+   over the chunk, the weights within 1e-5; the card's run launching
+   ``warp_patches`` once a step and no other hand kernel); the warp
+   kernel (``csrc/warp.cu``) at full width, one step's 256 patches of
+   kitti fast's sampler, from the padded stack and from windows, bit for
+   bit against its plain versions on the path's inputs and with NaN,
+   -0.0, +-inf planted (``warp_rows``: in a CUDA graph, by events, the
+   plain version, its bound, ``F.grid_sample``'s bicubic sampling); the
+   chunk's CUDA graph (``trainer.make_train_chunk``) against eager
+   ``train_chunk`` steps bit for bit under ``cudnn.deterministic``, kitti
+   fast and slow in float32 and bfloat16, over 32 steps, 32 at lr/10 and
+   a tail of 5 (``graph_vs_eager``); ``train()`` over 4 epochs of 256
+   steps for each, with the chunk as a graph replay, as eager steps, and
+   as a graph again (``train_rates``): the end-to-end steps/s of epochs
+   2-4 with the rate of each epoch, patch pairs/s, the chunks' steps/s
+   (median and spread after a warm-up chunk), the host's share of the
+   time outside the chunk calls and a chunk build's time, peak memory,
+   ``warp_patches`` launched once a step (and once for the graph's
+   warm-up) by its wrappers' count and by its own counter on the card,
+   and no other hand kernel, and one chunk each way under the
+   profiler (``profile_chunk``: kernels and device time a step, the
+   host's launch calls a step; the busy share is that device time over
+   the chunk's wall without the profiler; it fails unless the profiler
+   saw device time and the warp kernel's own counter on the card rose by
+   one a step, the graph's nodes included); ``test_te`` of the untrained
+   and the trained fast net on the third image through kernels 1-5
+   (phase 4's launch counts, an error in [0, 1]); each trained net's
+   checkpoint with its momentum, reloaded bit-equal, two more steps from
+   each copy on a chunk whose positive and negative patches are swapped
+   (losses above 0) bit-equal; mb fast for 8 steps on the host gather
+   (the warp kernel from windows, the chunk a graph) against the CPU, and
+   its ``test_te`` through the 64-buckets (launch counts, the map
+   against the CPU's);
 9. the modules that close the reference's working loop
    (``cache_phase``), on phase 4's pair at 370x1226, D=228: the seeded
    kitti fast net's first weights, which must be the JAX package's
@@ -232,6 +249,7 @@ fails.
 """
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -1335,6 +1353,351 @@ def head_library(torch, slow_head, A, B, mids_w, mids_b, w_last, b_last, D):
     return out
 
 
+def only_warp(_build, n: int) -> dict:
+    """The launch counts of training: ``warp_patches`` ``n`` times, no
+    other hand kernel."""
+    return dict(dict.fromkeys(_build.KERNELS, 0), warp_patches=n)
+
+
+@contextlib.contextmanager
+def chunk_runs(torch, trainer, secs: list, eager: bool = False):
+    """Within the block, each chunk that ``train()`` runs on the card is
+    timed to the card's finish into ``secs``; with ``eager`` the chunk
+    runs as eager ``train_chunk`` steps (the graph's plain version, as
+    before the graph) instead of a replay."""
+    orig = trainer.make_train_chunk
+
+    def make(cfg, net, momentum, Xpad, n_steps, device):
+        if eager:
+            def run(chunk, lr):
+                return trainer.train_chunk(
+                    cfg, net, momentum, lr,
+                    {k: torch.from_numpy(v).to(device)
+                     for k, v in chunk.items()}, Xpad)
+        else:
+            run = orig(cfg, net, momentum, Xpad, n_steps, device)
+
+        def timed(chunk, lr):
+            t = time.perf_counter()
+            errs = run(chunk, lr)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return errs
+        return timed
+
+    trainer.make_train_chunk = make
+    try:
+        yield
+    finally:
+        trainer.make_train_chunk = orig
+
+
+# f32 instructions of one warp output (csrc/warp.cu): the two source
+# coordinates 8, floors and fractions 4, each axis's four cubic weights
+# 25, the 16 taps 48, the photometrics 2 (the bound's operations)
+WARP_OPS = 110
+
+
+def warp_taps(torch, minv, ws: int, win: int) -> int:
+    """The distinct window values the warp reads for these affines: each
+    output's in-window taps, as the kernel computes them, counted once a
+    patch (the bound's bytes)."""
+    r = torch.arange(ws, device=minv.device, dtype=torch.float32)
+    fi, fj = r[:, None], r[None, :]
+    m = minv[:, :, None, None]
+    sx = (m[:, 0] * fj + m[:, 1] * fi) + m[:, 2]
+    sy = (m[:, 3] * fj + m[:, 4] * fi) + m[:, 5]
+    x0 = torch.floor(sx).long()[..., None] + torch.arange(-1, 3,
+                                                          device=minv.device)
+    y0 = torch.floor(sy).long()[..., None] + torch.arange(-1, 3,
+                                                          device=minv.device)
+    yy = y0[..., :, None].expand(*y0.shape, 4)
+    xx = x0[..., None, :].expand(*x0.shape[:-1], 4, 4)
+    ok = (yy >= 0) & (yy < win) & (xx >= 0) & (xx < win)
+    b = torch.arange(minv.shape[0], device=minv.device)[:, None, None, None,
+                                                         None]
+    idx = (b * win + yy) * win + xx
+    return int(torch.unique(idx[ok]).numel())
+
+
+def warp_rows(torch, cfg, ds, X0, X1, dev) -> dict:
+    """Phase 8's check of ``warp_patches`` at full width: one step's 4·bs/2
+    patches of ``cfg``'s sampler on the synthetic set, from the padded
+    stack (the fused gather, KITTI's mode) and from the gathered windows
+    (Middlebury's and the data-parallel step's mode), bit for bit
+    (``.view(torch.int32)``) against the plain versions on the path's
+    own inputs and with NaN of two payloads, -0.0 and +-inf planted in
+    the stack (one at each of a quarter of the windows' centres) and in
+    the windows; the gather mode's row timed in a CUDA graph beside the
+    plain version (by events around eager calls, and in a CUDA graph),
+    its bound and ``F.grid_sample``'s bicubic sampling of the same
+    windows (``library_ms``; zero padding, no photometrics)."""
+    from mccnn_tpu_torch.train import augment, trainer
+
+    win, ws = augment.WIN, cfg.ws
+    bs_half = cfg.bs // 2
+    c = trainer.stack_chunk(
+        augment.AugmentSampler(cfg, np.random.RandomState(4)), ds,
+        ds.nnz_tr[:bs_half], 1, bs_half, X0, X1, device_gather=True)
+    src, oy, ox, minv, bri, con = (torch.as_tensor(c[k][0], device=dev)
+                                   for k in ("src", "oy", "ox", "minv",
+                                             "brightness", "contrast"))
+    B = minv.shape[0]
+    Xpad = augment.pad_image_stack(X0, X1, dev)
+    windows = augment.gather_windows_device(Xpad, src, oy, ox).contiguous()
+    planted = plant(torch, Xpad)
+    sel = torch.arange(0, B, 4, device=dev)
+    for k, v in enumerate((float("nan"), float("inf"), -0.0, -float("inf"))):
+        s = sel[sel + k < B] + k
+        planted[src[s].long(), (oy[s] + win + win // 2).long(),
+                (ox[s] + win + win // 2).long()] = v
+    pwin = augment.gather_windows_device(planted, src, oy, ox).contiguous()
+    photo = (minv, bri, con)
+    for what, xp, w in (("the path's inputs", Xpad, windows),
+                        ("NaN, -0.0, +-inf planted", planted, pwin)):
+        got = (augment.gather_warp(xp, src, oy, ox, *photo, ws=ws),
+               augment.warp_patches(w, *photo, ws=ws))
+        want = (augment.gather_warp_plain(xp, src, oy, ox, *photo, ws=ws),
+                augment.warp_patches_plain(w, *photo, ws=ws))
+        torch.cuda.synchronize()
+        check(bits_equal(torch, got, want), f"warp_patches on {what}: not "
+              "bit-identical to its plain versions")
+        nan = bool(got[0].isnan().any())
+        check(nan == (xp is planted), f"warp_patches on {what}: NaN {nan}")
+    taps = warp_taps(torch, minv, ws, win)
+    out = B * ws * ws
+    print(f"phase 8: warp_patches at kitti {cfg.arch}'s full width ({B} "
+          f"patches of {ws}x{ws}, {taps} distinct window values read): both "
+          f"modes bit-identical to their plain versions on the path's "
+          f"inputs and with NaN, -0.0, +-inf planted")
+    row = exact_row(
+        torch, "warp_patches (the fused gather, the path's mode)",
+        lambda: augment.gather_warp(Xpad, src, oy, ox, *photo, ws=ws),
+        lambda: augment.gather_warp_plain(Xpad, src, oy, ox, *photo, ws=ws),
+        taps * 4 + B * 11 * 4 + out * 4, out * WARP_OPS)
+    exact_row(torch, "warp_patches (from windows)",
+              lambda: augment.warp_patches(windows, *photo, ws=ws),
+              lambda: augment.warp_patches_plain(windows, *photo, ws=ws),
+              taps * 4 + B * 8 * 4 + out * 4, out * WARP_OPS)
+    row["plain_graph_ms"] = graph_ms(
+        torch, lambda: augment.gather_warp_plain(Xpad, src, oy, ox, *photo,
+                                                 ws=ws), 5)
+    r = torch.arange(ws, device=dev, dtype=torch.float32)
+    m = minv[:, :, None, None]
+    sx = (m[:, 0] * r[None, :] + m[:, 1] * r[:, None]) + m[:, 2]
+    sy = (m[:, 3] * r[None, :] + m[:, 4] * r[:, None]) + m[:, 5]
+    grid = torch.stack([sx, sy], -1) * (2.0 / (win - 1)) - 1.0
+    wnd = windows[:, None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            wnd, grid, mode="bicubic", padding_mode="zeros",
+            align_corners=True)
+
+    row["library_ms"] = graph_ms(torch, library, 20)
+    lib = library()[:, 0] * con[:, None, None] + bri[:, None, None]
+    gap = float((lib - augment.warp_patches(windows, *photo, ws=ws)).abs()
+                .max())
+    print(f"  warp_patches: plain version {row['plain_graph_ms']:.4f} ms in "
+          f"a CUDA graph; F.grid_sample (bicubic, zero padding) "
+          f"{row['library_ms']:.4f} ms in a CUDA graph, its patches with "
+          f"the photometrics within {gap:.2e} of the kernel's")
+    return row
+
+
+def graph_vs_eager(torch, cfgs, ds, X0, X1, dev) -> None:
+    """Phase 8's bit-identity of the chunk's CUDA graph at full width:
+    kitti fast and slow in float32 and with ``-dtype bfloat16``, from the
+    same seeded weights, ``make_train_chunk``'s replays against eager
+    ``train_chunk`` calls under ``cudnn.deterministic``: a chunk of 32, a
+    second at the lr dropped by 10 (the 0-d tensor's ``fill_``, no new
+    capture), a tail of 5 on its own graph; losses, weights and momentum
+    after each, ``.view(torch.int32)``."""
+    import dataclasses
+
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.train import augment, trainer
+
+    Xpad = augment.pad_image_stack(X0, X1, dev)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arch in ("fast", "slow"):
+            for dtype in ("float32", "bfloat16"):
+                cfg = dataclasses.replace(cfgs[arch], dtype=dtype)
+                bs_half = cfg.bs // 2
+
+                def chunk(n, seed):
+                    rows = ds.nnz_tr[seed * 1000:][:n * bs_half]
+                    return trainer.stack_chunk(
+                        augment.AugmentSampler(cfg,
+                                               np.random.RandomState(seed)),
+                        ds, rows, n, bs_half, X0, X1, device_gather=True)
+
+                plan = [(chunk(32, 5), cfg.lr), (chunk(32, 6), cfg.lr / 10),
+                        (chunk(5, 7), cfg.lr / 10)]
+                states = []
+                t = time.perf_counter()
+                for graph in (True, False):
+                    net = towers.init_net(cfg).to(dev)
+                    mom = [torch.zeros_like(p) for p in net.parameters()]
+                    graphs, seen = {}, []
+                    for c, lr in plan:
+                        n = c["minv"].shape[0]
+                        if not graph:
+                            errs = trainer.train_chunk(
+                                cfg, net, mom, lr,
+                                {k: torch.from_numpy(v).to(dev)
+                                 for k, v in c.items()}, Xpad)
+                        else:
+                            if n not in graphs:
+                                graphs[n] = trainer.make_train_chunk(
+                                    cfg, net, mom, Xpad, n, dev)
+                            errs = graphs[n](c, lr)
+                        seen.append((errs.clone(),) + tuple(
+                            x.detach().clone()
+                            for x in list(net.parameters()) + mom))
+                    states.append(seen)
+                    del net, mom, graphs
+                torch.cuda.synchronize()
+                same = [bits_equal(torch, g, e) for g, e in zip(*states)]
+                losses = torch.cat([s[0] for s in states[0]])
+                print(f"phase 8: kitti {arch} -dtype {dtype}, the chunk's CUDA "
+                      f"graph against eager steps (cuDNN deterministic): "
+                      f"losses, weights and momentum after 32 steps, 32 at "
+                      f"lr/10 and a tail of 5 bit-identical: {same}; losses "
+                      f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f} "
+                      f"({time.perf_counter() - t:.1f} s)")
+                check(all(same), f"kitti {arch} {dtype}: the graph's chunk "
+                      "differs from the eager one")
+                check(bool(torch.isfinite(losses).all()),
+                      f"kitti {arch} {dtype}: losses not finite")
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def train_rates(torch, cfg, tds, dev, eager: bool, n_epochs: int) -> dict:
+    """``train()`` over ``n_epochs`` of ``tds`` on the card from the seeded
+    net, the chunk as a graph replay or (``eager``) as eager steps: the
+    end-to-end steps/s of epochs 2 on, by epoch, each chunk's steps/s to
+    the card's finish, the host's share outside the chunk calls, a chunk
+    build's ms on the thread, the peak memory, the launch counts (the
+    wrappers' and the warp kernel's own counter on the card, ``ran``)."""
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.ops import _build, warp
+    from mccnn_tpu_torch.train import trainer
+
+    secs, builds, lines = [], [], []
+    orig_stack = trainer.stack_chunk
+
+    def timed_stack(*a, **kw):
+        t = time.perf_counter()
+        out = orig_stack(*a, **kw)
+        builds.append(time.perf_counter() - t)
+        return out
+
+    net = towers.init_net(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    _build.reset_launches()
+    ran = warp.runs(dev)
+    trainer.stack_chunk = timed_stack
+    try:
+        with chunk_runs(torch, trainer, secs, eager):
+            net, mom = trainer.train(cfg, tds, net, epochs=n_epochs,
+                                     log=lines.append, device=dev)
+    finally:
+        trainer.stack_chunk = orig_stack
+    torch.cuda.synchronize()
+    got = _build.launches()
+    ran = warp.runs(dev) - ran
+    epochs = [ln.split("\t") for ln in lines if "\t" in ln]
+    clock = [float(e[3]) for e in epochs]
+    span = clock[-1] - clock[0]
+    per = len(secs) // n_epochs
+    n_steps = per * trainer.CHUNK_STEPS
+    card = sum(secs[per:])
+    return dict(
+        launches=got, ran=ran, secs=secs, lines=lines, trained=(net, mom),
+        warned=any("WARNING" in ln for ln in lines),
+        errs=[float(e[1]) for e in epochs],
+        e2e=(n_epochs - 1) * n_steps / span,
+        by_epoch=[n_steps / (b - a) for a, b in zip(clock, clock[1:])],
+        rates=[trainer.CHUNK_STEPS / t for t in secs[1:]],
+        host=(span - card) / span,
+        build_ms=1e3 * statistics.mean(builds[per:]),
+        peak=peak_line(torch, held))
+
+
+# the host's calls that hand the card work, as the profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def profile_chunk(torch, what, run, per: int) -> None:
+    """One chunk of ``per`` steps, ``run()``, under ``torch.profiler``: the
+    kernels the card ran (a graph's nodes too) and their device time, the
+    host's launch calls, both a step; the busy share is that device time
+    over the chunk's wall without the profiler (median of 3). Fails unless
+    the profiler saw device time in at least a kernel a step, and unless
+    the warp kernel's own counter on the card (``ops/warp.py`` ``runs``)
+    rose by exactly ``per`` in the profiled chunk: the measurement behind
+    the wrappers' count of a replay. The profiler's ``warp_kernel`` records
+    are printed beside it and may be fewer, never more: a profile of a
+    replay can lose records (31 of 32 and 2750 of 2763 kernels in each of
+    three profiles of one kitti fast chunk)."""
+    from mccnn_tpu_torch.ops import warp
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall = statistics.median(walls)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = warp.runs(torch.cuda.current_device())
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t) * 1e3
+    ran = warp.runs(torch.cuda.current_device()) - before
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    n_warp = sum(e.count for e in kernels if "warp_kernel" in e.key)
+    check(dev_ms > 0 and n_kernels >= per, f"{what}: the profiler saw "
+          f"{n_kernels} kernels and {dev_ms} ms of device time in a chunk of "
+          f"{per} steps")
+    check(ran == per and n_warp <= ran, f"{what}: the warp kernel ran {ran} "
+          f"times by its counter ({n_warp} by the profiler) in a chunk of "
+          f"{per} steps")
+    calls = {e.key: e.count for e in events if e.key in HOST_LAUNCHES}
+    top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
+                    for e in sorted(kernels, key=dev_us, reverse=True)[:4])
+    print(f"  {what}, one chunk of {per} steps: wall {wall:.1f} ms (median "
+          f"of 3; {wall_p:.1f} ms under the profiler), device {dev_ms:.1f} "
+          f"ms in {n_kernels} kernels ({n_kernels / per:.1f} a step, "
+          f"{dev_ms / per:.3f} ms a step), warp_kernel runs {ran} by its "
+          f"counter, {n_warp} by the profiler; busy {dev_ms / wall:.3f}; host "
+          f"launch calls {sum(calls.values())} ({sum(calls.values()) / per:.2f}"
+          f" a step: {calls}); top: {top}")
+
+
 def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
                    steps=(8, 4)) -> None:
     """Phase 8: the training path on the card (see the module docstring).
@@ -1410,16 +1773,23 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
                   f"{arch}: card losses {e_k.tolist()} against CPU "
                   f"{e_c.tolist()}")
             check(w_gap <= 1e-5, f"{arch}: weights {w_gap} from the CPU's")
-            check(not any(k_k.values()), f"{arch}: training launched hand "
-                  f"kernels {k_k}")
+            check(k_k == only_warp(_build, n), f"{arch}: the eager chunk "
+                  f"launched hand kernels {k_k}, expected warp_patches {n}")
+
+        # the warp kernel at full width, then the graph against the eager
+        # chunk bit for bit
+        warp_row = warp_rows(torch, cfgs["fast"], ds, X0, X1, dev)
+        graph_vs_eager(torch, cfgs, ds, X0, X1, dev)
 
         # throughput: train() on a table of 8 chunks (256 steps) an epoch,
-        # 4 epochs. The headline is the end-to-end rate of epochs 2-4 on
-        # the epoch lines' own clock (the chunk builds the card waits
-        # for, the copies and the loss readbacks included). Each chunk's
-        # call is also timed to the card's finish, and each chunk build
-        # on the thread, so the host's share of the time is measured.
-        trained = {}
+        # 4 epochs, with the chunk as a CUDA graph and as eager steps (the
+        # graph's plain version) in turns in this call: the host's launch
+        # rate varies between calls. The headline is the end-to-end rate
+        # of epochs 2-4 on the epoch lines' own clock (the chunk builds
+        # the card waits for, the copies and the loss readbacks included).
+        # Each chunk's call is also timed to the card's finish, and each
+        # chunk build on the thread, so the host's share is measured.
+        trained, warp_launches = {}, 0
         n_chunks, n_epochs = 8, 4
         for arch in ("fast", "slow"):
             cfg = cfgs[arch]
@@ -1430,113 +1800,72 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
             n_steps = trainer.n_epoch_steps(len(tds.nnz_tr), bs_half)
             check(n_steps == n_chunks * trainer.CHUNK_STEPS,
                   f"{n_steps} steps")
-            orig, orig_stack = trainer.train_chunk, trainer.stack_chunk
-            secs, builds = [], []
+            rates = {}
+            for how in ("graph", "eager", "graph"):
+                got = train_rates(torch, cfg, tds, dev, how == "eager",
+                                  n_epochs)
+                rates.setdefault(how, []).append(got)
+                # a graph's warm-up step launches the kernel once more
+                want = only_warp(_build, n_epochs * n_steps
+                                 + (1 if how == "graph" else 0))
+                check(got["launches"] == want, f"{arch} ({how}): train() "
+                      f"launched {got['launches']}, expected {want}")
+                check(got["ran"] == want["warp_patches"], f"{arch} ({how}): "
+                      f"the warp kernel ran {got['ran']} times by its counter "
+                      f"on the card, its wrappers counted "
+                      f"{want['warp_patches']}")
+                check(len(got["secs"]) == n_chunks * n_epochs,
+                      f"{arch}: {len(got['secs'])} chunks")
+                check(all(np.isfinite(got["errs"])) and not got["warned"],
+                      f"{arch} ({how}): epoch lines {got['lines']}")
+                kind = ("one CUDA graph replay" if how == "graph"
+                        else "eager steps")
+                print(f"phase 8: kitti {arch} train(), the chunk as {kind}: "
+                      f"epochs 2-{n_epochs} end to end {got['e2e']:.1f} "
+                      f"steps/s ({got['e2e'] * cfg.bs:.0f} patch pairs/s, "
+                      f"{cfg.bs} (L, R) pairs a step; by epoch "
+                      f"{[round(r, 1) for r in got['by_epoch']]}); chunks of "
+                      f"{trainer.CHUNK_STEPS} from call to the card's finish "
+                      f"{statistics.median(got['rates']):.1f} steps/s (median "
+                      f"of {len(got['rates'])} after a warm-up chunk, "
+                      f"{min(got['rates']):.1f}-{max(got['rates']):.1f}); "
+                      f"host share of epochs 2-{n_epochs} outside the chunk "
+                      f"calls {got['host']:.3f}, a chunk build on the thread "
+                      f"{got['build_ms']:.1f} ms; mean loss by epoch "
+                      f"{[round(v, 5) for v in got['errs']]}; {got['peak']}")
+                trained.setdefault(arch, got["trained"])
+                if arch == "fast" and how == "graph":
+                    # the kernels line's count: the main path's first run
+                    warp_launches = warp_launches or got["launches"][
+                        "warp_patches"]
+            g = [r["e2e"] for r in rates["graph"]]
+            e = rates["eager"][0]["e2e"]
+            gap = max(abs(a - b) / abs(b) for r in rates["graph"]
+                      for a, b in zip(r["errs"], rates["eager"][0]["errs"]))
+            print(f"  kitti {arch}: graph {[round(r, 1) for r in g]} against "
+                  f"eager {e:.1f} steps/s end to end ({min(g) / e:.2f}-"
+                  f"{max(g) / e:.2f}x); mean losses by epoch within "
+                  f"{gap:.2e} relative of the eager run's (cuDNN's default "
+                  f"algorithms, not deterministic)")
 
-            def timed_chunk(*a, **kw):
-                t = time.perf_counter()
-                errs = orig(*a, **kw)
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t)
-                return errs
-
-            def timed_stack(*a, **kw):
-                t = time.perf_counter()
-                out = orig_stack(*a, **kw)
-                builds.append(time.perf_counter() - t)
-                return out
-
-            lines = []
-            net = towers.init_net(cfg)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated() / 2**30
-            _build.reset_launches()
-            trainer.train_chunk, trainer.stack_chunk = timed_chunk, timed_stack
-            try:
-                net, mom = trainer.train(cfg, tds, net, epochs=n_epochs,
-                                         log=lines.append, device=dev)
-            finally:
-                trainer.train_chunk, trainer.stack_chunk = orig, orig_stack
-            got = _build.launches()
-            check(not any(got.values()), f"{arch}: train() launched hand "
-                  f"kernels {got}")
-            check(len(secs) == n_chunks * n_epochs, f"{arch}: {len(secs)} "
-                  "chunks")
-            epochs = [ln.split("\t") for ln in lines]
-            errs = [float(e[1]) for e in epochs]
-            check(all(np.isfinite(errs)) and not any("WARNING" in ln
-                                                      for ln in lines),
-                  f"{arch}: epoch lines {lines}")
-            clock = [float(e[3]) for e in epochs]
-            span = clock[-1] - clock[0]
-            e2e = (n_epochs - 1) * n_steps / span
-            by_epoch = [n_steps / (b - a) for a, b in zip(clock, clock[1:])]
-            rates = [trainer.CHUNK_STEPS / t for t in secs[1:]]
-            card = sum(secs[n_chunks:])
-            build_ms = 1e3 * statistics.mean(builds[n_chunks:])
-            print(f"phase 8: kitti {arch} train(): epochs 2-{n_epochs} end "
-                  f"to end {e2e:.1f} steps/s ({e2e * cfg.bs:.0f} patch "
-                  f"pairs/s, {cfg.bs} (L, R) pairs a step; by epoch "
-                  f"{[round(r, 1) for r in by_epoch]}); chunks of "
-                  f"{trainer.CHUNK_STEPS} from call to the card's finish "
-                  f"{statistics.median(rates):.1f} steps/s (median of "
-                  f"{len(rates)} after a warm-up chunk, "
-                  f"{min(rates):.1f}-{max(rates):.1f}); host share of "
-                  f"epochs 2-{n_epochs} outside the chunk calls "
-                  f"{(span - card) / span:.3f} ({1e3 * (span - card):.1f} of "
-                  f"{1e3 * span:.1f} ms), a chunk build on the thread "
-                  f"{build_ms:.1f} ms; mean loss by epoch "
-                  f"{[round(v, 5) for v in errs]}; {peak_line(torch, held)}")
-            trained[arch] = (net, mom)
-
-            # where a step's time goes: one chunk under the profiler
-            chunk = on(dev, trainer.stack_chunk(
+            # where a step's time goes: one chunk under the profiler, as a
+            # graph replay and as eager steps, each from the host chunk
+            host = trainer.stack_chunk(
                 augment.AugmentSampler(cfg, np.random.RandomState(2)), ds,
                 ds.nnz_tr[:trainer.CHUNK_STEPS * bs_half],
-                trainer.CHUNK_STEPS, bs_half, X0, X1, device_gather=True))
+                trainer.CHUNK_STEPS, bs_half, X0, X1, device_gather=True)
             Xpad = augment.pad_image_stack(X0, X1, dev)
             pnet = towers.init_net(cfg).to(dev)
             pmom = [torch.zeros_like(p) for p in pnet.parameters()]
-            trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(3):
-                t = time.perf_counter()
-                trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t) * 1e3)
-            wall = statistics.median(walls)
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                t = time.perf_counter()
-                trainer.train_chunk(cfg, pnet, pmom, cfg.lr, chunk, Xpad)
-                torch.cuda.synchronize()
-                wall_p = (time.perf_counter() - t) * 1e3
-            kernels = [e for e in prof.key_averages()
-                       if "CUDA" in str(getattr(e, "device_type", ""))]
-
-            def dev_us(e):
-                return getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-
-            dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-            n_launch = sum(e.count for e in kernels)
-            top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
-                            for e in sorted(kernels, key=dev_us,
-                                            reverse=True)[:4])
-            per = trainer.CHUNK_STEPS
-            check(dev_ms > 0, f"{arch}: the profiler saw no device time")
-            # busy: the profiled device time over the chunk's wall without
-            # the profiler (which slows the host's launches, not the card)
-            print(f"  kitti {arch}, one chunk of {per} steps: wall "
-                  f"{wall:.1f} ms (median of 3; {wall_p:.1f} ms under the "
-                  f"profiler), device {dev_ms:.1f} ms in {n_launch} kernel "
-                  f"launches ({n_launch / per:.0f} a step, "
-                  f"{dev_ms / per:.3f} ms a step), busy "
-                  f"{dev_ms / wall:.3f}; top: {top}")
-            del pnet, pmom, chunk, Xpad
+            replay = trainer.make_train_chunk(cfg, pnet, pmom, Xpad,
+                                              trainer.CHUNK_STEPS, dev)
+            for how, run in (
+                    ("graph", lambda: replay(host, cfg.lr)),
+                    ("eager", lambda: trainer.train_chunk(
+                        cfg, pnet, pmom, cfg.lr, on(dev, host), Xpad))):
+                profile_chunk(torch, f"kitti {arch} ({how})", run,
+                              trainer.CHUNK_STEPS)
+            del pnet, pmom, replay, Xpad
 
         # the chained evaluation: test_te on image 3 through kernels 1-5
         ecfg = make_config("kitti", "fast", a="test_te", data_dir=tmp)
@@ -1657,6 +1986,7 @@ def training_phase(torch, dev, fast_want: dict, shape=(350, 1242, 228),
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase 8 took {time.perf_counter() - t8:.0f} s")
+    return warp_row, warp_launches
 
 
 # the first conv's weight[:3, 0, 0, 0] (OIHW) of the default seeded kitti
@@ -1843,27 +2173,17 @@ def cache_phase(torch, dev, x0, x1, fast_want: dict, slow_want: dict,
 
         rates = {"native": [], "numpy": []}
         chunk_ms = {"native": [], "numpy": []}
-        orig_chunk = trainer.train_chunk
         for gather in ("native", "numpy", "numpy", "native"):
             secs = []
-
-            def timed_chunk(*a, **kw):
-                t = time.perf_counter()
-                errs = orig_chunk(*a, **kw)
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t)
-                return errs
-
             lines = []
             host_gather.gather_windows_from = (native if gather == "native"
                                                else numpy_gather)
-            trainer.train_chunk = timed_chunk
             try:
-                trainer.train(mcfg, mds, towers.init_net(mcfg), epochs=3,
-                              log=lines.append, device=dev)
+                with chunk_runs(torch, trainer, secs):
+                    trainer.train(mcfg, mds, towers.init_net(mcfg), epochs=3,
+                                  log=lines.append, device=dev)
             finally:
                 host_gather.gather_windows_from = native
-                trainer.train_chunk = orig_chunk
             clock = [float(ln.split("\t")[3]) for ln in lines]
             n_steps = trainer.n_epoch_steps(len(mds.nnz_tr), bs_half)
             rates[gather].append(2 * n_steps / (clock[-1] - clock[0]))
@@ -3682,7 +4002,8 @@ def main() -> int:
 
     # --- phase 8: training on the card -----------------------------------
     torch.cuda.empty_cache()
-    training_phase(torch, dev, fast_want)
+    rows["warp_patches"], warp_launches = training_phase(torch, dev,
+                                                         fast_want)
 
     # --- phase 9: seeded init, .t7 nets, the volume cache, the host gather,
     # the preprocess script ------------------------------------------------
@@ -3712,7 +4033,8 @@ def main() -> int:
              ad_volume=ad["ad_volume"], sgm_layout=census["sgm_layout"],
              sgm_generic_tables=census["sgm_generic_tables"],
              sgm_combine=census["sgm_combine"], wta_dhw=census["wta_dhw"],
-             slow_volumes_epilogue=slow["slow_volumes_epilogue"])
+             slow_volumes_epilogue=slow["slow_volumes_epilogue"],
+             warp_patches=warp_launches)
         for fast, slow, stream, grid, census, ad in zip(
             (counts, kcounts), (slow_counts, slow_kcounts),
             scan_counts["stream"], scan_counts["grid"], scan_counts["slab"],
@@ -3749,7 +4071,8 @@ def main() -> int:
                "tower_normalize_pack": ("tower.cu",
                                         "mccnn_tpu/models/towers.py:96"),
                "slow_volumes_epilogue": ("tower.cu",
-                                         "mccnn_tpu/ops/slow_head_pallas.py:218")}
+                                         "mccnn_tpu/ops/slow_head_pallas.py:218"),
+               "warp_patches": ("warp.cu", "mccnn_tpu/train/augment.py:90")}
     print(f"map sha256: kitti fast {fast_sha}, kitti census {census_sha}, "
           f"kitti ad {ad_sha}, kitti slow {slow_sha}, kitti fast with CBCA "
           f"{cbca_sha}, "

@@ -17,12 +17,14 @@ raises with the compiler's output; nothing falls back.
 entry but one launches its kernel once a call, so the two agree there;
 ``join`` launches once per slab of 64 channels (more than one only for
 more than 64 channels), which its wrapper counts, so the second counter
-stays for it.
+stays for it. A CUDA graph's capture launches nothing, so it is counted
+by its replays instead (:func:`uncounted`, :func:`add_counts`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,14 +38,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head", "refine",
-           "cross", "costs", "sgm_tables", "sgm_layout", "tower")
+           "cross", "costs", "sgm_tables", "sgm_layout", "tower", "warp")
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
            "slow_head", "sgm_hslab", "sgm_scan", "sgm_step",
            "occlusion_fill", "mismatch_fill", "subpixel", "median5", "cbca",
            "cross_arms", "cbca_pack", "census_signatures", "census_volume",
            "ad_volume", "sgm_tables", "sgm_layout", "sgm_generic_tables",
            "sgm_combine", "wta_dhw", "tower_bias_act", "tower_normalize_pack",
-           "slow_volumes_epilogue")
+           "slow_volumes_epilogue", "warp_patches")
 HOST_SOURCES = ("host_gather",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,6 +64,30 @@ def count(entry: str, kernel_launches: int = 1) -> None:
     launches."""
     LAUNCHES[entry] += 1
     KERNEL_LAUNCHES[entry] += kernel_launches
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Leave the counts as they were across the block (a CUDA graph's
+    capture, which launches no kernel). Yields a list that receives the
+    (launches, kernel launches) Counters the block's wrappers counted:
+    what one replay of the captured graph launches."""
+    before = collections.Counter(LAUNCHES), collections.Counter(KERNEL_LAUNCHES)
+    counted = []
+    try:
+        yield counted
+    finally:
+        counted.append((LAUNCHES - before[0], KERNEL_LAUNCHES - before[1]))
+        for now, then in zip((LAUNCHES, KERNEL_LAUNCHES), before):
+            now.clear()
+            now.update(then)
+
+
+def add_counts(launches: collections.Counter,
+               kernel_launches: collections.Counter) -> None:
+    """Record the launches of one replay of a captured graph."""
+    LAUNCHES.update(launches)
+    KERNEL_LAUNCHES.update(kernel_launches)
 
 
 def reset_launches() -> None:

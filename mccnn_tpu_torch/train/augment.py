@@ -11,12 +11,15 @@ and a copy of the JAX package's (``patch_matrix``, ``invert_2x3``,
 :class:`AugmentSampler`): one ``np.random.RandomState`` draws the same
 stream in both packages, bit for bit. Its window gather runs on the
 host C++ of ``ops/host_gather.py``, equal bit for bit to the numpy
-gather it replaces (:func:`_gather_windows`). The device half is
-torch: :func:`warp_patches`, one batched bicubic gather over all
-4·bs/2 patches of a step, and the window gather from the padded image
-stack on the device (:func:`pad_image_stack`,
-:func:`gather_windows_device`), which ships origins instead of windows
-to the card.
+gather it replaces (:func:`_gather_windows`). The device half samples
+all 4·bs/2 patches of a step at once: :func:`warp_patches` from
+windows, :func:`gather_warp` from the padded image stack resident on
+the device (:func:`pad_image_stack`), which ships origins instead of
+windows to the card. On CUDA tensors both launch the ``warp_patches``
+kernel (``ops/warp.py``, ``csrc/warp.cu``: the window gather and the
+bicubic warp in one launch); on CPU tensors they run their plain
+versions, :func:`warp_patches_plain` and :func:`gather_warp_plain`
+(:func:`gather_windows_device`, then the plain warp).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from mccnn_tpu_torch.config import Config
-from mccnn_tpu_torch.ops import host_gather
+from mccnn_tpu_torch.ops import host_gather, warp
 
 # Window gathered around each sample point. Must cover the patch's
 # source footprint: (ws-1)/2 * sqrt(2) / min_scale + max_trans + 2
@@ -91,11 +94,12 @@ def _cubic_weights(t: torch.Tensor, a: float = -0.75) -> torch.Tensor:
 
 
 @torch.no_grad()
-def warp_patches(windows: torch.Tensor, minv: torch.Tensor,
-                 brightness: torch.Tensor, contrast: torch.Tensor,
-                 *, ws: int) -> torch.Tensor:
+def warp_patches_plain(windows: torch.Tensor, minv: torch.Tensor,
+                       brightness: torch.Tensor, contrast: torch.Tensor,
+                       *, ws: int) -> torch.Tensor:
     """Batched bicubic affine patch sampling (``warp_patches``,
-    mccnn_tpu/train/augment.py).
+    mccnn_tpu/train/augment.py), in plain torch: the plain version of the
+    ``warp_patches`` kernel (``ops/warp.py``).
 
     windows: (B, WIN, WIN) source windows (window origin = source pixel
     position win_origin, already subtracted from minv's translation).
@@ -133,6 +137,46 @@ def warp_patches(windows: torch.Tensor, minv: torch.Tensor,
             v = torch.where(oky & okx, v, 0.0)
             acc = acc + v * row_w * wx[..., dx + 1]
     return acc * contrast[:, None, None] + brightness[:, None, None]
+
+
+def warp_patches(windows: torch.Tensor, minv: torch.Tensor,
+                 brightness: torch.Tensor, contrast: torch.Tensor,
+                 *, ws: int) -> torch.Tensor:
+    """(B, ws, ws) patches from (B, WIN, WIN) windows: the ``warp_patches``
+    kernel on CUDA tensors (``ops/warp.py`` ``warp_windows``), bit for bit
+    :func:`warp_patches_plain`, which runs on CPU tensors."""
+    if not windows.is_cuda:
+        return warp_patches_plain(windows, minv, brightness, contrast, ws=ws)
+    return warp.warp_windows(windows.contiguous(), minv.contiguous(),
+                             brightness.contiguous(), contrast.contiguous(),
+                             ws)
+
+
+def gather_warp_plain(Xpad: torch.Tensor, src: torch.Tensor, oy: torch.Tensor,
+                      ox: torch.Tensor, minv: torch.Tensor,
+                      brightness: torch.Tensor, contrast: torch.Tensor, *,
+                      ws: int) -> torch.Tensor:
+    """The plain gather (:func:`gather_windows_device`), then the plain
+    warp: the plain version of :func:`gather_warp`."""
+    return warp_patches_plain(gather_windows_device(Xpad, src, oy, ox), minv,
+                              brightness, contrast, ws=ws)
+
+
+def gather_warp(Xpad: torch.Tensor, src: torch.Tensor, oy: torch.Tensor,
+                ox: torch.Tensor, minv: torch.Tensor, brightness: torch.Tensor,
+                contrast: torch.Tensor, *, ws: int) -> torch.Tensor:
+    """(B, ws, ws) patches, each warped from its window of the padded stack
+    (window origins ``src``, ``oy``, ``ox``, int32 on the card): the
+    ``warp_patches`` kernel reading the stack in place on CUDA tensors
+    (``ops/warp.py`` ``warp_gather``), bit for bit
+    :func:`gather_warp_plain`, which runs on CPU tensors."""
+    if not Xpad.is_cuda:
+        return gather_warp_plain(Xpad, src, oy, ox, minv, brightness,
+                                 contrast, ws=ws)
+    return warp.warp_gather(Xpad, src.contiguous(), oy.contiguous(),
+                            ox.contiguous(), minv.contiguous(),
+                            brightness.contiguous(), contrast.contiguous(),
+                            ws, WIN)
 
 
 def pad_image_stack(X0: np.ndarray, X1: np.ndarray,

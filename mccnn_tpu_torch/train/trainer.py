@@ -13,8 +13,12 @@ with a WARNING, main.lua:861-866), per-epoch
 The host samples augmentation parameters and gathers windows (or, for
 KITTI, only their origins) for a chunk of ``CHUNK_STEPS`` minibatches
 at once, one chunk ahead on a thread, as the JAX loop does; the device
-runs each step of the chunk: window gather, bicubic warp, forward,
-backward (autograd), update. The chunk's losses stay on the device and
+runs each step of the chunk: window gather and bicubic warp (one hand
+kernel), forward, backward (autograd), update. On the card the chunk is
+one replay of a CUDA graph captured once for each chunk size
+(:func:`make_train_chunk`, the counterpart of the JAX package's jitted
+scan); on the CPU its steps run eagerly (:func:`train_chunk`, the
+graph's plain version). The chunk's losses stay on the device and
 are read once a chunk. The update is the reference's, not
 ``torch.optim.SGD``'s (which keeps ``v = mom*v + g`` and steps
 ``w -= lr*v``: the two part at the lr drop and after a resume). On
@@ -34,10 +38,10 @@ from mccnn_tpu_torch.config import Config, cmd_str
 from mccnn_tpu_torch.data.datasets import (StereoDataset, load_dataset,
                                            subset_nnz)
 from mccnn_tpu_torch.models import checkpoint, towers
+from mccnn_tpu_torch.ops import _build
 from mccnn_tpu_torch.pipeline import DTYPES, device_of, resolve_device
 from mccnn_tpu_torch.train import losses
-from mccnn_tpu_torch.train.augment import (AugmentSampler,
-                                           gather_windows_device,
+from mccnn_tpu_torch.train.augment import (AugmentSampler, gather_warp,
                                            pad_image_stack, warp_patches)
 
 # minibatches built on the host at once
@@ -90,14 +94,13 @@ def no_tf32(dev: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
-def train_chunk(cfg: Config, net, momentum: list, lr: float, chunk: dict,
-                Xpad: torch.Tensor | None = None) -> torch.Tensor:
-    """Run the chunk's steps in place on ``net`` and ``momentum`` (one
-    tensor a parameter, in ``net.parameters()`` order); ``chunk``:
-    tensors on the net's device with the step as the leading axis (see
-    :func:`stack_chunk`), ``Xpad`` the padded image stack when the chunk
-    carries window origins. Returns the per-step losses (k,), on the
-    device: nothing here waits for it."""
+def _steps(cfg: Config, net, momentum: list, lr, chunk: dict,
+           Xpad: torch.Tensor | None) -> torch.Tensor:
+    """The chunk's steps, in place on ``net`` and ``momentum``: the body of
+    :func:`train_chunk` (``lr`` a float) and of the graph that
+    :func:`make_train_chunk` captures (``lr`` a 0-d float32 tensor on the
+    device, which ``_foreach_mul`` reads as the float's bits). Each step
+    reads slice ``s`` of ``chunk``'s tensors. Returns the (k,) losses."""
     params = list(net.parameters())
     dtype = DTYPES[cfg.dtype]
     kw = dict(arch=cfg.arch, m=float(cfg.m), pow=int(cfg.pow), dtype=dtype)
@@ -105,14 +108,13 @@ def train_chunk(cfg: Config, net, momentum: list, lr: float, chunk: dict,
     errs = []
     with no_tf32(params[0].device), torch.enable_grad():
         for s in range(chunk["minv"].shape[0]):
+            photo = (chunk["minv"][s], chunk["brightness"][s],
+                     chunk["contrast"][s])
             if Xpad is not None:
-                windows = gather_windows_device(Xpad, chunk["src"][s],
-                                                chunk["oy"][s], chunk["ox"][s])
+                patches = gather_warp(Xpad, chunk["src"][s], chunk["oy"][s],
+                                      chunk["ox"][s], *photo, ws=cfg.ws)
             else:
-                windows = chunk["windows"][s]
-            patches = warp_patches(windows, chunk["minv"][s],
-                                   chunk["brightness"][s], chunk["contrast"][s],
-                                   ws=cfg.ws)
+                patches = warp_patches(chunk["windows"][s], *photo, ws=cfg.ws)
             err = loss_fn(net, patches, chunk["labels"][s], **kw)
             grads = torch.autograd.grad(err, params)
             with torch.no_grad():
@@ -122,6 +124,116 @@ def train_chunk(cfg: Config, net, momentum: list, lr: float, chunk: dict,
                 torch._foreach_add_(params, momentum)
             errs.append(err.detach())
     return torch.stack(errs)
+
+
+def train_chunk(cfg: Config, net, momentum: list, lr: float, chunk: dict,
+                Xpad: torch.Tensor | None = None) -> torch.Tensor:
+    """Run the chunk's steps in place on ``net`` and ``momentum`` (one
+    tensor a parameter, in ``net.parameters()`` order), eagerly; ``chunk``:
+    tensors on the net's device with the step as the leading axis (see
+    :func:`stack_chunk`), ``Xpad`` the padded image stack when the chunk
+    carries window origins. Returns the per-step losses (k,), on the
+    device: nothing here waits for it. The plain version of the graph
+    :func:`make_train_chunk` captures, and the CPU's training."""
+    return _steps(cfg, net, momentum, float(lr), chunk, Xpad)
+
+
+def chunk_buffers(chunk: dict, device) -> dict:
+    """Uninitialised buffers on ``device`` in the keys, shapes and dtypes
+    of ``chunk`` (numpy arrays or tensors, :func:`stack_chunk`'s dict)."""
+    return {k: torch.empty(tuple(np.shape(v)), device=device,
+                           dtype=torch.as_tensor(v).dtype)
+            for k, v in chunk.items()}
+
+
+def fill_buffers(bufs: dict, chunk: dict) -> None:
+    """Copy a chunk (numpy arrays or tensors, :func:`stack_chunk`'s keys)
+    into buffers made by :func:`chunk_buffers`; a chunk of other keys or
+    shapes raises."""
+    if set(chunk) != set(bufs):
+        raise ValueError(f"chunk keys {sorted(chunk)}, expected "
+                         f"{sorted(bufs)}")
+    for k, buf in bufs.items():
+        v = torch.as_tensor(chunk[k])
+        if v.shape != buf.shape:
+            raise ValueError(f"chunk {k!r}: shape {tuple(v.shape)}, "
+                             f"expected {tuple(buf.shape)}")
+        buf.copy_(v)
+
+
+def make_train_chunk(cfg: Config, net, momentum: list,
+                     Xpad: torch.Tensor | None, n_steps: int, device):
+    """The chunk of ``n_steps`` steps as one CUDA graph: the counterpart of
+    the JAX package's jitted ``lax.scan`` (mccnn_tpu/train/trainer.py
+    ``make_train_chunk``). Returns ``run(chunk, lr) -> errs (n_steps,)``,
+    which copies the host chunk into static buffers, sets the 0-d ``lr``
+    tensor (so an lr drop needs no new capture) and replays the graph,
+    training ``net`` and ``momentum`` in place as :func:`train_chunk`
+    does, bit for bit. The first ``run`` makes the buffers in its chunk's
+    shapes and dtypes and captures: one step runs first on a side stream
+    (the libraries' handles and workspaces, the allocator) and is undone;
+    the graph then holds the addresses of the parameters, the momentum and
+    ``Xpad``, and ``run`` refuses a net or momentum whose storage changed
+    since, or a chunk of other keys or shapes. The capture counts no
+    launch; each replay counts the hand kernels it runs
+    (``_build.add_counts``). CUDA only (ValueError elsewhere); a failed
+    capture or replay raises."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"make_train_chunk: a CUDA graph needs a CUDA "
+                         f"device, got {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    state = list(net.parameters()) + list(momentum)
+    if any(t.device != dev for t in state) or (
+            Xpad is not None and Xpad.device != dev):
+        raise ValueError(f"make_train_chunk: the net, momentum and Xpad must "
+                         f"be on {dev}")
+    lr_t = torch.zeros((), dtype=torch.float32, device=dev)
+    errs = torch.zeros(n_steps, dtype=torch.float32, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    bufs, counted, ptrs = {}, [], []
+
+    def capture(chunk: dict) -> None:
+        if np.shape(chunk["minv"])[0] != n_steps:
+            raise ValueError(f"chunk 'minv': shape {np.shape(chunk['minv'])}"
+                             f", expected {n_steps} steps")
+        now = list(net.parameters()) + list(momentum)
+        static = chunk_buffers(chunk, dev)
+        fill_buffers(static, chunk)
+        with torch.cuda.device(dev):
+            saved = [t.detach().clone() for t in now]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _steps(cfg, net, momentum, lr_t,
+                       {n: v[:1] for n, v in static.items()}, Xpad)
+                with torch.no_grad():
+                    for t, v in zip(now, saved):
+                        t.copy_(v)
+            torch.cuda.current_stream().wait_stream(side)
+            del saved
+            with _build.uncounted() as got, torch.cuda.graph(graph):
+                errs.copy_(_steps(cfg, net, momentum, lr_t, static, Xpad))
+        counted.extend(got[0])
+        ptrs.extend(t.data_ptr() for t in now)
+        bufs.update(static)
+
+    def run(chunk: dict, lr: float) -> torch.Tensor:
+        if not bufs:
+            capture(chunk)
+        now = list(net.parameters()) + list(momentum)
+        if [t.data_ptr() for t in now] != ptrs:
+            raise RuntimeError("make_train_chunk: the net's parameters or the "
+                               "momentum moved since the capture; capture a "
+                               "new chunk")
+        fill_buffers(bufs, chunk)
+        lr_t.fill_(float(lr))
+        graph.replay()
+        _build.add_counts(*counted)
+        return errs.clone()
+
+    return run
 
 
 def stack_chunk(sampler: AugmentSampler, ds: StereoDataset,
@@ -205,6 +317,20 @@ def train(cfg: Config, ds: StereoDataset, net, *, epochs: int = 14,
         X1 = np.asarray(ds.X1[:, 0])[:, None]
         if device_gather:
             Xpad = pad_image_stack(X0, X1, dev)
+    # on the card a chunk is one replay of a captured graph, one graph for
+    # each chunk size (32, and an epoch's tail); on the CPU the eager steps
+    graphs = {}
+
+    def run_chunk(chunk: dict) -> torch.Tensor:
+        k = chunk["minv"].shape[0]
+        if dev.type != "cuda":
+            return train_chunk(cfg, net, momentum, lr,
+                               {n: torch.from_numpy(v).to(dev)
+                                for n, v in chunk.items()}, Xpad)
+        if k not in graphs:
+            graphs[k] = make_train_chunk(cfg, net, momentum, Xpad, k, dev)
+        return graphs[k](chunk, lr)
+
     t0 = _time.time()
     for epoch in range(1, epochs + 1):
         if epoch == 12:
@@ -240,10 +366,7 @@ def train(cfg: Config, ds: StereoDataset, net, *, epochs: int = 14,
                 if chunk is None:
                     break
                 fut = pool.submit(next, it, None)
-                chunk = {k: torch.from_numpy(v).to(dev)
-                         for k, v in chunk.items()}
-                errs = train_chunk(cfg, net, momentum, lr, chunk, Xpad)
-                errs = errs.cpu().numpy()
+                errs = run_chunk(chunk).cpu().numpy()
                 good = (errs >= 0) & (errs < 100)
                 for e in errs[~good]:
                     log(f"WARNING! err={e:f}")

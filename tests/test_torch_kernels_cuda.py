@@ -858,7 +858,7 @@ def test_train_chunk_on_the_card_matches_the_cpu(dev, tmp_path, arch):
     steps of one sampled chunk from the same weights, the window gather
     on the card and on the CPU; TF32 off, so the per-step losses agree
     within 1e-5 relative and the weights within 1e-6, and the training
-    launches none of the hand kernels."""
+    launches one hand kernel, ``warp_patches``, once a step."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.data import datasets
     from mccnn_tpu_torch.models import towers
@@ -887,7 +887,8 @@ def test_train_chunk_on_the_card_matches_the_cpu(dev, tmp_path, arch):
             augment.pad_image_stack(X0, X1, d))
         if where == "cuda":
             torch.cuda.synchronize()
-            assert not any(_build.launches().values())
+            assert _build.launches() == dict(
+                dict.fromkeys(_build.KERNELS, 0), warp_patches=4)
         runs[where] = errs.cpu(), [p.detach().cpu() for p in net.parameters()]
     torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
                                atol=1e-7)
@@ -1793,3 +1794,218 @@ def test_prediction_runs_the_tower_kernels(dev, dtype):
         finally:
             tower.bias_act, tower.normalize, tower.slow_epilogue = saved
         assert torch.equal(_bits(got), _bits(ref))
+
+
+# --- training: the warp kernel (csrc/warp.cu) and the chunk's CUDA graph ----
+
+def _warp_inputs(rng, B, dev, N=3, H=40, W=56):
+    """Affines reaching past every edge of the window (some wholly
+    outside), photometrics, windows and a padded stack with NaN of two
+    payloads, -0.0 and +-inf planted, origins clipped to [-WIN, H/W]."""
+    from mccnn_tpu_torch.train import augment
+
+    win = augment.WIN
+    ang, sc = rng.uniform(-0.6, 0.6, B), rng.uniform(0.6, 1.6, B)
+    tx, ty = rng.uniform(-8, win - 2, B), rng.uniform(-8, win - 2, B)
+    tx[::7] = -45.0
+    ty[3::11] = win + 40.0
+    minv = np.stack([sc * np.cos(ang), -sc * np.sin(ang), tx,
+                     sc * np.sin(ang), sc * np.cos(ang), ty], 1)
+    f32 = [torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        minv, rng.uniform(-0.7, 0.7, B), rng.uniform(0.7, 1.3, B))]
+    windows = _planted(rng, (B, win, win), dev)
+    xpad = torch.nn.functional.pad(_planted(rng, (2 * N, H, W), dev),
+                                   (win, win, win, win))
+    org = [rng.randint(0, 2 * N, B), rng.randint(-win, H + 1, B),
+           rng.randint(-win, W + 1, B)]
+    org[1][:2], org[2][:2] = [-win, H][:B], [W, -win][:B]
+    org = [torch.as_tensor(a.astype(np.int32), device=dev) for a in org]
+    return windows, xpad, org, f32
+
+
+@pytest.mark.parametrize("ws", [9, 11])
+@pytest.mark.parametrize("B", [1, 37, 256, 301])
+def test_warp_kernel_is_bit_identical(dev, B, ws):
+    """``warp_patches`` from windows and from the padded stack (the fused
+    gather) against their plain versions, ``.view(int32)``: NaN, -0.0 and
+    +-inf planted in both sources, awkward B, one launch counted a call,
+    by the wrapper and by the kernel's counter on the card."""
+    from mccnn_tpu_torch.ops import warp
+    from mccnn_tpu_torch.train import augment
+
+    windows, xpad, org, (minv, bri, con) = _warp_inputs(
+        np.random.RandomState(B + ws), B, dev)
+    ran = warp.runs(dev)
+    before = _build.launches()["warp_patches"]
+    got = warp.warp_windows(windows, minv, bri, con, ws)
+    torch.cuda.synchronize()
+    assert _build.launches()["warp_patches"] == before + 1
+    want = augment.warp_patches_plain(windows, minv, bri, con, ws=ws)
+    assert torch.equal(_bits(got), _bits(want))
+    got = augment.gather_warp(xpad, *org, minv, bri, con, ws=ws)
+    torch.cuda.synchronize()
+    assert _build.launches()["warp_patches"] == before + 2
+    want = augment.gather_warp_plain(xpad, *org, minv, bri, con, ws=ws)
+    assert torch.equal(_bits(got), _bits(want))
+    assert bool(torch.isfinite(want).any())
+    assert warp.runs(dev) == ran + 2
+
+
+def test_warp_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    from mccnn_tpu_torch.ops import warp
+
+    windows, xpad, org, (minv, bri, con) = _warp_inputs(
+        np.random.RandomState(0), 8, dev)
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_windows(windows.double(), minv, bri, con, 9)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp.warp_windows(windows, minv.cpu(), bri, con, 9)
+    with pytest.raises(ValueError, match="bad shapes"):
+        warp.warp_windows(windows, minv[:, :5].contiguous(), bri, con, 9)
+    with pytest.raises(ValueError, match="bad windows"):
+        warp.warp_windows(windows[:, :31].contiguous(), minv, bri, con, 9)
+    with pytest.raises(ValueError, match="int32"):
+        warp.warp_gather(xpad, org[0].long(), org[1], org[2], minv, bri, con,
+                         9, 32)
+    with pytest.raises(ValueError, match="bad shapes"):
+        warp.warp_gather(xpad, org[0], org[1][:4].contiguous(), org[2], minv,
+                         bri, con, 9, 32)
+
+
+def _train_setup(tmp_path, arch, dtype, device_gather, dev):
+    """A narrow config (l1 = 2, fm = 16, bs = 32) on a 64x128 synthetic
+    KITTI set, its chunks by seed, and the padded stack on the card."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.train import augment, trainer
+
+    datasets.make_synthetic_kitti(str(tmp_path / "data.kitti"), n_images=2,
+                                  height=64, width=128, disp_max=16)
+    over = dict(l1=2, fm=16, bs=32, data_dir=str(tmp_path), dtype=dtype)
+    if arch == "slow":
+        over.update(l2=2, nh2=32)
+    cfg = make_config("kitti", arch, **over)
+    ds = datasets.load_kitti(cfg)
+    X0, X1 = np.asarray(ds.X0), np.asarray(ds.X1)
+
+    def chunk(n, seed):
+        rows = ds.nnz_tr[seed * 16:][:n * 16]
+        return trainer.stack_chunk(
+            augment.AugmentSampler(cfg, np.random.RandomState(seed)), ds,
+            rows, n, 16, X0, X1, device_gather=device_gather)
+
+    assert len(ds.nnz_tr) > 35 * 16
+    Xpad = augment.pad_image_stack(X0, X1, dev) if device_gather else None
+    return cfg, chunk, Xpad
+
+
+@pytest.mark.parametrize("device_gather", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["fast", "slow"])
+def test_graph_chunk_is_the_eager_chunk(dev, tmp_path, arch, dtype,
+                                        device_gather):
+    """``make_train_chunk``'s replays against eager ``train_chunk`` calls
+    from the same weights, bit for bit under ``cudnn.deterministic``: a
+    chunk of 32 steps, a second at the lr dropped by 10 (a ``fill_``, no
+    new capture), then a tail of 5 on its own graph; the losses, weights
+    and momentum after each. The replays count ``warp_patches`` once a
+    step, the warm-ups once a graph, the capture nothing, as the kernel's
+    own counter on the card does."""
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.ops import warp
+    from mccnn_tpu_torch.train import trainer
+
+    cfg, chunk, Xpad = _train_setup(tmp_path, arch, dtype, device_gather,
+                                     dev)
+    plan = [(chunk(32, 1), cfg.lr), (chunk(32, 2), cfg.lr / 10),
+            (chunk(5, 3), cfg.lr / 10)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for graph in (True, False):
+            net = towers.init_net(cfg).to(dev)
+            mom = [torch.zeros_like(p) for p in net.parameters()]
+            graphs, seen = {}, []
+            _build.reset_launches()
+            ran = warp.runs(dev)
+            for c, lr in plan:
+                n = c["minv"].shape[0]
+                if graph:
+                    if n not in graphs:
+                        graphs[n] = trainer.make_train_chunk(
+                            cfg, net, mom, Xpad, n, dev)
+                    errs = graphs[n](c, lr)
+                else:
+                    errs = trainer.train_chunk(
+                        cfg, net, mom, lr,
+                        {k: torch.as_tensor(v, device=dev)
+                         for k, v in c.items()}, Xpad)
+                seen.append([errs.clone()] + [t.detach().clone() for t in
+                                              list(net.parameters()) + mom])
+            torch.cuda.synchronize()
+            launches = _build.launches()
+            assert launches == dict(dict.fromkeys(_build.KERNELS, 0),
+                                    warp_patches=69 + (2 if graph else 0))
+            assert warp.runs(dev) - ran == launches["warp_patches"]
+            states.append(seen)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for g, e in zip(*states):
+        assert bool(torch.isfinite(g[0]).all())
+        for a, b in zip(g, e):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_graph_chunk_refuses_a_moved_net(dev, tmp_path):
+    """A replay after the net's storage was replaced raises (the graph
+    holds the old addresses); so does a chunk of another shape."""
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.train import trainer
+
+    cfg, chunk, Xpad = _train_setup(tmp_path, "fast", "float32", True, dev)
+    net = towers.init_net(cfg).to(dev)
+    mom = [torch.zeros_like(p) for p in net.parameters()]
+    run = trainer.make_train_chunk(cfg, net, mom, Xpad, 4, dev)
+    c = chunk(4, 1)
+    assert bool(torch.isfinite(run(c, cfg.lr)).all())
+    with pytest.raises(ValueError, match="shape"):
+        run(chunk(3, 1), cfg.lr)
+    first = next(net.parameters())
+    first.data = first.data.clone()
+    with pytest.raises(RuntimeError, match="moved since the capture"):
+        run(c, cfg.lr)
+
+
+def test_train_on_the_card_replays_one_graph_a_chunk_size(dev, tmp_path):
+    """``train()`` on the card: one graph for the epoch's chunks of 32 and
+    one for its tail, captured once for two epochs; ``warp_patches``
+    counted once a step and once a graph's warm-up, nothing else."""
+    from mccnn_tpu_torch.data import datasets
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.train import trainer
+
+    cfg, _, _ = _train_setup(tmp_path, "fast", "float32", True, dev)
+    ds = datasets.load_kitti(cfg)
+    ds.nnz_tr = ds.nnz_tr[:35 * 16 + 1]
+    made = []
+    orig = trainer.make_train_chunk
+
+    def spy(*a, **kw):
+        made.append(a[4])
+        return orig(*a, **kw)
+
+    trainer.make_train_chunk = spy
+    try:
+        _build.reset_launches()
+        lines = []
+        trainer.train(cfg, ds, towers.init_net(cfg), epochs=2,
+                      log=lines.append, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        trainer.make_train_chunk = orig
+    assert made == [32, 3]
+    assert _build.launches() == dict(dict.fromkeys(_build.KERNELS, 0),
+                                     warp_patches=2 * 35 + 2)
+    assert len(lines) == 2 and all(np.isfinite(float(ln.split("\t")[1]))
+                                   for ln in lines)

@@ -124,7 +124,9 @@ def test_warp_patches_matches_jax(ws):
     within 2e-5 of each other (measured: 1.02e-5 and 1.19e-5 at most;
     near a tap boundary the outer cubic weights cancel terms up to 6, so
     a few ulps of 6 reach 1e-5); the port's taps add in the JAX loop's
-    order."""
+    order. The port's version is ``warp_patches_plain``, the plain
+    version of the warp kernel, which ``warp_patches`` runs on CPU
+    tensors."""
     rng = np.random.RandomState(ws)
     B = 96
     win = rng.randn(B, augment.WIN, augment.WIN).astype(np.float32)
@@ -137,8 +139,8 @@ def test_warp_patches_matches_jax(ws):
     bri = rng.uniform(-0.7, 0.7, B).astype(np.float32)
     con = rng.uniform(0.7, 1.3, B).astype(np.float32)
     want = np.asarray(jaugment.warp_patches(win, minv, bri, con, ws=ws))
-    got = augment.warp_patches(*(torch.as_tensor(v) for v in
-                                 (win, minv, bri, con)), ws=ws).numpy()
+    got = augment.warp_patches_plain(*(torch.as_tensor(v) for v in
+                                       (win, minv, bri, con)), ws=ws).numpy()
     exact = _warp_f64(win, minv, bri, con, ws)
     assert got.shape == want.shape == (B, ws, ws)
     np.testing.assert_allclose(got, exact, rtol=0, atol=2e-5)

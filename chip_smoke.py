@@ -81,7 +81,17 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    head scores with and without d_true = 200, each bit for bit against
    its plain version (``.view(torch.int32)``) on those inputs and on
    copies with NaN of two payloads, -0.0 and +-inf planted, timed in a
-   CUDA graph and by events beside its bound;
+   CUDA graph and by events beside its bound; the towers' convolutions
+   (``csrc/conv.cu``; ``capture_convs``, ``conv_row``) on kitti fast's and
+   kitti slow's own layer inputs in float32 and with ``-dtype bfloat16``,
+   on kitti fast's row-sharded on 4 entries (slices that start
+   mid-image), and on kitti fast nets at the other widths of the fast
+   net's hyperparameter search (fm 80 and 96), each layer within
+   ``CONV_F32_LIMIT`` (1.2e-6; float32) or 2e-6 (a 16-bit lane) of its sum
+   |w||x| from ``F.conv2d`` with TF32 off, the tower's convolutions timed
+   in a CUDA graph and by
+   events beside cuDNN's (the library call), its bound (six bf16 passes
+   at the tensor-core peak, one in a 16-bit lane) and its f32 bound;
    then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
@@ -102,8 +112,9 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    bit for bit; the towers' kernels on mb fast's convolution outputs
    (``-a predict`` in float32, both sides' operands; ``-a time`` with
    ``-dtype bfloat16``, the left side's) and mb slow's, and the epilogue
-   on mb slow's head scores (and d_true = 150), bit for bit; each with
-   kernel, plain and bound times;
+   on mb slow's head scores (and d_true = 150), bit for bit; the towers'
+   convolutions of mb fast and mb slow in float32 and ``-dtype
+   bfloat16``; each with kernel, plain and bound times;
 4. the fast-arch ``stereo_predict`` on a seeded 370x1226 pair of known
    disparity: the launch count of every kernel in one run, the
    accuracy, and the share of pixels where it differs from the
@@ -118,6 +129,10 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    ``-vol_dtype float16`` and ``-dtype bfloat16``: launch counts, the
    share of pixels moved by more than 1 px against the float32 map, the
    accuracy, pairs/s (median of 10, with the spread) and peak memory;
+   in phases 4-7 every path with a tower also prints the share of its
+   map's pixels more than 0.51 px from the same pair's map through the
+   cuDNN route (the towers' convolutions as ``F.conv2d`` with TF32 off,
+   ``cudnn_route``), at most 0.001;
 5. the slow-arch ``stereo_predict`` on the same pair: the launch count
    of every kernel in one run (CBCA twice a direction, the arms once an
    image) and the accuracy, with a head set by hand
@@ -748,17 +763,18 @@ def layout_rows(torch, seen, where) -> dict:
 
 
 def tower_counts(cfg, shards: int = 1) -> dict:
-    """The tower kernels a pair (``csrc/tower.cu``), on each of ``shards``
-    row shards: the fast tower's bias kernel a layer but the last, whose
-    bias and normalization write the join's operands (or the features)
-    in one launch; the slow tower's bias kernel a layer and the slow
-    volumes' epilogue once; none for census and ad."""
+    """The tower kernels a pair (``csrc/tower.cu``, ``csrc/conv.cu``), on
+    each of ``shards`` row shards: a convolution a layer; the fast tower's
+    bias kernel a layer but the last, whose bias and normalization write
+    the join's operands (or the features) in one launch; the slow tower's
+    bias kernel a layer and the slow volumes' epilogue once; none for
+    census and ad."""
     if cfg.arch == "fast":
         return dict(tower_bias_act=shards * (cfg.l1 - 1),
-                    tower_normalize_pack=shards)
+                    tower_normalize_pack=shards, tower_conv=shards * cfg.l1)
     if cfg.arch == "slow":
         return dict(tower_bias_act=shards * cfg.l1,
-                    slow_volumes_epilogue=shards)
+                    slow_volumes_epilogue=shards, tower_conv=shards * cfg.l1)
     return {}
 
 
@@ -935,6 +951,142 @@ def epilogue_rows(torch, s, n, d_true, where) -> dict:
     del planted
     torch.cuda.empty_cache()
     return rows
+
+
+def capture_convs(torch, run) -> list:
+    """The (x, weight, dtype) of every ``conv.conv3x3`` call in ``run()``
+    (one ``stereo_predict``), in order: the tower's convolutions on the
+    path's own inputs (nothing writes a layer's input after its
+    convolution)."""
+    from mccnn_tpu_torch.ops import conv
+
+    seen = []
+    orig = conv.conv3x3
+
+    def call(x, weight, dtype=torch.float32):
+        seen.append((x, weight, dtype))
+        return orig(x, weight, dtype)
+
+    conv.conv3x3 = call
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        conv.conv3x3 = orig
+    return seen
+
+
+# the float32 layers' limit on max |d| / sum |w||x| from F.conv2d (TF32
+# off): above the sound kernel's readings (4.1e-7 to 7.5e-7), below the
+# 1.79e-6 of a kernel that sums all six bf16 products in one set of
+# accumulators (PERF.md row S); a 16-bit lane's limit is 2e-6
+CONV_F32_LIMIT = 1.2e-6
+
+
+def conv_row(torch, calls, where, reps: int = 10) -> dict:
+    """A row for the tower's convolutions of one pair, on the inputs
+    ``capture_convs`` saw: each layer's kernel against ``F.conv2d`` with
+    TF32 off on the same operands (``conv.conv3x3_plain``, the plain
+    version and the library call in one), max |d| relative to the layer's
+    sum |w||x| (in a 16-bit lane the products are exact: the float32
+    summation order alone), checked within ``CONV_F32_LIMIT`` in float32
+    and 2e-6 in a 16-bit lane; the tower's launches in a
+    CUDA graph and by events, cuDNN's by events. The bound: each layer's
+    input read and output written once (and its weights) against its
+    operations: the first layer's multiply-adds at the f32 peak, a wider
+    layer's six bf16 passes (one in a 16-bit lane) at the bf16
+    tensor-core peak; beside it every layer at the f32 peak. The row's
+    times and bound are per launch (the tower's sums over its launches);
+    the printed line gives the pair's."""
+    from mccnn_tpu_torch.ops import conv
+
+    errs, bound, f32 = {}, 0.0, 0.0
+    by = collections.Counter()
+    dts = set()
+    with torch.no_grad():
+        for x, w, dt in calls:
+            got = conv.conv3x3(x, w, dt)
+            ref = conv.conv3x3_plain(x, w, dt)
+            scale = conv.conv3x3_plain(x.float().abs(), w.abs(), dt)
+            errs[dt] = max(errs.get(dt, 0.0), float(
+                ((got - ref).abs() / scale.clamp_min(1e-30)).max()))
+            del got, ref, scale
+            N, Ci, h, w_ = x.shape
+            Co = w.shape[0]
+            macs = float(N * h * w_ * Ci * Co * 9)
+            nbytes = 4.0 * (N * h * w_ * (Ci + Co) + w.numel())
+            if Ci == Co and Ci in conv.WIDTHS:
+                passes = 6 if dt == torch.float32 else 1
+                b = bound_ms(nbytes, 2 * passes * macs, BF16_TC_OPS)
+            else:
+                b = bound_ms(nbytes, 2 * macs)
+            bound += b[0]
+            by[b[1]] += b[0]
+            f32 += 2 * macs / F32_OPS * 1e3
+            dts.add(str(dt).replace("torch.", ""))
+
+        def kernels():
+            for x, w, dt in calls:
+                conv.conv3x3(x, w, dt)
+
+        def library():
+            for x, w, dt in calls:
+                conv.conv3x3_plain(x, w, dt)
+
+        n = len(calls)
+        ms = graph_ms(torch, kernels, reps)
+        events = cuda_ms(torch, kernels, reps)
+        lib = cuda_ms(torch, library, max(2, reps // 2))
+    torch.cuda.synchronize()
+    for dt, e in errs.items():
+        limit = CONV_F32_LIMIT if dt == torch.float32 else 2e-6
+        check(e <= limit, f"tower_conv {where} ({dt}): max |d| {e} of sum "
+              f"|w||x| from F.conv2d (TF32 off), over {limit}")
+    err = max(errs.values())
+    print(f"  tower_conv {where} ({'/'.join(sorted(dts))}, {n} layers, "
+          f"{tuple(calls[-1][0].shape)} into the last): max |d| {err:.3g} of "
+          f"sum |w||x| from F.conv2d (TF32 off); kernels {ms:.4f} ms a pair "
+          f"in a CUDA graph ({events:.4f} by events), cuDNN {lib:.4f} ms "
+          f"({lib / events:.2f}x); bound {bound:.4f} ms (six bf16 passes, "
+          f"one in a 16-bit lane, at {BF16_TC_OPS / 1e12:.0f} TFLOP/s), "
+          f"{bound / ms:.2f} of it; f32 bound {f32:.4f} ms at "
+          f"{F32_OPS / 1e12:.0f} TFLOP/s")
+    return dict(err=err, ms=ms / n, events_ms=events / n, plain_ms=lib / n,
+                library_ms=lib / n,
+                bound=(bound / n, max(by, key=by.get), PEAK_NAMES[BF16_TC_OPS]),
+                pair_ms=ms, pair_events_ms=events, pair_library_ms=lib,
+                pair_bound_ms=bound, pair_f32_ms=f32)
+
+
+def cudnn_route(torch, run):
+    """``run()`` with the towers' convolutions as ``F.conv2d`` with TF32
+    off (``conv.conv3x3_plain`` in place of ``conv.conv3x3``): the route
+    before the hand kernels, computed for the comparison only."""
+    from mccnn_tpu_torch.ops import conv
+
+    saved = conv.conv3x3
+    conv.conv3x3 = conv.conv3x3_plain
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        conv.conv3x3 = saved
+
+
+def moved_from_cudnn(torch, what, run, disp) -> float:
+    """The share of the map ``disp`` of ``run()`` more than 0.51 px from
+    the same pair's map through the cuDNN route (``cudnn_route``); checked
+    at most 0.001."""
+    ref = cudnn_route(torch, run).cpu()
+    moved = float(((torch.as_tensor(disp).cpu() - ref).abs() > 0.51)
+                  .float().mean())
+    print(f"  {what}: {moved:.6f} of pixels more than 0.51 px from the map "
+          f"through the cuDNN route (the towers' convolutions as F.conv2d, "
+          f"TF32 off)")
+    check(moved <= 0.001, f"{what}: {moved} of pixels moved from the cuDNN "
+          "route's map")
+    return moved
 
 
 def map_sha(a) -> str:
@@ -2115,7 +2267,7 @@ def cache_phase(torch, dev, x0, x1, fast_want: dict, slow_want: dict,
         for what, want in (("uncached", slow_want),
                            ("cache-making", slow_want),
                            ("cached", dict(slow_want, slow_head=0,
-                                           tower_bias_act=0,
+                                           tower_bias_act=0, tower_conv=0,
                                            slow_volumes_epilogue=0))):
             check(runs[what][2] == want, f"{what}: launch counts "
                   f"{runs[what][2]}, expected {want}")
@@ -3189,6 +3341,50 @@ def main() -> int:
     del seen, got
     print(f"  the tower kernels' checks took "
           f"{time.perf_counter() - t_tower:.0f} s")
+    # the towers' convolutions on each path's own inputs: kitti fast and
+    # kitti slow in float32 and -dtype bfloat16, and kitti fast row-sharded
+    # on 4 entries (slices that start mid-image, with their halos)
+    t_conv = time.perf_counter()
+    for c, net, what in (
+            (cfg, tower, "kitti fast"),
+            (make_config("kitti", "fast", a="predict", dtype="bfloat16"),
+             tower, "kitti fast"),
+            (scfg, snet, "kitti slow"),
+            (make_config("kitti", "slow", a="predict", dtype="bfloat16"),
+             snet, "kitti slow")):
+        row = conv_row(torch, capture_convs(
+            torch, lambda c=c, net=net: stereo_predict(c, net, x0, x1, D)),
+            f"{what} at {H}x{W}")
+        if c is cfg:
+            rows["tower_conv"] = row
+        else:
+            rows_tower[f"tower_conv {what} ({c.dtype})"] = row
+    from mccnn_tpu_torch.parallel import inference
+    from mccnn_tpu_torch.parallel.mesh import Mesh
+
+    sharded = inference.make_sharded_predict(
+        cfg, Mesh([dev] * 4, ("data",)), D)
+    rows_tower["tower_conv kitti fast row-sharded on 4"] = conv_row(
+        torch, capture_convs(torch, lambda: sharded(
+            tower, torch.as_tensor(x0, device=dev),
+            torch.as_tensor(x1, device=dev))),
+        f"kitti fast row-sharded on 4 entries at {H}x{W}")
+    del sharded
+    # the other widths of the fast net's hyperparameter search (tools/hs.py
+    # fm 80, 96): their wgmma instances on a kitti fast net's own inputs
+    for fm in (80, 96):
+        for dt in ("float32", "bfloat16"):
+            c = make_config("kitti", "fast", a="predict", dtype=dt, fm=fm)
+            net = towers.init_fast(c, c.seed).to(dev)
+            rows_tower[f"tower_conv kitti fast fm {fm} ({dt})"] = conv_row(
+                torch, capture_convs(
+                    torch, lambda c=c, net=net: stereo_predict(
+                        c, net, x0, x1, D)),
+                f"kitti fast, fm {fm}, at {H}x{W}")
+            del net
+    torch.cuda.empty_cache()
+    print(f"  the tower convolutions' checks took "
+          f"{time.perf_counter() - t_conv:.0f} s")
 
     # the Middlebury shape of the chain (two mid layers, a narrow head
     # padded to the 64-wide instance) at a small ragged size
@@ -3429,7 +3625,10 @@ def main() -> int:
     for name, row in rows_tower.items():
         print(f"  {name}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.3f} ms, bound {row['bound'][0]:.4f} ms "
-              f"({row['bound'][1]}), equal to the plain version bit for bit")
+              f"({row['bound'][1]}), "
+              + (f"max |d| {row['err']:.3g} of sum |w||x| (per launch)"
+                 if name.startswith("tower_conv")
+                 else "equal to the plain version bit for bit"))
 
     # --- phase 3b: the Middlebury paths' kernels at 1000x1500, D=200 ------
     # (hm, wm, dm: the -a time shape) on the inputs phase 7's mb fast and
@@ -3467,6 +3666,12 @@ def main() -> int:
     rows_mb.update({f"{k} (fast)": v for k, v in tower_rows(
         torch, seen, f"mb fast at {hm}x{wm}").items()})
     del seen
+    for dt in ("float32", "bfloat16"):
+        rows_mb[f"tower_conv mb fast ({dt})"] = conv_row(
+            torch, capture_convs(torch, lambda dt=dt: stereo_predict(
+                make_config("mb", "fast", a="predict", dtype=dt), mtower,
+                m0_, m1_, dm)), f"mb fast at {hm}x{wm}", reps=5)
+    torch.cuda.empty_cache()
     tower_secs = time.perf_counter() - t_tower
     # the cost volumes and the HWD tables at the mb shape: mb census's and
     # mb ad's volumes (-a time), mb fast's tables of both directions
@@ -3601,7 +3806,14 @@ def main() -> int:
         mscfg, msnet, m0_, m1_, dm))
     rows_mb.update({f"{k} (slow)": v for k, v in tower_rows(
         torch, seen, f"mb slow at {hm}x{wm}").items()})
-    del msf, msnet, seen
+    del seen
+    for dt in ("float32", "bfloat16"):
+        rows_mb[f"tower_conv mb slow ({dt})"] = conv_row(
+            torch, capture_convs(torch, lambda dt=dt: stereo_predict(
+                make_config("mb", "slow", a="time", dtype=dt), msnet, m0_,
+                m1_, dm)), f"mb slow at {hm}x{wm}", reps=3)
+    torch.cuda.empty_cache()
+    del msf, msnet
     tower_secs += time.perf_counter() - t_tower
     s_k = slow_head.slow_head_volume(*mops, dm)
     torch.cuda.synchronize()
@@ -3694,6 +3906,8 @@ def main() -> int:
     fast_sha = same_as_plain_route(
         torch, "kitti fast", lambda: stereo_predict(cfg, tower, x0, x1, D),
         disp)
+    moved_from_cudnn(torch, "kitti fast",
+                     lambda: stereo_predict(cfg, tower, x0, x1, D), disp)
     # the tables' plain build alone issues 188 launches
     check_plain_launches(torch, "kitti fast",
                          lambda: stereo_predict(cfg, tower, x0, x1, D), 64)
@@ -3744,6 +3958,9 @@ def main() -> int:
               f"{got}")
         check(got == fast_want, f"{flag}: launch counts {got}, expected "
               f"{fast_want}")
+        moved_from_cudnn(torch, f"kitti fast {flag}",
+                         lambda c16=c16: stereo_predict(c16, tower, x0, x1, D),
+                         d16)
         d16 = d16.cpu().numpy()
         check(d16.shape == (H, W) and bool(np.isfinite(d16).all()),
               f"{flag}: disparity map not finite or misshaped")
@@ -3779,6 +3996,8 @@ def main() -> int:
     slow_sha = same_as_plain_route(
         torch, "kitti slow", lambda: stereo_predict(scfg, hand, x0, x1, D),
         disp)
+    moved_from_cudnn(torch, "kitti slow",
+                     lambda: stereo_predict(scfg, hand, x0, x1, D), disp)
     d = slow_map = disp.cpu().numpy()
     check(d.shape == (H, W) and bool(np.isfinite(d).all()),
           "slow disparity map not finite or misshaped")
@@ -3908,6 +4127,8 @@ def main() -> int:
     cbca_sha = same_as_plain_route(
         torch, "kitti fast with CBCA (slab form)",
         lambda: stereo_predict(fcfg, tower, t0_, t1_, D), d_t)
+    moved_from_cudnn(torch, "kitti fast with CBCA (slab form)",
+                     lambda: stereo_predict(fcfg, tower, t0_, t1_, D), d_t)
     del d_t
 
     for what, gcfg, net in (("census", ccfg, None),
@@ -3969,7 +4190,9 @@ def main() -> int:
                   blur=1, **REFINE_MB, **tower_counts(mcfg_t)))):
         mb_path(what, mcfg, mtower, want_mb, 10)
         run = (lambda c=mcfg: stereo_predict(c, mtower, m0_, m1_, dm))
-        mb_shas[what] = same_as_plain_route(torch, what, run, run())
+        d_m = run()
+        mb_shas[what] = same_as_plain_route(torch, what, run, d_m)
+        moved_from_cudnn(torch, what, run, d_m)
     mscfg = make_config("mb", "slow", a="time")
     mhand = towers.init_slow(mscfg, mscfg.seed).to(dev).eval()
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
@@ -3983,7 +4206,9 @@ def main() -> int:
                  **cbca_counts(mscfg, 1), **layout_counts(1), **REFINE_MB,
                  **tower_counts(mscfg)), 3)
     run = (lambda: stereo_predict(mscfg, mhand, m0_, m1_, dm))
-    mb_shas[what] = same_as_plain_route(torch, what, run, run())
+    d_m = run()
+    mb_shas[what] = same_as_plain_route(torch, what, run, d_m)
+    moved_from_cudnn(torch, what, run, d_m)
 
     # the all-plain comparison at 96x320, D=48 with mb's own parameters
     for what, mcfg, net in (("mb fast", mcfg_t, mtower),
@@ -4072,7 +4297,8 @@ def main() -> int:
                                         "mccnn_tpu/models/towers.py:96"),
                "slow_volumes_epilogue": ("tower.cu",
                                          "mccnn_tpu/ops/slow_head_pallas.py:218"),
-               "warp_patches": ("warp.cu", "mccnn_tpu/train/augment.py:90")}
+               "warp_patches": ("warp.cu", "mccnn_tpu/train/augment.py:90"),
+               "tower_conv": ("conv.cu", "mccnn_tpu/models/towers.py:84")}
     print(f"map sha256: kitti fast {fast_sha}, kitti census {census_sha}, "
           f"kitti ad {ad_sha}, kitti slow {slow_sha}, kitti fast with CBCA "
           f"{cbca_sha}, "

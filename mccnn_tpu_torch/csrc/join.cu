@@ -77,6 +77,8 @@
 
 #include <type_traits>
 
+#include "split.cuh"
+
 namespace {
 
 constexpr int XM = 64;            // output columns (Gram rows) per tile
@@ -175,13 +177,6 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(ACC));
 }
 
-// Two bf16 (round to nearest even) in one word, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
 // Two 16-bit values (round to nearest even) in one word, lo in the low
 // half, for a volume stored as OUT.
 template <typename OUT>
@@ -189,25 +184,12 @@ __device__ __forceinline__ uint32_t pack_out(float lo, float hi);
 
 template <>
 __device__ __forceinline__ uint32_t pack_out<__nv_bfloat16>(float lo, float hi) {
-  return pack_bf16(lo, hi);
+  return pack2<false>(lo, hi);
 }
 
 template <>
 __device__ __forceinline__ uint32_t pack_out<__half>(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// The LV split levels of the pair (v0, v1), v0 in the low halves; v0 and
-// v1 are left as the residuals past the last level.
-__device__ __forceinline__ void split2(float& v0, float& v1, uint32_t (&w)[LV]) {
-#pragma unroll
-  for (int l = 0; l < LV; ++l) {
-    w[l] = pack_bf16(v0, v1);
-    v0 -= __uint_as_float(w[l] << 16);
-    v1 -= __uint_as_float(w[l] & 0xffff0000u);
-  }
+  return pack2<true>(lo, hi);
 }
 
 // named barriers: wait for n threads, or count this one without waiting

@@ -27,14 +27,15 @@ head's :meth:`SlowNet.score` rounds as ``apply_head`` does
 
 Prediction runs the towers through :meth:`FastTower.infer` and
 :meth:`SlowNet.infer` (``padding="same"``, no autograd): each layer a
-bias-free convolution (:func:`_conv_acc`, the same cuDNN call that
-``F.conv2d`` with a bias makes before its separate bias ``add_``), then
-the hand kernels of ``ops/tower.py``: the bias, the rounding to the
+bias-free convolution (``ops/conv.py`` ``conv3x3``: the hand kernels of
+``csrc/conv.cu`` on CUDA, :func:`_conv_acc`'s arithmetic on the CPU),
+then the hand kernels of ``ops/tower.py``: the bias, the rounding to the
 compute dtype and ReLU in place (``tower.bias_act``), and for the fast
 tower's last layer the bias and the L2 normalization, written as the
 features or straight into the join's operands (``tower.normalize``).
 Their plain versions, on CPU tensors, are the operations of
-:meth:`forward` in its order. Training runs :meth:`forward`.
+:meth:`forward` in its order. Training runs :meth:`forward`, whose
+convolutions stay cuDNN's.
 
 Weights are interchangeable with the JAX package's parameter tree
 ``{"tower": [{"w": (ks, ks, cin, cout), "b": (cout,)}], "head":
@@ -52,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mccnn_tpu_torch.models import prng
+from mccnn_tpu_torch.ops import conv as tower_conv
 from mccnn_tpu_torch.ops import tower
 from mccnn_tpu_torch.ops.tower import l2_normalize
 
@@ -115,17 +117,18 @@ class FastTower(nn.Module):
     def infer(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
               pack=None):
         """:meth:`forward` of prediction (``padding="same"``): each layer's
-        bias-free convolution, then ``tower.bias_act`` with ReLU between
-        the layers and ``tower.normalize`` after the last. The (N, fm, H,
-        W) float32 features, or with ``pack`` = (disp_max, sides) and
-        N = 2 the join's operands (``join.Operands``)."""
+        bias-free convolution (``tower_conv.conv3x3``), then
+        ``tower.bias_act`` with ReLU between the layers and
+        ``tower.normalize`` after the last. The (N, fm, H, W) float32
+        features, or with ``pack`` = (disp_max, sides) and N = 2 the join's
+        operands (``join.Operands``)."""
         x = x.to(dtype)
         for conv in self.convs[:-1]:
-            x = tower.bias_act(_conv_acc(conv, x, dtype), conv.bias, True,
-                               dtype)
+            x = tower.bias_act(tower_conv.conv3x3(x, conv.weight, dtype),
+                               conv.bias, True, dtype)
         last = self.convs[-1]
-        return tower.normalize(_conv_acc(last, x, dtype), last.bias, dtype,
-                               pack)
+        return tower.normalize(tower_conv.conv3x3(x, last.weight, dtype),
+                               last.bias, dtype, pack)
 
 
 class SlowNet(nn.Module):
@@ -158,12 +161,13 @@ class SlowNet(nn.Module):
     def infer(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
               ) -> torch.Tensor:
         """:meth:`forward` of prediction (``padding="same"``): each layer's
-        bias-free convolution, then ``tower.bias_act`` with ReLU; the
-        (N, fm, H, W) float32 descriptors."""
+        bias-free convolution (``tower_conv.conv3x3``), then
+        ``tower.bias_act`` with ReLU; the (N, fm, H, W) float32
+        descriptors."""
         x = x.to(dtype)
         for conv in self.convs:
-            x = tower.bias_act(_conv_acc(conv, x, dtype), conv.bias, True,
-                               dtype)
+            x = tower.bias_act(tower_conv.conv3x3(x, conv.weight, dtype),
+                               conv.bias, True, dtype)
         return x
 
     def score(self, pair: torch.Tensor, dtype: torch.dtype = torch.float32

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for sm_90a into ``build/lib<name>-<hash>.so`` at the root of
 the repository (a git-ignored directory) the first time one of its
-kernels launches, and loaded with ctypes. The hash covers the source
-and the flags, so an edited source rebuilds and an unchanged one is
-reused. No PyTorch header is compiled, so a build takes seconds;
+kernels launches, and loaded with ctypes. The hash covers the source,
+the headers the sources share (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. No PyTorch header is compiled, so a build takes seconds;
 :func:`build` compiles several sources at once, one compiler each. The
 host sources, ``csrc/<name>.cpp`` (``HOST_SOURCES``: the training's
 window gather), are built the same way by ``g++``. A failed build
@@ -38,14 +38,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("join", "sgm_sweep", "outlier", "blur", "slow_head", "refine",
-           "cross", "costs", "sgm_tables", "sgm_layout", "tower", "warp")
+           "cross", "costs", "sgm_tables", "sgm_layout", "tower", "warp",
+           "conv")
 KERNELS = ("join", "sgm_vertical", "sgm_horizontal", "outlier", "blur",
            "slow_head", "sgm_hslab", "sgm_scan", "sgm_step",
            "occlusion_fill", "mismatch_fill", "subpixel", "median5", "cbca",
            "cross_arms", "cbca_pack", "census_signatures", "census_volume",
            "ad_volume", "sgm_tables", "sgm_layout", "sgm_generic_tables",
            "sgm_combine", "wta_dhw", "tower_bias_act", "tower_normalize_pack",
-           "slow_volumes_epilogue", "warp_patches")
+           "slow_volumes_epilogue", "warp_patches", "tower_conv")
 HOST_SOURCES = ("host_gather",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -134,6 +135,8 @@ def _flags(name: str) -> tuple:
 
 def lib_path(name: str) -> Path:
     src = _source(name).read_bytes()
+    if name not in HOST_SOURCES:  # and the headers the sources share
+        src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 

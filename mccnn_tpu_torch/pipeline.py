@@ -51,8 +51,8 @@ import torch
 
 from mccnn_tpu_torch.config import Config
 from mccnn_tpu_torch.models.towers import FastTower, SlowNet
-from mccnn_tpu_torch.ops import (blur, costs, cross, join, outlier, post,
-                                 sgm, slow_head)
+from mccnn_tpu_torch.ops import (blur, conv, costs, cross, join, outlier,
+                                 post, sgm, slow_head)
 
 # the dtypes -dtype and -vol_dtype may name
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -120,27 +120,13 @@ def _check_lane(cfg: Config, hwd: bool) -> None:
             "arch, cbca_i1=cbca_i2=0, no volume cache, the slab SGM form)")
 
 
-def _tower(net, images, dtype=torch.float32, pack=None):
-    """The conv tower of prediction (``net.infer``: the bias-free
-    convolutions, then the tower kernels of ``ops/tower.py``) in the
-    compute ``dtype``; ``pack`` = (disp_max, sides) asks the fast tower
-    for the join's operands. On CUDA with TF32 off (TF32 would drift the
-    features from the f32 reference and flip WTA near-ties), set here,
-    not globally."""
-    kw = {} if pack is None else dict(pack=pack)
-    if images.is_cuda:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return net.infer(images, dtype, **kw)
-    return net.infer(images, dtype, **kw)
-
-
 @torch.no_grad()
 def slow_cost_volumes(net: SlowNet, x0, x1, disp_max: int,
                       dtype=torch.float32):
     """Slow-arch cost volumes (vol_l, vol_r), each (D, H, W), NaN out of
     frame; the score is P(non-match), lower is better. ``dtype``: the
     compute dtype of the tower and the head's first layer."""
-    feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)
+    feats = net.infer(torch.stack([x0, x1])[:, None], dtype)
     fl = feats[0].permute(1, 2, 0)  # (H, W, C)
     fr = feats[1].permute(1, 2, 0)
     return slow_head.slow_volumes(net, fl, fr, disp_max, dtype)
@@ -174,7 +160,7 @@ def _volumes(net, x0, x1, *, arch, disp_max, ws, dtype=torch.float32,
         vols = {-1: costs.ad_volume(x0, x1, disp_max, -1)[:, own].contiguous(),
                 1: costs.ad_volume(x1, x0, disp_max, 1)[:, own].contiguous()}
     elif arch in ("fast", "slow"):
-        feats = _tower(net, torch.stack([x0, x1])[:, None], dtype)[:, :, own]
+        feats = net.infer(torch.stack([x0, x1])[:, None], dtype)[:, :, own]
         fl = feats[0].permute(1, 2, 0)  # (H, W, C)
         fr = feats[1].permute(1, 2, 0)
         n = (ws - 1) // 2
@@ -362,8 +348,8 @@ def _fast_hwd(tower, x0, x1, blur_kernel, *, disp_max, kitti, ws, pi1, pi2,
     H, W = x0.shape
     sides = "left" if single else "both"
     # the tower's last kernel writes the join's operands
-    packed = _tower(tower, torch.stack([x0, x1])[:, None], dtype,
-                    pack=(D, sides))
+    packed = tower.infer(torch.stack([x0, x1])[:, None], dtype,
+                         pack=(D, sides))
     jkw = dict(n_fix=(ws - 1) // 2, d_true=disp_true, out_dtype=vol_dtype,
                sides=sides)
     if single:
@@ -473,6 +459,8 @@ def stereo_predict(cfg: Config, params: FastTower | SlowNet | None, x0, x1,
     ``-use_cache`` and ``-make_cache`` use on the generic lane.
     """
     dev = resolve_device(device)
+    if params is not None:
+        conv.check_kernel_size(cfg.ks, dev)
     if cfg.dataset == "mb":
         directions = (1, -1) if cfg.a == "predict" else (-1,)
     else:

@@ -14,12 +14,14 @@ kitti fast with CBCA on the generic lane) on a seeded pair
 on the CUDA card: KITTI 370x1226 at D=228, or Middlebury at the ``-a
 time`` shape, 1000x1500 at D=200, the left direction alone. Twice to
 warm up, then once under ``torch.profiler``. Prints the device time of
-every CUDA kernel grouped as the port's hand-written kernels, the
-tower's convolutions and the plain torch operations, the calls of each
-hand kernel's wrapper (``_build.launches``), the top kernels by
-device time, the device's busy share of the wall time of the run, and
-the peak device memory of that run, and where the arch has a tower its
-convolutions' bound at the f32 peak beside cuDNN's time; the plain
+every CUDA kernel grouped as the port's hand-written kernels, cuDNN's
+convolutions (none since the towers' convolutions are hand kernels),
+cuBLAS's matmuls and the plain torch operations, the calls of each hand
+kernel's wrapper (``_build.launches``), the top kernels by device time,
+the device's busy share of the wall time of the run, and the peak device
+memory of that run, and where the arch has a tower the hand convolutions'
+time beside their f32 bound, their tensor-core floor and cuDNN's time on
+the same layers' inputs (by events, in this process); the plain
 torch launches of a
 second run and their device time, in which each function of the port's
 pipeline, tower and ops modules runs in a profiler range, by the
@@ -47,7 +49,7 @@ import torch
 
 from mccnn_tpu_torch.config import make_config
 from mccnn_tpu_torch.models import towers
-from mccnn_tpu_torch.ops import _build
+from mccnn_tpu_torch.ops import _build, conv
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
@@ -58,13 +60,19 @@ HAND = ("join_kernel", "hsweep_kernel", "vsweep_kernel", "outlier_kernel",
         "census_sig_kernel", "census_volume_kernel", "ad_volume_kernel",
         "sgm_tables_kernel", "sgm_layout_kernel", "generic_tables_kernel",
         "sgm_combine_kernel", "wta_dhw_kernel", "tower_bias_act_kernel",
-        "tower_normalize_kernel", "slow_volumes_epilogue_kernel")
+        "tower_normalize_kernel", "slow_volumes_epilogue_kernel",
+        "conv_first_kernel", "conv_wgmma_kernel")
+# the hand kernels of the towers' convolutions (csrc/conv.cu)
+CONV = ("conv_first_kernel", "conv_wgmma_kernel")
 
 
 PLAIN = "plain torch operations"
-# the H100 SXM's published f32 peak (a fused multiply-add two operations):
-# the tower's bound
+CUDNN = "tower convolutions (cuDNN)"
+# the H100 SXM's published peaks (a fused multiply-add two operations):
+# f32 outside the tensor cores, and bf16 on them (the tower's f32 layers as
+# six bf16 passes, a 16-bit lane's as one)
 F32_PEAK = 67e12
+BF16_TC_PEAK = 989e12
 # the port's modules whose functions the second run labels, and the prefix
 # of those labels among the profiler's ranges
 LABELLED = ("pipeline", "models.towers", "ops.costs", "ops.cross", "ops.join",
@@ -112,9 +120,42 @@ def _group(name: str) -> str:
     if any(k in name for k in HAND):
         return "hand-written CUDA kernels"
     low = name.lower()
-    if "conv" in low or "cudnn" in low or "xmma" in low or "implicit" in low:
-        return "tower convolutions (cuDNN)"
+    if any(k in low for k in ("conv", "cudnn", "fprop", "implicit",
+                              "winograd")):
+        return CUDNN
+    if "gemm" in low or "xmma" in low:
+        return "matmuls (cuBLAS: the slow head's first layer)"
     return PLAIN
+
+
+@contextlib.contextmanager
+def _conv_inputs(seen: list):
+    """Record the (x, weight, dtype) of every ``conv.conv3x3`` call in the
+    block (nothing writes a layer's input after its convolution)."""
+    orig = conv.conv3x3
+
+    def call(x, weight, dtype=torch.float32):
+        seen.append((x, weight, dtype))
+        return orig(x, weight, dtype)
+
+    conv.conv3x3 = call
+    try:
+        yield
+    finally:
+        conv.conv3x3 = orig
+
+
+def _events_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> None:
@@ -192,18 +233,36 @@ def main(argv=None) -> None:
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms in {n} launches")
     if tower is not None:
-        # the convolutions' f32 operations, a multiply-add two, both images
-        flops = sum(2.0 * 2 * H * W * c.in_channels * c.out_channels
-                    * c.kernel_size[0] * c.kernel_size[1] for c in tower.convs)
-        # cuDNN's convolutions alone (the group also holds cuBLAS's
-        # matmuls of the slow head's first layer)
-        conv_ms = sum(dev_us(e) for e in kernels
-                      if any(k in e.key.lower()
-                             for k in ("fprop", "conv", "implicit"))) / 1e3
-        print(f"  the tower's bound: {flops / 1e9:.1f} GFLOP at the "
-              f"{F32_PEAK / 1e12:.0f} TFLOP/s f32 peak, "
-              f"{flops / F32_PEAK * 1e3:.3f} ms; cuDNN {conv_ms:.3f} ms, "
-              f"{flops / F32_PEAK * 1e3 / max(conv_ms, 1e-9):.3f} of the peak")
+        # the convolutions' operations (a multiply-add two), both images:
+        # every layer at the f32 peak, and the layers of the wgmma kernel
+        # as its passes at the bf16 tensor-core peak beside the first
+        # layer's at the f32 one
+        f32 = floor = 0.0
+        for c in tower.convs:
+            ops = 2.0 * 2 * H * W * c.weight[0].numel() * c.out_channels
+            f32 += ops / F32_PEAK
+            if c.in_channels == c.out_channels \
+                    and c.in_channels in conv.WIDTHS:
+                floor += (6 if args.dtype == "float32" else 1) * ops \
+                    / BF16_TC_PEAK
+            else:
+                floor += ops / F32_PEAK
+        hand_ms = sum(dev_us(e) for e in kernels
+                      if any(k in e.key for k in CONV)) / 1e3
+        calls = []
+        with _conv_inputs(calls), torch.no_grad():
+            stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
+            cudnn_ms = _events_ms(lambda: [conv.conv3x3_plain(*c)
+                                           for c in calls], 5)
+        del calls
+        print(f"  the tower's convolutions ({len(tower.convs)} layers): hand "
+              f"kernels {hand_ms:.3f} ms (this profile); the f32 bound "
+              f"{f32 * 1e3:.3f} ms at {F32_PEAK / 1e12:.0f} TFLOP/s; the "
+              f"tensor-core floor {floor * 1e3:.3f} ms (six bf16 passes a "
+              f"float32 layer, one a 16-bit one, at "
+              f"{BF16_TC_PEAK / 1e12:.0f} TFLOP/s); cuDNN (TF32 off) on the "
+              f"same layers' inputs {cudnn_ms:.3f} ms by events "
+              f"({cudnn_ms / max(hand_ms, 1e-9):.2f}x)")
     print("  the hand kernels' wrapper calls: "
           + ", ".join(f"{k} {n}" for k, n in _build.launches().items() if n))
     print(f"top {args.top} kernels by device time:")

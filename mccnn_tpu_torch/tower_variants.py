@@ -1,20 +1,33 @@
-"""Time the tower kernels of other ``csrc/tower.cu`` sources against this one.
+"""Time the tower kernels of other ``csrc/tower.cu`` or ``csrc/conv.cu``
+sources against this one.
 
-    python -m mccnn_tpu_torch.tower_variants [--source OTHER.cu ...]
-        [--case kitti mb] [--reps 10]
+    python -m mccnn_tpu_torch.tower_variants [--kernel tower|conv]
+        [--source OTHER.cu ...] [--case kitti mb] [--reps 10]
 
-Builds this checkout's ``csrc/tower.cu`` and each ``--source`` (the same
-``nvcc`` flags, into ``build/``) and times, at the KITTI fast and slow
-shapes (370x1226, D=228; 64 and 112 channels) or the Middlebury ones
-(1000x1500, D=200), on seeded random inputs, each source's
-``tower_normalize`` (the join's operands of both sides and of the left
-side, and the features), ``tower_bias_act`` and ``slow_volumes_epilogue``
-through the wrappers of ``ops/tower.py``, in turns (this source, the
-others, the others, this source), each call in a CUDA graph. Every other
-source must keep the C entries' signatures. Each source's results are
-held bit for bit to this one's. Prints the card and its power limit, and
-each form's bound by bytes (inputs read once, outputs written once, at
-3.35 TB/s).
+Builds this checkout's ``csrc/tower.cu`` (or, with ``--kernel conv``,
+``csrc/conv.cu``) and each ``--source`` (the same ``nvcc`` flags, into
+``build/``) and times, at the KITTI fast and slow shapes (370x1226,
+D=228; 64 and 112 channels, and with ``--kernel conv`` each width of
+``ops/conv.py`` ``WIDTHS``) or the Middlebury ones (1000x1500, D=200), on
+seeded random inputs, in turns (this source, the others, the others, this
+source), each call in a CUDA graph. Every other source must keep the C
+entries' signatures.
+
+- ``--kernel tower``: each source's ``tower_normalize`` (the join's
+  operands of both sides and of the left side, and the features),
+  ``tower_bias_act`` and ``slow_volumes_epilogue`` through the wrappers of
+  ``ops/tower.py``, each held bit for bit to this source's; each form's
+  bound by bytes (inputs read once, outputs written once, at 3.35 TB/s).
+- ``--kernel conv``: each source's convolutions through ``ops/conv.py``
+  ``conv3x3`` (the first layer, one plane into C, and a C into C layer, in
+  float32 and with ``-dtype bfloat16``), with ``F.conv2d`` (cuDNN, TF32
+  off) timed in the same turns as the library's yardstick; each source's
+  output within 2e-6 of sum |w||x| from ``F.conv2d``'s; each form's
+  bound: the bytes, and the operations at the bf16 tensor-core peak (six
+  passes in float32, one in bfloat16) or, for the first layer, at the f32
+  peak.
+
+Prints the card and its power limit.
 """
 
 from __future__ import annotations
@@ -30,12 +43,13 @@ import torch
 from mccnn_tpu_torch.ops import _build, join, tower
 
 MEM_BPS = 3.35e12
+F32_OPS, BF16_TC_OPS = 67e12, 989e12
 CASES = {"kitti": (370, 1226, 228), "mb": (1000, 1500, 200)}
 
 
-def _load(src: Path) -> ctypes.CDLL:
+def _load(src: Path, kernel: str = "tower") -> ctypes.CDLL:
     """A source's library, built beside the checkout's own builds."""
-    out = _build.BUILD / f"libtower-variant-{src.stem}.so"
+    out = _build.BUILD / f"lib{kernel}-variant-{src.parent.name}-{src.stem}.so"
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                            str(src)], capture_output=True, text=True)
@@ -68,10 +82,71 @@ def _bits(out):
     return [None if t is None else t.view(torch.int32).clone() for t in parts]
 
 
+def _conv_cases(args, libs, order) -> None:
+    """``--kernel conv``: every source's convolutions and ``F.conv2d`` in
+    turns, at each case's shapes."""
+    from mccnn_tpu_torch.ops import conv
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for case in args.case:
+            H, W, _ = CASES[case]
+            for C in conv.WIDTHS:
+                for Ci in (1, C):
+                    x32 = torch.as_tensor(
+                        rng.randn(2, Ci, H, W).astype(np.float32), device=dev)
+                    w = torch.as_tensor(
+                        (rng.randn(C, Ci, 3, 3) / np.sqrt(9 * Ci))
+                        .astype(np.float32), device=dev)
+                    for dt in (torch.float32, torch.bfloat16):
+                        if Ci == 1 and dt != torch.float32:
+                            continue
+                        x = x32.to(dt).float()
+                        ref = conv.conv3x3_plain(x, w, dt)
+                        scale = conv.conv3x3_plain(x.abs(), w.abs(), dt) \
+                            .clamp_min(1e-30)
+                        ops = 2.0 * x.numel() * 9 * C
+                        nbytes = 4.0 * (x.numel() + ref.numel() + w.numel())
+                        if Ci == C:
+                            ops_ms = (6 if dt == torch.float32 else 1) * ops \
+                                / BF16_TC_OPS * 1e3
+                        else:
+                            ops_ms = ops / F32_OPS * 1e3
+                        bound = max(nbytes / MEM_BPS * 1e3, ops_ms)
+                        times = {k: [] for k in libs}
+                        times["F.conv2d"] = []
+                        for key in order:
+                            _build._LIBS["conv"] = libs[key]
+                            conv._lib()  # the entries' argument types
+                            err = float(((conv.conv3x3(x, w, dt) - ref).abs()
+                                         / scale).max())
+                            if err > 2e-6:
+                                raise SystemExit(f"{case} C={C} Ci={Ci} {dt}: "
+                                                 f"{key} is {err} of sum "
+                                                 "|w||x| from F.conv2d")
+                            times[key].append(_graph_ms(
+                                lambda: conv.conv3x3(x, w, dt), args.reps))
+                            times["F.conv2d"].append(_graph_ms(
+                                lambda: conv.conv3x3_plain(x, w, dt),
+                                args.reps))
+                        _build._LIBS["conv"] = libs["this"]
+                        line = ", ".join(f"{k} " + " / ".join(
+                            f"{t:.4f}" for t in v) for k, v in times.items())
+                        print(f"{case} {H}x{W} conv {Ci} -> {C} "
+                              f"{str(dt).replace('torch.', '')}: {line} ms in "
+                              f"a CUDA graph; bound {bound:.4f} ms")
+                        del x, ref, scale
+                    del x32, w
+                    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("tower", "conv"), default="tower")
     ap.add_argument("--source", nargs="*", default=[], type=Path,
-                    help="other tower.cu sources to time against this one")
+                    help="other sources of the kernel to time against this "
+                    "one")
     ap.add_argument("--case", nargs="*", default=list(CASES),
                     choices=list(CASES))
     ap.add_argument("--reps", type=int, default=10)
@@ -82,12 +157,15 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
-    _build.build(("tower",))
-    libs = {"this": ctypes.CDLL(str(_build.lib_path("tower")))}
+    _build.build((args.kernel,))
+    libs = {"this": ctypes.CDLL(str(_build.lib_path(args.kernel)))}
     for src in args.source:
-        libs[str(src)] = _load(src)
+        libs[str(src)] = _load(src, args.kernel)
     others = [k for k in libs if k != "this"]
     order = ["this"] + others + others + ["this"]
+    if args.kernel == "conv":
+        _conv_cases(args, libs, order)
+        return
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     with torch.no_grad():

@@ -38,7 +38,7 @@ from mccnn_tpu_torch.config import Config, cmd_str
 from mccnn_tpu_torch.data.datasets import (StereoDataset, load_dataset,
                                            subset_nnz)
 from mccnn_tpu_torch.models import checkpoint, towers
-from mccnn_tpu_torch.ops import _build
+from mccnn_tpu_torch.ops import _build, conv
 from mccnn_tpu_torch.pipeline import DTYPES, device_of, resolve_device
 from mccnn_tpu_torch.train import losses
 from mccnn_tpu_torch.train.augment import (AugmentSampler, gather_warp,
@@ -390,6 +390,8 @@ def action_train(cfg: Config, tail: list[str], device=None) -> None:
         raise SystemExit(f"-a {cfg.a}: arch {cfg.arch} has no network to "
                          "train")
     dev = device_of(cfg) if device is None else resolve_device(device)
+    # the evaluation after training predicts: refuse what it cannot run
+    conv.check_kernel_size(cfg.ks, dev)
     ds = load_dataset(cfg)
     towers.print_net(cfg)  # net topology echo (main.lua:751)
     net = towers.init_net(cfg)

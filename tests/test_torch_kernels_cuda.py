@@ -13,10 +13,60 @@ import numpy as np
 import pytest
 import torch
 
-from mccnn_tpu_torch.ops import (_build, blur, costs, cross, join, outlier,
-                                 post, sgm, slow_head, tower)
+from mccnn_tpu_torch.ops import (_build, blur, conv, costs, cross, join,
+                                 outlier, post, sgm, slow_head, tower)
 
 pytestmark = pytest.mark.cuda
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fm", [80, 96])
+def test_prediction_at_the_search_widths(dev, fm, dtype):
+    """kitti fast at the other widths of the fast net's hyperparameter
+    search (tools/hs.py, fm 80 and 96) at 40x160, D=24: ``stereo_predict``
+    runs a ``tower_conv`` a layer; each layer's kernel output within
+    1.2e-6 (float32) or 2e-6 (bf16) of sum |w||x| from ``conv3x3_plain``
+    on the same inputs; the map finite, and more than 0.51 px from the
+    map with ``conv3x3_plain`` in place of the kernels on at most 0.001
+    of the pixels."""
+    from mccnn_tpu_torch.config import make_config
+    from mccnn_tpu_torch.models import towers
+    from mccnn_tpu_torch.pipeline import stereo_predict
+
+    H, W, D = 40, 160, 24
+    base = np.random.RandomState(29).randn(H, W + D).astype(np.float32)
+    x0, x1 = base[:, D:], base[:, :-D]
+    cfg = make_config("kitti", "fast", a="predict", dtype=dtype, fm=fm)
+    net = towers.init_net(cfg).to(dev)
+    seen, orig = [], conv.conv3x3
+
+    def record(x, weight, dt=torch.float32):
+        seen.append((x, weight, dt))
+        return orig(x, weight, dt)
+
+    _build.reset_launches()
+    conv.conv3x3 = record
+    try:
+        got = stereo_predict(cfg, net, x0, x1, D)
+        torch.cuda.synchronize()
+    finally:
+        conv.conv3x3 = orig
+    assert _build.launches()["tower_conv"] == cfg.l1 == len(seen)
+    assert [w.shape[:2] for _, w, _ in seen[1:]] == [(fm, fm)] * (cfg.l1 - 1)
+    limit = 1.2e-6 if dtype == "float32" else 2e-6
+    with torch.no_grad():
+        for x, w, dt in seen:
+            scale = conv.conv3x3_plain(x.abs(), w.abs(), dt).clamp_min(1e-30)
+            err = float(((conv.conv3x3(x, w, dt)
+                          - conv.conv3x3_plain(x, w, dt)).abs() / scale).max())
+            assert err <= limit, (tuple(w.shape), err)
+    conv.conv3x3 = conv.conv3x3_plain
+    try:
+        ref = stereo_predict(cfg, net, x0, x1, D)
+    finally:
+        conv.conv3x3 = orig
+    assert got.shape == (H, W) and bool(torch.isfinite(got).all())
+    assert float(((got - ref).abs() > 0.51).float().mean()) <= 0.001
+
 
 KW = dict(pi1=4.0, pi2=55.72, tau_so=0.02, alpha1=1.5, q1=3.0, q2=2.5)
 
@@ -927,7 +977,8 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
                           sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
                           outlier=1, blur=1, occlusion_fill=1,
                           mismatch_fill=1, subpixel=1, median5=1,
-                          tower_bias_act=1, tower_normalize_pack=1)
+                          tower_bias_act=1, tower_normalize_pack=1,
+                          tower_conv=2)
     assert torch.equal(got, want)
 
 
@@ -1039,12 +1090,13 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
                   cbca=2 * n * its, cbca_pack=n if its else 0,
                   sgm_layout=2 * n, sgm_generic_tables=2 * n, wta_dhw=2 * n)
-    # the tower a shard: a bias kernel a layer but the fast tower's last,
-    # which is the normalization; the slow volumes' epilogue a shard
+    # the tower a shard: a convolution a layer, a bias kernel a layer but
+    # the fast tower's last, which is the normalization; the slow volumes'
+    # epilogue a shard
     counts.update({"fast": {"join": 2 * n, "tower_bias_act": 3 * n,
-                            "tower_normalize_pack": n},
+                            "tower_normalize_pack": n, "tower_conv": 4 * n},
                    "slow": {"slow_head": n, "tower_bias_act": 2 * n,
-                            "slow_volumes_epilogue": n},
+                            "slow_volumes_epilogue": n, "tower_conv": 2 * n},
                    "census": {"census_signatures": n,
                               "census_volume": 2 * n}}[arch])
     assert _build.launches() == counts
@@ -1775,9 +1827,10 @@ def test_prediction_runs_the_tower_kernels(dev, dtype):
     base = np.random.RandomState(23).randn(H, W + D).astype(np.float32)
     x0, x1 = base[:, D:], base[:, :-D]
     for arch, over, want in (
-            ("fast", {}, dict(tower_bias_act=3, tower_normalize_pack=1)),
+            ("fast", {}, dict(tower_bias_act=3, tower_normalize_pack=1,
+                              tower_conv=4)),
             ("slow", dict(l1=2, fm=8, l2=3, nh2=16),
-             dict(tower_bias_act=2, slow_volumes_epilogue=1))):
+             dict(tower_bias_act=2, slow_volumes_epilogue=1, tower_conv=2))):
         cfg = make_config("kitti", arch, a="predict", dtype=dtype, **over)
         net = towers.init_net(cfg).to(dev)
         _build.reset_launches()
@@ -2009,3 +2062,104 @@ def test_train_on_the_card_replays_one_graph_a_chunk_size(dev, tmp_path):
                                      warp_patches=2 * 35 + 2)
     assert len(lines) == 2 and all(np.isfinite(float(ln.split("\t")[1]))
                                    for ln in lines)
+
+
+# --- the towers' convolutions (csrc/conv.cu) --------------------------------
+
+CONV_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _conv_case(dev, seed, N, Ci, Co, H, W, dtype):
+    """Seeded input and weights on the card, the input rounded to
+    ``dtype`` (held as float32, as the previous layer leaves it), and the
+    float64 convolution of the operands the kernels read (the weights
+    rounded to ``dtype``) with its scale sum |w||x|."""
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(N, Ci, H, W).astype(np.float32), device=dev)
+    x = x.to(dtype).float()
+    w = torch.as_tensor((rng.randn(Co, Ci, 3, 3) / np.sqrt(9 * Ci))
+                        .astype(np.float32), device=dev)
+    wr = w.to(dtype).double()
+    ref = torch.nn.functional.conv2d(x.double(), wr, None, padding=1)
+    scale = torch.nn.functional.conv2d(x.double().abs(), wr.abs(), None,
+                                       padding=1)
+    return x, w, ref, scale
+
+
+@pytest.mark.parametrize("dtype", CONV_DTYPES)
+@pytest.mark.parametrize("N,C,H,W", [(2, 64, 9, 70), (1, 112, 5, 130),
+                                     (2, 64, 37, 131), (1, 64, 1, 3),
+                                     (2, 112, 3, 64), (1, 112, 6, 200),
+                                     (2, 80, 9, 70), (1, 96, 5, 130),
+                                     (1, 80, 1, 3), (2, 96, 7, 131)])
+def test_tower_conv_wgmma_is_within_f32_rounding(dev, N, C, H, W, dtype):
+    """The wgmma kernel at C = 64, 80, 96 and 112 on frames off the 2 x 64 tile
+    (edges, one row, three columns): within 2e-6 of sum |w||x| of the
+    float64 convolution of the same operands (float32 through the
+    three-level split: about 4 * 2^-24), and as close as cuDNN's float32
+    sum (TF32 off) is, within 2e-6 of it too; one ``tower_conv`` count a
+    call."""
+    x, w, ref, scale = _conv_case(dev, 40 + C + H, N, C, C, H, W, dtype)
+    before = _build.launches()["tower_conv"]
+    with torch.no_grad():
+        got = conv.conv3x3(x, w, dtype)
+    torch.cuda.synchronize()
+    assert _build.launches()["tower_conv"] == before + 1
+    assert got.shape == (N, C, H, W) and got.dtype == torch.float32
+    err = float(((got.double() - ref).abs() / scale.clamp_min(1e-30)).max())
+    assert err <= 2e-6, err
+    lib = conv.conv3x3_plain(x, w, dtype)
+    assert float(((got - lib).abs().double()
+                  / scale.clamp_min(1e-30)).max()) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", CONV_DTYPES)
+@pytest.mark.parametrize("N,Ci,Co,H,W", [(2, 1, 64, 9, 70), (2, 1, 112, 7, 45),
+                                         (1, 3, 64, 5, 33), (2, 8, 8, 11, 40),
+                                         (1, 16, 16, 6, 17), (1, 48, 48, 6, 70),
+                                         (1, 200, 72, 4, 40)])
+def test_tower_conv_first_is_within_f32_rounding(dev, N, Ci, Co, H, W, dtype):
+    """The SIMT kernel: the first layer (one or three input planes) and the
+    layers of the widths no wgmma instance takes (48 -> 48: its weights in
+    two chunks of output channels; 200 -> 72 in twelve), within 1e-6 of
+    sum |w||x| of the float64 convolution."""
+    x, w, ref, scale = _conv_case(dev, 60 + Ci + Co, N, Ci, Co, H, W, dtype)
+    with torch.no_grad():
+        got = conv.conv3x3(x, w, dtype)
+    torch.cuda.synchronize()
+    err = float(((got.double() - ref).abs() / scale.clamp_min(1e-30)).max())
+    assert err <= 1e-6, err
+
+
+def test_tower_conv_split_emulation_and_cache(dev):
+    """The float32 kernel against its torch emulation
+    (``conv3x3_split_plain``) within float32 summation error (2e-6 of
+    sum |w||x|: both sum 6 x 576 products, in other orders); the weights'
+    pack cached until the weight changes in place, then made anew (the
+    output follows the new weights); 16-bit input widened by the
+    wrapper; a 5 x 5 kernel, a missing no_grad and a float64 input
+    refused."""
+    x, w, _, scale = _conv_case(dev, 7, 2, 64, 64, 12, 90, torch.float32)
+    w = torch.nn.Parameter(w)
+    with torch.no_grad():
+        got = conv.conv3x3(x, w)
+        emu = conv.conv3x3_split_plain(x, w, 3)
+        assert float(((got - emu).abs().double() / scale).max()) <= 2e-6
+        packed = conv.prepacked(w)
+        assert conv.prepacked(w) is packed
+        w.mul_(-0.5)
+        assert conv.prepacked(w) is not packed
+        again = conv.conv3x3(x, w)
+        torch.testing.assert_close(again, -0.5 * got, rtol=0, atol=1e-5)
+        xb = x.to(torch.bfloat16)
+        torch.testing.assert_close(conv.conv3x3(xb, w, torch.bfloat16),
+                                   conv.conv3x3(xb.float(), w,
+                                                torch.bfloat16),
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError, match="ks = 3"):
+            conv.conv3x3(torch.zeros(1, 48, 4, 4, device=dev),
+                         torch.zeros(48, 48, 5, 5, device=dev))
+        with pytest.raises(ValueError, match="float32"):
+            conv.conv3x3(x.double(), w)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        conv.conv3x3(x, w)

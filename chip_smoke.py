@@ -74,10 +74,12 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    PyTorch call of the same function (a ``copy_`` of each permuted view,
    ``torch.add`` and ``div_``, ``torch.argmin`` of a NaN-free copy); the
    towers' kernels (``csrc/tower.cu``; ``capture_tower``, ``tower_rows``,
-   ``epilogue_rows``): the bias kernel and the normalization (the join's
-   packed operands and the features' layout) on kitti fast's own
-   convolution outputs in float32 and with ``-dtype bfloat16``, the bias
-   kernel on kitti slow's, and the slow volumes' epilogue on kitti slow's
+   ``epilogue_rows``): the bias kernel (off the paths since the
+   convolutions fuse it: on each fused layer's bias-free output) and the
+   normalization (the join's packed operands and the features' layout) on
+   kitti fast's own convolution outputs in float32 and with ``-dtype
+   bfloat16``, the bias kernel on kitti slow's, and the slow volumes'
+   epilogue on kitti slow's
    head scores with and without d_true = 200, each bit for bit against
    its plain version (``.view(torch.int32)``) on those inputs and on
    copies with NaN of two payloads, -0.0 and +-inf planted, timed in a
@@ -88,10 +90,12 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    mid-image), and on kitti fast nets at the other widths of the fast
    net's hyperparameter search (fm 80 and 96), each layer within
    ``CONV_F32_LIMIT`` (1.2e-6; float32) or 2e-6 (a 16-bit lane) of its sum
-   |w||x| from ``F.conv2d`` with TF32 off, the tower's convolutions timed
-   in a CUDA graph and by
-   events beside cuDNN's (the library call), its bound (six bf16 passes
-   at the tensor-core peak, one in a 16-bit lane) and its f32 bound;
+   |w||x| from ``F.conv2d`` with TF32 off, each layer with its bias and
+   ReLU in the epilogue bit for bit the bias-free kernel followed by
+   ``tower.bias_act``, the tower's convolutions timed in a CUDA graph and
+   by events beside the unfused route and cuDNN's (the library call), its
+   bound (six bf16 passes at the tensor-core peak, one in a 16-bit lane)
+   and its f32 bound;
    then (phase 3b) every kernel that
    phase 7's Middlebury paths run, at their 1000x1500, D=200 shapes and
    on their inputs (seeded random weights at mb's widths, phase 7's
@@ -132,7 +136,8 @@ CUDA toolkit (nvcc) and PyTorch; JAX is not needed. Phases, each fatal:
    in phases 4-7 every path with a tower also prints the share of its
    map's pixels more than 0.51 px from the same pair's map through the
    cuDNN route (the towers' convolutions as ``F.conv2d`` with TF32 off,
-   ``cudnn_route``), at most 0.001;
+   ``cudnn_route``), at most 0.001, and every map's SHA-256 stands beside
+   the first convolution design's (``FIRST_DESIGN_SHA``);
 5. the slow-arch ``stereo_predict`` on the same pair: the launch count
    of every kernel in one run (CBCA twice a direction, the arms once an
    image) and the accuracy, with a head set by hand
@@ -483,8 +488,11 @@ COSTS = {"census": dict(census_signatures=1, census_volume=2),
 # the wrappers of the census and ad volumes, the HWD lane's SGM tables,
 # the generic lane's layouts, tables, family sum and winner-take-all and
 # the towers' bias, normalization and slow epilogue, with their plain
-# versions, as (module, wrapper, plain version)
-PLAIN_ROUTES = (("costs", "census_signatures", "census_signatures_plain"),
+# versions, as (module, wrapper, plain version); the towers' convolutions
+# keep their kernels, their bias and ReLU moved out of the epilogue into
+# tower.bias_act (conv3x3_unfused), so that the plain bias_act runs them
+PLAIN_ROUTES = (("conv", "conv3x3", "conv3x3_unfused"),
+                ("costs", "census_signatures", "census_signatures_plain"),
                 ("costs", "census_volume", "census_volume_plain"),
                 ("costs", "ad_volume", "ad_volume_plain"),
                 ("sgm", "sgm_tables", "sgm_tables_plain"),
@@ -764,17 +772,17 @@ def layout_rows(torch, seen, where) -> dict:
 
 def tower_counts(cfg, shards: int = 1) -> dict:
     """The tower kernels a pair (``csrc/tower.cu``, ``csrc/conv.cu``), on
-    each of ``shards`` row shards: a convolution a layer; the fast tower's
-    bias kernel a layer but the last, whose bias and normalization write
-    the join's operands (or the features) in one launch; the slow tower's
-    bias kernel a layer and the slow volumes' epilogue once; none for
+    each of ``shards`` row shards: a convolution a layer, the bias and
+    ReLU in its epilogue (the bias kernel no time); the fast tower's last
+    layer's bias and normalization write the join's operands (or the
+    features) in one launch; the slow volumes' epilogue once; none for
     census and ad."""
     if cfg.arch == "fast":
-        return dict(tower_bias_act=shards * (cfg.l1 - 1),
-                    tower_normalize_pack=shards, tower_conv=shards * cfg.l1)
+        return dict(tower_bias_act=0, tower_normalize_pack=shards,
+                    tower_conv=shards * cfg.l1)
     if cfg.arch == "slow":
-        return dict(tower_bias_act=shards * cfg.l1,
-                    slow_volumes_epilogue=shards, tower_conv=shards * cfg.l1)
+        return dict(tower_bias_act=0, slow_volumes_epilogue=shards,
+                    tower_conv=shards * cfg.l1)
     return {}
 
 
@@ -782,11 +790,21 @@ def capture_tower(torch, run) -> dict:
     """The arguments of the last ``tower.bias_act`` and ``tower.normalize``
     call of each compute dtype in ``run()``, keyed (name, dtype, pack's
     sides or None), the convolution output cloned before the call
-    (``bias_act`` writes into it)."""
-    from mccnn_tpu_torch.ops import tower
+    (``bias_act`` writes into it); a convolution with its bias and ReLU in
+    its epilogue counts as the bias-free convolution (run once more here
+    for its output) and a ``bias_act`` call on it."""
+    from mccnn_tpu_torch.ops import conv, tower
 
     seen = {}
     orig = {name: getattr(tower, name) for name in ("bias_act", "normalize")}
+    orig_conv = conv.conv3x3
+
+    def conv_call(x, weight, dtype=torch.float32, bias=None, relu=False):
+        if bias is not None:
+            seen[("bias_act", dtype, None)] = (
+                (orig_conv(x, weight, dtype), bias.detach().clone(), relu,
+                 dtype), {})
+        return orig_conv(x, weight, dtype, bias, relu)
 
     def hook(name):
         def call(acc, bias, *a, **kw):
@@ -802,11 +820,13 @@ def capture_tower(torch, run) -> dict:
     try:
         for name in orig:
             setattr(tower, name, hook(name))
+        conv.conv3x3 = conv_call
         run()
         torch.cuda.synchronize()
     finally:
         for name, fn in orig.items():
             setattr(tower, name, fn)
+        conv.conv3x3 = orig_conv
     return seen
 
 
@@ -954,18 +974,18 @@ def epilogue_rows(torch, s, n, d_true, where) -> dict:
 
 
 def capture_convs(torch, run) -> list:
-    """The (x, weight, dtype) of every ``conv.conv3x3`` call in ``run()``
-    (one ``stereo_predict``), in order: the tower's convolutions on the
-    path's own inputs (nothing writes a layer's input after its
-    convolution)."""
+    """The (x, weight, dtype, bias, relu) of every ``conv.conv3x3`` call in
+    ``run()`` (one ``stereo_predict``), in order: the tower's convolutions
+    on the path's own inputs (nothing writes a layer's input after its
+    convolution), the bias None for the fast tower's last layer."""
     from mccnn_tpu_torch.ops import conv
 
     seen = []
     orig = conv.conv3x3
 
-    def call(x, weight, dtype=torch.float32):
-        seen.append((x, weight, dtype))
-        return orig(x, weight, dtype)
+    def call(x, weight, dtype=torch.float32, bias=None, relu=False):
+        seen.append((x, weight, dtype, bias, relu))
+        return orig(x, weight, dtype, bias, relu)
 
     conv.conv3x3 = call
     try:
@@ -985,57 +1005,70 @@ CONV_F32_LIMIT = 1.2e-6
 
 def conv_row(torch, calls, where, reps: int = 10) -> dict:
     """A row for the tower's convolutions of one pair, on the inputs
-    ``capture_convs`` saw: each layer's kernel against ``F.conv2d`` with
-    TF32 off on the same operands (``conv.conv3x3_plain``, the plain
-    version and the library call in one), max |d| relative to the layer's
-    sum |w||x| (in a 16-bit lane the products are exact: the float32
-    summation order alone), checked within ``CONV_F32_LIMIT`` in float32
-    and 2e-6 in a 16-bit lane; the tower's launches in a
-    CUDA graph and by events, cuDNN's by events. The bound: each layer's
-    input read and output written once (and its weights) against its
-    operations: the first layer's multiply-adds at the f32 peak, a wider
-    layer's six bf16 passes (one in a 16-bit lane) at the bf16
-    tensor-core peak; beside it every layer at the f32 peak. The row's
-    times and bound are per launch (the tower's sums over its launches);
-    the printed line gives the pair's."""
+    ``capture_convs`` saw: each layer's bias-free kernel against
+    ``F.conv2d`` with TF32 off on the same operands
+    (``conv.conv3x3_plain``, the plain version and the library call in
+    one), max |d| relative to the layer's sum |w||x| (in a 16-bit lane the
+    products are exact: the float32 summation order alone), checked within
+    ``CONV_F32_LIMIT`` in float32 and 2e-6 in a 16-bit lane; each layer
+    with its bias and ReLU in the epilogue bit for bit the bias-free
+    kernel followed by ``tower.bias_act`` (``conv3x3_unfused``); the
+    tower's launches as the path makes them (fused) in a CUDA graph and by
+    events, the unfused route's in a CUDA graph, cuDNN's (bias-free) by
+    events. The bound: each layer's input read and output written once
+    (and its weights) against its operations: the first layer's
+    multiply-adds at the f32 peak, a wider layer's six bf16 passes (one in
+    a 16-bit lane) at the bf16 tensor-core peak; beside it every layer at
+    the f32 peak. The row's times and bound are per launch (the tower's
+    sums over its launches); the printed line gives the pair's."""
     from mccnn_tpu_torch.ops import conv
 
     errs, bound, f32 = {}, 0.0, 0.0
     by = collections.Counter()
     dts = set()
     with torch.no_grad():
-        for x, w, dt in calls:
+        for x, w, dt, b, relu in calls:
             got = conv.conv3x3(x, w, dt)
             ref = conv.conv3x3_plain(x, w, dt)
             scale = conv.conv3x3_plain(x.float().abs(), w.abs(), dt)
             errs[dt] = max(errs.get(dt, 0.0), float(
                 ((got - ref).abs() / scale.clamp_min(1e-30)).max()))
             del got, ref, scale
+            if b is not None:
+                check(bits_equal(torch, conv.conv3x3(x, w, dt, b, relu),
+                                 conv.conv3x3_unfused(x, w, dt, b, relu)),
+                      f"tower_conv {where} ({dt}): the fused epilogue is not "
+                      "bit for bit the bias-free kernel and tower.bias_act")
             N, Ci, h, w_ = x.shape
             Co = w.shape[0]
             macs = float(N * h * w_ * Ci * Co * 9)
             nbytes = 4.0 * (N * h * w_ * (Ci + Co) + w.numel())
             if Ci == Co and Ci in conv.WIDTHS:
                 passes = 6 if dt == torch.float32 else 1
-                b = bound_ms(nbytes, 2 * passes * macs, BF16_TC_OPS)
+                bb = bound_ms(nbytes, 2 * passes * macs, BF16_TC_OPS)
             else:
-                b = bound_ms(nbytes, 2 * macs)
-            bound += b[0]
-            by[b[1]] += b[0]
+                bb = bound_ms(nbytes, 2 * macs)
+            bound += bb[0]
+            by[bb[1]] += bb[0]
             f32 += 2 * macs / F32_OPS * 1e3
             dts.add(str(dt).replace("torch.", ""))
 
         def kernels():
-            for x, w, dt in calls:
-                conv.conv3x3(x, w, dt)
+            for x, w, dt, b, relu in calls:
+                conv.conv3x3(x, w, dt, b, relu)
+
+        def unfused():
+            for x, w, dt, b, relu in calls:
+                conv.conv3x3_unfused(x, w, dt, b, relu)
 
         def library():
-            for x, w, dt in calls:
+            for x, w, dt, _, _ in calls:
                 conv.conv3x3_plain(x, w, dt)
 
         n = len(calls)
         ms = graph_ms(torch, kernels, reps)
         events = cuda_ms(torch, kernels, reps)
+        split_ms = graph_ms(torch, unfused, reps)
         lib = cuda_ms(torch, library, max(2, reps // 2))
     torch.cuda.synchronize()
     for dt, e in errs.items():
@@ -1043,10 +1076,14 @@ def conv_row(torch, calls, where, reps: int = 10) -> dict:
         check(e <= limit, f"tower_conv {where} ({dt}): max |d| {e} of sum "
               f"|w||x| from F.conv2d (TF32 off), over {limit}")
     err = max(errs.values())
+    n_fused = sum(b is not None for *_, b, _ in calls)
     print(f"  tower_conv {where} ({'/'.join(sorted(dts))}, {n} layers, "
-          f"{tuple(calls[-1][0].shape)} into the last): max |d| {err:.3g} of "
-          f"sum |w||x| from F.conv2d (TF32 off); kernels {ms:.4f} ms a pair "
-          f"in a CUDA graph ({events:.4f} by events), cuDNN {lib:.4f} ms "
+          f"{n_fused} with the bias and ReLU in the epilogue, bit for bit "
+          f"tower.bias_act's, {tuple(calls[-1][0].shape)} into the last): "
+          f"max |d| {err:.3g} of sum |w||x| from F.conv2d (TF32 off); "
+          f"kernels {ms:.4f} ms a pair in a CUDA graph ({events:.4f} by "
+          f"events), unfused (bias-free kernels and tower_bias_act) "
+          f"{split_ms:.4f} ms, cuDNN (bias-free) {lib:.4f} ms "
           f"({lib / events:.2f}x); bound {bound:.4f} ms (six bf16 passes, "
           f"one in a 16-bit lane, at {BF16_TC_OPS / 1e12:.0f} TFLOP/s), "
           f"{bound / ms:.2f} of it; f32 bound {f32:.4f} ms at "
@@ -1055,17 +1092,25 @@ def conv_row(torch, calls, where, reps: int = 10) -> dict:
                 library_ms=lib / n,
                 bound=(bound / n, max(by, key=by.get), PEAK_NAMES[BF16_TC_OPS]),
                 pair_ms=ms, pair_events_ms=events, pair_library_ms=lib,
-                pair_bound_ms=bound, pair_f32_ms=f32)
+                pair_unfused_ms=split_ms, pair_bound_ms=bound,
+                pair_f32_ms=f32)
 
 
 def cudnn_route(torch, run):
     """``run()`` with the towers' convolutions as ``F.conv2d`` with TF32
-    off (``conv.conv3x3_plain`` in place of ``conv.conv3x3``): the route
+    off (``conv.conv3x3_plain`` in place of ``conv.conv3x3``) and a fused
+    layer's bias and ReLU as ``tower.bias_act_plain`` after it: the route
     before the hand kernels, computed for the comparison only."""
-    from mccnn_tpu_torch.ops import conv
+    from mccnn_tpu_torch.ops import conv, tower
+
+    def plain(x, weight, dtype=torch.float32, bias=None, relu=False):
+        out = conv.conv3x3_plain(x, weight, dtype)
+        if bias is None:
+            return out
+        return tower.bias_act_plain(out, bias, relu, dtype)
 
     saved = conv.conv3x3
-    conv.conv3x3 = conv.conv3x3_plain
+    conv.conv3x3 = plain
     try:
         out = run()
         torch.cuda.synchronize()
@@ -1101,9 +1146,9 @@ def plain_route(torch, run):
     winner-take-all and the towers' passes after the convolutions built
     by their plain versions on the card (``PLAIN_ROUTES``); the kernels'
     launch counts untouched."""
-    from mccnn_tpu_torch.ops import costs, sgm, tower
+    from mccnn_tpu_torch.ops import conv, costs, sgm, tower
 
-    mods = {"costs": costs, "sgm": sgm, "tower": tower}
+    mods = {"conv": conv, "costs": costs, "sgm": sgm, "tower": tower}
     saved = [(mods[m], name, getattr(mods[m], name))
              for m, name, _ in PLAIN_ROUTES]
     try:
@@ -1117,17 +1162,45 @@ def plain_route(torch, run):
             setattr(mod, name, fn)
 
 
+# each path's map SHA-256 with the towers' convolutions of the first hand
+# design (one bias-free kernel a layer, then tower_bias_act), printed
+# beside this run's: the redesigned kernels keep each output's order of
+# products, so the maps should not move
+FIRST_DESIGN_SHA = {
+    "kitti fast":
+        "6f4cf7058af41443f131e30655068c1e6a324166f90c629118ce17ac4828c8b3",
+    "kitti slow":
+        "be571531142a1ec40b52fc71d1db42be33ed2a4d7bf9b6a3dc79387115c6e1ee",
+    "kitti census (slab form)":
+        "1fc4ed8d8681552e07d0440b950cadb2930c1e86df4f6f4a536b9db66f7f1acc",
+    "kitti ad (stream form)":
+        "abb9c2ee5dd5bd1cccebc6c15a18dbbca5714b12fc554d29d3c53d11adee6a6b",
+    "kitti fast with CBCA (slab form)":
+        "84d3ab3ce35e1de5fa61dbf03135550ba0c6c2525f05f28960b61bcfcebac13b",
+    "mb fast -a time (left direction)":
+        "b08a2ce1f6d1d9755624cf6bc82d9e62750e7d665950c84167afb6345e045aac",
+    "mb fast -a predict (both directions)":
+        "b08a2ce1f6d1d9755624cf6bc82d9e62750e7d665950c84167afb6345e045aac",
+    "mb slow -a time (left direction, head set by hand)":
+        "1897e80609417fd92ca9e411e41c05083bb4841cb2fc8787688615d6a9349666"}
+
+
 def same_as_plain_route(torch, what, run, disp) -> str:
     """Check that the map ``disp`` of ``run()`` is bit for bit the map of
-    the plain route (``plain_route``); returns its SHA-256."""
+    the plain route (``plain_route``); returns its SHA-256, printed beside
+    the first convolution design's (``FIRST_DESIGN_SHA``)."""
     ref = plain_route(torch, run)
     check(torch.equal(disp.view(torch.int32), ref.view(torch.int32)),
           f"{what}: the map differs from the plain route's")
     sha = map_sha(disp)
-    print(f"  {what}: map sha256 {sha}, bit for bit the map with the cost "
-          f"volumes, the HWD tables, the generic lane's layouts, tables, sum "
-          f"and winner-take-all and the towers' bias, normalization and slow "
-          f"epilogue built by their plain versions")
+    first = FIRST_DESIGN_SHA.get(what)
+    beside = ("" if first is None else
+              f" ({'the same as' if sha == first else 'NOT'} the first "
+              f"convolution design's {first[:16]})")
+    print(f"  {what}: map sha256 {sha}{beside}, bit for bit the map with the "
+          f"cost volumes, the HWD tables, the generic lane's layouts, tables, "
+          f"sum and winner-take-all and the towers' bias, normalization and "
+          f"slow epilogue built by their plain versions")
     return sha
 
 

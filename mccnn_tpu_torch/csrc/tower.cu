@@ -13,13 +13,18 @@
 //
 // Storage codes S (the compute dtype's rounding): 0 float32 (none), 1
 // bfloat16, 2 float16, each round to nearest even by cvt.rn (torch's casts
-// on the card), the rounded value held widened to float32.
+// on the card), the rounded value held widened to float32 (round_s, and
+// bias_act for a layer's bias and ReLU, in csrc/epilogue.cuh, which the
+// convolutions' fused epilogue shares).
 //
 // tower_bias_act_kernel (entry tower_bias_act): in place on the (N, C, H, W)
 // output of a bias-free convolution, x = act(round_S(x + b[c])), act ReLU as
 // torch.relu computes it (NaN kept, else fmaxf(x, 0)) or none. A thread takes
 // one 16-byte group of a channel plane, the plane's unaligned head and tail
 // one float each; the bias is one register a block (grid.y = the plane).
+// Prediction no longer runs it: the convolutions of csrc/conv.cu apply the
+// same bias_act in their epilogue, and this kernel is the unfused route
+// that the fused epilogue is held to, bit for bit.
 //
 // tower_normalize_kernel (entry tower_normalize): the fast tower's last
 // layer, from its bias-free (N, C, H, W) convolution output: per pixel
@@ -58,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"  // round_s, relu, bias_act
+
 namespace {
 
 constexpr int NT = 256;   // threads of a bias / epilogue block
@@ -65,24 +72,6 @@ constexpr int NTN = 128;  // threads of a normalize block
 constexpr int TXN = NTN;  // the columns of a normalize block's run of a row
 constexpr int TP = TXN + 4;  // the pitch of its tile's rows (16-byte aligned)
 constexpr int YMAX = 512;  // the most thread rows of a torch reduction
-
-template <int S>
-__device__ __forceinline__ float round_s(float v) {
-  if (S == 1) return __bfloat162float(__float2bfloat16_rn(v));
-  if (S == 2) return __half2float(__float2half_rn(v));
-  return v;
-}
-
-// torch.relu on the card: clamp_min(x, 0), NaN kept
-__device__ __forceinline__ float relu(float v) {
-  return isnan(v) ? v : fmaxf(v, 0.0f);
-}
-
-template <int S, bool RELU>
-__device__ __forceinline__ float bias_act(float x, float b) {
-  const float v = round_s<S>(__fadd_rn(x, b));
-  return RELU ? relu(v) : v;
-}
 
 template <int S, bool RELU>
 __global__ void __launch_bounds__(NT)

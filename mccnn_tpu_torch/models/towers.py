@@ -27,15 +27,15 @@ head's :meth:`SlowNet.score` rounds as ``apply_head`` does
 
 Prediction runs the towers through :meth:`FastTower.infer` and
 :meth:`SlowNet.infer` (``padding="same"``, no autograd): each layer a
-bias-free convolution (``ops/conv.py`` ``conv3x3``: the hand kernels of
-``csrc/conv.cu`` on CUDA, :func:`_conv_acc`'s arithmetic on the CPU),
-then the hand kernels of ``ops/tower.py``: the bias, the rounding to the
-compute dtype and ReLU in place (``tower.bias_act``), and for the fast
-tower's last layer the bias and the L2 normalization, written as the
-features or straight into the join's operands (``tower.normalize``).
-Their plain versions, on CPU tensors, are the operations of
-:meth:`forward` in its order. Training runs :meth:`forward`, whose
-convolutions stay cuDNN's.
+convolution (``ops/conv.py`` ``conv3x3``: the hand kernels of
+``csrc/conv.cu`` on CUDA, :func:`_conv_acc`'s arithmetic on the CPU)
+with the bias, the rounding to the compute dtype and ReLU in its
+epilogue (the bits of ``tower.bias_act`` on the bias-free output), and
+for the fast tower's last layer a bias-free convolution, then the bias
+and the L2 normalization of ``ops/tower.py``, written as the features or
+straight into the join's operands (``tower.normalize``). Their plain
+versions, on CPU tensors, are the operations of :meth:`forward` in its
+order. Training runs :meth:`forward`, whose convolutions stay cuDNN's.
 
 Weights are interchangeable with the JAX package's parameter tree
 ``{"tower": [{"w": (ks, ks, cin, cout), "b": (cout,)}], "head":
@@ -117,15 +117,13 @@ class FastTower(nn.Module):
     def infer(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
               pack=None):
         """:meth:`forward` of prediction (``padding="same"``): each layer's
-        bias-free convolution (``tower_conv.conv3x3``), then
-        ``tower.bias_act`` with ReLU between the layers and
-        ``tower.normalize`` after the last. The (N, fm, H, W) float32
-        features, or with ``pack`` = (disp_max, sides) and N = 2 the join's
-        operands (``join.Operands``)."""
+        convolution with its bias and ReLU (``tower_conv.conv3x3``) but the
+        last's, whose bias-free convolution ``tower.normalize`` finishes.
+        The (N, fm, H, W) float32 features, or with ``pack`` = (disp_max,
+        sides) and N = 2 the join's operands (``join.Operands``)."""
         x = x.to(dtype)
         for conv in self.convs[:-1]:
-            x = tower.bias_act(tower_conv.conv3x3(x, conv.weight, dtype),
-                               conv.bias, True, dtype)
+            x = tower_conv.conv3x3(x, conv.weight, dtype, conv.bias, True)
         last = self.convs[-1]
         return tower.normalize(tower_conv.conv3x3(x, last.weight, dtype),
                                last.bias, dtype, pack)
@@ -161,13 +159,11 @@ class SlowNet(nn.Module):
     def infer(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
               ) -> torch.Tensor:
         """:meth:`forward` of prediction (``padding="same"``): each layer's
-        bias-free convolution (``tower_conv.conv3x3``), then
-        ``tower.bias_act`` with ReLU; the (N, fm, H, W) float32
-        descriptors."""
+        convolution with its bias and ReLU (``tower_conv.conv3x3``); the
+        (N, fm, H, W) float32 descriptors."""
         x = x.to(dtype)
         for conv in self.convs:
-            x = tower.bias_act(tower_conv.conv3x3(x, conv.weight, dtype),
-                               conv.bias, True, dtype)
+            x = tower_conv.conv3x3(x, conv.weight, dtype, conv.bias, True)
         return x
 
     def score(self, pair: torch.Tensor, dtype: torch.dtype = torch.float32

@@ -1,8 +1,12 @@
 """The towers' passes after each convolution, and the slow volumes' masks.
 
-Prediction runs each tower layer as a bias-free cuDNN convolution and
-then one of two hand kernels of ``csrc/tower.cu`` on its output; the
-slow arch's head scores go to their two volumes through a third. Each
+Prediction runs each tower layer as a hand convolution (``ops/conv.py``)
+with the bias, rounding and ReLU of :func:`bias_act` in its epilogue, and
+the fast tower's last layer as a bias-free convolution followed by
+:func:`normalize`; the slow arch's head scores go to their two volumes
+through :func:`slow_epilogue`. :func:`bias_act`'s own kernel stays as
+the unfused route (``conv.conv3x3_unfused``) that the fused epilogue is
+held to bit for bit; no prediction path launches it. Each
 wrapper launches its kernel on CUDA tensors and runs its plain version,
 the same torch operations in the same order, on CPU tensors; a kernel
 that fails to build or launch raises.

@@ -20,8 +20,10 @@ cuBLAS's matmuls and the plain torch operations, the calls of each hand
 kernel's wrapper (``_build.launches``), the top kernels by device time,
 the device's busy share of the wall time of the run, and the peak device
 memory of that run, and where the arch has a tower the hand convolutions'
-time beside their f32 bound, their tensor-core floor and cuDNN's time on
-the same layers' inputs (by events, in this process); the plain
+time (their fused bias and ReLU included) beside their f32 bound, their
+tensor-core floor and cuDNN's time on the same layers' inputs with the
+bias and ReLU as torch operations after it (by events, in this
+process); the plain
 torch launches of a
 second run and their device time, in which each function of the port's
 pipeline, tower and ops modules runs in a profiler range, by the
@@ -49,7 +51,7 @@ import torch
 
 from mccnn_tpu_torch.config import make_config
 from mccnn_tpu_torch.models import towers
-from mccnn_tpu_torch.ops import _build, conv
+from mccnn_tpu_torch.ops import _build, conv, tower
 from mccnn_tpu_torch.pipeline import resolve_device, stereo_predict
 from mccnn_tpu_torch.utils.images import standardize
 
@@ -130,19 +132,29 @@ def _group(name: str) -> str:
 
 @contextlib.contextmanager
 def _conv_inputs(seen: list):
-    """Record the (x, weight, dtype) of every ``conv.conv3x3`` call in the
-    block (nothing writes a layer's input after its convolution)."""
+    """Record the (x, weight, dtype, bias, relu) of every ``conv.conv3x3``
+    call in the block (nothing writes a layer's input after its
+    convolution)."""
     orig = conv.conv3x3
 
-    def call(x, weight, dtype=torch.float32):
-        seen.append((x, weight, dtype))
-        return orig(x, weight, dtype)
+    def call(x, weight, dtype=torch.float32, bias=None, relu=False):
+        seen.append((x, weight, dtype, bias, relu))
+        return orig(x, weight, dtype, bias, relu)
 
     conv.conv3x3 = call
     try:
         yield
     finally:
         conv.conv3x3 = orig
+
+
+def _cudnn_layer(x, weight, dtype, bias, relu):
+    """A layer as cuDNN (TF32 off) and torch compute it: ``F.conv2d``, then
+    the bias and ReLU as ``tower.bias_act_plain`` where the hand kernel
+    fuses them."""
+    out = conv.conv3x3_plain(x, weight, dtype)
+    return out if bias is None else tower.bias_act_plain(out, bias, relu,
+                                                         dtype)
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -252,7 +264,7 @@ def main(argv=None) -> None:
         calls = []
         with _conv_inputs(calls), torch.no_grad():
             stereo_predict(cfg, tower, x0, x1, D, sgm_form=args.form)
-            cudnn_ms = _events_ms(lambda: [conv.conv3x3_plain(*c)
+            cudnn_ms = _events_ms(lambda: [_cudnn_layer(*c)
                                            for c in calls], 5)
         del calls
         print(f"  the tower's convolutions ({len(tower.convs)} layers): hand "

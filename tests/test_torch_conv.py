@@ -9,6 +9,7 @@ the tile plan's cover of the frame; and the towers' ``infer`` against
 ``apply_tower``. The kernels themselves are held to these plain versions
 on the card by tests/test_torch_kernels_cuda.py and chip_smoke.py."""
 
+import collections
 import gc
 import re
 from pathlib import Path
@@ -118,9 +119,11 @@ def test_split_emulation_error_budget(C, H, W):
 
 
 def test_split_emulation_sums_the_kernels_products():
-    """The products the kernel lists (``PA``, ``PB`` of
-    ``issue_stage``) are the six pairs the emulation sums, i + j < 3
-    (0-based), each once, hi.hi last (the sums it keeps apart)."""
+    """The products the kernel lists (``PA``, ``PB`` of ``group``) are
+    the six pairs the emulation sums, i + j < 3 (0-based), each once,
+    hi.hi last (the sums it keeps apart), in the order of
+    ``conv3x3_tile_plain``; its groups, committed apart, are the runs of
+    one weight level."""
     pa = [int(v) for v in re.search(r"constexpr int PA\[NP3\] = \{([^}]*)\}",
                                      SRC).group(1).split(",")]
     pb = [int(v) for v in re.search(r"constexpr int PB\[NP3\] = \{([^}]*)\}",
@@ -133,6 +136,63 @@ def test_split_emulation_sums_the_kernels_products():
     # a ring stage of one weight level serves a run of products: the
     # weights' levels never rise along the list
     assert pb == sorted(pb, reverse=True)
+    assert (tuple(pa), tuple(pb)) == (conv.PA, conv.PB)
+    group = [int(v) for v in re.search(
+        r"constexpr int GROUP\[4\] = \{([^}]*)\}", SRC).group(1).split(",")]
+    assert [pb[group[j]:group[j + 1]] for j in range(3)] == [[2], [1, 1],
+                                                             [0, 0, 0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 112])
+@pytest.mark.parametrize("N,H,W", [(2, 5, 70), (1, 3, 131)])
+def test_tile_emulation_matches_the_split(N, C, H, W, dtype):
+    """``conv3x3_tile_plain``, the wgmma kernel's staged A tile (its level
+    planes [level][group][pixel][8], zero halo) read at the ``ldmatrix``
+    rows' addresses with its order of products, within 1e-6 of sum
+    |w||x| of ``conv3x3_split_plain`` (three levels) on frames that do not
+    divide into whole tiles, at C = 64 (two rows a tile) and 112 (one row
+    in float32, the two channel halves), in float32 and in the bf16 lane
+    (the operands rounded to bf16: one product)."""
+    rng = np.random.RandomState(C + H + W)
+    x = torch.as_tensor(rng.randn(N, C, H, W).astype(np.float32))
+    w = torch.as_tensor((rng.randn(C, C, 3, 3) / np.sqrt(9 * C))
+                        .astype(np.float32))
+    xr, wr = (x, w) if dtype == torch.float32 else (
+        x.to(dtype).float(), w.to(dtype).float())
+    got = conv.conv3x3_tile_plain(xr, w, dtype)
+    want = conv.conv3x3_split_plain(xr, wr, 3)
+    scale = torch.nn.functional.conv2d(xr.abs(), wr.abs(), padding=1)
+    assert got.shape == (N, C, H, W)
+    err = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fused_plain_route_is_the_bias_pass(dtype, relu):
+    """On CPU tensors ``conv3x3(..., bias, relu)`` is
+    ``tower.bias_act_plain`` on ``conv3x3_plain`` bit for bit, and so is
+    ``conv3x3_unfused`` (the bias-free convolution, then ``tower.bias_act``,
+    whose plain version runs on the CPU), with NaN, -0.0 and +-inf in the
+    bias; no kernel counted."""
+    from mccnn_tpu_torch.ops import tower
+
+    rng = np.random.RandomState(11)
+    x = torch.as_tensor(rng.randn(2, 16, 7, 33).astype(np.float32))
+    x = x.to(dtype).float()
+    w = torch.as_tensor((rng.randn(16, 16, 3, 3) / 12).astype(np.float32))
+    b = torch.as_tensor(rng.randn(16).astype(np.float32))
+    b[0], b[1], b[2], b[3] = -0.0, float("nan"), float("inf"), -float("inf")
+    _build.reset_launches()
+    want = tower.bias_act_plain(conv.conv3x3_plain(x, w, dtype), b, relu,
+                                dtype)
+    got = conv.conv3x3(x, w, dtype, b, relu)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(conv.conv3x3_unfused(x, w, dtype, b, relu)
+                       .view(torch.int32), want.view(torch.int32))
+    assert not any(_build.launches().values())
 
 
 def _unpack(packed):
@@ -184,14 +244,21 @@ def test_prepack_round_trips_and_addresses(C, dtype):
 
 
 def test_prepack_passes_match_the_kernel():
-    """``passes`` mirrors ``Conf::NH``: two at C = 96 and 112 in float32
-    (MODE 0), one otherwise; ``WIDTHS`` are the widths the launch
-    dispatches to a wgmma instance, and ``FIRST_CIN`` the SIMT kernel's
-    limit (an output channel's weights in its shared memory)."""
-    assert re.search(r"NH = MODE == 0 && C > 80 \? 2 : 1;", SRC)
+    """``passes`` and ``tile_plan`` mirror ``Conf::NW`` and ``Conf::TR``:
+    at C = 96 and 112 in float32 (MODE 0) two output-channel blocks of
+    one row, else one block of two rows; ``WIDTHS`` are the widths the
+    launch dispatches to a wgmma instance, and ``FIRST_CIN`` the SIMT
+    kernel's limit (an output channel's weights in its shared memory)."""
+    assert re.search(r"HALVES = MODE == 0 && C > 80;", SRC)
+    assert re.search(r"TR = HALVES \? 1 : 2;", SRC)
+    assert re.search(r"NW = HALVES \? 2 : 1;", SRC)
     assert conv.passes(112) == conv.passes(96) == 2
     assert conv.passes(112, torch.bfloat16) == conv.passes(80) == 1
     assert conv.passes(64) == conv.passes(64, torch.float16) == 1
+    for C in conv.WIDTHS:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            halves = dt == torch.float32 and C > 80
+            assert conv.tile_plan(C, dt) == ((1, 2) if halves else (2, 1))
     assert tuple(int(c) for c in re.findall(
         r"if \(C == (\d+)\) return \(int\)launch_width", SRC)) \
         == conv.WIDTHS == (64, 80, 96, 112)
@@ -223,24 +290,112 @@ def test_prepack_cache_follows_the_weight():
     assert len(conv._PACKS) == n - 1
 
 
-def test_tile_plan_covers_every_pixel_once():
-    """The wgmma kernel's tiles (``TM`` columns x ``TR`` rows, decoded from
-    the tile index as ``decode`` does, a warpgroup a row, its warps' rows
-    16 w + g + 8 h) cover every output pixel of frames off the tile
-    exactly once, the stores masked at the frame's edges."""
-    TM, TR = _const("TM"), _const("TR")
-    assert (TM, TR) == (64, 2)
-    for N, H, W in ((2, 5, 70), (1, 1, 3), (1, 37, 131), (2, 4, 128)):
-        seen = np.zeros((N, H, W), np.int64)
-        n_tx, n_ty = -(-W // TM), -(-H // TR)
-        for t in range(N * n_tx * n_ty):
-            x0, y0, n = (t % n_tx) * TM, ((t // n_tx) % n_ty) * TR, \
-                t // (n_tx * n_ty)
-            for wg in range(TR):
-                for m in range(TM):
-                    y, x = y0 + wg, x0 + m
-                    if y < H and x < W:
-                        seen[n, y, x] += 1
+def _head():
+    """The bytes ahead of the ring: the mbarriers and the layer's bias."""
+    extra = re.search(r"constexpr int HEAD_BYTES = BAR_BYTES \+ (\d+);", SRC)
+    return _const("BAR_BYTES") + int(extra.group(1))
+
+
+def _conf(C, dtype):
+    """``Conf`` of ``csrc/conv.cu`` computed by its formulas from its
+    constants: (TR, row slots NS, ring stages S, stage bytes, row slot
+    bytes)."""
+    assert "(MAX_SMEM - HEAD_BYTES - 3 * SB) / RB >= 2 * TR + 2 ? " \
+        "2 * TR + 2 : TR + 2;" in SRC
+    smem, hp = _const("MAX_SMEM"), _const("TM") + 2
+    bar = _head()
+    tr, nw = conv.tile_plan(C, dtype)
+    lv = 3 if dtype == torch.float32 else 1
+    rb = lv * C // 8 * hp * 16
+    lps = lv if C == 64 else 1
+    sb = lps * nw * C * (C // nw) * 2
+    ns = 2 * tr + 2 if (smem - bar - 3 * sb) // rb >= 2 * tr + 2 \
+        else tr + 2
+    return tr, ns, min((smem - bar - ns * rb) // sb, 6), sb, rb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 80, 96, 112])
+def test_tile_plan_covers_every_pixel_once(C, dtype):
+    """The wgmma kernel's tiles at each width (``TM`` columns x ``Conf::TR``
+    rows, decoded from the tile index as ``decode`` does, the row
+    fastest; each block a run of consecutive tiles down column strips; a
+    consumer warpgroup a row of
+    all the channels, or at C = 96 and 112 in float32 a half of the
+    channels of the one row, its warps' rows 16 w + g + 8 h) cover every
+    output (pixel, channel) of frames off the tile exactly once, the
+    stores masked at the frame's edges. The row-slot ring, as the producer
+    stages and the consumers read and hand back: every tile finds its
+    rows y0 - 1 .. y0 + TR of its image and columns in the slots it
+    reads; a row is handed back after its last read (a0 of tap t loaded
+    in step t - 1, levels 1 and 2 in step t) and never read again; a slot
+    is refilled only after its row was handed back in an earlier tile, so
+    nothing waits on a later tile; the shared memory fits."""
+    TM = _const("TM")
+    assert TM == conv.TM == 64
+    tr, ns, n_stage, sb, rb = _conf(C, dtype)
+    assert n_stage >= 3
+    assert _head() + n_stage * sb + ns * rb <= _const("MAX_SMEM")
+    _, nw = conv.tile_plan(C, dtype)
+    lv = 3 if dtype == torch.float32 else 1
+    for N, H, W, G in ((2, 5, 70, 3), (1, 1, 3, 1), (1, 37, 131, 4),
+                       (2, 4, 128, 5), (1, 9, 200, 2), (2, 41, 200, 7)):
+        seen = np.zeros((N, C, H, W), np.int64)
+        n_tx, n_ty = -(-W // TM), -(-H // tr)
+        n_tiles = N * n_tx * n_ty
+
+        def decode(t):
+            """(image, tile row, x0) of tile t, in (image, strip, row)
+            order."""
+            return t // (n_ty * n_tx), t % n_ty, (t // n_ty % n_tx) * TM
+
+        for b in range(G):
+            t0, t1 = b * n_tiles // G, (b + 1) * n_tiles // G
+            # the producer's rows: q -> (image, row, x0)
+            staged, q = {}, 0
+            for t in range(t0, t1):
+                n, yt, x0 = decode(t)
+                first = t == t0 or yt == 0
+                nr = tr + 2 if first else tr
+                ya = yt * tr - 1 if first else yt * tr + 1
+                for r in range(nr):
+                    staged[q + r] = (n, ya + r, x0, t)
+                q += nr
+            # the consumers
+            q, released = 0, {}
+            for t in range(t0, t1):
+                n, yt, x0 = decode(t)
+                first = t == t0 or yt == 0
+                qb = q if first else q - 2
+                q += tr + 2 if first else tr
+                carry = t + 1 < t1 and (t + 1) % n_ty != 0
+                for i in range(tr + 2):
+                    assert staged[qb + i][:3] == (n, yt * tr - 1 + i, x0)
+                    if qb + i >= ns:  # its slot handed back a tile before
+                        assert released[qb + i - ns][0] < staged[qb + i][3]
+                reads = collections.defaultdict(list)
+                for tap in range(9):
+                    ky = tap // 3
+                    for wg in range(2):
+                        row = ky if nw == 2 else wg + ky
+                        reads[row].append(max(tap - 1, 0))  # a0
+                        if lv == 3:
+                            reads[row].append(tap)  # levels 1, 2
+                for i in range(tr + 2):
+                    last = min(3 * i + 2, 8)
+                    if i < tr or not carry:
+                        assert max(reads[i]) <= last
+                        released[qb + i] = (t, last)
+                for wg in range(2):
+                    y = yt * tr + (0 if nw == 2 else wg)
+                    chans = (range(wg * C // 2, (wg + 1) * C // 2) if nw == 2
+                             else range(C))
+                    for w in range(4):
+                        for g in range(8):
+                            for h in range(2):
+                                x = x0 + 16 * w + g + 8 * h
+                                if y < H and x < W:
+                                    seen[n, list(chans), y, x] += 1
         assert (seen == 1).all()
 
 

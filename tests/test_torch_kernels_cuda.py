@@ -39,9 +39,14 @@ def test_prediction_at_the_search_widths(dev, fm, dtype):
     net = towers.init_net(cfg).to(dev)
     seen, orig = [], conv.conv3x3
 
-    def record(x, weight, dt=torch.float32):
+    def record(x, weight, dt=torch.float32, bias=None, relu=False):
         seen.append((x, weight, dt))
-        return orig(x, weight, dt)
+        return orig(x, weight, dt, bias, relu)
+
+    def plain(x, weight, dt=torch.float32, bias=None, relu=False):
+        out = conv.conv3x3_plain(x, weight, dt)
+        return out if bias is None else tower.bias_act_plain(out, bias, relu,
+                                                             dt)
 
     _build.reset_launches()
     conv.conv3x3 = record
@@ -59,7 +64,7 @@ def test_prediction_at_the_search_widths(dev, fm, dtype):
             err = float(((conv.conv3x3(x, w, dt)
                           - conv.conv3x3_plain(x, w, dt)).abs() / scale).max())
             assert err <= limit, (tuple(w.shape), err)
-    conv.conv3x3 = conv.conv3x3_plain
+    conv.conv3x3 = plain
     try:
         ref = stereo_predict(cfg, net, x0, x1, D)
     finally:
@@ -977,7 +982,7 @@ def test_t7_fast_net_runs_kernels_1_to_5_like_the_net_in_memory(dev,
                           sgm_tables=2, sgm_vertical=4, sgm_horizontal=4,
                           outlier=1, blur=1, occlusion_fill=1,
                           mismatch_fill=1, subpixel=1, median5=1,
-                          tower_bias_act=1, tower_normalize_pack=1,
+                          tower_bias_act=0, tower_normalize_pack=1,
                           tower_conv=2)
     assert torch.equal(got, want)
 
@@ -1090,13 +1095,13 @@ def test_row_sharded_on_a_repeated_card(dev, arch):
                   mismatch_fill=1, subpixel=n, median5=1, cross_arms=2,
                   cbca=2 * n * its, cbca_pack=n if its else 0,
                   sgm_layout=2 * n, sgm_generic_tables=2 * n, wta_dhw=2 * n)
-    # the tower a shard: a convolution a layer, a bias kernel a layer but
-    # the fast tower's last, which is the normalization; the slow volumes'
-    # epilogue a shard
-    counts.update({"fast": {"join": 2 * n, "tower_bias_act": 3 * n,
-                            "tower_normalize_pack": n, "tower_conv": 4 * n},
-                   "slow": {"slow_head": n, "tower_bias_act": 2 * n,
-                            "slow_volumes_epilogue": n, "tower_conv": 2 * n},
+    # the tower a shard: a convolution a layer (the bias and ReLU in its
+    # epilogue, no bias kernel), the fast tower's last layer's bias and
+    # normalization; the slow volumes' epilogue a shard
+    counts.update({"fast": {"join": 2 * n, "tower_normalize_pack": n,
+                            "tower_conv": 4 * n},
+                   "slow": {"slow_head": n, "slow_volumes_epilogue": n,
+                            "tower_conv": 2 * n},
                    "census": {"census_signatures": n,
                               "census_volume": 2 * n}}[arch])
     assert _build.launches() == counts
@@ -1815,10 +1820,12 @@ def test_tower_wrappers_refuse_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prediction_runs_the_tower_kernels(dev, dtype):
     """kitti fast and kitti slow (narrow) at 40x160, D=24: the fast tower
-    runs ``tower_bias_act`` a layer but the last and
-    ``tower_normalize_pack`` once, the slow one ``tower_bias_act`` a
-    layer and ``slow_volumes_epilogue`` once; each map bit for bit the
-    map with the three wrappers swapped for their plain versions."""
+    runs ``tower_normalize_pack`` once, the slow one
+    ``slow_volumes_epilogue`` once, a ``tower_conv`` a layer with the
+    bias and ReLU in its epilogue, and ``tower_bias_act`` no time; each
+    map bit for bit the map with the three wrappers swapped for their
+    plain versions and the layers' bias and ReLU as ``bias_act_plain``
+    after the bias-free convolution (``conv3x3_unfused``)."""
     from mccnn_tpu_torch.config import make_config
     from mccnn_tpu_torch.models import towers
     from mccnn_tpu_torch.pipeline import stereo_predict
@@ -1827,10 +1834,10 @@ def test_prediction_runs_the_tower_kernels(dev, dtype):
     base = np.random.RandomState(23).randn(H, W + D).astype(np.float32)
     x0, x1 = base[:, D:], base[:, :-D]
     for arch, over, want in (
-            ("fast", {}, dict(tower_bias_act=3, tower_normalize_pack=1,
+            ("fast", {}, dict(tower_bias_act=0, tower_normalize_pack=1,
                               tower_conv=4)),
             ("slow", dict(l1=2, fm=8, l2=3, nh2=16),
-             dict(tower_bias_act=2, slow_volumes_epilogue=1, tower_conv=2))):
+             dict(tower_bias_act=0, slow_volumes_epilogue=1, tower_conv=2))):
         cfg = make_config("kitti", arch, a="predict", dtype=dtype, **over)
         net = towers.init_net(cfg).to(dev)
         _build.reset_launches()
@@ -1838,14 +1845,17 @@ def test_prediction_runs_the_tower_kernels(dev, dtype):
         torch.cuda.synchronize()
         counts = _build.launches()
         assert {k: counts[k] for k in want} == want
-        saved = (tower.bias_act, tower.normalize, tower.slow_epilogue)
+        saved = (tower.bias_act, tower.normalize, tower.slow_epilogue,
+                 conv.conv3x3)
         try:
             tower.bias_act = tower.bias_act_plain
             tower.normalize = tower.normalize_plain
             tower.slow_epilogue = tower.slow_epilogue_plain
+            conv.conv3x3 = conv.conv3x3_unfused
             ref = stereo_predict(cfg, net, x0, x1, D)
         finally:
-            tower.bias_act, tower.normalize, tower.slow_epilogue = saved
+            (tower.bias_act, tower.normalize, tower.slow_epilogue,
+             conv.conv3x3) = saved
         assert torch.equal(_bits(got), _bits(ref))
 
 
@@ -2163,3 +2173,68 @@ def test_tower_conv_split_emulation_and_cache(dev):
             conv.conv3x3(x.double(), w)
     with pytest.raises(RuntimeError, match="no_grad"):
         conv.conv3x3(x, w)
+
+
+def _fused_case(dev, seed, N, Ci, Co, H, W, dtype):
+    """A layer's input with NaN, -0.0 and +-inf planted (held as float32
+    values of ``dtype``, as the previous layer leaves them), its weights,
+    and a bias with NaN, -0.0, +-inf and values that cancel sums."""
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(N, Ci, H, W).astype(np.float32), device=dev)
+    flat = x.view(-1)
+    flat[11::997] = float("nan")
+    flat[13::991] = -0.0
+    flat[17::983] = float("inf")
+    flat[19::977] = -float("inf")
+    x = x.to(dtype).float()
+    w = torch.as_tensor((rng.randn(Co, Ci, 3, 3) / np.sqrt(9 * Ci))
+                        .astype(np.float32), device=dev)
+    b = torch.as_tensor(rng.randn(Co).astype(np.float32), device=dev)
+    b[0], b[1 % Co], b[2 % Co] = -0.0, float("nan"), float("inf")
+    b[3 % Co] = -float("inf")
+    return x, w, b
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", CONV_DTYPES)
+@pytest.mark.parametrize("N,Ci,Co,H,W", [(2, 64, 64, 9, 70),
+                                         (1, 80, 80, 5, 131),
+                                         (2, 96, 96, 3, 70),
+                                         (1, 112, 112, 6, 130),
+                                         (2, 1, 64, 9, 71), (1, 3, 112, 5, 40),
+                                         (1, 48, 48, 6, 70)])
+def test_tower_conv_fused_epilogue_is_the_bias_kernel(dev, N, Ci, Co, H, W,
+                                                      dtype, relu):
+    """The fused epilogue (``conv3x3(..., bias, relu)``) bit for bit the
+    bias-free kernel followed by ``tower.bias_act`` (``conv3x3_unfused``)
+    at every wgmma width and dtype and on the SIMT kernel (the first
+    layer, one and three planes, W odd and even; a width without a wgmma
+    instance), with NaN, -0.0 and +-inf in the input and the bias; one
+    ``tower_conv`` count a call and no ``tower_bias_act``."""
+    x, w, b = _fused_case(dev, Ci + Co + H, N, Ci, Co, H, W, dtype)
+    with torch.no_grad():
+        want = conv.conv3x3_unfused(x, w, dtype, b, relu)
+        before = _build.launches()
+        got = conv.conv3x3(x, w, dtype, b, relu)
+    torch.cuda.synchronize()
+    after = _build.launches()
+    assert after["tower_conv"] == before["tower_conv"] + 1
+    assert after["tower_bias_act"] == before["tower_bias_act"]
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", CONV_DTYPES)
+@pytest.mark.parametrize("C", [64, 112])
+def test_tower_conv_wgmma_matches_the_tile_emulation(dev, C, dtype):
+    """The wgmma kernel against ``conv3x3_tile_plain`` (its staged tile and
+    order of products in torch) on a frame off the tile: within 2e-6 of
+    sum |w||x| (the tensor cores' float32 sums truncate where torch's
+    round)."""
+    x, w, _, scale = _conv_case(dev, 3 + C, 2, C, C, 7, 131, dtype)
+    with torch.no_grad():
+        got = conv.conv3x3(x, w, dtype)
+    emu = conv.conv3x3_tile_plain(x, w, dtype)
+    err = float(((got.double() - emu.double()).abs()
+                 / scale.clamp_min(1e-30)).max())
+    assert err <= 2e-6, err
+
